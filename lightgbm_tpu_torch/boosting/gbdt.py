@@ -3,8 +3,9 @@
 Counterpart of ``lightgbm_tpu/boosting/gbdt.py`` (reference
 src/boosting/gbdt.cpp ``TrainOneIter`` :344-452).  One iteration runs, on
 the booster's torch device: objective gradients -> integer gradient levels
-(ops/quantize.py) -> ``grow_tree_batched`` -> leaf renewal from the true
-gradients -> shrinkage -> the score update through ``take_small_table``
+(ops/quantize.py; stochastic rounding draws the JAX package's threefry
+bits) -> ``grow_tree_batched`` -> leaf renewal from the true gradients ->
+shrinkage -> the score update through ``take_small_table``
 (shrink BEFORE the gather, the JAX package's order) -> valid-set score
 updates.  Trees are then finalized on the host (models/tree.py).
 Boost-from-average folds the initial score into the first iteration's
@@ -36,7 +37,8 @@ from ..metrics import Metric, create_metrics
 from ..models.predict import predict_bins_tree
 from ..models.tree import Tree
 from ..objectives import ObjectiveFunction, create_objective
-from ..ops.histogram import resolve_hist_kernel
+from ..ops import prng
+from ..ops.histogram import resolve_hist_kernel, wants_packed_mirror
 from ..ops.quantize import discretize_gradients_levels, renew_leaf_values
 from ..ops.split import SplitHyper
 from ..ops.table import take_small_table
@@ -110,10 +112,6 @@ def _check_slice(config: Config, train_set: Dataset) -> None:
          "cegb penalties"),
         (config.nan_policy != "none", f"nan_policy={config.nan_policy}"),
         (bool(config.tpu_debug_checks), "tpu_debug_checks"),
-        (bool(config.use_quantized_grad)
-         and bool(config.stochastic_rounding),
-         "stochastic_rounding=true (jax's threefry bits are not ported; "
-         "set stochastic_rounding=false)"),
         (bool(train_set.categorical_array().any()), "categorical features"),
         (train_set.bundle_plan is not None,
          "EFB feature bundles (set enable_bundle=false)"),
@@ -166,6 +164,11 @@ class GBDT:
 
         self._resolve_auto_params(config)
         self.hp = _hp_from_config(config, train_set.device_n_bins())
+        # the transposed packed mirror [W, n], resident when the masked
+        # passes may take the packed kernel (the JAX booster's bins_words)
+        self.bins_words_t = None
+        if wants_packed_mirror(self.hp.hist_kernel, self.hp.n_bins):
+            self.bins_words_t = self.bins_words.t().contiguous()
         self._check_pool(config)
         check_supported(self.hp, int(config.tpu_split_batch))
 
@@ -287,10 +290,13 @@ class GBDT:
         hist_scales = [None] * k
         quant = bool(self.config.use_quantized_grad)
         if quant:
+            # the JAX package's per-round key: seed * 7919 + iter, folded
+            # with the class
+            qkey = prng.key((self.config.seed or 0) * 7919 + self.iter_)
             gq, hq = [], []
             for c in range(k):
                 gc, hc, gs, hs = discretize_gradients_levels(
-                    g[:, c], h[:, c],
+                    g[:, c], h[:, c], prng.fold_in(qkey, c),
                     n_levels=int(self.config.num_grad_quant_bins),
                     stochastic=bool(self.config.stochastic_rounding),
                     constant_hessian=self.objective.is_constant_hessian)
@@ -308,7 +314,7 @@ class GBDT:
                 self.nan_bin_arr, feature_mask, self.hp,
                 batch=int(self.config.tpu_split_batch),
                 hist_scale=hist_scales[cls_idx], bins_t=self.bins_t,
-                bins_words=self.bins_words)
+                bins_words=self.bins_words, bins_words_t=self.bins_words_t)
             if quant and bool(self.config.quant_train_renew_leaf):
                 renewed = renew_leaf_values(
                     leaf_of_row, g_true[:, cls_idx], h_true[:, cls_idx],

@@ -12,7 +12,12 @@ the JAX package, so quantized-level runs grow identical trees.
 
 The JAX package's while-loop becomes a host loop: one ``.item()`` per round
 reads how many of the K slots split (the loop's progress test), and the
-histogram dispatch reads the compacted row count (ops/histogram.py).
+histogram dispatch reads the compacted row count (ops/histogram.py).  Where
+``ladder_profitable`` (``hist_kernel=auto`` at >= 128 bins) and the data
+has at least ``_WARMUP_MIN_ROWS`` rows, rounds of width 1, 4, 16, ... < K
+run first (the JAX package's warm-up ladder): each width covers the
+frontier, so the tree is the same, and the narrow masked passes take the
+radix-joint kernel.
 
 Supported here: numeric features, serial training, no bundles, no bounded
 histogram pool, row masks, per-tree feature masks, depth limits,
@@ -30,11 +35,16 @@ from typing import Optional, Tuple
 import torch
 
 from ..ops.histogram import (bins_to_words, histogram_for_leaves_auto,
-                             root_histogram)
+                             ladder_profitable, root_histogram,
+                             wants_packed_mirror)
 from ..ops.round_fuse import partition_payload
 from ..ops.split import NEG_INF, SplitHyper, find_best_split, leaf_output
 from ..utils import log
 from .grower import TreeArrays
+
+#: rows below which the warm-up ladder is skipped, as in the JAX package
+#: (tests patch it on both sides to run the ladder on small data)
+_WARMUP_MIN_ROWS = 65536
 
 
 def check_supported(hp: SplitHyper, batch: int) -> None:
@@ -67,15 +77,17 @@ def grow_tree_batched(bins: torch.Tensor, grad: torch.Tensor,
                       batch: int = 8,
                       hist_scale: Optional[torch.Tensor] = None,
                       bins_t: Optional[torch.Tensor] = None,
-                      bins_words: Optional[torch.Tensor] = None
+                      bins_words: Optional[torch.Tensor] = None,
+                      bins_words_t: Optional[torch.Tensor] = None
                       ) -> Tuple[TreeArrays, torch.Tensor]:
     """Grow one tree with ``batch`` splits per histogram pass.
 
     bins: u8 [n, F] row-major; grad/hess: f32 [n] (integer levels when
     ``hist_scale`` (f32 [2], the grad/hess scales) is given); row_mask:
     bool [n] or None; num_bins/nan_bin: i32 [F]; feature_mask: bool [F] or
-    None.  ``bins_t`` (u8 [F, n]) and ``bins_words`` (i32 [n, ceil(F/4)])
-    are the tree-invariant layouts, derived here when not passed.
+    None.  ``bins_t`` (u8 [F, n]), ``bins_words`` (i32 [n, ceil(F/4)]) and,
+    where the packed kernel may run, ``bins_words_t`` (its transpose) are
+    the tree-invariant layouts, derived here when not passed.
     Returns (TreeArrays, leaf_of_row i32 [n]).
     """
     check_supported(hp, batch)
@@ -91,6 +103,10 @@ def grow_tree_batched(bins: torch.Tensor, grad: torch.Tensor,
         bins_t = bins.t().contiguous()
     if bins_words is None:
         bins_words = bins_to_words(bins)
+    words_t = None
+    if wants_packed_mirror(hp.hist_kernel, hp.n_bins):
+        words_t = bins_words_t if bins_words_t is not None \
+            else bins_words.t().contiguous()
     num_bins = num_bins.to(dev)
     nan_bin = nan_bin.to(dev)
     scale_vec = None
@@ -110,7 +126,8 @@ def grow_tree_batched(bins: torch.Tensor, grad: torch.Tensor,
 
     hist0 = scaled(root_histogram(bins_t, grad, hess, row_mask,
                                   n_bins=hp.n_bins, hist_dtype=hp.hist_dtype,
-                                  hist_kernel=hp.hist_kernel))
+                                  hist_kernel=hp.hist_kernel,
+                                  bins_words_t=words_t))
     g0 = (grad * mask_f).sum()
     h0 = (hess * mask_f).sum()
     c0 = mask_f.sum()
@@ -170,21 +187,23 @@ def grow_tree_batched(bins: torch.Tensor, grad: torch.Tensor,
     parent_side = full((NL,), 0, i32)
     path_f = full((NL, num_f), False, torch.bool)
 
-    lor = torch.zeros(n, dtype=i32, device=dev)
-    ar_k = torch.arange(K, device=dev)
     iota_f = torch.arange(num_f, device=dev)
+    lor = torch.zeros(n, dtype=i32, device=dev)
     n_splits = 0
-    while n_splits < L - 1:
+
+    def run_round(Kr: int) -> int:
+        """One round of (up to) ``Kr`` splits; returns how many split."""
+        nonlocal lor, n_splits
         topg, parents = torch.sort(best_gain[:L], descending=True,
                                    stable=True)       # ties: lower id first
-        topg, parents = topg[:K], parents[:K]
-        room = n_splits + ar_k < L - 1
+        topg, parents = topg[:Kr], parents[:Kr]
+        room = n_splits + torch.arange(Kr, device=dev) < L - 1
         valid = (topg > 0.0) & room
         # the round loop's progress test (the JAX while_loop condition):
         # a round in which no slot splits leaves every array unchanged
         n_valid = int(valid.sum().item())
         if n_valid == 0:
-            break
+            return 0
         rank = torch.cumsum(valid.to(torch.int64), 0) - 1
         node_ids = n_splits + rank
         new_leaves = node_ids + 1
@@ -262,7 +281,8 @@ def grow_tree_batched(bins: torch.Tensor, grad: torch.Tensor,
             bins_t, grad, hess, lor, smaller, row_mask, n_bins=hp.n_bins,
             rows_per_block=hp.rows_per_block, hist_dtype=hp.hist_dtype,
             counts=small_cnt, bins_words=bins_words, sort_key=sort_key,
-            hist_kernel=hp.hist_kernel, payload=payload))
+            hist_kernel=hp.hist_kernel, payload=payload,
+            bins_words_t=words_t))
         h_large = hist[parents] - h_small
         left_small = (l_cnt <= r_cnt)[:, None, None, None]
         h_left = torch.where(left_small, h_small, h_large)
@@ -282,6 +302,17 @@ def grow_tree_batched(bins: torch.Tensor, grad: torch.Tensor,
         _put(best_lg, tgt, res.left_sum_g)
         _put(best_lh, tgt, res.left_sum_h)
         _put(best_lc, tgt, res.left_count)
+        return n_valid
+
+    progress = True
+    if n >= _WARMUP_MIN_ROWS and ladder_profitable(hp.hist_kernel, hp.n_bins):
+        kw = 1
+        while kw < K:
+            if progress and n_splits < L - 1:
+                progress = run_round(kw) > 0
+            kw *= 4
+    while progress and n_splits < L - 1:
+        progress = run_round(K) > 0
 
     tree = TreeArrays(
         split_feature=split_feature[:L - 1], split_bin=split_bin[:L - 1],

@@ -6,7 +6,8 @@ The build happens at first use (or all at once through :func:`build_all`,
 one ``nvcc`` process per source, all started together) into
 ``lightgbm_tpu_torch/_build/``; a library's file name carries a hash of its
 source and flags, so an edited source is rebuilt and never confused with an
-old build.  Nothing here runs at import time.
+old build (the hash covers the shared ``csrc/*.cuh`` headers too).
+Nothing here runs at import time.
 
 Every wrapper checks its tensors in Python, launches on PyTorch's current
 stream and raises ``LightGBMError`` when the C function returns a non-zero
@@ -30,7 +31,7 @@ from ..utils import log
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("take", "hist", "partition")
+SOURCES = ("take", "hist", "radix", "packed", "partition")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -43,6 +44,18 @@ _SIGNATURES = {
         "lgbt_hist_leaves": (_P, _L, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P,
                              _P),
         "lgbt_hist_payload": (_P, _L, _I, _I, _P, _I, _P, _I, _I, _P, _P, _P),
+    },
+    "radix": {
+        "lgbt_hist_radix_single": (_P, _L, _I, _P, _P, _P, _I, _I, _P, _P,
+                                   _P),
+        "lgbt_hist_radix_joint": (_P, _L, _I, _P, _P, _P, _P, _I, _I, _I, _P,
+                                  _P, _P),
+        "lgbt_hist_radix2": (_P, _L, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P,
+                             _P),
+    },
+    "packed": {
+        "lgbt_hist_packed": (_P, _I, _L, _I, _P, _P, _P, _P, _I, _I, _I, _P,
+                             _P, _P),
     },
     "partition": {
         "lgbt_partition_payload": (_P, _L, _I, _P, _I, _P, _P, _P, _P, _P, _I,
@@ -70,6 +83,8 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        h.update(hdr.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -1,16 +1,28 @@
 """Gradient/hessian histogram construction (dispatch layer).
 
-Counterpart of ``lightgbm_tpu/ops/histogram.py`` under
-``hist_kernel=onehot``, the flat bit-identity reference mode every other
-mode of the JAX package must match.  The root pass and the full masked
-passes run the masked K-leaf kernel (ops/hist_kernels.py
-``histogram_leaves``); a round whose selected rows fit a bucket compacts
-them (sort on the packed ``row | 2^30`` key + one row gather of the i32
-payload) and runs the payload kernel on the bucket.
+Counterpart of ``lightgbm_tpu/ops/histogram.py``.  ``hist_kernel`` picks
+the masked-pass kernel exactly as the JAX package's dispatch does (the
+rules below are copied, not imported):
 
-Not ported yet: ``hist_kernel=auto|packed|radix2`` and their radix /
-packed-compare kernels (``resolve_hist_kernel`` names them), and the
-distributed all-reduce (``reduce_hist`` is the serial no-op).
+* ``auto`` (the default): at a bin count that is a multiple of 16 and
+  >= 128, the root pass takes ``histogram_radix_single``, a masked pass of
+  K <= 4 leaves ``histogram_radix_joint`` and a wider one
+  ``histogram_leaves_radix2``; below 128 bins every masked pass, the root
+  included, takes ``histogram_leaves_packed`` over the resident packed
+  mirror;
+* ``onehot``: the flat ``histogram_leaves`` everywhere;
+* ``packed`` / ``radix2``: their kernel where its shape rules hold, flat
+  otherwise.
+
+All kernels compute the same histogram (bitwise in int8 mode).  A round
+whose selected rows fit a bucket compacts them (sort on the packed
+``row | 2^30`` key + one row gather of the i32 payload) and runs the
+payload kernel on the bucket instead of a masked pass.
+
+The JAX package's perf A/B environment hatches (``LGBMTPU_NO_RADIX``,
+``LGBMTPU_NO_RADIX2``, ``LGBMTPU_NO_PACKED``) are not ported: dispatch
+behaves as if they were unset.  Not ported either: the distributed
+all-reduce (``reduce_hist`` is the serial no-op).
 """
 
 from __future__ import annotations
@@ -20,31 +32,82 @@ from typing import Optional, Sequence
 import torch
 
 from ..utils import log
-from .hist_kernels import histogram_leaves, histogram_payload
+from .hist_kernels import (RADIX_JOINT_MAX_LEAVES, histogram_leaves,
+                           histogram_leaves_packed, histogram_leaves_radix2,
+                           histogram_payload, histogram_radix_joint,
+                           histogram_radix_single)
 
 NUM_CHANNELS = 4  # grad, hess, count, pad
 
 HIST_KERNELS = ("auto", "onehot", "packed", "radix2")
-#: JAX-package kernels each unported mode needs (ops/hist_pallas.py)
-_UNPORTED = {
-    "auto": "histogram_radix_single_pallas, histogram_radix_joint_pallas, "
-            "histogram_leaves_radix2_pallas, histogram_leaves_packed_pallas",
-    "packed": "histogram_leaves_packed_pallas",
-    "radix2": "histogram_leaves_radix2_pallas",
-}
+
+#: accumulator budget of the TPU radix2 kernel; it decides dispatch only
+#: (``radix2_pick_p``), so the port keeps the JAX package's rule
+_RADIX2_ACC_BYTES = 8 << 20
 
 
 def resolve_hist_kernel(name) -> str:
-    """Validate ``hist_kernel``: only ``onehot`` is ported."""
+    """Validate a ``hist_kernel`` value; LightGBMError names the key."""
     n = str(name or "auto").strip().lower()
     if n not in HIST_KERNELS:
         log.fatal("unknown hist_kernel=%r (expected one of %s)"
                   % (name, "/".join(HIST_KERNELS)))
-    if n != "onehot":
-        log.fatal("hist_kernel=%s is not supported by lightgbm_tpu_torch yet "
-                  "(its kernels %s are not ported); set hist_kernel=onehot"
-                  % (n, _UNPORTED[n]))
     return n
+
+
+def _radix_ok(n_bins: int) -> bool:
+    """The radix kernels take a bin count that is a multiple of 16, and
+    ``auto`` uses them from 128 bins up."""
+    return n_bins % 16 == 0 and n_bins >= 128
+
+
+def radix2_pick_p(num_f: int, K: int, n_bins: int) -> int:
+    """The TPU radix2 kernel's feature group width: the largest p in (4, 2)
+    whose accumulator fits ``_RADIX2_ACC_BYTES``; 0 = does not fit (the
+    pass falls back to the flat kernel)."""
+    for p in (4, 2):
+        f_pad = _round_up(num_f, p)
+        if 3 * K * f_pad * n_bins * p * 4 <= _RADIX2_ACC_BYTES:
+            return p
+    return 0
+
+
+def wants_packed_mirror(hist_kernel, n_bins: int) -> bool:
+    """True when the masked passes may take the packed kernel: the
+    callers' cue to keep the transposed word mirror resident."""
+    hk = resolve_hist_kernel(hist_kernel)
+    if hk == "packed":
+        return True
+    return hk == "auto" and not _radix_ok(n_bins)
+
+
+def ladder_profitable(hist_kernel, n_bins: int) -> bool:
+    """True when the grower's width-quadrupling warm-up ladder runs: only
+    where a K <= 4 masked pass takes the radix-joint kernel (``auto`` at
+    >= 128 bins).  The ladder never changes the tree (each width covers
+    the frontier); it only changes which kernels build it."""
+    return resolve_hist_kernel(hist_kernel) == "auto" and _radix_ok(n_bins)
+
+
+def _masked_kernel_for(hk: str, n_bins: int, K: int, num_f: int,
+                       have_words: bool) -> str:
+    """The masked-pass kernel of a mode: flat / packed / radix2 /
+    radix_joint (the JAX package's rule)."""
+    radix2_fits = (n_bins % 16 == 0 and n_bins >= 16
+                   and radix2_pick_p(num_f, K, n_bins) > 0)
+    if hk == "packed":
+        return "packed" if have_words else "flat"
+    if hk == "radix2":
+        return "radix2" if radix2_fits else "flat"
+    if hk == "auto":
+        if _radix_ok(n_bins):
+            if K <= RADIX_JOINT_MAX_LEAVES:
+                return "radix_joint"
+            if radix2_fits:
+                return "radix2"
+        elif have_words:
+            return "packed"
+    return "flat"
 
 
 def reduce_hist(hist: torch.Tensor, axis_name: Optional[str] = None
@@ -76,29 +139,51 @@ def histogram_for_leaves_masked(bins_t: torch.Tensor, grad: torch.Tensor,
                                 row_mask: Optional[torch.Tensor] = None, *,
                                 n_bins: int = 256,
                                 hist_dtype: str = "float32",
-                                hist_kernel: str = "onehot") -> torch.Tensor:
-    """Histograms of K leaves in ONE data pass -> f32 [K, F, B, 4] (the flat
-    one-hot branch).  ``row_mask`` (bool [n]) excludes rows."""
-    resolve_hist_kernel(hist_kernel)
+                                hist_kernel: str = "auto",
+                                bins_words_t: Optional[torch.Tensor] = None
+                                ) -> torch.Tensor:
+    """Histograms of K leaves in ONE data pass -> f32 [K, F, B, 4].
+    ``row_mask`` (bool [n]) excludes rows; ``bins_words_t`` is the
+    resident transposed packed mirror [W, n] the packed kernel reads."""
+    hk = resolve_hist_kernel(hist_kernel)
+    num_f = bins_t.shape[0]
+    leaves = leaves.to(torch.int32)
     lor = leaf_of_row.to(torch.int32)
     if row_mask is not None:
         lor = torch.where(row_mask, lor, torch.full_like(lor, -1))
-    return histogram_leaves(bins_t, grad, hess, lor,
-                            leaves.to(torch.int32), n_bins=n_bins,
-                            hist_dtype=hist_dtype)
+    kern = _masked_kernel_for(hk, n_bins, leaves.shape[0], num_f,
+                              bins_words_t is not None)
+    kw = dict(n_bins=n_bins, hist_dtype=hist_dtype)
+    if kern == "radix_joint":
+        return histogram_radix_joint(bins_t, grad, hess, lor, leaves, **kw)
+    if kern == "radix2":
+        return histogram_leaves_radix2(bins_t, grad, hess, lor, leaves, **kw)
+    if kern == "packed":
+        return histogram_leaves_packed(bins_words_t, grad, hess, lor, leaves,
+                                       num_f=num_f, **kw)
+    return histogram_leaves(bins_t, grad, hess, lor, leaves, **kw)
 
 
 def root_histogram(bins_t: torch.Tensor, grad: torch.Tensor,
                    hess: torch.Tensor,
                    row_mask: Optional[torch.Tensor] = None, *,
                    n_bins: int = 256, hist_dtype: str = "float32",
-                   hist_kernel: str = "onehot") -> torch.Tensor:
-    """Root histogram f32 [F, B, 4]: the K=1 masked pass over leaf 0."""
+                   hist_kernel: str = "auto",
+                   bins_words_t: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
+    """Root histogram f32 [F, B, 4]: the single-leaf masked pass over leaf
+    0, which under ``auto`` at >= 128 bins is the radix-single kernel."""
+    hk = resolve_hist_kernel(hist_kernel)
     lor = torch.zeros(grad.shape, dtype=torch.int32, device=grad.device)
+    if row_mask is not None:
+        lor = torch.where(row_mask, lor, torch.full_like(lor, -1))
+    if hk == "auto" and _radix_ok(n_bins):
+        return histogram_radix_single(bins_t, grad, hess, lor,
+                                      n_bins=n_bins, hist_dtype=hist_dtype)
     leaves = torch.zeros(1, dtype=torch.int32, device=grad.device)
     return histogram_for_leaves_masked(
-        bins_t, grad, hess, lor, leaves, row_mask, n_bins=n_bins,
-        hist_dtype=hist_dtype, hist_kernel=hist_kernel)[0]
+        bins_t, grad, hess, lor, leaves, None, n_bins=n_bins,
+        hist_dtype=hist_dtype, hist_kernel=hk, bins_words_t=bins_words_t)[0]
 
 
 def histogram_for_leaves_auto(bins_t: torch.Tensor, grad: torch.Tensor,
@@ -111,8 +196,9 @@ def histogram_for_leaves_auto(bins_t: torch.Tensor, grad: torch.Tensor,
                               counts: Optional[torch.Tensor] = None,
                               bins_words: Optional[torch.Tensor] = None,
                               sort_key: Optional[torch.Tensor] = None,
-                              hist_kernel: str = "onehot",
-                              payload: Optional[torch.Tensor] = None
+                              hist_kernel: str = "auto",
+                              payload: Optional[torch.Tensor] = None,
+                              bins_words_t: Optional[torch.Tensor] = None
                               ) -> torch.Tensor:
     """K-leaf histograms with frontier compaction -> f32 [K, F, B, 4].
 
@@ -125,9 +211,11 @@ def histogram_for_leaves_auto(bins_t: torch.Tensor, grad: torch.Tensor,
     ``counts`` (f32 [K]): the caller's masked row count per slot;
     ``bins_words``: ``bins_to_words`` of the row-major bins, hoisted by the
     caller; ``sort_key``/``payload``: the keys and payload the fused
-    partition kernel already emitted (ops/round_fuse.py).
+    partition kernel already emitted (ops/round_fuse.py);
+    ``hist_kernel``/``bins_words_t``: the full pass's kernel choice and
+    packed mirror (``histogram_for_leaves_masked``).
     """
-    resolve_hist_kernel(hist_kernel)
+    hist_kernel = resolve_hist_kernel(hist_kernel)
     n = grad.shape[0]
     dev = grad.device
     leaves = leaves.to(torch.int32)
@@ -160,7 +248,8 @@ def histogram_for_leaves_auto(bins_t: torch.Tensor, grad: torch.Tensor,
     if S == 0:
         return histogram_for_leaves_masked(
             bins_t, grad, hess, lor, leaves, None, n_bins=n_bins,
-            hist_dtype=hist_dtype, hist_kernel=hist_kernel)
+            hist_dtype=hist_dtype, hist_kernel=hist_kernel,
+            bins_words_t=bins_words_t)
     if sort_key is None:
         if sel is None:
             sel = (lor[None, :] == leaves[:, None]).any(0)

@@ -53,7 +53,7 @@ class SplitHyper:
     rows_per_block: int = 4096
     path_smooth: float = 0.0
     hist_dtype: str = "float32"
-    hist_kernel: str = "onehot"
+    hist_kernel: str = "auto"
     leaf_hist: str = "masked"
     hist_pool_slots: int = 0
 

@@ -13,9 +13,16 @@ the full masked pass and the compacted payload pass.
   on the CPU, which moves renewed leaf values by ~1e-7 relative; every
   tree's split features and bins are identical, leaf values agree to
   rtol 1e-5 and predictions to 1e-6.
+
+The default configuration (``hist_kernel`` and ``stochastic_rounding``
+unset: ``auto`` and true) is compared the same way at max_bin = 255
+(radix kernels, warm-up ladder on) and 63 (packed kernel), with the auto
+policy's values set explicitly since n is small, and the ladder's row
+threshold lowered on both sides.
 """
 
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -25,6 +32,9 @@ import jax
 import jax.numpy as jnp
 
 import lightgbm_tpu as lgb_jax
+from lightgbm_tpu.boosting.gbdt import GBDT as JGBDT
+from lightgbm_tpu.config import Config as JConfig
+from lightgbm_tpu.learner import batch_grower as JBG
 from lightgbm_tpu.learner.batch_grower import (
     grow_tree_batched as jax_grow_tree_batched)
 from lightgbm_tpu.models.predict import predict_bins_tree as jax_predict_bins
@@ -37,13 +47,17 @@ from lightgbm_tpu.ops.split import SplitHyper as JSplitHyper
 from lightgbm_tpu.ops.split import find_best_split as jax_find_best_split
 
 import lightgbm_tpu_torch as lgb_torch
+from lightgbm_tpu_torch.boosting.gbdt import GBDT as TGBDT
+from lightgbm_tpu_torch.config import Config as TConfig
 from lightgbm_tpu_torch.convert import (booster_from_model_string,
                                         tree_arrays_from_numpy)
+from lightgbm_tpu_torch.learner import batch_grower as TBG
 from lightgbm_tpu_torch.learner.batch_grower import grow_tree_batched
 from lightgbm_tpu_torch.models.predict import predict_bins_tree
 from lightgbm_tpu_torch.models.tree import Tree as TTree
 from lightgbm_tpu_torch.ops import histogram as TH
 from lightgbm_tpu_torch.ops.quantize import (discretize_gradients_levels,
+                                             leaf_sums_sorted,
                                              renew_leaf_values)
 from lightgbm_tpu_torch.ops.split import SplitHyper, find_best_split
 
@@ -52,6 +66,17 @@ SLICE = dict(num_leaves=15, max_bin=63, tpu_split_batch=4,
              quant_train_renew_leaf=True, stochastic_rounding=False,
              hist_kernel="onehot", verbosity=-1)
 ROUNDS = 5
+#: the default recipe at a small size: hist_kernel and stochastic_rounding
+#: unset, the auto policy's int8 levels and leaf renewal set explicitly;
+#: 16 splits per round and 1024-row blocks (the compaction buckets round
+#: to them) make rounds take every auto kernel
+DEFAULT = dict(num_leaves=31, tpu_split_batch=16, use_quantized_grad=True,
+               tpu_hist_dtype="int8", quant_train_renew_leaf=True,
+               tpu_rows_per_block=1024, verbosity=-1)
+#: the port's histogram wrappers the dispatch layer calls
+WRAPPERS = ("histogram_leaves", "histogram_payload", "histogram_radix_single",
+            "histogram_radix_joint", "histogram_leaves_radix2",
+            "histogram_leaves_packed")
 
 
 def _data(objective, n=10_000, f=8, seed=0):
@@ -106,6 +131,10 @@ def test_slice_runs_both_histogram_branches(trained):
 
 def test_slice_model_matches_jax(trained):
     objective, bj, bt, _, Xt = trained
+    _assert_models_match(objective, bj, bt, Xt)
+
+
+def _assert_models_match(objective, bj, bt, Xt):
     s_j, s_t = bj.model_to_string(), bt.model_to_string()
     head_j, params_j = s_j.split("parameters:")
     head_t, params_t = s_t.split("parameters:")
@@ -125,6 +154,101 @@ def test_slice_model_matches_jax(trained):
         np.testing.assert_array_equal(tt.decision_type, tj.decision_type)
         np.testing.assert_allclose(tt.leaf_value, tj.leaf_value, rtol=1e-5)
     np.testing.assert_allclose(bt.predict(Xt), bj.predict(Xt), atol=1e-6)
+
+
+@pytest.fixture(scope="module",
+                params=[("regression", 255), ("binary", 255),
+                        ("regression", 63), ("binary", 63)],
+                ids=lambda p: f"{p[0]}-{p[1]}bins")
+def trained_default(request):
+    """Both packages trained on the default recipe; the port's wrapper
+    calls counted by name."""
+    objective, max_bin = request.param
+    X, y = _data(objective)
+    params = dict(DEFAULT, objective=objective, max_bin=max_bin)
+    mp = pytest.MonkeyPatch()
+    calls = dict.fromkeys(WRAPPERS, 0)
+    try:
+        mp.setattr(JBG, "_WARMUP_MIN_ROWS", 1024)
+        mp.setattr(TBG, "_WARMUP_MIN_ROWS", 1024)
+        bj = lgb_jax.train(params, lgb_jax.Dataset(X, y),
+                           num_boost_round=ROUNDS)
+        for name in WRAPPERS:
+            def spy(*a, _real=getattr(TH, name), _name=name, **k):
+                calls[_name] += 1
+                return _real(*a, **k)
+            mp.setattr(TH, name, spy)
+        bt = lgb_torch.train(dict(params, device_type="cpu"),
+                             lgb_torch.Dataset(X, y), num_boost_round=ROUNDS)
+    finally:
+        mp.undo()
+    Xt = np.random.default_rng(9).normal(size=(2000, X.shape[1]))
+    Xt[::11, 2] = np.nan
+    return objective, max_bin, bj, bt, calls, Xt
+
+
+def test_default_slice_runs_the_auto_kernels(trained_default):
+    _, max_bin, _, bt, calls, _ = trained_default
+    assert bt._gbdt.hp.hist_kernel == "auto"
+    assert bt._gbdt.config.stochastic_rounding is True
+    if max_bin == 255:
+        # root, ladder widths 1 and 4, full K = 16 passes, compacted rounds
+        for name in ("histogram_radix_single", "histogram_radix_joint",
+                     "histogram_leaves_radix2", "histogram_payload"):
+            assert calls[name] > 0, (name, calls)
+        assert calls["histogram_radix_single"] == ROUNDS
+        assert calls["histogram_leaves_packed"] == 0
+    else:
+        assert calls["histogram_leaves_packed"] > ROUNDS, calls
+        assert calls["histogram_radix_single"] == 0
+        assert calls["histogram_radix_joint"] == 0
+    assert calls["histogram_leaves"] == 0
+
+
+def test_default_slice_model_matches_jax(trained_default):
+    objective, _, bj, bt, _, Xt = trained_default
+    _assert_models_match(objective, bj, bt, Xt)
+
+
+def test_resolve_auto_params_matches_jax():
+    """The port's copy of the auto policy gives the JAX package's values at
+    >= 100k rows, whatever the user set explicitly."""
+    fields = ("tpu_split_batch", "tpu_hist_dtype", "use_quantized_grad",
+              "quant_train_renew_leaf")
+    for n in (99_999, 100_000, 1_000_000):
+        for extra in ({}, {"num_leaves": 255}, {"num_leaves": 7},
+                      {"tpu_split_batch": 8}, {"deterministic": True},
+                      {"tpu_hist_dtype": "float32"},
+                      {"use_quantized_grad": False},
+                      {"quant_train_renew_leaf": False},
+                      {"linear_tree": True}):
+            cj, ct = JConfig(dict(extra)), TConfig(dict(extra))
+            ts = types.SimpleNamespace(num_data=n)
+            JGBDT._resolve_auto_params(
+                types.SimpleNamespace(train_set=ts, parallel_mode=None), cj)
+            TGBDT._resolve_auto_params(types.SimpleNamespace(train_set=ts),
+                                       ct)
+            for f in fields:
+                assert getattr(ct, f) == getattr(cj, f), (n, extra, f)
+
+
+def test_leaf_sums_sorted_match_scatter():
+    """The card's fixed-order leaf sums equal the scatter-add's up to the
+    order of the terms."""
+    rng = np.random.default_rng(3)
+    n, L = 20_000, 31
+    lor = torch.as_tensor(rng.integers(0, L - 3, size=n))   # empty leaves
+    g = torch.as_tensor(rng.normal(size=n).astype(np.float32))
+    h = torch.as_tensor(rng.uniform(0.1, 0.3, size=n).astype(np.float32))
+    gs, hs = leaf_sums_sorted(lor, g, h, L)
+    want_g = torch.zeros(L).index_add_(0, lor, g)
+    want_h = torch.zeros(L).index_add_(0, lor, h)
+    np.testing.assert_allclose(gs.numpy(), want_g.numpy(), rtol=1e-5,
+                               atol=1e-4)
+    np.testing.assert_allclose(hs.numpy(), want_h.numpy(), rtol=1e-5)
+    assert (gs[L - 3:] == 0).all() and (hs[L - 3:] == 0).all()
+    again = leaf_sums_sorted(lor, g, h, L)
+    assert torch.equal(again[0], gs) and torch.equal(again[1], hs)
 
 
 def test_jax_model_text_loads_and_predicts(trained):
@@ -287,8 +411,7 @@ def test_quantize_and_renew_match_jax():
 
 def test_unported_configurations_raise():
     X, y = _data("regression", n=2000)
-    for extra in ({"hist_kernel": "auto"}, {"tpu_split_batch": 1},
-                  {"stochastic_rounding": True}, {"objective": "huber"},
+    for extra in ({"tpu_split_batch": 1}, {"objective": "huber"},
                   {"bagging_fraction": 0.5, "bagging_freq": 1}):
         params = dict(SLICE, objective="regression", device_type="cpu")
         params.update(extra)
