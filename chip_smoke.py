@@ -7,15 +7,18 @@ else: no jax, no network.  Phases, each of which fails the run on error:
 
 1. environment and build: the card's name and power limit, the versions,
    and every kernel of ``lightgbm_tpu_torch/csrc`` compiled at once;
-2. kernel checks: each of the eight kernels against its plain PyTorch
+2. kernel checks: each of the ten kernels against its plain PyTorch
    version on the card, at the shapes of the HIGGS main path (n = 1M rows,
    F = 28 features, B = 256 bins, K = 42 leaves per round, T = 255 leaf
-   values; B = 64 for the packed kernel), with its time, the plain
+   values; B = 64 for the packed kernel; S = 45,056 compacted rows of the
+   90k-row strict path for the rows histogram), with its time, the plain
    version's, one PyTorch library call's where one computes the same
    function, and the least time the card could take (bytes at 3.35 TB/s or
-   operations at the CUDA-core rate), plus edge checks off the main path,
-   and leaf renewal's fixed-order sums (the same bits twice, host syncs
-   counted);
+   operations at the CUDA-core rate), plus edge checks off the main path;
+   every histogram kernel called twice in float32 and in bfloat16 on real
+   values must give the same bits, and their float32 times are printed
+   beside the int8 ones; leaf renewal's fixed-order sums (the same bits
+   twice, host syncs counted);
 3. the slice: ``train()`` on a 1M x 28 HIGGS-shaped synthetic set (seeded
    numpy) with the default configuration of the HIGGS recipe
    (``hist_kernel`` and ``stochastic_rounding`` unset: the radix kernels,
@@ -24,19 +27,28 @@ else: no jax, no network.  Phases, each of which fails the run on error:
    ``predict`` on a 200k held-out set, a profiled round, and the launch
    count of every kernel in that run; then the same recipe at
    ``max_bin=63`` (1M rows x 5 rounds, the packed kernel) and with
-   ``hist_kernel=onehot`` (100k rows x 3 rounds, the flat kernel), each
-   with its own launch counts;
+   ``hist_kernel=onehot`` (100k rows x 3 rounds, the flat kernel); the
+   strict default (90k rows x 10 rounds, nothing else set: one split per
+   pass, float32 histograms, radix-single per split) with its host reads
+   per split and a profiled round; the same with
+   ``tpu_leaf_hist=bucketed`` (90k x 5, the rows kernel); and the pooled
+   default (1M x 10 with ``histogram_pool_size=8``: 128 slots,
+   ``partition_select``), each with its own launch counts;
 4. cross-check: the default recipe at 100k rows x 5 rounds on the card and
    on the CPU (plain versions), the held-out set also a valid set scored on
    the device each round: tree 0's splits must match, the held-out AUCs
    agree within 1e-3, and each run's valid-set AUC agrees with its
    ``predict`` AUC within 1e-4; a second card run must give byte-identical
-   model text.
+   model text.  The strict default at 50k x 3 (seed 1): card and CPU AUCs
+   within 1e-3, and two card runs byte-identical (the float32 path is
+   deterministic); the pooled recipe at 100k x 3: tree 0 identical on the
+   card and the CPU.
 
 It prints one JSON line with every kernel's numbers, the card's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``.
 """
 
+import collections
 import json
 import os
 import subprocess
@@ -50,6 +62,8 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 CUDA_CORE_OPS_PER_S = 67e12   # H100 SXM f32 outside the tensor cores
 N, F, B, K, T = 1_000_000, 28, 256, 42, 255
 N64, W = 64, (F + 3) // 4     # the packed kernel's bins and words
+N_STRICT = 90_000             # just under the auto policy's 100k switch
+S_ROWS = 45_056               # the strict path's half bucket at 90k rows
 RECIPE = dict(objective="binary", num_leaves=255, max_bin=255,
               learning_rate=0.1, min_data_in_leaf=0,
               min_sum_hessian_in_leaf=100, verbosity=-1)
@@ -89,6 +103,20 @@ def time_ms(torch, fn, flush, reps=10):
         if i >= 2:
             times.append(s.elapsed_time(e))
     return float(np.median(times))
+
+
+def syncing(torch, fn):
+    """fn() and the source locations of the host syncs it made."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, [f"{os.path.basename(w.filename)}:{w.lineno}"
+                 for w in seen if "synchroniz" in str(w.message)]
 
 
 def bound_ms(nbytes, ops):
@@ -339,6 +367,83 @@ def check_kernels(torch, dev):
         4 * W * N + 12 * N + 4 * K + 16 * K * F * N64, 3 * F * n_sel, err)
     del bins_t64, words_t
 
+    # -- rows histogram (the strict path's bucketed pass) at F = 28,
+    # B = 256, C = 4 (grad, hess, valid, 0; a quarter of the rows masked)
+    # and S = 45,056 and 90,112: int8 bitwise, float32 and bfloat16
+    # bitwise on integer values, float32 on real values within 1e-5 of each
+    # cell's sum of |values|
+    def rows_vals(S, gg, hh):
+        valid = (lor[:S] % 4 != 0).to(torch.float32)
+        return torch.stack([gg[:S] * valid, hh[:S] * valid, valid,
+                            torch.zeros_like(valid)]).contiguous()
+
+    def rows_check(bs, vi, vr, nb, what):
+        for mode in ("int8", "float32", "bfloat16"):
+            kwr = dict(n_bins=nb, hist_dtype=mode)
+            same(HK.histogram_rows_t(bs, vi, **kwr),
+                 HK.histogram_rows_t_plain(bs, vi, **kwr),
+                 f"histogram_rows_t {mode} ({what})")
+        kwr = dict(n_bins=nb, hist_dtype="float32")
+        got = HK.histogram_rows_t(bs, vr, **kwr)
+        want = HK.histogram_rows_t_plain(bs, vr, **kwr)
+        mag = HK.histogram_rows_t_plain(bs, vr.abs(), **kwr)
+        if not bool(((got - want).abs() <= 1e-5 * mag + 1e-30).all()):
+            fail(f"histogram_rows_t float32 ({what}, real values): outside "
+                 f"1e-5 of |values|")
+        return float((got - want).abs().max().item())
+
+    for S in (2 * S_ROWS, S_ROWS):
+        bs = bins_t[:, :S].contiguous()
+        err = rows_check(bs, rows_vals(S, g, h), rows_vals(S, gr, hr), B,
+                         f"S = {S}")
+    vr = rows_vals(S_ROWS, gr, hr)
+    cell = (torch.arange(F, device=dev)[:, None] * B + bs.long()).reshape(-1)
+    vrep = vr.t().repeat(F, 1)
+    acc = torch.zeros(F * B, 4, device=dev)
+    kwr = dict(n_bins=B, hist_dtype="float32")
+    row("histogram_rows_t", "lightgbm_tpu_torch/csrc/rows.cu",
+        "lightgbm_tpu/ops/hist_pallas.py:124",
+        time_ms(torch, lambda: HK.histogram_rows_t(bs, vr, **kwr), flush),
+        time_ms(torch, lambda: HK.histogram_rows_t_plain(bs, vr, **kwr),
+                flush),
+        time_ms(torch, lambda: acc.index_add_(0, cell, vrep), flush),
+        F * S_ROWS + 16 * S_ROWS + 16 * F * B, 4 * F * S_ROWS, err)
+    del cell, vrep, acc
+    # edge: C = 8, a ragged S, F = 30, B = 64 with bins past 63 (dropped)
+    se = 45_001
+    be = torch.as_tensor(rng.integers(0, 70, size=(30, se), dtype=np.uint8),
+                         device=dev)
+    vi8 = torch.as_tensor(rng.integers(-4, 5, size=(8, se)).astype(
+        np.float32), device=dev)
+    vr8 = torch.as_tensor(rng.normal(size=(8, se)).astype(np.float32),
+                          device=dev)
+    rows_check(be, vi8, vr8, N64, "C = 8, S = 45,001, F = 30, B = 64")
+    print("kernel edges (rows): C = 8, S = 45,001, F = 30, B = 64", flush=True)
+
+    # -- partition_select: partition_payload without the payload, K = 42
+    # (3 invalid slots) and K = 1, a tenth of the rows masked out; bitwise
+    mask_z = torch.as_tensor((rng.random(N) >= 0.1).astype(np.int32),
+                             device=dev)
+    names = ("feats", "thr", "dl", "nanb", "parents", "new_leaves", "validk",
+             "smaller")
+
+    def sel_args(k):
+        return (bins_t, lor, mask_z) + tuple(d[nm][:k].contiguous()
+                                             for nm in names)
+
+    for k in (1, K):
+        for a, b_, what in zip(RF.partition_select(*sel_args(k)),
+                               RF.partition_select_plain(*sel_args(k)),
+                               ("new leaf map", "sort key")):
+            err = same(a, b_, f"partition_select {what} (K = {k})")
+    moving = int(torch.isin(lor, d["parents"][d["validk"] > 0]).sum().item())
+    row("partition_select", "lightgbm_tpu_torch/csrc/partition.cu",
+        "lightgbm_tpu/ops/round_fuse.py:76",
+        time_ms(torch, lambda: RF.partition_select(*sel_args(K)), flush),
+        time_ms(torch, lambda: RF.partition_select_plain(*sel_args(K)),
+                flush),
+        None, 8 * N + moving + 8 * N + 32 * K, 2 * K * N, err)
+
     # -- edges of the four, bitwise: a ragged n, F = 30 (half a word of
     # padding, which holds garbage for the packed kernel), float32 and
     # bfloat16 on integer values; float32 on real values within 1e-5 of
@@ -423,21 +528,8 @@ def check_kernels(torch, dev):
     from lightgbm_tpu_torch.ops.quantize import leaf_sums_sorted
     lor_l = idx.long()
 
-    def syncing(fn):
-        """fn() and the source lines of the host syncs it made."""
-        torch.cuda.synchronize()
-        with warnings.catch_warnings(record=True) as seen:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                out = fn()
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-        return out, [f"{os.path.basename(w.filename)}:{w.lineno}"
-                     for w in seen if "synchroniz" in str(w.message)]
-
-    s1, at1 = syncing(lambda: leaf_sums_sorted(lor_l, gr, hr, T))
-    s2, at2 = syncing(lambda: leaf_sums_sorted(lor_l, gr, hr, T))
+    s1, at1 = syncing(torch, lambda: leaf_sums_sorted(lor_l, gr, hr, T))
+    s2, at2 = syncing(torch, lambda: leaf_sums_sorted(lor_l, gr, hr, T))
     for a, b_ in zip(s1, s2):
         same(a, b_, "leaf renewal sums (two runs)")
     ref, mag = (torch.zeros(T, dtype=torch.float64, device=dev).index_add_(
@@ -450,10 +542,80 @@ def check_kernels(torch, dev):
     return rows
 
 
+def check_determinism(torch, dev):
+    """Every histogram kernel twice in float32 and in bfloat16 on real
+    values at the main path's shapes: identical bits, or the run fails.
+    Returns each one's float32 time beside its int8 time (ms, integer
+    levels), from the same inputs."""
+    from lightgbm_tpu_torch.ops import hist_kernels as HK
+    from lightgbm_tpu_torch.ops.histogram import bins_to_words
+    rng = np.random.default_rng(5)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+
+    def t(a):
+        return torch.as_tensor(a, device=dev)
+
+    bins_t = t(rng.integers(0, B - 1, size=(F, N), dtype=np.uint8))
+    words_t = bins_to_words((bins_t % (N64 - 1)).t()).t().contiguous()
+    words = bins_to_words(bins_t.t())
+    lor = t(rng.integers(0, 64, size=N, dtype=np.int32))
+    leaves = t(rng.permutation(64)[:K].astype(np.int32))
+    lv4 = leaves[:4].contiguous()
+    lor_root = torch.where(lor < 3, -1, 0).to(torch.int32)
+    S = (N // 4 + 2047) // 2048 * 2048
+    cnt = torch.tensor([int(0.8 * S)], dtype=torch.int32, device=dev)
+    vals = {"real": (t(rng.normal(size=N).astype(np.float32)),
+                     t(rng.random(N).astype(np.float32))),
+            "int": (t(rng.integers(-2, 3, size=N).astype(np.float32)),
+                    t(rng.integers(0, 5, size=N).astype(np.float32)))}
+    pay, rows = {}, {}
+    for v, (gg, hh) in vals.items():
+        pay[v] = torch.cat([words[:S], gg[:S].view(torch.int32)[:, None],
+                            hh[:S].view(torch.int32)[:, None],
+                            lor[:S, None]], 1).contiguous()
+        rows[v] = torch.stack([gg[:S_ROWS], hh[:S_ROWS],
+                               torch.ones_like(gg[:S_ROWS]),
+                               torch.zeros_like(gg[:S_ROWS])]).contiguous()
+    kern = {
+        "histogram_leaves": lambda v, m: HK.histogram_leaves(
+            bins_t, *vals[v], lor, leaves, n_bins=B, hist_dtype=m),
+        "histogram_payload": lambda v, m: HK.histogram_payload(
+            pay[v], leaves, cnt, num_f=F, n_bins=B, hist_dtype=m),
+        "histogram_radix_single": lambda v, m: HK.histogram_radix_single(
+            bins_t, *vals[v], lor_root, n_bins=B, hist_dtype=m),
+        "histogram_radix_joint": lambda v, m: HK.histogram_radix_joint(
+            bins_t, *vals[v], lor, lv4, n_bins=B, hist_dtype=m),
+        "histogram_leaves_radix2": lambda v, m: HK.histogram_leaves_radix2(
+            bins_t, *vals[v], lor, leaves, n_bins=B, hist_dtype=m),
+        "histogram_leaves_packed": lambda v, m: HK.histogram_leaves_packed(
+            words_t, *vals[v], lor, leaves, num_f=F, n_bins=N64,
+            hist_dtype=m),
+        "histogram_rows_t": lambda v, m: HK.histogram_rows_t(
+            bins_t[:, :S_ROWS].contiguous(), rows[v], n_bins=B,
+            hist_dtype=m),
+    }
+    times = {}
+    for name, fn in kern.items():
+        for mode in ("float32", "bfloat16"):
+            a, b_ = fn("real", mode), fn("real", mode)
+            if not torch.equal(a.view(torch.int32), b_.view(torch.int32)):
+                fail(f"{name} {mode}: two calls on the same inputs gave "
+                     f"different bits")
+        times[name] = {
+            "float32": time_ms(torch, lambda: fn("real", "float32"), flush),
+            "int8": time_ms(torch, lambda: fn("int", "int8"), flush)}
+    print("determinism: every histogram kernel gave identical bits twice "
+          "in float32 and bfloat16 on real values", flush=True)
+    print("kernel float32 vs int8 times (ms): " + json.dumps(times),
+          flush=True)
+    return times
+
+
 def profile_round(torch, bst):
     """One more boosting round under torch.profiler: the device's busy
     share of the round and the kernels that take the time.  Informational,
-    so a profiler that sees no device time reports 'not measured'."""
+    so a profiler that sees no device time reports 'not measured'.
+    Returns the round's kernel launches (None when not measured)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -473,13 +635,24 @@ def profile_round(torch, bst):
     if busy <= 0:
         print("profile: device time not measured (the profiler saw none)",
               flush=True)
-        return
+        return None
     kern.sort(reverse=True)
+    launches = sum(k[1] for k in kern)
     print(f"profile: one round {wall_ms:.1f} ms wall (profiled), device "
           f"busy {busy:.2f} ms ({100 * busy / wall_ms:.1f}%), "
-          f"{sum(k[1] for k in kern)} kernel launches", flush=True)
+          f"{launches} kernel launches", flush=True)
     for ms, cnt, name in kern[:8]:
         print(f"  {ms:8.3f} ms {cnt:5d}x {name[:90]}", flush=True)
+    return launches
+
+
+def profiled(torch, bst):
+    """profile_round, informational: a profiler fault is reported."""
+    try:
+        return profile_round(torch, bst)
+    except (RuntimeError, AttributeError) as e:
+        print(f"profile: not measured ({type(e).__name__}: {e})", flush=True)
+        return None
 
 
 def auc(y, s):
@@ -538,6 +711,8 @@ def launch_counts(HK, RF, TB, prng):
             "histogram_leaves": HK.leaves_launches,
             "histogram_payload": HK.payload_launches,
             "partition_payload": RF.launches,
+            "partition_select": RF.select_launches,
+            "histogram_rows_t": HK.rows_launches,
             "histogram_radix_single": HK.radix_single_launches,
             "histogram_radix_joint": HK.radix_joint_launches,
             "histogram_leaves_radix2": HK.radix2_launches,
@@ -546,13 +721,31 @@ def launch_counts(HK, RF, TB, prng):
 
 
 def zero_counts(HK, RF, TB, prng):
-    TB.launches = RF.launches = prng.launches = 0
-    HK.leaves_launches = HK.payload_launches = 0
+    TB.launches = RF.launches = RF.select_launches = prng.launches = 0
+    HK.leaves_launches = HK.payload_launches = HK.rows_launches = 0
     HK.radix_single_launches = HK.radix_joint_launches = 0
     HK.radix2_launches = HK.packed_launches = 0
 
 
+def trees_text(bst):
+    """The model text without its parameters block."""
+    return bst.model_to_string().split("parameters:")[0]
+
+
+def leading_agreement(a, b):
+    """How many of two trees' splits agree, in node order, before the
+    first that differs."""
+    k = 0
+    for fa, fb, ta, tb in zip(a.split_feature, b.split_feature,
+                              a.threshold_bin, b.threshold_bin):
+        if fa != fb or ta != tb:
+            break
+        k += 1
+    return k
+
+
 def main():
+    t_script = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
@@ -584,6 +777,7 @@ def main():
 
     # ---- 2. kernel checks
     rows = check_kernels(torch, torch.device("cuda"))
+    check_determinism(torch, torch.device("cuda"))
 
     # ---- 3. the default recipe on the card; counts zeroed just before,
     # read just after
@@ -611,10 +805,8 @@ def main():
         fail(f"the default recipe never launched {missing}")
     if not auc_main > 0.7:
         fail(f"held-out AUC {auc_main} is not that of a trained model")
-    try:
-        profile_round(torch, bst)
-    except (RuntimeError, AttributeError) as e:   # informational phase
-        print(f"profile: not measured ({type(e).__name__}: {e})", flush=True)
+    text_main = trees_text(bst)
+    profiled(torch, bst)
     launches = dict(counts)
     del bst
 
@@ -645,6 +837,85 @@ def main():
         fail("the onehot recipe never launched histogram_leaves")
     launches["histogram_leaves"] = c1h["histogram_leaves"]
     del bst
+
+    # (c) the strict default: 90k rows, nothing set but the recipe
+    zero_counts(HK, RF, TB, prng)
+    torch.cuda.reset_peak_memory_stats()
+    bst, auc_s, _, t_s, steps_s = train_slice(torch, lgbt, N_STRICT, 10)
+    cs = launch_counts(HK, RF, TB, prng)
+    peak_s = torch.cuda.max_memory_allocated()
+    g = bst._gbdt
+    splits = sum(t.num_leaves - 1 for t in g.models)
+    print(f"slice (strict default, {N_STRICT} x 10): train {t_s:.2f} s, "
+          f"first iter {steps_s[0]:.3f} s, s/iter (2-10) "
+          f"{float(np.mean(steps_s[1:])):.4f}, held-out AUC {auc_s:.6f}, "
+          f"peak device memory {peak_s / 2**20:.1f} MiB, {splits} splits "
+          f"in 10 trees; kernels {json.dumps(cs)}", flush=True)
+    if (int(g.config.tpu_split_batch) != 1 or g.hp.hist_dtype != "float32"
+            or g._use_batched_grower()):
+        fail(f"the strict default resolved tpu_split_batch="
+             f"{g.config.tpu_split_batch}, hist_dtype={g.hp.hist_dtype}, "
+             f"batched={g._use_batched_grower()}")
+    if cs["histogram_radix_single"] < splits + 10:
+        fail(f"the strict default launched histogram_radix_single "
+             f"{cs['histogram_radix_single']} times for {splits} splits")
+    if cs["take_small_table"] < 10:
+        fail("the strict default did not launch take_small_table each round")
+    if not auc_s > 0.7:
+        fail(f"strict default held-out AUC {auc_s} is not that of a trained "
+             f"model")
+    _, where = syncing(torch, bst.update)
+    sp = g.models[-1].num_leaves - 1
+    in_grower = sum(1 for w in where if w.startswith("grower.py"))
+    print(f"strict default: host reads in one round of {sp} splits: "
+          f"{len(where)} ({in_grower} in grower.py, "
+          f"{in_grower / max(sp, 1):.3f} per split); by source "
+          f"{json.dumps(dict(collections.Counter(where)))}", flush=True)
+    n_launch = profiled(torch, bst)
+    if n_launch is not None:
+        sp = g.models[-1].num_leaves - 1
+        print(f"strict default: {n_launch} launches in a round of {sp} "
+              f"splits ({n_launch / max(sp, 1):.1f} per split)", flush=True)
+    launches["histogram_radix_single"] = cs["histogram_radix_single"]
+    del bst
+
+    # (d) the strict default with the bucketed leaf pass: the rows kernel
+    zero_counts(HK, RF, TB, prng)
+    bst, auc_b, _, t_b, steps_b = train_slice(
+        torch, lgbt, N_STRICT, 5, tpu_leaf_hist="bucketed")
+    cb = launch_counts(HK, RF, TB, prng)
+    print(f"slice (strict, tpu_leaf_hist=bucketed, {N_STRICT} x 5): train "
+          f"{t_b:.2f} s, s/iter (2-5) {float(np.mean(steps_b[1:])):.4f}, "
+          f"held-out AUC {auc_b:.6f}; kernels {json.dumps(cb)}", flush=True)
+    if cb["histogram_rows_t"] <= 0:
+        fail("the bucketed strict run never launched histogram_rows_t")
+    launches["histogram_rows_t"] = cb["histogram_rows_t"]
+    del bst
+
+    # (e) the pooled default: 1M rows, histogram_pool_size=8 (128 slots)
+    zero_counts(HK, RF, TB, prng)
+    torch.cuda.reset_peak_memory_stats()
+    bst, auc_p, _, t_p, steps_p = train_slice(torch, lgbt, N, 10,
+                                              histogram_pool_size=8)
+    cp = launch_counts(HK, RF, TB, prng)
+    peak_p = torch.cuda.max_memory_allocated()
+    print(f"slice (pooled default, histogram_pool_size=8, 1M x 10): train "
+          f"{t_p:.2f} s, s/iter (2-10) {float(np.mean(steps_p[1:])):.4f}, "
+          f"held-out AUC {auc_p:.6f} (unpooled {auc_main:.6f}), peak device "
+          f"memory {peak_p / 2**20:.1f} MiB (unpooled {peak / 2**20:.1f}), "
+          f"model text equal to the unpooled run's: "
+          f"{trees_text(bst) == text_main}; kernels {json.dumps(cp)}",
+          flush=True)
+    if bst._gbdt.hp.hist_pool_slots != 128:
+        fail(f"histogram_pool_size=8 gave {bst._gbdt.hp.hist_pool_slots} "
+             f"slots, not 128")
+    if cp["partition_select"] <= 0 or cp["partition_payload"] != 0:
+        fail("the pooled run must launch partition_select and never "
+             "partition_payload")
+    if abs(auc_p - auc_main) > 1e-3:
+        fail(f"pooled AUC {auc_p} vs unpooled {auc_main}: more than 1e-3")
+    launches["partition_select"] = cp["partition_select"]
+    del bst
     for r in rows:
         r["launches"] = launches[r["name"]]
 
@@ -667,6 +938,40 @@ def main():
         fail("two card trainings gave different model text")
     print("cross-check: two card trainings gave byte-identical model text",
           flush=True)
+    del b_gpu, b_cpu, b_again
+
+    # the strict default, card vs CPU and card vs card (float32 sums)
+    s_gpu, a_gpu, *_ = train_slice(torch, lgbt, 50_000, 3, seed=1)
+    s_cpu, a_cpu, *_ = train_slice(torch, lgbt, 50_000, 3, "cpu", seed=1)
+    t_g, t_c = s_gpu._gbdt.models[0], s_cpu._gbdt.models[0]
+    print(f"cross-check (strict, 50k x 3): AUC card {a_gpu:.6f} cpu "
+          f"{a_cpu:.6f}; tree 0: {leading_agreement(t_g, t_c)} of "
+          f"{t_g.num_leaves - 1} card splits agree in order with the CPU's "
+          f"{t_c.num_leaves - 1}", flush=True)
+    if abs(a_gpu - a_cpu) > 1e-3:
+        fail(f"strict AUC card {a_gpu} vs cpu {a_cpu}: more than 1e-3")
+    s_again, *_ = train_slice(torch, lgbt, 50_000, 3, seed=1)
+    if s_again.model_to_string() != s_gpu.model_to_string():
+        fail("two card trainings of the strict default (float32) gave "
+             "different model text")
+    print("cross-check (strict): two card trainings gave byte-identical "
+          "model text", flush=True)
+    del s_gpu, s_cpu, s_again
+
+    # the pooled recipe, card vs CPU (int8: exact)
+    p_gpu, *_ = train_slice(torch, lgbt, 100_000, 3, histogram_pool_size=8)
+    p_cpu, *_ = train_slice(torch, lgbt, 100_000, 3, "cpu",
+                            histogram_pool_size=8)
+    t_g, t_c = p_gpu._gbdt.models[0], p_cpu._gbdt.models[0]
+    if not (p_gpu._gbdt.hp.hist_pool_slots > 0
+            and t_g.num_leaves == t_c.num_leaves
+            and np.array_equal(t_g.split_feature, t_c.split_feature)
+            and np.array_equal(t_g.threshold_bin, t_c.threshold_bin)):
+        fail("pooled tree 0 differs between the card and the CPU")
+    print(f"cross-check (pooled, 100k x 3): tree 0 identical "
+          f"({t_g.num_leaves} leaves)", flush=True)
+    print(f"chip_smoke: {time.perf_counter() - t_script:.1f} s in all, the "
+          f"kernel build {build_s:.1f} s of it", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,9 @@ Counterpart of ``lightgbm_tpu/boosting/gbdt.py`` (reference
 src/boosting/gbdt.cpp ``TrainOneIter`` :344-452).  One iteration runs, on
 the booster's torch device: objective gradients -> integer gradient levels
 (ops/quantize.py; stochastic rounding draws the JAX package's threefry
-bits) -> ``grow_tree_batched`` -> leaf renewal from the true gradients ->
+bits) -> ``grow_tree`` (the strict leaf-wise learner) or
+``grow_tree_batched`` (``_use_batched_grower``) -> leaf renewal from the
+true gradients ->
 shrinkage -> the score update through ``take_small_table``
 (shrink BEFORE the gather, the JAX package's order) -> valid-set score
 updates.  Trees are then finalized on the host (models/tree.py).
@@ -14,12 +16,16 @@ trees exactly like the JAX package.
 ``_resolve_auto_params`` is the JAX package's policy verbatim: at >= 100k
 rows an unset ``tpu_split_batch`` becomes min(42, num_leaves - 1) and an
 unset ``tpu_hist_dtype`` / ``use_quantized_grad`` becomes exact int8
-levels with leaf renewal.
+levels with leaf renewal; below it a plain ``train()`` keeps
+``tpu_split_batch=1`` and float32 histograms, the strict learner.
+``histogram_pool_size`` (or the 4 GB guard) becomes batched-grower pool
+slots exactly as in the JAX package, and an engaged pool routes even
+``tpu_split_batch=1`` through the batched grower.
 
-Not ported yet: the strict leaf-wise grower, the fused multi-round scan,
-bagging/GOSS, DART/RF, multiclass, custom objectives, the distributed
-modes and the device forest predictor (``predict`` walks trees on the
-host, as the JAX package does below ``DEVICE_PREDICT_MIN_WORK``).
+Not ported yet: the fused multi-round scan, bagging/GOSS, DART/RF,
+multiclass, custom objectives, the distributed modes and the device forest
+predictor (``predict`` walks trees on the host, as the JAX package does
+below ``DEVICE_PREDICT_MIN_WORK``).
 """
 
 from __future__ import annotations
@@ -32,7 +38,7 @@ import torch
 
 from ..config import Config
 from ..io.dataset import Dataset
-from ..learner.batch_grower import check_supported, grow_tree_batched
+from ..learner import batch_grower, grower
 from ..metrics import Metric, create_metrics
 from ..models.predict import predict_bins_tree
 from ..models.tree import Tree
@@ -170,7 +176,11 @@ class GBDT:
         if wants_packed_mirror(self.hp.hist_kernel, self.hp.n_bins):
             self.bins_words_t = self.bins_words.t().contiguous()
         self._check_pool(config)
-        check_supported(self.hp, int(config.tpu_split_batch))
+        if self._use_batched_grower():
+            batch_grower.check_supported(self.hp,
+                                         int(config.tpu_split_batch))
+        else:
+            grower.check_supported(self.hp, "strict leaf-wise grower")
 
         n = train_set.num_data
         k = self.num_tree_per_iteration
@@ -208,18 +218,45 @@ class GBDT:
                      "opt out)" % int(config.tpu_split_batch))
 
     def _check_pool(self, config: Config) -> None:
-        """The JAX package's histogram-pool translation, reduced to its
-        verdict: an engaged pool is not ported yet."""
+        """The JAX package's histogram-pool translation (reference
+        histogram_pool_size MB, serial_tree_learner.cpp:36-47): the MB
+        budget becomes batched-grower pool slots, at least 3 * batch + 2;
+        unset, the pool still engages at 1 GB when the [L, F, B, 4] state
+        would pass 4 GB."""
         pool_mb = float(config.histogram_pool_size)
         bytes_per_leaf = self.bins.shape[1] * self.hp.n_bins * 4 * 4
+        full_state = bytes_per_leaf * self.hp.num_leaves
         if pool_mb <= 0 and not config.is_explicit("histogram_pool_size") \
-                and bytes_per_leaf * self.hp.num_leaves > (4 << 30):
+                and full_state > (4 << 30):
             pool_mb = 1024.0
+            log.info("histogram state would be %.1f GB; engaging the "
+                     "bounded pool at 1 GB (set histogram_pool_size=-1 "
+                     "to keep all leaves resident)"
+                     % (full_state / (1 << 30)))
         if pool_mb > 0:
             slots = int(pool_mb * (1 << 20) // max(bytes_per_leaf, 1))
             slots = max(slots, 3 * max(1, int(config.tpu_split_batch)) + 2)
             if slots < self.hp.num_leaves:
                 self.hp = dataclasses.replace(self.hp, hist_pool_slots=slots)
+
+    def _use_batched_grower(self) -> bool:
+        """The JAX package's decision, reduced to serial training: batched
+        rounds when ``tpu_split_batch`` > 1 or the bounded pool is engaged
+        (batch=1 pooled rounds grow the strict learner's trees)."""
+        return (int(self.config.tpu_split_batch) > 1
+                or batch_grower.pooled(self.hp))
+
+    def _grow(self, g: torch.Tensor, h: torch.Tensor, feature_mask,
+              hist_scale=None):
+        """One tree through the strict or the batched learner."""
+        args = (self.bins, g, h, None, self.num_bins_arr, self.nan_bin_arr,
+                feature_mask, self.hp)
+        kw = dict(hist_scale=hist_scale, bins_t=self.bins_t,
+                  bins_words=self.bins_words, bins_words_t=self.bins_words_t)
+        if self._use_batched_grower():
+            return batch_grower.grow_tree_batched(
+                *args, batch=int(self.config.tpu_split_batch), **kw)
+        return grower.grow_tree(*args, **kw)
 
     def _init_base_score(self) -> None:
         md = self.train_set.metadata
@@ -308,13 +345,9 @@ class GBDT:
 
         finished = True
         for cls_idx in range(k):
-            arrays, leaf_of_row = grow_tree_batched(
-                self.bins, g[:, cls_idx].contiguous(),
-                h[:, cls_idx].contiguous(), None, self.num_bins_arr,
-                self.nan_bin_arr, feature_mask, self.hp,
-                batch=int(self.config.tpu_split_batch),
-                hist_scale=hist_scales[cls_idx], bins_t=self.bins_t,
-                bins_words=self.bins_words, bins_words_t=self.bins_words_t)
+            arrays, leaf_of_row = self._grow(
+                g[:, cls_idx].contiguous(), h[:, cls_idx].contiguous(),
+                feature_mask, hist_scale=hist_scales[cls_idx])
             if quant and bool(self.config.quant_train_renew_leaf):
                 renewed = renew_leaf_values(
                     leaf_of_row, g_true[:, cls_idx], h_true[:, cls_idx],

@@ -48,8 +48,8 @@ int run_leaves(const uint8_t* bins_t, long n, int num_f, const float* grad,
                const float* hess, const int* lor, const int* leaves, int K,
                int n_bins, void* scratch, float* out, cudaStream_t s) {
   Task t = {bins_t, nullptr, n, num_f, grad, hess, lor, leaves, K, n_bins};
-  return run_hist<typename Val<MODE>::T>(hist_leaves_kernel<MODE>, t, 1,
-                                         true, 1, true, scratch, out, s);
+  return run_hist<MODE>(hist_leaves_kernel<MODE>, t, 1, true, 1, true,
+                        scratch, out, s);
 }
 
 template <int MODE>
@@ -61,13 +61,14 @@ int run_payload(const int* payload, long S, int W, int num_f,
   t.payload = payload;
   t.W = W;
   t.cnt = cnt;
-  return run_hist<typename Val<MODE>::T>(hist_payload_kernel<MODE>, t, 1,
-                                         true, 1, true, scratch, out, s);
+  return run_hist<MODE>(hist_payload_kernel<MODE>, t, 1, true, 1, true,
+                        scratch, out, s);
 }
 
 }  // namespace
 
-// scratch: zero-filled [K, num_f, n_bins, 3] int32 (mode 0) or f32 (1, 2)
+// scratch: zero-filled [K, num_f, n_bins, 3] int32 (mode 0) or int64 (1,
+// 2) plus one int64 for the modes' scale (hist_common.cuh run_hist)
 extern "C" int lgbt_hist_leaves(const uint8_t* bins_t, long n, int num_f,
                                 const float* grad, const float* hess,
                                 const int* lor, const int* leaves, int K,

@@ -1,5 +1,5 @@
 // Shared core of the masked (grad, hess, count) histogram kernels of
-// hist.cu, radix.cu and packed.cu.
+// hist.cu, radix.cu and packed.cu, and the value arithmetic rows.cu uses too.
 //
 // Every kernel computes the same function as the TPU kernels it replaces:
 // each selected row adds (grad, hess, 1) to the cell (slot of its leaf,
@@ -17,22 +17,29 @@
 // for all of them; several private copies (one per group of warps) spread
 // rows that hit the same cell over several addresses.
 //
-// Modes (``MODE``):
+// Modes (``MODE``).  Every mode sums integers, so the order in which blocks
+// and atomics land cannot change a bit: the same inputs give the same
+// histogram on every call.
 //   0  int8 levels: grad/hess carry small integer levels; values go through
 //      f32 -> i32 -> i8 exactly like the TPU kernels and sum in int32, so the
-//      result is exact and deterministic (one f32 rounding at exit);
-//   1  float32: f32 shared and global atomics.  The summation order changes
-//      from run to run, so this mode is deterministic only on integer-valued
-//      inputs (exact sums below 2^24);
-//   2  bfloat16: values rounded to bf16 (as the TPU casts them), f32 sums as
-//      in mode 1.
+//      result is exact (one f32 rounding at exit);
+//   1  float32: each value becomes a 64-bit fixed-point integer
+//      round(v * 2^s) and sums in int64.  The power-of-two scale 2^s is
+//      chosen per call and per channel on the device (absmax_kernel finds the
+//      largest finite |value| of the pass, fixed_shift keeps any sum of the
+//      pass's values below 2^62), and finalize rounds each sum once to f32.
+//      Integer-valued inputs (and any value on the 2^-s grid) are summed
+//      exactly, so the result is the correctly rounded exact sum;
+//   2  bfloat16: values rounded to bf16 (as the TPU casts them), then as 1.
 // Excluded rows are skipped before their grad/hess are read, so a NaN on an
-// excluded row never enters a sum (the TPU kernels' where() masking).
+// excluded row never enters a sum (the TPU kernels' where() masking); the
+// scale ignores NaN and infinite values for the same reason.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <float.h>
 #include <limits.h>
 #include <stdint.h>
 
@@ -44,27 +51,75 @@ constexpr int kFixedInts = kLeafTable + 4;  // table + use-table flag (+pad)
 constexpr int kFewSlots = 4;      // SEL_FEW keeps up to 4 leaf ids in registers
 constexpr int kSMs = 132;         // H100 SXM
 
+// The fixed-point exponent of one channel: at most n values of magnitude
+// below 2^e (vmax < 2^e) scaled by 2^s sum to less than 2^62.
+__device__ inline int fixed_shift(unsigned vmax_bits, long n) {
+  const float vmax = __uint_as_float(vmax_bits);
+  if (!(vmax > 0.0f)) return 0;
+  int e;
+  frexpf(vmax, &e);
+  const int k = 64 - __clzll((unsigned long long)(n > 1 ? n : 1));  // n < 2^k
+  return 62 - k - e;
+}
+
+struct Fixed {
+  typedef unsigned long long T;  // two's complement sums wrap correctly
+  __device__ static T fix(float v, int s) {
+    return (T)__double2ll_rn(scalbn((double)v, s));
+  }
+  __device__ static float out(T v, int s) {
+    return scalbnf(__ll2float_rn((long long)v), -s);
+  }
+};
+
 template <int MODE>
 struct Val;
 template <>
 struct Val<0> {
   typedef int T;
-  __device__ static int cvt(float v) {
+  __device__ static int cvt(float v, int) {
     return (int)(signed char)__float2int_rz(v);
   }
+  __device__ static float out(int v, int) { return (float)v; }
 };
 template <>
-struct Val<1> {
-  typedef float T;
-  __device__ static float cvt(float v) { return v; }
+struct Val<1> : Fixed {
+  __device__ static T cvt(float v, int s) { return fix(v, s); }
 };
 template <>
-struct Val<2> {
-  typedef float T;
-  __device__ static float cvt(float v) {
-    return __bfloat162float(__float2bfloat16_rn(v));
+struct Val<2> : Fixed {
+  __device__ static T cvt(float v, int s) {
+    return fix(__bfloat162float(__float2bfloat16_rn(v)), s);
   }
 };
+
+// Largest finite |v| of channel blockIdx.y (v + blockIdx.y * chan_stride,
+// n entries at ``stride``) as float bits into out[blockIdx.y] (zeroed by
+// the caller); non-negative floats order as their bit patterns, so an
+// integer atomicMax finds it.
+__global__ void absmax_kernel(const float* __restrict__ v, long n, long stride,
+                              long chan_stride, unsigned* __restrict__ out) {
+  v += blockIdx.y * chan_stride;
+  unsigned m = 0;
+  for (long r = (long)blockIdx.x * blockDim.x + threadIdx.x; r < n;
+       r += (long)gridDim.x * blockDim.x) {
+    const float a = fabsf(v[r * stride]);
+    if (a <= FLT_MAX && __float_as_uint(a) > m) m = __float_as_uint(a);
+  }
+  for (int o = 16; o > 0; o >>= 1)
+    m = max(m, __shfl_xor_sync(0xffffffffu, m, o));
+  if ((threadIdx.x & 31) == 0 && m != 0) atomicMax(out + blockIdx.y, m);
+}
+
+int launch_absmax(const float* v, long n, long stride, long chan_stride,
+                  int C, unsigned* out, cudaStream_t s) {
+  if (n <= 0 || C <= 0) return 0;
+  long want = (n + 255) / 256;
+  int blocks = (int)(want < kSMs * 4L ? want : kSMs * 4L);
+  absmax_kernel<<<dim3(blocks, C), 256, 0, s>>>(v, n, stride, chan_stride,
+                                                  out);
+  return (int)cudaGetLastError();
+}
 
 // leaf -> first slot holding it, in shared memory; *use_tab = 0 when some
 // leaf id falls outside the table (then slot_of searches linearly)
@@ -96,13 +151,12 @@ __device__ inline int slot_of(int leaf, const int* tab, int use_tab,
   return -1;
 }
 
-template <int MODE>
-__device__ inline void add_row(typename Val<MODE>::T* acc, int slot, int bin,
-                               int n_bins, float g, float h) {
-  typedef typename Val<MODE>::T T;
+template <typename T>
+__device__ inline void add_row(T* acc, int slot, int bin, int n_bins, T g,
+                               T h) {
   T* a = acc + ((long)slot * n_bins + bin) * 3;
-  atomicAdd(a, Val<MODE>::cvt(g));
-  atomicAdd(a + 1, Val<MODE>::cvt(h));
+  atomicAdd(a, g);
+  atomicAdd(a + 1, h);
   atomicAdd(a + 2, (T)1);
 }
 
@@ -134,6 +188,7 @@ struct Task {
   const int* payload;  // SRC_PAYLOAD (grad, hess, lor unused)
   int W;               // SRC_PAYLOAD: bin words per row
   const int* cnt;      // SRC_PAYLOAD: rows in use, read on the device
+  const unsigned* vmax;  // modes 1, 2: max |grad|, max |hess| as float bits
 };
 
 // One block's share: features [f0, f0+fpb) x rows of chunk blockIdx.y x
@@ -158,6 +213,8 @@ __device__ inline void hist_block(const Task& t,
   const int cell = t.n_bins * 3;
   const int slot_stride = t.fpb * cell;
   const int per_copy = ns * slot_stride;
+  const int sg = MODE == 0 ? 0 : fixed_shift(t.vmax[0], t.n);
+  const int sh = MODE == 0 ? 0 : fixed_shift(t.vmax[1], t.n);
   for (int i = threadIdx.x; i < t.copies * per_copy; i += blockDim.x)
     acc[i] = (T)0;
   int few[kFewSlots];
@@ -189,26 +246,27 @@ __device__ inline void hist_block(const Task& t,
     }
     k -= k0;
     if (k < 0 || k >= ns) continue;
-    const float g = SRC == SRC_PAYLOAD ? __int_as_float(prow[t.W]) : t.grad[r];
-    const float h =
-        SRC == SRC_PAYLOAD ? __int_as_float(prow[t.W + 1]) : t.hess[r];
+    const T g = Val<MODE>::cvt(
+        SRC == SRC_PAYLOAD ? __int_as_float(prow[t.W]) : t.grad[r], sg);
+    const T h = Val<MODE>::cvt(
+        SRC == SRC_PAYLOAD ? __int_as_float(prow[t.W + 1]) : t.hess[r], sh);
     T* as = a + k * slot_stride;
     if (SRC == SRC_PAYLOAD) {
       for (int j = 0; j < nf; ++j) {
         const int f = f0 + j;
         const int b = (prow[f >> 2] >> ((f & 3) * 8)) & 255;
-        if (b < t.n_bins) add_row<MODE>(as, j, b, t.n_bins, g, h);
+        if (b < t.n_bins) add_row<T>(as, j, b, t.n_bins, g, h);
       }
     } else if (SRC == SRC_WORDS) {
       const unsigned w = (unsigned)t.words_t[(long)(f0 >> 2) * t.n + r];
       for (int j = 0; j < nf; ++j) {
         const int b = (w >> (8 * j)) & 255;
-        if (b < t.n_bins) add_row<MODE>(as, j, b, t.n_bins, g, h);
+        if (b < t.n_bins) add_row<T>(as, j, b, t.n_bins, g, h);
       }
     } else {
       for (int j = 0; j < nf; ++j) {
         const int b = t.bins_t[(long)(f0 + j) * t.n + r];
-        if (b < t.n_bins) add_row<MODE>(as, j, b, t.n_bins, g, h);
+        if (b < t.n_bins) add_row<T>(as, j, b, t.n_bins, g, h);
       }
     }
   }
@@ -229,11 +287,15 @@ __device__ inline void hist_block(const Task& t,
 
 // glob [K, F, B, 3] -> out f32 [K, F, B, 4]; repeated slots copy the first
 // (leaves may be null: no repeats)
-template <typename T>
-__global__ void finalize_kernel(const T* __restrict__ glob,
+template <int MODE>
+__global__ void finalize_kernel(const typename Val<MODE>::T* __restrict__ glob,
                                 const int* __restrict__ leaves, int K,
-                                int num_f, int n_bins,
+                                int num_f, int n_bins, long n,
+                                const unsigned* __restrict__ vmax,
                                 float4* __restrict__ out) {
+  typedef typename Val<MODE>::T T;
+  const int sg = MODE == 0 ? 0 : fixed_shift(vmax[0], n);
+  const int sh = MODE == 0 ? 0 : fixed_shift(vmax[1], n);
   const long per = (long)num_f * n_bins;
   const long total = (long)K * per;
   const long stride = (long)gridDim.x * blockDim.x;
@@ -252,19 +314,23 @@ __global__ void finalize_kernel(const T* __restrict__ glob,
       }
     }
     const T* src = glob + ((long)kf * per + rem) * 3;
-    out[i] = make_float4((float)src[0], (float)src[1], (float)src[2], 0.0f);
+    out[i] = make_float4(Val<MODE>::out(src[0], sg),
+                         Val<MODE>::out(src[1], sh),
+                         Val<MODE>::out(src[2], 0), 0.0f);
   }
 }
 
-template <typename T>
-int launch_finalize(const T* glob, const int* leaves, int K, int num_f,
-                    int n_bins, float* out, cudaStream_t s) {
+template <int MODE>
+int launch_finalize(const typename Val<MODE>::T* glob, const int* leaves,
+                    int K, int num_f, int n_bins, long n,
+                    const unsigned* vmax, float* out, cudaStream_t s) {
   long total = (long)K * num_f * n_bins;
   if (total <= 0) return 0;
   long want = (total + 255) / 256;
   int blocks = (int)(want < kSMs * 32L ? want : kSMs * 32L);
-  finalize_kernel<T><<<blocks, 256, 0, s>>>(glob, leaves, K, num_f, n_bins,
-                                            reinterpret_cast<float4*>(out));
+  finalize_kernel<MODE><<<blocks, 256, 0, s>>>(
+      glob, leaves, K, num_f, n_bins, n, vmax,
+      reinterpret_cast<float4*>(out));
   return (int)cudaGetLastError();
 }
 
@@ -287,14 +353,19 @@ struct Plan {
   size_t smem;
 };
 
-int plan_blocks(int K, int num_f, int n_bins, size_t elem, int fpb_max,
-                bool fixed, int copies, size_t fixed_bytes, Plan* p) {
-  int dev = 0, optin = 0;
+int optin_smem(int* optin) {
+  int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
-  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             dev);
-  if (e != cudaSuccess) return (int)e;
+  return (int)cudaDeviceGetAttribute(
+      optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+}
+
+int plan_blocks(int K, int num_f, int n_bins, size_t elem, int fpb_max,
+                bool fixed, int copies, size_t fixed_bytes, Plan* p) {
+  int optin = 0;
+  int err = optin_smem(&optin);
+  if (err) return err;
   const size_t cell = (size_t)n_bins * 3 * elem * copies;
   int lo = fixed ? fpb_max : 1;
   for (int f = fpb_max; f >= lo; --f) {
@@ -323,10 +394,27 @@ int plan_blocks(int K, int num_f, int n_bins, size_t elem, int fpb_max,
 
 // Plan, launch ``kernel`` (a __global__ wrapper of hist_block) over the
 // zero-filled global accumulator ``scratch`` and finalize into ``out``.
-template <typename T, typename Kernel>
+// Modes 1 and 2 first find the scale: the two words after the [K, F, B, 3]
+// accumulator (zeroed with it) receive max |grad| and max |hess|.
+template <int MODE, typename Kernel>
 int run_hist(Kernel kernel, Task t, int fpb_max, bool fpb_fixed, int copies,
              bool table, void* scratch, float* out, cudaStream_t s) {
+  typedef typename Val<MODE>::T T;
   T* glob = reinterpret_cast<T*>(scratch);
+  unsigned* vmax =
+      reinterpret_cast<unsigned*>(glob + (long)t.K * t.num_f * t.n_bins * 3);
+  t.vmax = vmax;
+  if (MODE != 0 && t.n > 0) {
+    int err;
+    if (t.payload != nullptr) {  // grad, hess: payload columns W, W+1
+      err = launch_absmax(reinterpret_cast<const float*>(t.payload) + t.W,
+                          t.n, t.W + 3, 1, 2, vmax, s);
+    } else {
+      err = launch_absmax(t.grad, t.n, 1, 0, 1, vmax, s);
+      if (!err) err = launch_absmax(t.hess, t.n, 1, 0, 1, vmax + 1, s);
+    }
+    if (err) return err;
+  }
   if (t.n > 0 && t.K > 0 && t.num_f > 0) {
     Plan p;
     int err = plan_blocks(t.K, t.num_f, t.n_bins, sizeof(T), fpb_max,
@@ -346,7 +434,8 @@ int run_hist(Kernel kernel, Task t, int fpb_max, bool fpb_fixed, int copies,
     err = (int)cudaGetLastError();
     if (err) return err;
   }
-  return launch_finalize<T>(glob, t.leaves, t.K, t.num_f, t.n_bins, out, s);
+  return launch_finalize<MODE>(glob, t.leaves, t.K, t.num_f, t.n_bins, t.n,
+                               vmax, out, s);
 }
 
 }  // namespace

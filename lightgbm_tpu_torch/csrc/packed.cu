@@ -33,13 +33,14 @@ __global__ void __launch_bounds__(kThreads)
 
 template <int MODE>
 int run(Task t, void* scratch, float* out, cudaStream_t s) {
-  return run_hist<typename Val<MODE>::T>(packed_kernel<MODE>, t, 4, true, 1,
-                                         true, scratch, out, s);
+  return run_hist<MODE>(packed_kernel<MODE>, t, 4, true, 1, true, scratch,
+                        out, s);
 }
 
 }  // namespace
 
-// scratch: zero-filled [K, num_f, n_bins, 3] int32 (mode 0) or f32 (1, 2)
+// scratch: zero-filled [K, num_f, n_bins, 3] int32 (mode 0) or int64 (1,
+// 2) plus one int64 for the modes' scale (hist_common.cuh run_hist)
 extern "C" int lgbt_hist_packed(const int* words_t, int W, long n, int num_f,
                                 const float* grad, const float* hess,
                                 const int* lor, const int* leaves, int K,

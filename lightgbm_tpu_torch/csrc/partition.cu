@@ -1,8 +1,14 @@
 // Fused batched-round partition: K splits applied in one row pass, with the
-// next histogram pass's compaction key and payload written in the same pass.
+// next histogram pass's compaction key (and, for the payload variant, its
+// payload) written in the same pass.
 //
-// Replaces the TPU kernel lightgbm_tpu/ops/round_fuse.py
-// partition_payload_pallas.  Per row r (elementwise, so one thread per row):
+// Replaces two TPU kernels of lightgbm_tpu/ops/round_fuse.py:
+//   * partition_payload_pallas -> lgbt_partition_payload;
+//   * partition_select_pallas -> lgbt_partition_select, the same pass
+//     without the payload (the bounded histogram pool's rounds, whose
+//     extended leaf set builds its own keys).
+// Per row r (elementwise, so one thread per row; one loop, partition_kernel,
+// with the payload behind a template flag):
 //   * slot k moves r when validk[k] and parents[k] == lor[r]; the split
 //     column is bins_t[feats[k], r] (0 for a feature index out of range, as
 //     the TPU one-hot gives), and the row goes left when
@@ -13,15 +19,18 @@
 //   * payload row = [words[r, :W], bits(grad[r]), bits(hess[r]), lor_m].
 // The eight [K] slot descriptors are staged in shared memory.
 //
-// Bound on the H100: bytes, about 45 B read (one bin byte, W words, grad,
-// hess, leaf, mask) and 4(W+3) + 8 B written per row: ~93 B at W = 7.
+// Bound on the H100: bytes.  The payload variant reads about 45 B (one bin
+// byte, W words, grad, hess, leaf, mask) and writes 4(W+3) + 8 B per row:
+// ~93 B at W = 7.  The select variant reads the leaf, the mask and one bin
+// byte per matching slot (9 B) and writes 8 B per row.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-__global__ void partition_payload_kernel(
+template <bool PAYLOAD>
+__global__ void partition_kernel(
     const uint8_t* __restrict__ bins_t, long n, int num_f,
     const int* __restrict__ words, int W, const float* __restrict__ grad,
     const float* __restrict__ hess, const int* __restrict__ lor,
@@ -62,13 +71,31 @@ __global__ void partition_payload_kernel(
     int sel = 0;
     for (int k = 0; k < K; ++k) sel += (lm == sm[k]);
     out_key[r] = sel > 0 ? (int)r : ((int)r | (1 << 30));
-    int* prow = out_pay + r * (W + 3);
-    const int* wrow = words + r * W;
-    for (int j = 0; j < W; ++j) prow[j] = wrow[j];
-    prow[W] = __float_as_int(grad[r]);
-    prow[W + 1] = __float_as_int(hess[r]);
-    prow[W + 2] = lm;
+    if (PAYLOAD) {
+      int* prow = out_pay + r * (W + 3);
+      const int* wrow = words + r * W;
+      for (int j = 0; j < W; ++j) prow[j] = wrow[j];
+      prow[W] = __float_as_int(grad[r]);
+      prow[W + 1] = __float_as_int(hess[r]);
+      prow[W + 2] = lm;
+    }
   }
+}
+
+template <bool PAYLOAD>
+int launch(const uint8_t* bins_t, long n, int num_f, const int* words, int W,
+           const float* grad, const float* hess, const int* lor,
+           const int* mask, const int* desc, int K, int* out_lor,
+           int* out_key, int* out_pay, void* stream) {
+  if (n <= 0) return 0;
+  const int threads = 256;
+  long want = (n + threads - 1) / threads;
+  int blocks = (int)(want < 132L * 16 ? want : 132L * 16);
+  size_t smem = (size_t)8 * K * sizeof(int);
+  partition_kernel<PAYLOAD><<<blocks, threads, smem, (cudaStream_t)stream>>>(
+      bins_t, n, num_f, words, W, grad, hess, lor, mask, desc, K, out_lor,
+      out_key, out_pay);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -82,13 +109,15 @@ extern "C" int lgbt_partition_payload(const uint8_t* bins_t, long n,
                                       const int* desc, int K, int* out_lor,
                                       int* out_key, int* out_pay,
                                       void* stream) {
-  if (n <= 0) return 0;
-  const int threads = 256;
-  long want = (n + threads - 1) / threads;
-  int blocks = (int)(want < 132L * 16 ? want : 132L * 16);
-  size_t smem = (size_t)8 * K * sizeof(int);
-  partition_payload_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
-      bins_t, n, num_f, words, W, grad, hess, lor, mask, desc, K, out_lor,
-      out_key, out_pay);
-  return (int)cudaGetLastError();
+  return launch<true>(bins_t, n, num_f, words, W, grad, hess, lor, mask, desc,
+                      K, out_lor, out_key, out_pay, stream);
+}
+
+extern "C" int lgbt_partition_select(const uint8_t* bins_t, long n,
+                                     int num_f, const int* lor,
+                                     const int* mask, const int* desc, int K,
+                                     int* out_lor, int* out_key,
+                                     void* stream) {
+  return launch<false>(bins_t, n, num_f, nullptr, 0, nullptr, nullptr, lor,
+                       mask, desc, K, out_lor, out_key, nullptr, stream);
 }

@@ -20,7 +20,8 @@
 //     share a bin collide on one shared address.  The block keeps 8 private
 //     copies of its accumulator (one per four warps) and 4 features, so a
 //     row's leaf, grad and hess are read once for four features (96 KB at
-//     B = 256: two blocks fit an SM);
+//     B = 256 in int8, two blocks per SM; the 64-bit sums of float32 and
+//     bfloat16 take 192 KB);
 //   * radix_joint: G <= 4 leaf ids sit in registers (no slot table); 4
 //     features x G slots x 2 copies (96 KB at G = 4, B = 256);
 //   * radix2: the leaf -> slot table in shared memory; as many features per
@@ -60,17 +61,16 @@ enum { KIND_SINGLE = 0, KIND_JOINT = 1, KIND_RADIX2 = 2 };
 
 template <int MODE>
 int run(int kind, Task t, void* scratch, float* out, cudaStream_t s) {
-  typedef typename Val<MODE>::T T;
   switch (kind) {
     case KIND_SINGLE:
-      return run_hist<T>(radix_single_kernel<MODE>, t, 4, false, 8, false,
-                         scratch, out, s);
+      return run_hist<MODE>(radix_single_kernel<MODE>, t, 4, false, 8, false,
+                            scratch, out, s);
     case KIND_JOINT:
-      return run_hist<T>(radix_joint_kernel<MODE>, t, 4, false, 2, false,
-                         scratch, out, s);
+      return run_hist<MODE>(radix_joint_kernel<MODE>, t, 4, false, 2, false,
+                            scratch, out, s);
     case KIND_RADIX2:
-      return run_hist<T>(radix2_kernel<MODE>, t, 4, false, 1, true, scratch,
-                         out, s);
+      return run_hist<MODE>(radix2_kernel<MODE>, t, 4, false, 1, true,
+                            scratch, out, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -91,7 +91,8 @@ int dispatch(int kind, int mode, Task t, void* scratch, float* out,
 
 }  // namespace
 
-// scratch: zero-filled [K, num_f, n_bins, 3] int32 (mode 0) or f32 (1, 2);
+// scratch: zero-filled [K, num_f, n_bins, 3] int32 (mode 0) or int64 (1,
+// 2) plus one int64 for the modes' scale (hist_common.cuh run_hist);
 // out: f32 [K, num_f, n_bins, 4] (K = 1 for the root pass)
 extern "C" int lgbt_hist_radix_single(const uint8_t* bins_t, long n,
                                       int num_f, const float* grad,

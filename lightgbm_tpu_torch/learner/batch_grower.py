@@ -19,13 +19,22 @@ run first (the JAX package's warm-up ladder): each width covers the
 frontier, so the tree is the same, and the narrow masked passes take the
 radix-joint kernel.
 
-Supported here: numeric features, serial training, no bundles, no bounded
-histogram pool, row masks, per-tree feature masks, depth limits,
-max_delta_step, quantized levels (``hist_scale``).  Not ported yet:
-categorical splits, monotone / interaction / forced splits, CEGB, linear
-trees, path smoothing, by-node sampling, extra trees, EFB bundles, the
-histogram pool, the distributed modes — and the strict leaf-wise grower
-that ``batch < 2`` needs.
+With a bounded histogram pool (``SplitHyper.hist_pool_slots`` = P <
+num_leaves, the JAX package's ``histogram_pool_size`` translation) the
+state holds P histogram slots plus a trash slot, mapped by ``leaf_slot``
+/ ``slot_leaf``.  A round then builds the histograms of the extended leaf
+set [smaller children, larger children whose parent was evicted] in one
+pass, allocates slots (free slots first, then the lowest cached gains;
+this round's parent slots locked), and partitions with
+``partition_select`` (the pass builds its own compaction keys).  At
+``batch=1`` the pooled rounds grow the strict learner's tree.
+
+Supported here: numeric features, serial training, no bundles, row masks,
+per-tree feature masks, depth limits, max_delta_step, quantized levels
+(``hist_scale``), the histogram pool.  Not ported yet: categorical splits,
+monotone / interaction / forced splits, CEGB, linear trees, path
+smoothing, by-node sampling, extra trees, EFB bundles, the distributed
+modes.
 """
 
 from __future__ import annotations
@@ -37,33 +46,33 @@ import torch
 from ..ops.histogram import (bins_to_words, histogram_for_leaves_auto,
                              ladder_profitable, root_histogram,
                              wants_packed_mirror)
-from ..ops.round_fuse import partition_payload
+from ..ops.round_fuse import partition_payload, partition_select
 from ..ops.split import NEG_INF, SplitHyper, find_best_split, leaf_output
 from ..utils import log
 from .grower import TreeArrays
+from .grower import check_supported as _check_learner
 
 #: rows below which the warm-up ladder is skipped, as in the JAX package
 #: (tests patch it on both sides to run the ladder on small data)
 _WARMUP_MIN_ROWS = 65536
 
 
+def pooled(hp: SplitHyper) -> bool:
+    """True when the bounded histogram pool is engaged."""
+    return 0 < hp.hist_pool_slots < hp.num_leaves
+
+
 def check_supported(hp: SplitHyper, batch: int) -> None:
     """Raise ``LightGBMError`` naming the first configuration outside this
     grower's supported set."""
-    if batch < 2:
-        log.fatal("tpu_split_batch=%d needs the strict leaf-wise grower, "
-                  "which lightgbm_tpu_torch does not port yet; set "
-                  "tpu_split_batch >= 2" % batch)
-    for bad, what in ((hp.has_categorical, "categorical features"),
-                      (hp.use_monotone, "monotone_constraints"),
-                      (hp.path_smooth > 0.0, "path_smooth"),
-                      (hp.extra_trees, "extra_trees"),
-                      (hp.feature_fraction_bynode < 1.0,
-                       "feature_fraction_bynode"),
-                      (hp.hist_pool_slots > 0, "histogram_pool_size")):
-        if bad:
-            log.fatal(f"{what} is not supported by lightgbm_tpu_torch's "
-                      "batched grower yet")
+    if batch < 2 and not pooled(hp):
+        log.fatal("tpu_split_batch=%d without a histogram pool is the "
+                  "strict leaf-wise grower's (learner/grower.py)" % batch)
+    K = min(max(batch, 1), hp.num_leaves - 1)
+    if pooled(hp) and hp.hist_pool_slots < 3 * K + 2:
+        log.fatal("hist_pool_slots=%d must be >= 3*batch+2 = %d"
+                  % (hp.hist_pool_slots, 3 * K + 2))
+    _check_learner(hp, "batched grower")
 
 
 def _put(arr: torch.Tensor, idx: torch.Tensor, val: torch.Tensor) -> None:
@@ -162,9 +171,18 @@ def grow_tree_batched(bins: torch.Tensor, grad: torch.Tensor,
     leaf_count[0] = c0
     leaf_weight[0] = h0
 
-    hist = torch.zeros(NL, num_f, hp.n_bins, hist0.shape[-1], dtype=f32,
-                       device=dev)
+    # histogram state: one row per leaf, or P pool slots + a trash slot
+    # with the leaf <-> slot maps (trash entries at L and P)
+    pool = pooled(hp)
+    P = hp.hist_pool_slots
+    hist = torch.zeros(P + 1 if pool else NL, num_f, hp.n_bins,
+                       hist0.shape[-1], dtype=f32, device=dev)
     hist[0] = hist0
+    if pool:
+        leaf_slot = full((L + 1,), -1, i32)
+        slot_leaf = full((P + 1,), -1, i32)
+        leaf_slot[0] = 0
+        slot_leaf[0] = 0
     sum_g = full((NL,), 0.0, f32)
     sum_h = full((NL,), 0.0, f32)
     count = full((NL,), 0.0, f32)
@@ -190,6 +208,60 @@ def grow_tree_batched(bins: torch.Tensor, grad: torch.Tensor,
     iota_f = torch.arange(num_f, device=dev)
     lor = torch.zeros(n, dtype=i32, device=dev)
     n_splits = 0
+
+    def pool_round(parents, safe_nl, valid, smaller, l_cnt, r_cnt,
+                   small_cnt, left_small, hist_kw):
+        """The pooled round's histograms and slot allocation (the JAX
+        package's, batch_grower.py:929-991): parents whose histogram was
+        evicted get both children built directly; returns the children's
+        (h_left, h_right)."""
+        Kr = parents.shape[0]
+        p_slot = leaf_slot[parents]
+        present = (p_slot >= 0) & valid
+        larger = torch.where(l_cnt <= r_cnt, safe_nl, parents)
+        need_direct = valid & ~present
+        large_cnt = torch.where(need_direct, torch.maximum(l_cnt, r_cnt),
+                                torch.zeros_like(l_cnt))
+        leaves_ext = torch.cat([smaller, torch.where(need_direct, larger,
+                                                     L - 1)])
+        h_ext = scaled(histogram_for_leaves_auto(
+            bins_t, grad, hess, lor, leaves_ext, row_mask,
+            counts=torch.cat([small_cnt, large_cnt]), **hist_kw))
+        h_small = h_ext[:Kr]
+        h_parent = hist[p_slot.clamp(min=0).long()]
+        h_large = torch.where(present[:, None, None, None],
+                              h_parent - h_small, h_ext[Kr:])
+        h_left = torch.where(left_small, h_small, h_large)
+        h_right = torch.where(left_small, h_large, h_small)
+
+        # free slots first, then the lowest cached gains; this round's
+        # parent slots are locked (they become the left children's)
+        locked = torch.zeros(P + 1, dtype=torch.bool, device=dev)
+        locked[torch.where(present, p_slot, P).long()] = True
+        occ = slot_leaf[:P]
+        occ_gain = torch.where(occ >= 0, best_gain[occ.clamp(min=0).long()],
+                               torch.full_like(best_gain[:1], -float("inf")))
+        order = torch.sort(torch.where(locked[:P], float("inf"), occ_gain),
+                           stable=True).indices
+        req = torch.cat([need_direct, valid])
+        pos = torch.cumsum(req.to(torch.int64), 0) - 1
+        alloc = torch.where(req, order[pos.clamp(0, P - 1)], P)
+        evicted = torch.where(alloc < P, slot_leaf[alloc.clamp(max=P)], -1)
+        _put(leaf_slot, torch.where(evicted >= 0, evicted, L).long(),
+             torch.full_like(evicted, -1))
+        slot_l = torch.where(present, p_slot.long(), alloc[:Kr])
+        slot_r = alloc[Kr:]
+        tgt_l = torch.where(valid, slot_l, P)
+        tgt_r = torch.where(valid, slot_r, P)
+        _put(hist, tgt_l, h_left)
+        _put(hist, tgt_r, h_right)
+        _put(slot_leaf, tgt_l, torch.where(valid, parents, -1))
+        _put(slot_leaf, tgt_r, torch.where(valid, safe_nl, -1))
+        _put(leaf_slot, torch.where(valid, parents, L), slot_l)
+        _put(leaf_slot, torch.where(valid, safe_nl, L), slot_r)
+        slot_leaf[P] = -1
+        leaf_slot[L] = -1
+        return h_left, h_right
 
     def run_round(Kr: int) -> int:
         """One round of (up to) ``Kr`` splits; returns how many split."""
@@ -267,28 +339,37 @@ def grow_tree_batched(bins: torch.Tensor, grad: torch.Tensor,
 
         # ---- all K partitions in ONE row pass
         feats_k = best_feat[parents]
-        lor, sort_key, payload = partition_payload(
-            bins_t, bins_words, grad, hess, lor, mask_i, feats_k,
-            best_thr[parents], best_dl[parents].to(i32),
-            nan_bin[feats_k.long()].to(i32), parents.to(i32),
-            new_leaves.to(i32), valid.to(i32), smaller.to(i32))
+        split = (best_thr[parents], best_dl[parents].to(i32),
+                 nan_bin[feats_k.long()].to(i32), parents.to(i32),
+                 new_leaves.to(i32), valid.to(i32), smaller.to(i32))
+        if pool:
+            lor, _ = partition_select(bins_t, lor, mask_i, feats_k, *split)
+        else:
+            lor, sort_key, payload = partition_payload(
+                bins_t, bins_words, grad, hess, lor, mask_i, feats_k, *split)
         n_splits += n_valid
 
         # ---- ONE widened pass: histograms of the K smaller children
         small_cnt = torch.where(valid, torch.minimum(l_cnt, r_cnt),
                                 torch.zeros_like(l_cnt))
-        h_small = scaled(histogram_for_leaves_auto(
-            bins_t, grad, hess, lor, smaller, row_mask, n_bins=hp.n_bins,
-            rows_per_block=hp.rows_per_block, hist_dtype=hp.hist_dtype,
-            counts=small_cnt, bins_words=bins_words, sort_key=sort_key,
-            hist_kernel=hp.hist_kernel, payload=payload,
-            bins_words_t=words_t))
-        h_large = hist[parents] - h_small
+        hist_kw = dict(n_bins=hp.n_bins, rows_per_block=hp.rows_per_block,
+                       hist_dtype=hp.hist_dtype, bins_words=bins_words,
+                       hist_kernel=hp.hist_kernel, bins_words_t=words_t)
         left_small = (l_cnt <= r_cnt)[:, None, None, None]
-        h_left = torch.where(left_small, h_small, h_large)
-        h_right = torch.where(left_small, h_large, h_small)
-        _put(hist, torch.where(valid, parents, L), h_left)
-        _put(hist, torch.where(valid, safe_nl, L), h_right)
+        if not pool:
+            h_small = scaled(histogram_for_leaves_auto(
+                bins_t, grad, hess, lor, smaller, row_mask,
+                counts=small_cnt, sort_key=sort_key, payload=payload,
+                **hist_kw))
+            h_large = hist[parents] - h_small
+            h_left = torch.where(left_small, h_small, h_large)
+            h_right = torch.where(left_small, h_large, h_small)
+            _put(hist, torch.where(valid, parents, L), h_left)
+            _put(hist, torch.where(valid, safe_nl, L), h_right)
+        else:
+            h_left, h_right = pool_round(parents, safe_nl, valid, smaller,
+                                         l_cnt, r_cnt, small_cnt,
+                                         left_small, hist_kw)
 
         # ---- best splits of the 2K children at once
         kids = torch.cat([parents, safe_nl])

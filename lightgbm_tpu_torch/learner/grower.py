@@ -1,15 +1,44 @@
-"""Tree arrays shared by the growers.
+"""Tree arrays and the strict leaf-wise grower.
 
-Counterpart of the ``TreeArrays`` / ``_empty_tree`` pieces of
-``lightgbm_tpu/learner/grower.py``.  The strict leaf-wise grower itself is
-not ported yet (learner/batch_grower.py raises for ``batch < 2``).
+Counterpart of ``lightgbm_tpu/learner/grower.py``: ``TreeArrays`` and
+``grow_tree``, the best-first learner a plain ``train()`` runs below 100k
+rows (``tpu_split_batch=1``).  Split ``i`` takes the leaf with the largest
+cached gain (argmax: the first max), records internal node ``i``, moves
+the leaf's rows (the left child keeps the parent's leaf id, the right
+child gets ``i + 1``), builds the histogram of the smaller child only
+(``lcn <= rcn`` picks the left) in one data pass, derives the sibling as
+parent - smaller, and finds both children's best splits, gated by depth.
+``tpu_leaf_hist`` picks the data pass: ``masked`` (one full masked pass;
+the radix-single kernel under ``hist_kernel=auto`` at >= 128 bins) or
+``bucketed`` (the child's rows compacted into a bucket, then the rows
+histogram kernel).
+
+The JAX package runs the ``num_leaves - 1`` splits in one ``fori_loop``
+with a sticky ``done`` flag.  Here it is a host loop with ONE host read per
+split: the chosen leaf, its gain and its children's counts, which end the
+loop, pick the smaller child and (under ``bucketed``) its bucket.  The
+topology (child links, depths, path features) therefore lives on the host;
+the leaf and node values are computed once per tree from the same f32
+operands the JAX package uses at each split, so the arrays are bitwise
+equal wherever the histograms are.
+
+Supported: numeric features, serial training, no bundles, row masks,
+per-tree feature masks, ``max_depth``, ``max_delta_step`` and quantized
+levels (``hist_scale``).  Anything else raises ``LightGBMError`` naming it.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
+
+from ..ops.histogram import (bins_to_words, histogram_for_leaf_bucketed,
+                             histogram_for_leaf_masked, root_histogram,
+                             wants_packed_mirror)
+from ..ops.split import NEG_INF, SplitHyper, find_best_split, leaf_output
+from ..utils import log
 
 
 class TreeArrays(NamedTuple):
@@ -57,3 +86,205 @@ def _empty_tree(num_leaves: int, n_bins: int, num_f: int,
         leaf_path=full((num_leaves, num_f), False, torch.bool),
         num_leaves=full((), 1, torch.int32),
     )
+
+
+def check_supported(hp: SplitHyper, learner: str) -> None:
+    """Raise ``LightGBMError`` naming the first configuration outside the
+    growers' supported set."""
+    for bad, what in ((hp.has_categorical, "categorical features"),
+                      (hp.use_monotone, "monotone_constraints"),
+                      (hp.path_smooth > 0.0, "path_smooth"),
+                      (hp.extra_trees, "extra_trees"),
+                      (hp.feature_fraction_bynode < 1.0,
+                       "feature_fraction_bynode")):
+        if bad:
+            log.fatal(f"{what} is not supported by lightgbm_tpu_torch's "
+                      f"{learner} yet")
+
+
+#: columns of the grower's per-leaf best-split table (f32; feature,
+#: threshold and the 0/1 default-left flag are small exact integers)
+_GAIN, _FEAT, _THR, _DL, _LG, _LH, _LC = range(7)
+
+
+def _best_rows(res) -> torch.Tensor:
+    """A SplitResult of M leaves as the [M, 7] best-split table rows."""
+    f32 = torch.float32
+    return torch.stack([res.gain, res.feature.to(f32),
+                        res.threshold.to(f32), res.default_left.to(f32),
+                        res.left_sum_g, res.left_sum_h, res.left_count], 1)
+
+
+def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
+              row_mask: Optional[torch.Tensor], num_bins: torch.Tensor,
+              nan_bin: torch.Tensor, feature_mask: Optional[torch.Tensor],
+              hp: SplitHyper, hist_scale: Optional[torch.Tensor] = None,
+              bins_t: Optional[torch.Tensor] = None,
+              bins_words: Optional[torch.Tensor] = None,
+              bins_words_t: Optional[torch.Tensor] = None
+              ) -> Tuple[TreeArrays, torch.Tensor]:
+    """Grow one tree, one split per data pass.
+
+    The operands of ``grow_tree_batched`` (learner/batch_grower.py):
+    bins u8 [n, F]; grad/hess f32 [n] (integer levels when ``hist_scale``,
+    f32 [2], is given); row_mask bool [n] or None; num_bins/nan_bin i32
+    [F]; feature_mask bool [F] or None; ``bins_t``, ``bins_words`` and
+    ``bins_words_t`` the tree-invariant layouts, derived when not passed.
+    Returns (TreeArrays, leaf_of_row i32 [n]).
+    """
+    check_supported(hp, "strict leaf-wise grower")
+    dev = grad.device
+    f32, i32 = torch.float32, torch.int32
+    n, num_f = bins.shape
+    L = hp.num_leaves
+    l1, l2, mds = hp.lambda_l1, hp.lambda_l2, hp.max_delta_step
+    mask_f = torch.ones_like(grad) if row_mask is None else row_mask.to(f32)
+    if bins_t is None:
+        bins_t = bins.t().contiguous()
+    words_t = None
+    if wants_packed_mirror(hp.hist_kernel, hp.n_bins):
+        if bins_words_t is not None:
+            words_t = bins_words_t
+        else:
+            words_t = (bins_words if bins_words is not None
+                       else bins_to_words(bins)).t().contiguous()
+    num_bins = num_bins.to(dev)
+    nan_bin = nan_bin.to(dev)
+    scale_vec = None
+    if hist_scale is not None:
+        scale_vec = torch.cat([hist_scale.to(f32),
+                               torch.ones(2, dtype=f32, device=dev)])
+
+    def scaled(h):
+        return h if scale_vec is None else h * scale_vec
+
+    hk = dict(n_bins=hp.n_bins, hist_dtype=hp.hist_dtype)
+    hist0 = scaled(root_histogram(bins_t, grad, hess, row_mask,
+                                  hist_kernel=hp.hist_kernel,
+                                  bins_words_t=words_t, **hk))
+    g0 = (grad * mask_f).sum()
+    h0 = (hess * mask_f).sum()
+    c0 = mask_f.sum()
+    if hist_scale is not None:
+        g0 = g0 * hist_scale[0]
+        h0 = h0 * hist_scale[1]
+
+    # device state: histograms, (g, h, count) sums and the cached best
+    # split of every leaf
+    hist = torch.zeros(L, num_f, hp.n_bins, hist0.shape[-1], dtype=f32,
+                       device=dev)
+    hist[0] = hist0
+    sums = torch.zeros(L, 3, dtype=f32, device=dev)
+    sums[0] = torch.stack([g0, h0, c0])
+    best = torch.zeros(L, 7, dtype=f32, device=dev)
+    best[:, _GAIN] = NEG_INF
+    best[0] = _best_rows(find_best_split(
+        hist0[None], g0[None], h0[None], c0[None], num_bins, nan_bin,
+        feature_mask, hp))[0]
+    lor = torch.zeros(n, dtype=i32, device=dev)
+
+    # host state: the topology and the per-node f32 operands
+    li = L - 1
+    split_feature, split_bin = [-1] * li, [0] * li
+    default_left, left_child, right_child = [0] * li, [-1] * li, [-1] * li
+    node_f32 = np.zeros((4, li), np.float32)   # gain, parent g, h, count
+    parent_node, parent_side, depth = [-1] * L, [0] * L, [0] * L
+    path = np.zeros((L, num_f), bool)
+
+    i = 0
+    while i < li:
+        # index_select, not best[bl_t]: a 0-d index tensor would be read
+        # back to the host
+        bl_t = torch.argmax(best[:, _GAIN]).reshape(1)
+        row = best.index_select(0, bl_t)[0]
+        s = sums.index_select(0, bl_t)[0]
+        pack = torch.cat([bl_t.to(f32), row, s, s - row[_LG:]])
+        # the split's one host read: leaf, best split, parent and child sums
+        (blf, gain, featf, thrf, dlf, lg, lh, lcn, pg, ph, pc, rg, rh,
+         rcn) = pack.tolist()
+        if not gain > 0.0:
+            break
+        bl, feat, thr, dl = int(blf), int(featf), int(thrf), dlf != 0.0
+        new_leaf = i + 1
+
+        p, side = parent_node[bl], parent_side[bl]
+        if p >= 0:
+            (left_child if side == 0 else right_child)[p] = i
+        left_child[i], right_child[i] = -(bl + 1), -(new_leaf + 1)
+        split_feature[i], split_bin[i], default_left[i] = feat, thr, int(dl)
+        node_f32[:, i] = (gain, pg, ph, pc)
+
+        # partition: the leaf's rows that go right take the new leaf id
+        col = bins_t[feat]
+        go_left = torch.where(col == nan_bin[feat], dl, col <= thr)
+        lor = torch.where((lor == bl) & ~go_left, new_leaf, lor)
+
+        # histogram: a data pass over the smaller child only
+        left_small = lcn <= rcn
+        smaller = bl if left_small else new_leaf
+        if hp.leaf_hist == "masked":
+            h_small = histogram_for_leaf_masked(
+                bins_t, grad, hess, lor, smaller, row_mask,
+                hist_kernel=hp.hist_kernel, bins_words_t=words_t, **hk)
+        else:
+            h_small = histogram_for_leaf_bucketed(
+                bins_t, grad, hess, lor, smaller, min(lcn, rcn), row_mask,
+                **hk)
+        h_small = scaled(h_small)
+        if left_small:
+            torch.sub(hist[bl], h_small, out=hist[new_leaf])
+            hist[bl].copy_(h_small)
+        else:
+            hist[new_leaf].copy_(h_small)
+            hist[bl].sub_(h_small)
+        sums[bl].copy_(pack[5:8])
+        sums[new_leaf].copy_(pack[11:14])
+
+        d = depth[bl] + 1
+        depth[bl] = depth[new_leaf] = d
+        parent_node[bl] = parent_node[new_leaf] = i
+        parent_side[bl], parent_side[new_leaf] = 0, 1
+        path[bl, feat] = True
+        path[new_leaf] = path[bl]
+
+        # both children's best splits; past max_depth their gains are
+        # -inf, as the JAX package's depth gate sets them
+        if hp.max_depth > 0 and d >= hp.max_depth:
+            best[bl, _GAIN] = NEG_INF
+            best[new_leaf, _GAIN] = NEG_INF
+        else:
+            kid = torch.stack([pack[5:8], pack[11:14]])           # [2, 3]
+            rows = _best_rows(find_best_split(
+                torch.stack([hist[bl], hist[new_leaf]]), kid[:, 0],
+                kid[:, 1], kid[:, 2], num_bins, nan_bin, feature_mask, hp))
+            best[bl].copy_(rows[0])
+            best[new_leaf].copy_(rows[1])
+        i += 1
+
+    # one upload per dtype: the host-side topology and node operands
+    def up(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(
+            dev, non_blocking=True)
+
+    ints = up([split_feature, split_bin, default_left, left_child,
+               right_child], np.int32)
+    nodes = up(node_f32, np.float32)
+    live_node = torch.arange(li, device=dev) < i
+    live_leaf = torch.arange(L, device=dev) < i + 1
+    zero = torch.zeros((), dtype=f32, device=dev)
+    tree = TreeArrays(
+        split_feature=ints[0], split_bin=ints[1],
+        default_left=ints[2].to(torch.bool),
+        split_cat=torch.zeros(li, dtype=torch.bool, device=dev),
+        left_child=ints[3], right_child=ints[4], split_gain=nodes[0],
+        cat_bitset=torch.zeros(li, hp.n_bins, dtype=torch.bool, device=dev),
+        internal_value=torch.where(
+            live_node, leaf_output(nodes[1], nodes[2], l1, l2, mds), zero),
+        internal_count=nodes[3],
+        leaf_value=torch.where(
+            live_leaf, leaf_output(sums[:, 0], sums[:, 1], l1, l2, mds),
+            zero),
+        leaf_count=sums[:, 2].clone(), leaf_weight=sums[:, 1].clone(),
+        leaf_depth=up(depth, np.int32), leaf_path=up(path, bool),
+        num_leaves=torch.full((), i + 1, dtype=i32, device=dev))
+    return tree, lor

@@ -31,7 +31,7 @@ from ..utils import log
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("take", "hist", "radix", "packed", "partition")
+SOURCES = ("take", "hist", "radix", "packed", "rows", "partition")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -57,9 +57,13 @@ _SIGNATURES = {
         "lgbt_hist_packed": (_P, _I, _L, _I, _P, _P, _P, _P, _I, _I, _I, _P,
                              _P, _P),
     },
+    "rows": {
+        "lgbt_hist_rows": (_P, _L, _I, _P, _I, _I, _I, _P, _P, _P),
+    },
     "partition": {
         "lgbt_partition_payload": (_P, _L, _I, _P, _I, _P, _P, _P, _P, _P, _I,
                                    _P, _P, _P, _P),
+        "lgbt_partition_select": (_P, _L, _I, _P, _P, _P, _I, _P, _P, _P),
     },
 }
 

@@ -18,16 +18,21 @@ kernel:
   ``histogram_leaves_radix2_pallas``, csrc/radix.cu;
 * :func:`histogram_leaves_packed` — the masked pass from the transposed
   packed word mirror, replacing ``histogram_leaves_packed_pallas``,
-  csrc/packed.cu.
+  csrc/packed.cu;
+* :func:`histogram_rows_t` — the plain [F, B, C] histogram of a row set
+  with C value channels, replacing ``histogram_pallas``, csrc/rows.cu.
 
-Each returns f32 [K, F, B, 4] ([F, B, 4] for the root pass; channel 3
-zero; a slot repeating an earlier slot's leaf gets a copy).  On CUDA
-tensors a wrapper launches its kernel (or raises); on CPU tensors it runs
-its plain version.  ``hist_dtype`` picks the arithmetic: ``int8`` (integer
-gradient levels, exact int32 sums), ``float32``, or ``bfloat16`` (values
-rounded to bf16, f32 sums).  The radix and packed kernels compute what the
-TPU kernels compute, not their nibble or SWAR formulation, so their plain
-versions are the flat histogram's.
+Each masked pass returns f32 [K, F, B, 4] ([F, B, 4] for the root pass;
+channel 3 zero; a slot repeating an earlier slot's leaf gets a copy).  On
+CUDA tensors a wrapper launches its kernel (or raises); on CPU tensors it
+runs its plain version.  ``hist_dtype`` picks the arithmetic: ``int8``
+(integer gradient levels, exact int32 sums), ``float32``, or ``bfloat16``
+(values rounded to bf16).  The plain versions sum float32 and bfloat16 in
+f32; the kernels sum them in 64-bit fixed point at a per-call power-of-two
+scale (csrc/hist_common.cuh), so a kernel gives the same bits on every
+call, the correctly rounded exact sum on integer-valued inputs.  The radix
+and packed kernels compute what the TPU kernels compute, not their nibble
+or SWAR formulation, so their plain versions are the flat histogram's.
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ radix_single_launches = 0
 radix_joint_launches = 0
 radix2_launches = 0
 packed_launches = 0
+rows_launches = 0
 
 _MODES = {"int8": 0, "float32": 1, "bfloat16": 2}
 
@@ -56,6 +62,26 @@ def _mode(hist_dtype: str) -> int:
         log.fatal(f"hist_dtype={hist_dtype!r} is not supported by the "
                   f"histogram kernels (expected one of {sorted(_MODES)})")
     return m
+
+
+def _scratch(cells: int, channels: int, mode: int,
+             dev: torch.device) -> torch.Tensor:
+    """The zeroed global accumulator of a kernel: int32 sums of int8
+    levels, or int64 fixed-point sums followed by room for one f32 bit
+    pattern per value channel (the pass's max |value|, csrc/hist_common.cuh
+    run_hist)."""
+    if mode == 0:
+        return torch.zeros(cells, dtype=torch.int32, device=dev)
+    return torch.zeros(cells + (channels + 1) // 2, dtype=torch.int64,
+                       device=dev)
+
+
+def _buffers(K: int, num_f: int, n_bins: int, mode: int,
+             dev: torch.device):
+    """Zeroed global accumulator and the f32 [K, F, B, 4] output."""
+    scratch = _scratch(K * num_f * n_bins * 3, 2, mode, dev)
+    out = torch.empty(K, num_f, n_bins, 4, dtype=torch.float32, device=dev)
+    return scratch, out
 
 
 def _hist_plain(bin_of: Callable[[int], torch.Tensor], num_f: int,
@@ -145,9 +171,7 @@ def histogram_leaves(bins_t: torch.Tensor, grad: torch.Tensor,
         log.fatal(f"histogram_leaves: n_bins={n_bins} outside [1, 256]")
     bins_t, grad, hess = (t.contiguous() for t in (bins_t, grad, hess))
     leaf_of_row, leaves = leaf_of_row.contiguous(), leaves.contiguous()
-    scratch = torch.zeros(K * num_f * n_bins * 3, device=dev,
-                          dtype=torch.int32 if mode == 0 else torch.float32)
-    out = torch.empty(K, num_f, n_bins, 4, dtype=torch.float32, device=dev)
+    scratch, out = _buffers(K, num_f, n_bins, mode, dev)
     lib = cuda_lib.load("hist")
     code = lib.lgbt_hist_leaves(
         bins_t.data_ptr(), n, num_f, grad.data_ptr(), hess.data_ptr(),
@@ -203,9 +227,7 @@ def histogram_payload(payload: torch.Tensor, leaves: torch.Tensor,
     if not 1 <= n_bins <= 256:
         log.fatal(f"histogram_payload: n_bins={n_bins} outside [1, 256]")
     payload, leaves, cnt = (t.contiguous() for t in (payload, leaves, cnt))
-    scratch = torch.zeros(K * num_f * n_bins * 3, device=dev,
-                          dtype=torch.int32 if mode == 0 else torch.float32)
-    out = torch.empty(K, num_f, n_bins, 4, dtype=torch.float32, device=dev)
+    scratch, out = _buffers(K, num_f, n_bins, mode, dev)
     lib = cuda_lib.load("hist")
     code = lib.lgbt_hist_payload(
         payload.data_ptr(), S, W, num_f, leaves.data_ptr(), K,
@@ -231,15 +253,6 @@ def _check_pass(what: str, n: int, grad: torch.Tensor, hess: torch.Tensor,
         log.fatal(f"{what}: all operands must be on one device")
     if not 1 <= n_bins <= 256:
         log.fatal(f"{what}: n_bins={n_bins} outside [1, 256]")
-
-
-def _buffers(K: int, num_f: int, n_bins: int, mode: int,
-             dev: torch.device):
-    """Zeroed global accumulator and the f32 [K, F, B, 4] output."""
-    scratch = torch.zeros(K * num_f * n_bins * 3, device=dev,
-                          dtype=torch.int32 if mode == 0 else torch.float32)
-    out = torch.empty(K, num_f, n_bins, 4, dtype=torch.float32, device=dev)
-    return scratch, out
 
 
 def _c(*ts):
@@ -396,4 +409,60 @@ def histogram_leaves_packed(words_t: torch.Tensor, grad: torch.Tensor,
         scratch.data_ptr(), out.data_ptr(), cuda_lib.stream_handle(words_t))
     cuda_lib.check(code, "histogram_leaves_packed")
     packed_launches += 1
+    return out
+
+
+def histogram_rows_t_plain(bins_t: torch.Tensor, vals_t: torch.Tensor, *,
+                           n_bins: int, hist_dtype: str = "float32"
+                           ) -> torch.Tensor:
+    """Plain version of :func:`histogram_rows_t` (rows summed in order)."""
+    mode = _mode(hist_dtype)
+    num_f, S = bins_t.shape
+    C = vals_t.shape[0]
+    v = vals_t.t()                                               # [S, C]
+    if mode == 0:
+        v = v.to(torch.int32).to(torch.int8).to(torch.int64)
+    elif mode == 2:
+        v = v.to(torch.bfloat16).to(torch.float32)
+    cells = num_f * n_bins
+    b = bins_t.long()
+    base = torch.arange(num_f, device=b.device)[:, None] * n_bins
+    idx = torch.where(b < n_bins, base + b, cells).reshape(-1)  # trash row
+    acc = torch.zeros(cells + 1, C, dtype=v.dtype, device=v.device)
+    acc.index_add_(0, idx, v.repeat(num_f, 1))
+    return acc[:cells].reshape(num_f, n_bins, C).to(torch.float32)
+
+
+def histogram_rows_t(bins_t: torch.Tensor, vals_t: torch.Tensor, *,
+                     n_bins: int, hist_dtype: str = "float32"
+                     ) -> torch.Tensor:
+    """Histogram f32 [F, n_bins, C] of a row set: ``hist[f, b, c]`` sums
+    ``vals_t[c, r]`` over the rows r with ``bins_t[f, r] == b``; bins >=
+    ``n_bins`` are dropped.  bins_t: u8 [F, S]; vals_t: f32 [C, S] (rows
+    that must not count carry zeros)."""
+    if not bins_t.is_cuda:
+        return histogram_rows_t_plain(bins_t, vals_t, n_bins=n_bins,
+                                      hist_dtype=hist_dtype)
+    global rows_launches
+    mode = _mode(hist_dtype)
+    num_f, S = bins_t.shape
+    if vals_t.dim() != 2 or vals_t.shape[1] != S or vals_t.shape[0] < 1:
+        log.fatal(f"histogram_rows_t: vals_t must be [C, {S}], got "
+                  f"{tuple(vals_t.shape)}")
+    C = vals_t.shape[0]
+    if bins_t.dtype != torch.uint8 or vals_t.dtype != torch.float32:
+        log.fatal("histogram_rows_t kernel takes u8 bins and f32 values")
+    if vals_t.device != bins_t.device:
+        log.fatal("histogram_rows_t: all operands must be on one device")
+    if not 1 <= n_bins <= 256:
+        log.fatal(f"histogram_rows_t: n_bins={n_bins} outside [1, 256]")
+    bins_t, vals_t = _c(bins_t, vals_t)
+    scratch = _scratch(num_f * n_bins * C, C, mode, bins_t.device)
+    out = torch.empty(num_f, n_bins, C, dtype=torch.float32,
+                      device=bins_t.device)
+    code = cuda_lib.load("rows").lgbt_hist_rows(
+        bins_t.data_ptr(), S, num_f, vals_t.data_ptr(), C, n_bins, mode,
+        scratch.data_ptr(), out.data_ptr(), cuda_lib.stream_handle(bins_t))
+    cuda_lib.check(code, "histogram_rows_t")
+    rows_launches += 1
     return out

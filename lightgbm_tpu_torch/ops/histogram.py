@@ -19,6 +19,11 @@ whose selected rows fit a bucket compacts them (sort on the packed
 ``row | 2^30`` key + one row gather of the i32 payload) and runs the
 payload kernel on the bucket instead of a masked pass.
 
+The strict grower's single-leaf passes: ``histogram_for_leaf_masked`` (a
+full masked pass; radix-single under ``auto`` at >= 128 bins) and
+``histogram_for_leaf_bucketed`` (the leaf's rows compacted into the
+smallest of a halving ladder of buckets, then ``histogram_rows_t``).
+
 The JAX package's perf A/B environment hatches (``LGBMTPU_NO_RADIX``,
 ``LGBMTPU_NO_RADIX2``, ``LGBMTPU_NO_PACKED``) are not ported: dispatch
 behaves as if they were unset.  Not ported either: the distributed
@@ -35,7 +40,7 @@ from ..utils import log
 from .hist_kernels import (RADIX_JOINT_MAX_LEAVES, histogram_leaves,
                            histogram_leaves_packed, histogram_leaves_radix2,
                            histogram_payload, histogram_radix_joint,
-                           histogram_radix_single)
+                           histogram_radix_single, histogram_rows_t)
 
 NUM_CHANNELS = 4  # grad, hess, count, pad
 
@@ -162,6 +167,83 @@ def histogram_for_leaves_masked(bins_t: torch.Tensor, grad: torch.Tensor,
         return histogram_leaves_packed(bins_words_t, grad, hess, lor, leaves,
                                        num_f=num_f, **kw)
     return histogram_leaves(bins_t, grad, hess, lor, leaves, **kw)
+
+
+def histogram_for_leaf_masked(bins_t: torch.Tensor, grad: torch.Tensor,
+                              hess: torch.Tensor, leaf_of_row: torch.Tensor,
+                              leaf: int,
+                              row_mask: Optional[torch.Tensor] = None, *,
+                              n_bins: int = 256, hist_dtype: str = "float32",
+                              hist_kernel: str = "auto",
+                              bins_words_t: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
+    """One leaf's histogram f32 [F, B, 4] by one full masked pass.  Under
+    ``auto`` at >= 128 bins it is the radix-single kernel over the rows of
+    ``leaf``; otherwise the one-leaf masked pass of the mode's kernel."""
+    hk = resolve_hist_kernel(hist_kernel)
+    lor = leaf_of_row.to(torch.int32)
+    if hk == "auto" and _radix_ok(n_bins):
+        sel = lor == leaf
+        if row_mask is not None:
+            sel = sel & row_mask
+        lor1 = torch.where(sel, 0, -1).to(torch.int32)
+        return histogram_radix_single(bins_t, grad, hess, lor1,
+                                      n_bins=n_bins, hist_dtype=hist_dtype)
+    leaf_arr = torch.full((1,), int(leaf), dtype=torch.int32,
+                          device=lor.device)
+    return histogram_for_leaves_masked(
+        bins_t, grad, hess, lor, leaf_arr, row_mask, n_bins=n_bins,
+        hist_dtype=hist_dtype, hist_kernel=hk, bins_words_t=bins_words_t)[0]
+
+
+def histogram_for_leaf_bucketed(bins_t: torch.Tensor, grad: torch.Tensor,
+                                hess: torch.Tensor,
+                                leaf_of_row: torch.Tensor, leaf: int,
+                                leaf_count: int,
+                                row_mask: Optional[torch.Tensor] = None, *,
+                                n_bins: int = 256, min_bucket: int = 8192,
+                                hist_dtype: str = "float32") -> torch.Tensor:
+    """One leaf's histogram f32 [F, B, 4] touching ~``leaf_count`` rows.
+
+    The rows of ``leaf`` (and ``row_mask``) are compacted, in ascending
+    order, into the smallest bucket of the ladder n, n/2, n/4, ... (each
+    rounded up to 128, down to the first at or below ``min_bucket``) that
+    holds ``leaf_count`` (the caller's row count, a host int); the bucket's
+    padding points at row n-1 with valid = 0, exactly like the JAX
+    package's ``nonzero(size=sz, fill_value=n)``.  The JAX package picks
+    the bucket on the device; the caller here already holds the count.
+    Compaction sorts the packed ``row | 2^30`` keys (selected rows first,
+    in order) instead of ``nonzero``, so nothing reads back to the host.
+    bins_t: u8 [F, n], the resident transposed bins (the JAX package
+    gathers rows of the row-major matrix, then transposes them).
+    """
+    n = bins_t.shape[1]
+    if n >= (1 << 30):
+        log.fatal("compaction packing needs n < 2^30 rows")
+    mask = leaf_of_row == leaf
+    if row_mask is not None:
+        mask = mask & row_mask
+    count = max(int(leaf_count), 1)
+    sz = s = _round_up(n, 128)
+    while s > min_bucket:
+        s = _round_up((s + 1) // 2, 128)
+        if count <= s:
+            sz = s
+    rows = torch.arange(n, dtype=torch.int32, device=grad.device)
+    key = torch.where(mask, rows, rows | (1 << 30))
+    if sz < n:
+        key = torch.sort(key).values[:sz]
+    else:
+        key = torch.cat([torch.sort(key).values,
+                         torch.full((sz - n,), 1 << 30, dtype=torch.int32,
+                                    device=grad.device)])
+    ok = key < (1 << 30)
+    idx = torch.where(ok, key, n - 1).long()
+    valid = ok.to(torch.float32)
+    vals_t = torch.stack([grad[idx] * valid, hess[idx] * valid, valid,
+                          torch.zeros_like(valid)])
+    return histogram_rows_t(bins_t.index_select(1, idx), vals_t,
+                            n_bins=n_bins, hist_dtype=hist_dtype)
 
 
 def root_histogram(bins_t: torch.Tensor, grad: torch.Tensor,

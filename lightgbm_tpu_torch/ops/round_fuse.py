@@ -1,13 +1,14 @@
-"""Fused batched-round partition with the next round's compaction payload.
+"""Fused batched-round partition, with or without the next round's payload.
 
 Counterpart of ``lightgbm_tpu/ops/round_fuse.py``: :func:`partition_payload`
 applies the K splits of a round in one row pass and, in the same pass,
 emits the compaction sort key and the [n, W+3] payload that the next
-histogram pass gathers (ops/histogram.py ``histogram_for_leaves_auto``).
-On CUDA tensors it launches ``csrc/partition.cu``, which replaces the TPU
-kernel ``partition_payload_pallas``; on CPU tensors it runs
-:func:`partition_payload_plain`.  Numeric, non-bundled splits only, as in
-the JAX package.
+histogram pass gathers (ops/histogram.py ``histogram_for_leaves_auto``);
+:func:`partition_select` is the same pass without the payload (the bounded
+histogram pool's rounds).  On CUDA tensors they launch ``csrc/partition.cu``,
+which replaces the TPU kernels ``partition_payload_pallas`` and
+``partition_select_pallas``; on CPU tensors they run their plain versions.
+Numeric, non-bundled splits only, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -19,8 +20,9 @@ import torch
 from ..utils import log
 from . import cuda_lib
 
-#: CUDA launches of the kernel in this process (read by chip_smoke.py)
+#: CUDA launches of each kernel in this process (read by chip_smoke.py)
 launches = 0
+select_launches = 0
 
 
 def partition_payload_plain(bins_t, bins_words, grad, hess, lor, mask, feats,
@@ -29,6 +31,20 @@ def partition_payload_plain(bins_t, bins_words, grad, hess, lor, mask, feats,
                                               torch.Tensor]:
     """Plain version of :func:`partition_payload` (the JAX package's XLA
     partition math, with its i32 0/1 arithmetic)."""
+    new_lor, key, lor_m = _select_plain(bins_t, lor, mask, feats, thr, dl,
+                                        nanb, parents, new_leaves, validk,
+                                        smaller)
+    payload = torch.cat([bins_words,
+                         grad.contiguous().view(torch.int32)[:, None],
+                         hess.contiguous().view(torch.int32)[:, None],
+                         lor_m[:, None]], dim=1)
+    return new_lor, key, payload
+
+
+def _select_plain(bins_t, lor, mask, feats, thr, dl, nanb, parents,
+                  new_leaves, validk, smaller):
+    """The partition math both plain versions share: (new_lor, sort_key,
+    the bagging-masked new leaf map)."""
     num_f, n = bins_t.shape
     fk = feats.long()
     in_range = (fk >= 0) & (fk < num_f)
@@ -48,11 +64,15 @@ def partition_payload_plain(bins_t, bins_words, grad, hess, lor, mask, feats,
     selv = (lor_m[None, :] == smaller[:, None]).any(0)
     row = torch.arange(n, dtype=torch.int32, device=bins_t.device)
     key = torch.where(selv, row, row | (1 << 30))
-    payload = torch.cat([bins_words,
-                         grad.contiguous().view(torch.int32)[:, None],
-                         hess.contiguous().view(torch.int32)[:, None],
-                         lor_m[:, None]], dim=1)
-    return new_lor, key, payload
+    return new_lor, key, lor_m
+
+
+def partition_select_plain(bins_t, lor, mask, feats, thr, dl, nanb, parents,
+                           new_leaves, validk, smaller
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`partition_select`."""
+    return _select_plain(bins_t, lor, mask, feats, thr, dl, nanb, parents,
+                         new_leaves, validk, smaller)[:2]
 
 
 def partition_payload(bins_t, bins_words, grad, hess, lor, mask, feats, thr,
@@ -76,37 +96,80 @@ def partition_payload(bins_t, bins_words, grad, hess, lor, mask, feats, thr,
                                        mask, feats, thr, dl, nanb, parents,
                                        new_leaves, validk, smaller)
     global launches
-    num_f, n = bins_t.shape
+    n = bins_t.shape[1]
     W = bins_words.shape[1]
-    desc = torch.stack([feats, thr, dl, nanb, parents, new_leaves, validk,
-                        smaller]).to(torch.int32).contiguous()     # [8, K]
-    K = desc.shape[1]
-    dev = bins_t.device
-    if (bins_t.dtype != torch.uint8 or bins_words.dtype != torch.int32
-            or grad.dtype != torch.float32 or hess.dtype != torch.float32
-            or lor.dtype != torch.int32 or mask.dtype != torch.int32):
-        log.fatal("partition_payload kernel takes u8 bins, i32 words, f32 "
-                  "grad/hess and i32 leaf map and mask")
-    if bins_words.shape[0] != n or any(
-            t.shape != (n,) for t in (grad, hess, lor, mask)):
+    desc = _checked("partition_payload", bins_t, lor, mask, feats, thr, dl,
+                    nanb, parents, new_leaves, validk, smaller)
+    if (bins_words.dtype != torch.int32 or grad.dtype != torch.float32
+            or hess.dtype != torch.float32):
+        log.fatal("partition_payload kernel takes i32 words and f32 "
+                  "grad/hess")
+    if bins_words.shape[0] != n or grad.shape != (n,) or hess.shape != (n,):
         log.fatal("partition_payload: row operands must all have n rows")
-    if n >= (1 << 30) or K > 1024:
-        log.fatal(f"partition_payload: needs n < 2^30 rows and K <= 1024 "
-                  f"slots (got n={n}, K={K})")
-    if any(t.device != dev for t in (bins_words, grad, hess, lor, mask,
-                                     desc)):
+    if any(t.device != bins_t.device for t in (bins_words, grad, hess)):
         log.fatal("partition_payload: all operands must be on one device")
     bins_t, bins_words, grad, hess, lor, mask = (
         t.contiguous() for t in (bins_t, bins_words, grad, hess, lor, mask))
-    out_lor = torch.empty(n, dtype=torch.int32, device=dev)
-    out_key = torch.empty(n, dtype=torch.int32, device=dev)
-    out_pay = torch.empty(n, W + 3, dtype=torch.int32, device=dev)
-    lib = cuda_lib.load("partition")
-    code = lib.lgbt_partition_payload(
-        bins_t.data_ptr(), n, num_f, bins_words.data_ptr(), W,
+    out_lor, out_key = _outputs(n, bins_t.device)
+    out_pay = torch.empty(n, W + 3, dtype=torch.int32, device=bins_t.device)
+    code = cuda_lib.load("partition").lgbt_partition_payload(
+        bins_t.data_ptr(), n, bins_t.shape[0], bins_words.data_ptr(), W,
         grad.data_ptr(), hess.data_ptr(), lor.data_ptr(), mask.data_ptr(),
-        desc.data_ptr(), K, out_lor.data_ptr(), out_key.data_ptr(),
-        out_pay.data_ptr(), cuda_lib.stream_handle(bins_t))
+        desc.data_ptr(), desc.shape[1], out_lor.data_ptr(),
+        out_key.data_ptr(), out_pay.data_ptr(),
+        cuda_lib.stream_handle(bins_t))
     cuda_lib.check(code, "partition_payload")
     launches += 1
     return out_lor, out_key, out_pay
+
+
+def _checked(what, bins_t, lor, mask, feats, thr, dl, nanb, parents,
+             new_leaves, validk, smaller) -> torch.Tensor:
+    """Check the operands both kernels share; the i32 [8, K] slot
+    descriptors."""
+    n = bins_t.shape[1]
+    desc = torch.stack([feats, thr, dl, nanb, parents, new_leaves, validk,
+                        smaller]).to(torch.int32).contiguous()     # [8, K]
+    K = desc.shape[1]
+    if (bins_t.dtype != torch.uint8 or lor.dtype != torch.int32
+            or mask.dtype != torch.int32):
+        log.fatal(f"{what} kernel takes u8 bins and an i32 leaf map and "
+                  f"mask")
+    if lor.shape != (n,) or mask.shape != (n,):
+        log.fatal(f"{what}: row operands must all have n rows")
+    if n >= (1 << 30) or K > 1024:
+        log.fatal(f"{what}: needs n < 2^30 rows and K <= 1024 slots (got "
+                  f"n={n}, K={K})")
+    if any(t.device != bins_t.device for t in (lor, mask, desc)):
+        log.fatal(f"{what}: all operands must be on one device")
+    return desc
+
+
+def _outputs(n: int, dev: torch.device):
+    return (torch.empty(n, dtype=torch.int32, device=dev),
+            torch.empty(n, dtype=torch.int32, device=dev))
+
+
+def partition_select(bins_t, lor, mask, feats, thr, dl, nanb, parents,
+                     new_leaves, validk, smaller
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`partition_payload` without the payload: the same operands
+    minus ``bins_words``/``grad``/``hess``; returns (new_lor i32 [n],
+    sort_key i32 [n])."""
+    if not bins_t.is_cuda:
+        return partition_select_plain(bins_t, lor, mask, feats, thr, dl,
+                                      nanb, parents, new_leaves, validk,
+                                      smaller)
+    global select_launches
+    n = bins_t.shape[1]
+    desc = _checked("partition_select", bins_t, lor, mask, feats, thr, dl,
+                    nanb, parents, new_leaves, validk, smaller)
+    bins_t, lor, mask = (t.contiguous() for t in (bins_t, lor, mask))
+    out_lor, out_key = _outputs(n, bins_t.device)
+    code = cuda_lib.load("partition").lgbt_partition_select(
+        bins_t.data_ptr(), n, bins_t.shape[0], lor.data_ptr(),
+        mask.data_ptr(), desc.data_ptr(), desc.shape[1], out_lor.data_ptr(),
+        out_key.data_ptr(), cuda_lib.stream_handle(bins_t))
+    cuda_lib.check(code, "partition_select")
+    select_launches += 1
+    return out_lor, out_key

@@ -19,7 +19,8 @@ from lightgbm_tpu.ops import histogram as JH
 from lightgbm_tpu.ops.hist_pallas import (_histogram_leaves_impl,
                                           histogram_payload_pallas)
 from lightgbm_tpu.ops.histogram import bins_to_words as jax_bins_to_words
-from lightgbm_tpu.ops.round_fuse import partition_payload_pallas
+from lightgbm_tpu.ops.round_fuse import (partition_payload_pallas,
+                                         partition_select_pallas)
 from lightgbm_tpu.ops.table import _take_pallas
 
 from lightgbm_tpu_torch.ops import histogram as TH
@@ -28,8 +29,10 @@ from lightgbm_tpu_torch.ops.hist_kernels import (histogram_leaves,
                                                  histogram_leaves_radix2,
                                                  histogram_payload,
                                                  histogram_radix_joint,
-                                                 histogram_radix_single)
-from lightgbm_tpu_torch.ops.round_fuse import partition_payload
+                                                 histogram_radix_single,
+                                                 histogram_rows_t)
+from lightgbm_tpu_torch.ops.round_fuse import (partition_payload,
+                                               partition_select)
 from lightgbm_tpu_torch.ops.table import take_small_table
 
 
@@ -126,14 +129,14 @@ def test_histogram_payload_matches_pallas(case):
     _assert_hist(got, want, case == "f32_real")
 
 
-@pytest.mark.parametrize("case", ["k3", "k1", "k8", "ragged_n"])
-def test_partition_payload_matches_pallas(case):
-    rng = np.random.default_rng(3)
+def _partition_inputs(case, rng):
     n = 3001 if case == "ragged_n" else 3072
-    f, K = 7, {"k1": 1, "k8": 8}.get(case, 3)
+    f, K = 7, {"k1": 1, "k8": 8, "k1_zero_mask": 1}.get(case, 3)
     bins = rng.integers(0, 32, size=(n, f)).astype(np.uint8)
     lor = rng.integers(0, 9, size=n).astype(np.int32)
     mask = rng.integers(0, 2, size=n).astype(np.int32)
+    if case == "k1_zero_mask":
+        mask[:] = 0
     grad = rng.normal(size=n).astype(np.float32)
     hess = rng.random(n).astype(np.float32)
     feats = rng.integers(0, f, size=K).astype(np.int32)
@@ -146,13 +149,70 @@ def test_partition_payload_matches_pallas(case):
     smaller = np.where(rng.random(K) < 0.5, parents,
                        new_leaves).astype(np.int32)
     words = np.asarray(jax_bins_to_words(jnp.asarray(bins)))
-    ops = (bins.T.copy(), words, grad, hess, lor, mask, feats, thr, dl,
-           nanb, parents, new_leaves, validk, smaller)
+    return (bins.T.copy(), words, grad, hess, lor, mask), (
+        feats, thr, dl, nanb, parents, new_leaves, validk, smaller)
+
+
+@pytest.mark.parametrize("case", ["k3", "k1", "k8", "ragged_n"])
+def test_partition_payload_matches_pallas(case):
+    rows, desc = _partition_inputs(case, np.random.default_rng(3))
+    ops = rows + desc
     want = partition_payload_pallas(*(jnp.asarray(a) for a in ops),
                                     rows_per_block=512, interpret=True)
     got = partition_payload(*(_t(a) for a in ops))
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("case", ["k3", "k1_zero_mask", "k8", "ragged_n"])
+def test_partition_select_matches_pallas(case):
+    """Bitwise on both outputs; k8 and k3 carry invalid slots (validk 0),
+    k1_zero_mask masks every row out of the next pass's keys."""
+    (bins_t, _, _, _, lor, mask), desc = _partition_inputs(
+        case, np.random.default_rng(4))
+    ops = (bins_t, lor, mask) + desc
+    want = partition_select_pallas(*(jnp.asarray(a) for a in ops),
+                                   rows_per_block=512, interpret=True)
+    got = partition_select(*(_t(a) for a in ops))
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    if case == "k1_zero_mask":
+        assert (got[1].numpy() >= (1 << 30)).all()
+
+
+# ---- the rows histogram (histogram_pallas): case -> (n, F, n_bins, C,
+# value kind, mode); ragged n, F = 6 and 30, B = 64 and 256, C = 4 and 8.
+# Values are zero on a quarter of the rows (masked rows, as the callers
+# pass them) and bins reach past n_bins - 1 (dropped).
+_ROWS_CASES = {
+    "int8_c4_f6_b64": (2048, 6, 64, 4, "int", "int8"),
+    "f32_int_valued_c8_f30_b256_ragged": (2000, 30, 256, 8, "int",
+                                          "float32"),
+    "f32_real_c4_f30_b64": (2048, 30, 64, 4, "real", "float32"),
+    "bf16_int_valued_c4_f6_b256": (2048, 6, 256, 4, "int", "bfloat16"),
+    "bf16_real_c8_f6_b64_ragged": (1900, 6, 64, 8, "real", "bfloat16"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_ROWS_CASES))
+def test_histogram_rows_matches_pallas(case):
+    n, f, n_bins, C, kind, mode = _ROWS_CASES[case]
+    rng = np.random.default_rng(11)
+    bins_t = rng.integers(0, min(n_bins + 8, 256), size=(f, n)
+                          ).astype(np.uint8)
+    if kind == "real":
+        vals_t = rng.normal(size=(C, n)).astype(np.float32)
+    else:
+        vals_t = rng.integers(-4, 5, size=(C, n)).astype(np.float32)
+    vals_t[:, rng.random(n) < 0.25] = 0.0
+    want = np.asarray(JP.histogram_pallas(
+        jnp.asarray(bins_t), jnp.asarray(vals_t), n_bins=n_bins,
+        rows_per_block=512, compute_dtype=_CDT[mode], interpret=True))
+    got = histogram_rows_t(_t(bins_t), _t(vals_t), n_bins=n_bins,
+                           hist_dtype=mode).numpy()
+    assert got.shape == (f, n_bins, C)
+    _assert_hist(got, want, kind == "real")
 
 
 # ---- the radix and packed kernels of hist_kernel=auto

@@ -411,7 +411,9 @@ def test_quantize_and_renew_match_jax():
 
 def test_unported_configurations_raise():
     X, y = _data("regression", n=2000)
-    for extra in ({"tpu_split_batch": 1}, {"objective": "huber"},
+    for extra in ({"tpu_split_batch": 1,
+                   "monotone_constraints": [1] + [0] * (X.shape[1] - 1)},
+                  {"objective": "huber"},
                   {"bagging_fraction": 0.5, "bagging_freq": 1}):
         params = dict(SLICE, objective="regression", device_type="cpu")
         params.update(extra)
