@@ -6,7 +6,8 @@ CUDA device, ``nvcc`` (CUDA_HOME, PATH or /usr/local/cuda) and nothing
 else: no jax, no network.  Phases, each of which fails the run on error:
 
 1. environment and build: the card's name and power limit, the versions,
-   and every kernel of ``lightgbm_tpu_torch/csrc`` compiled at once;
+   and every kernel of ``lightgbm_tpu_torch/csrc`` compiled at once, with
+   the atomic opcodes the radix-single and rows kernels compiled to;
 2. kernel checks: each of the ten kernels against its plain PyTorch
    version on the card, at the shapes of the HIGGS main path (n = 1M rows,
    F = 28 features, B = 256 bins, K = 42 leaves per round, T = 255 leaf
@@ -18,7 +19,19 @@ else: no jax, no network.  Phases, each of which fails the run on error:
    every histogram kernel called twice in float32 and in bfloat16 on real
    values must give the same bits, and their float32 times are printed
    beside the int8 ones; leaf renewal's fixed-order sums (the same bits
-   twice, host syncs counted);
+   twice, host syncs counted); then the two kernels the strict path calls
+   most at the shapes it gives them ("path shape:" lines):
+   ``histogram_radix_single`` at n = 90,000 with 1/2 and 1/32 of the rows
+   selected (its scale given by ``pass_scale`` and found in the launch)
+   and ``histogram_rows_t`` at S = 5,632, 11,264 and 45,056, each timed
+   (one call between CUDA events, and its device time from the profiler)
+   beside its byte bound (the rows these inputs need) and one index_add_
+   of the same cells, held bit for bit against the fixed-point reference
+   (float32 and bfloat16 on real values, also at S = 22,528 and 90,112,
+   the 1M-row root pass and the edges: C = 8 with a ragged S, B = 64
+   with bins past it, NaN and inf on excluded rows, an empty selection,
+   an all-zero bucket, one row), with each wrapper's launches per call
+   from the profiler;
 3. the slice: ``train()`` on a 1M x 28 HIGGS-shaped synthetic set (seeded
    numpy) with the default configuration of the HIGGS recipe
    (``hist_kernel`` and ``stochastic_rounding`` unset: the radix kernels,
@@ -33,7 +46,9 @@ else: no jax, no network.  Phases, each of which fails the run on error:
    per split and a profiled round; the same with
    ``tpu_leaf_hist=bucketed`` (90k x 5, the rows kernel); and the pooled
    default (1M x 10 with ``histogram_pool_size=8``: 128 slots,
-   ``partition_select``), each with its own launch counts;
+   ``partition_select``), each with its own launch counts; the sha256 of
+   the default recipe's, the strict default's and the bucketed run's
+   model text, and the bucketed run's rows launches by S;
 4. cross-check: the default recipe at 100k rows x 5 rounds on the card and
    on the CPU (plain versions), the held-out set also a valid set scored on
    the device each round: tree 0's splits must match, the held-out AUCs
@@ -49,8 +64,11 @@ power limit, and as its last line ``{"ok": true, "device": {...}}``.
 """
 
 import collections
+import hashlib
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -123,6 +141,37 @@ def bound_ms(nbytes, ops):
     tb = nbytes / HBM_BYTES_PER_S * 1e3
     to = ops / CUDA_CORE_OPS_PER_S * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def sass_atomics(cuda_lib):
+    """How the shared-memory adds of the radix-single and rows kernels
+    compiled: per kernel and mode (0 int8, 1 float32, 2 bfloat16), the
+    count of each atomic opcode in ``cuobjdump -sass`` of the built
+    library (a 64-bit add that is not native shows as the compare-and-swap
+    loop ``ATOMS.CAST.SPIN.64``).  None when cuobjdump is missing."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    kern = re.compile(r"(radix_single_cluster|radix_single_kernel|"
+                      r"rows_channel)ILi(\d)E")
+    op = re.compile(r"\b(ATOMS\.[A-Z0-9.]+|ATOMG\.[A-Z0-9.]+|"
+                    r"RED[A-Z]*\.[A-Z0-9.]+)")
+    found = {}
+    for name in ("radix", "rows"):
+        text = subprocess.run([tool, "-sass", str(cuda_lib._lib_path(name))],
+                              capture_output=True, text=True,
+                              timeout=300).stdout
+        key = None
+        for ln in text.splitlines():
+            if "Function :" in ln:
+                m = kern.search(ln)
+                key = f"{m.group(1)}<{m.group(2)}>" if m else None
+            elif key is not None:
+                o = op.search(ln)
+                if o:
+                    c = found.setdefault(key, {})
+                    c[o.group(1)] = c.get(o.group(1), 0) + 1
+    return found
 
 
 def check_kernels(torch, dev):
@@ -542,6 +591,226 @@ def check_kernels(torch, dev):
     return rows
 
 
+def device_per_call(torch, fn, reps=10):
+    """(device launches, device ms) per call of ``fn`` (kernels and
+    memsets, inputs warm in L2), from the profiler; (None, None) when it
+    saw none.  Beside time_ms, which also holds the host's time to reach
+    the launch, this is the kernel's own time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    n, us = 0, 0.0
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            n += e.count
+            us += getattr(e, "self_device_time_total", 0)
+    return (n / reps, us / 1e3 / reps) if n else (None, None)
+
+
+def launches_per_call(torch, fn):
+    return device_per_call(torch, fn)[0]
+
+
+def check_path_shapes(torch, dev):
+    """Phase 2b: the two kernels the strict path calls most, at the shapes
+    it gives them, held bit for bit against the fixed-point reference
+    (float32 and bfloat16 on real values) and timed beside their byte
+    bound and one index_add_ of the same cells:
+    ``histogram_radix_single`` at n = 90,000 with 1/2 and 1/32 of the rows
+    selected (the per-tree scale given, as the strict grower gives it, and
+    not given), ``histogram_rows_t`` at the bucket sizes of 90k rows; plus
+    the edges and each wrapper's launches per call."""
+    from lightgbm_tpu_torch.ops import hist_kernels as HK
+    rng = np.random.default_rng(7)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    out = {"radix_single": [], "rows_t": [], "launches_per_call": {}}
+
+    def t(a):
+        return torch.as_tensor(a, device=dev)
+
+    def bitwise(a, b, what):
+        if a.shape != b.shape or not torch.equal(a.view(torch.int32),
+                                                 b.view(torch.int32)):
+            d = ((a.double() - b.double()).abs().max().item()
+                 if a.shape == b.shape else float("nan"))
+            fail(f"{what}: kernel differs from the fixed-point reference "
+                 f"(max abs diff {d})")
+
+    def radix_fixed(bins, g, h, lor, nb, what):
+        for mode in ("float32", "bfloat16"):
+            kw = dict(n_bins=nb, hist_dtype=mode)
+            ref = HK.histogram_radix_single_fixed(bins, g, h, lor, **kw)
+            bitwise(HK.histogram_radix_single(bins, g, h, lor, **kw), ref,
+                    f"histogram_radix_single {mode} ({what})")
+            bitwise(HK.histogram_radix_single(
+                bins, g, h, lor, scale=HK.pass_scale(g, h), **kw), ref,
+                f"histogram_radix_single {mode}, scale given ({what})")
+
+    # -- radix_single, n = 90,000: NaN grad on the excluded rows
+    n = N_STRICT
+    bins = t(rng.integers(0, B - 1, size=(F, n), dtype=np.uint8))
+    gr = t(rng.normal(size=n).astype(np.float32))
+    hr = t(rng.random(n).astype(np.float32))
+    gi = t(rng.integers(-2, 3, size=n).astype(np.float32))
+    hi = t(rng.integers(0, 5, size=n).astype(np.float32))
+    for frac, tag in ((0.5, "1/2"), (1 / 32, "1/32"), (0.0, "empty")):
+        lor = t(np.where(rng.random(n) < frac, 0, -1).astype(np.int32))
+        g = torch.where(lor >= 0, gr, torch.full_like(gr, float("nan")))
+        radix_fixed(bins, g, hr, lor, B, f"n = {n}, {tag} selected")
+        kw8 = dict(n_bins=B, hist_dtype="int8")
+        same8 = HK.histogram_radix_single(bins, gi, hi, lor, **kw8)
+        bitwise(same8, HK.histogram_radix_single_plain(bins, gi, hi, lor,
+                                                       **kw8),
+                f"histogram_radix_single int8 (n = {n}, {tag})")
+        if frac == 0.0:
+            continue
+        sel = lor >= 0
+        n_sel = int(sel.sum().item())
+        sc = HK.pass_scale(g, hr)
+        kw = dict(n_bins=B, hist_dtype="float32")
+        cell = torch.where(sel[None, :], torch.arange(F, device=dev)[:, None]
+                           * B + bins.long(), F * B).reshape(-1)
+        vals = torch.stack([g, hr, torch.ones_like(hr)], 1).repeat(F, 1)
+        acc = torch.zeros(F * B + 1, 3, device=dev)
+        b_ms, b_by = bound_ms(4 * n + n_sel * (F + 8) + 8 + 16 * F * B,
+                              3 * F * n_sel)
+        def given():
+            return HK.histogram_radix_single(bins, g, hr, lor, scale=sc,
+                                             **kw)
+
+        def found():
+            return HK.histogram_radix_single(bins, g, hr, lor, **kw)
+
+        def lib():
+            return acc.index_add_(0, cell, vals)
+
+        r = dict(n=n, selected=n_sel, mode="float32",
+                 ms_scale_given=time_ms(torch, given, flush),
+                 ms_scale_found=time_ms(torch, found, flush),
+                 ms_int8=time_ms(torch, lambda: HK.histogram_radix_single(
+                     bins, gi, hi, lor, **kw8), flush),
+                 bound_ms=b_ms, bound_by=b_by,
+                 index_add_ms=time_ms(torch, lib, flush),
+                 device_ms_scale_given=device_per_call(torch, given)[1],
+                 index_add_device_ms=device_per_call(torch, lib)[1])
+        out["radix_single"].append(r)
+        print("path shape: " + json.dumps(r), flush=True)
+        if frac == 0.5:
+            lpc = out["launches_per_call"]
+            lpc["histogram_radix_single (n = 90,000, f32, scale given)"] = \
+                launches_per_call(torch, given)
+            lpc["histogram_radix_single (n = 90,000, f32, scale found)"] = \
+                launches_per_call(torch, found)
+            lpc["pass_scale (n = 90,000)"] = launches_per_call(
+                torch, lambda: HK.pass_scale(g, hr))
+        del cell, vals, acc
+    # edges: a ragged n (the scalar row loop), F = 30, B = 64 with bins past
+    # 63 dropped, NaN and inf on excluded rows
+    ne = 100_003
+    bins_e = t(rng.integers(0, 70, size=(30, ne), dtype=np.uint8))
+    lor_e = t(np.where(rng.random(ne) < 0.3, 0, -1).astype(np.int32))
+    g_e = t(rng.normal(size=ne).astype(np.float32))
+    g_e = torch.where(lor_e >= 0, g_e, torch.full_like(g_e, float("inf")))
+    h_e = t(rng.random(ne).astype(np.float32))
+    radix_fixed(bins_e, g_e, h_e, lor_e, N64, f"n = {ne}, F = 30, B = 64")
+    # the 1M-row root pass takes the block core
+    nr = N
+    bins_r = t(rng.integers(0, B - 1, size=(F, nr), dtype=np.uint8))
+    lor_r = t(np.where(rng.random(nr) < 0.05, -1, 0).astype(np.int32))
+    g_r = t(rng.normal(size=nr).astype(np.float32))
+    h_r = t(rng.random(nr).astype(np.float32))
+    radix_fixed(bins_r, g_r, h_r, lor_r, B, f"n = {nr}, root pass")
+    g_ri = t(rng.integers(-2, 3, size=nr).astype(np.float32))
+    out["launches_per_call"]["histogram_radix_single (n = 1M, int8)"] = \
+        launches_per_call(torch, lambda: HK.histogram_radix_single(
+            bins_r, g_ri, h_r, lor_r, n_bins=B, hist_dtype="int8"))
+    del bins_r, lor_r, g_r, h_r, g_ri
+
+    # -- rows_t at the bucket sizes of 90k rows: C = 4 (grad, hess, valid,
+    # 0), a quarter of the rows masked
+    big = 2 * S_ROWS
+    bins_w = t(rng.integers(0, B - 1, size=(F, big), dtype=np.uint8))
+    g_w = t(rng.normal(size=big).astype(np.float32))
+    h_w = t(rng.random(big).astype(np.float32))
+    gi_w = t(rng.integers(-2, 3, size=big).astype(np.float32))
+    hi_w = t(rng.integers(0, 5, size=big).astype(np.float32))
+    valid = t((rng.random(big) >= 0.25).astype(np.float32))
+
+    def vals_of(gg, hh, S):
+        v = valid[:S]
+        return torch.stack([gg[:S] * v, hh[:S] * v, v,
+                            torch.zeros_like(v)]).contiguous()
+
+    def rows_fixed(bs, vr, vi, nb, what):
+        for mode in ("float32", "bfloat16"):
+            kw = dict(n_bins=nb, hist_dtype=mode)
+            bitwise(HK.histogram_rows_t(bs, vr, **kw),
+                    HK.histogram_rows_t_fixed(bs, vr, **kw),
+                    f"histogram_rows_t {mode} ({what})")
+        for mode in ("int8", "float32", "bfloat16"):
+            kw = dict(n_bins=nb, hist_dtype=mode)
+            bitwise(HK.histogram_rows_t(bs, vi, **kw),
+                    HK.histogram_rows_t_plain(bs, vi, **kw),
+                    f"histogram_rows_t {mode}, integer values ({what})")
+
+    for S in (5_632, 11_264, 22_528, S_ROWS, big):
+        bs = bins_w[:, :S].contiguous()
+        vr, vi = vals_of(g_w, h_w, S), vals_of(gi_w, hi_w, S)
+        rows_fixed(bs, vr, vi, B, f"S = {S}")
+        if S not in (5_632, 11_264, S_ROWS):
+            continue
+        cell = (torch.arange(F, device=dev)[:, None] * B
+                + bs.long()).reshape(-1)
+        acc = torch.zeros(F * B, 4, device=dev)
+        b_ms, b_by = bound_ms(F * S + 16 * S + 16 * F * B, 4 * F * S)
+        r = dict(S=S, C=4)
+        for mode, v in (("float32", vr), ("int8", vi)):
+            kw = dict(n_bins=B, hist_dtype=mode)
+            r[f"ms_{mode}"] = time_ms(
+                torch, lambda: HK.histogram_rows_t(bs, v, **kw), flush)
+            r[f"device_ms_{mode}"] = device_per_call(
+                torch, lambda: HK.histogram_rows_t(bs, v, **kw))[1]
+        vrep = vr.t().repeat(F, 1)
+
+        def lib():
+            return acc.index_add_(0, cell, vrep)
+
+        r.update(bound_ms=b_ms, bound_by=b_by,
+                 index_add_ms=time_ms(torch, lib, flush),
+                 index_add_device_ms=device_per_call(torch, lib)[1])
+        out["rows_t"].append(r)
+        print("path shape: " + json.dumps(r), flush=True)
+        if S == 5_632:
+            out["launches_per_call"]["histogram_rows_t (S = 5,632, f32)"] = \
+                launches_per_call(torch, lambda: HK.histogram_rows_t(
+                    bs, vr, n_bins=B, hist_dtype="float32"))
+        del cell, acc, vrep
+    # edges: C = 8, a ragged S, F = 30, B = 64 with bins past 63; an empty
+    # bucket (all values zero); a single row
+    se = 45_001
+    be = t(rng.integers(0, 70, size=(30, se), dtype=np.uint8))
+    rows_fixed(be, t(rng.normal(size=(8, se)).astype(np.float32)),
+               t(rng.integers(-4, 5, size=(8, se)).astype(np.float32)), N64,
+               "C = 8, S = 45,001, F = 30, B = 64")
+    z = torch.zeros(4, 5_632, device=dev)
+    rows_fixed(bins_w[:, :5_632].contiguous(), z, z, B, "all values zero")
+    one = vals_of(g_w, h_w, 1)
+    rows_fixed(bins_w[:, :1].contiguous(), one, one.round(), B, "S = 1")
+    print("path shapes: both kernels equal the fixed-point reference bit "
+          "for bit (f32, bf16 on real values; int8/f32/bf16 on integer "
+          "values) at every shape and edge; launches per call "
+          + json.dumps(out["launches_per_call"]), flush=True)
+    want_one = [k for k, v in out["launches_per_call"].items()
+                if "n = 1M" not in k and "pass_scale" not in k and v != 1]
+    if want_one:
+        fail(f"more than one launch per call: {want_one}")
+    return out
+
+
 def check_determinism(torch, dev):
     """Every histogram kernel twice in float32 and in bfloat16 on real
     values at the main path's shapes: identical bits, or the run fails.
@@ -725,6 +994,12 @@ def zero_counts(HK, RF, TB, prng):
     HK.leaves_launches = HK.payload_launches = HK.rows_launches = 0
     HK.radix_single_launches = HK.radix_joint_launches = 0
     HK.radix2_launches = HK.packed_launches = 0
+    HK.rows_launches_by_size.clear()
+
+
+def text_sha256(bst):
+    """sha256 of the whole model text."""
+    return hashlib.sha256(bst.model_to_string().encode()).hexdigest()
 
 
 def trees_text(bst):
@@ -770,6 +1045,9 @@ def main():
           f"python {sys.version.split()[0]}", flush=True)
     build_s = cuda_lib.build_all()
     print(f"kernel build: {build_s:.1f} s", flush=True)
+    sass = sass_atomics(cuda_lib)
+    print("sass atomics (cuobjdump): " + ("not measured" if sass is None
+                                          else json.dumps(sass)), flush=True)
     for name, text in sorted(cuda_lib.build_log.items()):
         for ln in text.splitlines():
             if "registers" in ln or "error" in ln.lower():
@@ -777,6 +1055,7 @@ def main():
 
     # ---- 2. kernel checks
     rows = check_kernels(torch, torch.device("cuda"))
+    check_path_shapes(torch, torch.device("cuda"))
     check_determinism(torch, torch.device("cuda"))
 
     # ---- 3. the default recipe on the card; counts zeroed just before,
@@ -806,6 +1085,8 @@ def main():
     if not auc_main > 0.7:
         fail(f"held-out AUC {auc_main} is not that of a trained model")
     text_main = trees_text(bst)
+    print(f"model text sha256 (default recipe, 1M x 10): {text_sha256(bst)}",
+          flush=True)
     profiled(torch, bst)
     launches = dict(counts)
     del bst
@@ -864,6 +1145,8 @@ def main():
     if not auc_s > 0.7:
         fail(f"strict default held-out AUC {auc_s} is not that of a trained "
              f"model")
+    print(f"model text sha256 (strict default, {N_STRICT} x 10): "
+          f"{text_sha256(bst)}", flush=True)
     _, where = syncing(torch, bst.update)
     sp = g.models[-1].num_leaves - 1
     in_grower = sum(1 for w in where if w.startswith("grower.py"))
@@ -887,6 +1170,11 @@ def main():
     print(f"slice (strict, tpu_leaf_hist=bucketed, {N_STRICT} x 5): train "
           f"{t_b:.2f} s, s/iter (2-5) {float(np.mean(steps_b[1:])):.4f}, "
           f"held-out AUC {auc_b:.6f}; kernels {json.dumps(cb)}", flush=True)
+    print(f"model text sha256 (strict bucketed, {N_STRICT} x 5): "
+          f"{text_sha256(bst)}", flush=True)
+    print("strict bucketed: histogram_rows_t launches by S "
+          + json.dumps(dict(sorted(HK.rows_launches_by_size.items()))),
+          flush=True)
     if cb["histogram_rows_t"] <= 0:
         fail("the bucketed strict run never launched histogram_rows_t")
     launches["histogram_rows_t"] = cb["histogram_rows_t"]

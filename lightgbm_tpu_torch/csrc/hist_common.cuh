@@ -43,6 +43,8 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace {
 
 constexpr int kLeafTable = 2048;  // leaf ids in [0, 2048) map via the table
@@ -353,12 +355,63 @@ struct Plan {
   size_t smem;
 };
 
-int optin_smem(int* optin) {
+// Host side: the opt-in shared memory limit of the current device and the
+// dynamic shared memory each kernel was last allowed, both cached, so a
+// launch queries and sets nothing once a kernel has run at a size.
+struct SmemCache {
+  std::mutex mu;
+  int optin[16] = {0};
+  struct Entry {
+    const void* fn;
+    int dev;
+    int bytes;
+  } e[64];
+  int used = 0;
+};
+
+inline SmemCache& smem_cache() {
+  static SmemCache c;
+  return c;
+}
+
+inline int optin_smem(int* optin) {
   int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaDeviceGetAttribute(
-      optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  SmemCache& c = smem_cache();
+  std::lock_guard<std::mutex> g(c.mu);
+  if (dev < 16 && c.optin[dev] > 0) {
+    *optin = c.optin[dev];
+    return 0;
+  }
+  err = cudaDeviceGetAttribute(optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (err == cudaSuccess && dev < 16) c.optin[dev] = *optin;
+  return (int)err;
+}
+
+// cudaFuncSetAttribute(fn, MaxDynamicSharedMemorySize) once per kernel,
+// device and larger size
+inline int allow_smem(const void* fn, size_t bytes) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  SmemCache& c = smem_cache();
+  std::lock_guard<std::mutex> g(c.mu);
+  int k = 0;
+  for (; k < c.used; ++k)
+    if (c.e[k].fn == fn && c.e[k].dev == dev) break;
+  if (k < c.used && c.e[k].bytes >= (int)bytes) return 0;
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  if (k == c.used) {
+    if (c.used == 64) return 0;  // full: set again on every launch
+    c.e[c.used++] = {fn, dev, (int)bytes};
+  } else {
+    c.e[k].bytes = (int)bytes;
+  }
+  return 0;
 }
 
 int plan_blocks(int K, int num_f, int n_bins, size_t elem, int fpb_max,
@@ -394,8 +447,9 @@ int plan_blocks(int K, int num_f, int n_bins, size_t elem, int fpb_max,
 
 // Plan, launch ``kernel`` (a __global__ wrapper of hist_block) over the
 // zero-filled global accumulator ``scratch`` and finalize into ``out``.
-// Modes 1 and 2 first find the scale: the two words after the [K, F, B, 3]
-// accumulator (zeroed with it) receive max |grad| and max |hess|.
+// Modes 1 and 2 first find the scale, unless the caller gave it in
+// ``t.vmax``: the two words after the [K, F, B, 3] accumulator (zeroed with
+// it) receive max |grad| and max |hess|.
 template <int MODE, typename Kernel>
 int run_hist(Kernel kernel, Task t, int fpb_max, bool fpb_fixed, int copies,
              bool table, void* scratch, float* out, cudaStream_t s) {
@@ -403,8 +457,10 @@ int run_hist(Kernel kernel, Task t, int fpb_max, bool fpb_fixed, int copies,
   T* glob = reinterpret_cast<T*>(scratch);
   unsigned* vmax =
       reinterpret_cast<unsigned*>(glob + (long)t.K * t.num_f * t.n_bins * 3);
+  const bool given = t.vmax != nullptr;
+  if (given) vmax = const_cast<unsigned*>(t.vmax);
   t.vmax = vmax;
-  if (MODE != 0 && t.n > 0) {
+  if (MODE != 0 && t.n > 0 && !given) {
     int err;
     if (t.payload != nullptr) {  // grad, hess: payload columns W, W+1
       err = launch_absmax(reinterpret_cast<const float*>(t.payload) + t.W,
@@ -421,8 +477,7 @@ int run_hist(Kernel kernel, Task t, int fpb_max, bool fpb_fixed, int copies,
                           fpb_fixed, copies,
                           table ? kFixedInts * sizeof(int) : 0, &p);
     if (err) return err;
-    err = (int)cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+    err = allow_smem(reinterpret_cast<const void*>(kernel), p.smem);
     if (err) return err;
     const long chunks = plan_chunks(t.n, p.fgroups * p.sgroups);
     t.fpb = p.fpb;

@@ -5,141 +5,179 @@
 //   hist[f, b, c] = sum over r of [bins_t[f, r] == b] * vals_t[c, r],
 // bins >= n_bins dropped.  The strict grower's bucketed per-leaf pass calls
 // it on the compacted rows of the smaller child (C = 4: grad, hess, valid,
-// 0); rows that must not count carry zeros (the callers mask, as in JAX).
+// 0; S = 5,632 ... 90,112 at 90k rows); rows that must not count carry
+// zeros (the callers mask, as in JAX).
 //
 // The TPU kernel contracts a [C, R] value block with a [F*B, R] one-hot on
 // the MXU, carrying the [C, F*B] sum across a sequential grid.  On Hopper
-// the function is a scatter: a block owns (a group of features, a chunk of
-// rows) and keeps a [features][B][C] accumulator in shared memory; each row
-// converts its C values once per channel and adds each non-zero one to the
-// cell of every feature in the group with shared atomics; the non-zero cells
-// go to a global [F, B, C] accumulator with global atomics, and a second
-// kernel converts it to f32.  Modes as hist_common.cuh: int8 sums
+// the function is a scatter.  Modes as hist_common.cuh: int8 sums
 // (int8)(int32)v in int32 exactly; float32 and bfloat16 sum 64-bit fixed
-// point at a power-of-two scale per channel (absmax_kernel over that
-// channel), so every call gives the same bits.
+// point at a power-of-two scale per channel, fixed_shift(max finite |value|
+// of the channel, S), so every call gives the same bits.
+//
+// Design: ONE launch, one block per (feature, channel): F * C blocks (112
+// at F = 28, C = 4), each over every row of the set.  A block reads its
+// feature's bin bytes and its channel's values four rows to a load, keeps
+// its first kHeld steps of rows in registers, finds the channel's max
+// |value| itself (a block reduction: the scale pass, the memset and the
+// finalize of the first version are gone), converts each value once with
+// one multiply, and adds the non-zero ones to a single 256-cell plane in
+// shared memory (64-bit sums as two native 32-bit atomics, the bin
+// innermost so a warp's lanes hit different banks); then it writes its
+// f32 column itself.  No global accumulator and no global atomics.  The
+// first version (feature groups x row chunks, all channels per block,
+// three more launches) re-read and re-converted each value for every
+// feature group and paid a scale pass and a finalize per call; a one-launch
+// version with a cluster of row chunks per feature, all channels per block
+// (summed through distributed shared memory), ran 1.8-3.4x slower than
+// this one at every S of the strict path.
 //
 // Bound on the H100: bytes.  F*S bin bytes and 4*C*S value bytes are read
-// and 4*F*B*C written: 2.1 MB at the main path's S = 45,056, F = 28,
-// C = 4, B = 256, 0.6 us at 3.35 TB/s.  The three launches (scale, pass,
-// finalize) cost more than that; only a fused caller could hide them.
+// and 4*F*B*C written: 2.1 MB at S = 45,056, F = 28, C = 4, B = 256
+// (0.6 us at 3.35 TB/s), 0.38 MB at S = 5,632 (0.1 us).  Each block re-reads
+// its feature's bins once per channel and its channel's values once per
+// feature (from L2), and at the strict path's sizes the launch, the block
+// reduction and the atomics' latency set the pace.
 
-#include "hist_common.cuh"
+#include "cluster_hist.cuh"  // Acc, Cvt
 
 namespace {
 
-constexpr int kRowsThreads = 256;
+constexpr int kHeld = 4;  // row steps a thread keeps in registers
 
-template <int MODE>
-__global__ void __launch_bounds__(kRowsThreads)
-    rows_kernel(const uint8_t* __restrict__ bins_t, long S, int num_f,
-                const float* __restrict__ vals_t, int C, int n_bins, int fpb,
-                long rows_per_chunk, const unsigned* __restrict__ vmax,
-                typename Val<MODE>::T* __restrict__ glob) {
-  typedef typename Val<MODE>::T T;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* acc = reinterpret_cast<T*>(smem);
-  int* shift = reinterpret_cast<int*>(acc + (long)fpb * n_bins * C);
-  const int f0 = blockIdx.x * fpb;
-  const int nf = min(fpb, num_f - f0);
-  const long r0 = (long)blockIdx.y * rows_per_chunk;
-  const long r1 = min(S, r0 + rows_per_chunk);
-  const int per = nf * n_bins * C;
-  for (int i = threadIdx.x; i < per; i += blockDim.x) acc[i] = (T)0;
-  for (int c = threadIdx.x; c < C; c += blockDim.x)
-    shift[c] = MODE == 0 ? 0 : fixed_shift(vmax[c], S);
-  __syncthreads();
-  for (long r = r0 + threadIdx.x; r < r1; r += blockDim.x) {
-    for (int c = 0; c < C; ++c) {
-      const T q = Val<MODE>::cvt(vals_t[(long)c * S + r], shift[c]);
-      if (q == (T)0) continue;
-      for (int j = 0; j < nf; ++j) {
-        const int b = bins_t[(long)(f0 + j) * S + r];
-        if (b < n_bins) atomicAdd(acc + ((long)j * n_bins + b) * C + c, q);
-      }
+// Four rows' (VEC = 4) or one row's bins and values from r on
+template <int VEC>
+struct Quad {
+  unsigned bins;  // byte u: the bin of row r + u
+  float v[4];
+  __device__ void load(const uint8_t* __restrict__ bp,
+                       const float* __restrict__ vp, long r) {
+    if (VEC == 4) {
+      bins = *reinterpret_cast<const unsigned*>(bp + r);
+      const float4 q = *reinterpret_cast<const float4*>(vp + r);
+      v[0] = q.x;
+      v[1] = q.y;
+      v[2] = q.z;
+      v[3] = q.w;
+    } else {
+      bins = bp[r];
+      v[0] = vp[r];
     }
   }
+};
+
+// Block blockIdx.x = f * C + c: channel c of feature f over all S rows.
+// Shared memory: one plane of B cells (Acc) and the block's max |value|.
+// A thread's first kHeld steps of rows stay in registers from the scale
+// pass to the scatter.  VEC = 4: S % 4 == 0 and aligned operands.
+template <int MODE, int VEC>
+__global__ void __launch_bounds__(1024)
+    rows_channel(const uint8_t* __restrict__ bins_t, long S,
+                 const float* __restrict__ vals_t, int C, int n_bins,
+                 float* __restrict__ out) {
+  typedef typename Val<MODE>::T T;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int f = blockIdx.x / C;
+  const int c = blockIdx.x % C;
+  const uint8_t* bp = bins_t + (long)f * S;
+  const float* vp = vals_t + (long)c * S;
+  const int words = n_bins * Acc<MODE>::kWords;
+  unsigned* w = reinterpret_cast<unsigned*>(smem);
+  unsigned* part = w + words;
+  for (int i = threadIdx.x; i < words; i += blockDim.x) w[i] = 0;
+  if (threadIdx.x == 0) *part = 0;
+  const long step = (long)VEC * blockDim.x;
+  const long rt = VEC * threadIdx.x;  // this thread's first row
+  Quad<VEC> held[kHeld];
+#pragma unroll
+  for (int k = 0; k < kHeld; ++k)
+    if (rt + k * step < S) held[k].load(bp, vp, rt + k * step);
   __syncthreads();
-  T* g = glob + (long)f0 * n_bins * C;
-  for (int i = threadIdx.x; i < per; i += blockDim.x) {
-    const T v = acc[i];
-    if (v != (T)0) atomicAdd(g + i, v);
+  int s = 0;
+  if (MODE != 0) {
+    unsigned m = 0;
+    auto see = [&](const Quad<VEC>& x) {
+#pragma unroll
+      for (int u = 0; u < VEC; ++u) {
+        const float y = fabsf(x.v[u]);
+        if (y <= FLT_MAX && __float_as_uint(y) > m) m = __float_as_uint(y);
+      }
+    };
+#pragma unroll
+    for (int k = 0; k < kHeld; ++k)
+      if (rt + k * step < S) see(held[k]);
+    for (long r = rt + kHeld * step; r < S; r += step) {
+      Quad<VEC> x;
+      x.load(bp, vp, r);
+      see(x);
+    }
+    m = __reduce_max_sync(0xffffffffu, m);
+    if ((threadIdx.x & 31) == 0 && m != 0) atomicMax(part, m);
+    __syncthreads();
+    s = fixed_shift(*part, S);
   }
+  const Cvt<MODE> cvt = {ldexp(1.0, s)};
+  const Acc<MODE> a = {w, n_bins};
+  auto add = [&](const Quad<VEC>& x) {
+#pragma unroll
+    for (int u = 0; u < VEC; ++u) {
+      const int b = (x.bins >> (8 * u)) & 255;
+      const T q = cvt(x.v[u]);
+      if (b < n_bins && q != (T)0) a.add(b, q);
+    }
+  };
+#pragma unroll
+  for (int k = 0; k < kHeld; ++k)
+    if (rt + k * step < S) add(held[k]);
+  for (long r = rt + kHeld * step; r < S; r += step) {
+    Quad<VEC> x;
+    x.load(bp, vp, r);
+    add(x);
+  }
+  __syncthreads();
+  // out [F, B, C]: bin b of this (feature, channel) at (f * B + b) * C + c
+  float* o = out + (long)f * n_bins * C + c;
+  for (int b = threadIdx.x; b < n_bins; b += blockDim.x)
+    o[(long)b * C] = Val<MODE>::out(a.get(w, b), s);
 }
 
-template <int MODE>
-__global__ void rows_finalize(const typename Val<MODE>::T* __restrict__ glob,
-                              long total, int C, long S,
-                              const unsigned* __restrict__ vmax,
-                              float* __restrict__ out) {
-  for (long i = (long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += (long)gridDim.x * blockDim.x) {
-    const int c = (int)(i % C);
-    out[i] = Val<MODE>::out(glob[i], MODE == 0 ? 0 : fixed_shift(vmax[c], S));
-  }
+inline bool aligned(const void* p, int bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
 template <int MODE>
 int run(const uint8_t* bins_t, long S, int num_f, const float* vals_t, int C,
-        int n_bins, void* scratch, float* out, cudaStream_t s) {
+        int n_bins, float* out, cudaStream_t s) {
   typedef typename Val<MODE>::T T;
-  T* glob = reinterpret_cast<T*>(scratch);
-  const long total = (long)num_f * n_bins * C;
-  unsigned* vmax = reinterpret_cast<unsigned*>(glob + total);
-  if (total <= 0) return 0;
-  int err = 0;
-  if (MODE != 0) {
-    err = launch_absmax(vals_t, S, 1, S, C, vmax, s);
-    if (err) return err;
-  }
-  if (S > 0) {
-    int optin = 0;
-    err = optin_smem(&optin);
-    if (err) return err;
-    // the most features per block whose accumulator fits 48 KB (a few
-    // blocks per SM), at least one within the opt-in limit
-    const size_t per_f = (size_t)n_bins * C * sizeof(T);
-    const size_t fixed = (size_t)C * sizeof(int);
-    int fpb = (int)((48u << 10) / per_f);
-    fpb = fpb < 1 ? 1 : (fpb > num_f ? num_f : fpb);
-    const size_t smem = fixed + fpb * per_f;
-    if (smem > (size_t)optin) return (int)cudaErrorInvalidValue;
-    err = (int)cudaFuncSetAttribute(
-        rows_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err) return err;
-    const int fgroups = (num_f + fpb - 1) / fpb;
-    const long chunks = plan_chunks(S, fgroups);
-    const long rpc = (S + chunks - 1) / chunks;
-    rows_kernel<MODE><<<dim3(fgroups, (unsigned)chunks), kRowsThreads, smem,
-                        s>>>(bins_t, S, num_f, vals_t, C, n_bins, fpb, rpc,
-                             vmax, glob);
-    err = (int)cudaGetLastError();
-    if (err) return err;
-  }
-  long want = (total + 255) / 256;
-  int blocks = (int)(want < kSMs * 32L ? want : kSMs * 32L);
-  rows_finalize<MODE><<<blocks, 256, 0, s>>>(glob, total, C, S, vmax, out);
+  if (num_f <= 0 || C <= 0) return 0;
+  if ((long)num_f * C > 0x7fffffffL) return (int)cudaErrorInvalidValue;
+  // a thread per two steps of rows, up to 1024 (kHeld steps in registers)
+  long threads = ((S + 7) / 8 + 31) / 32 * 32;
+  threads = threads < 64 ? 64 : (threads > 1024 ? 1024 : threads);
+  const size_t smem = (size_t)n_bins * sizeof(T) + 16;
+  const bool vec = S % 4 == 0 && aligned(bins_t, 4) && aligned(vals_t, 16);
+  auto kernel = vec ? rows_channel<MODE, 4> : rows_channel<MODE, 1>;
+  int err = allow_smem(reinterpret_cast<const void*>(kernel), smem);
+  if (err) return err;
+  kernel<<<num_f * C, (int)threads, smem, s>>>(bins_t, S, vals_t, C, n_bins,
+                                                out);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// scratch: zero-filled [F, n_bins, C] int32 (mode 0) or int64 (1, 2), then
-// (C + 1) / 2 zero int64 that receive the modes' per-channel scale;
 // out: f32 [F, n_bins, C]
 extern "C" int lgbt_hist_rows(const uint8_t* bins_t, long S, int num_f,
                               const float* vals_t, int C, int n_bins,
-                              int mode, void* scratch, float* out,
-                              void* stream) {
+                              int mode, float* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   switch (mode) {
     case 0:
-      return run<0>(bins_t, S, num_f, vals_t, C, n_bins, scratch, out, s);
+      return run<0>(bins_t, S, num_f, vals_t, C, n_bins, out, s);
     case 1:
-      return run<1>(bins_t, S, num_f, vals_t, C, n_bins, scratch, out, s);
+      return run<1>(bins_t, S, num_f, vals_t, C, n_bins, out, s);
     case 2:
-      return run<2>(bins_t, S, num_f, vals_t, C, n_bins, scratch, out, s);
+      return run<2>(bins_t, S, num_f, vals_t, C, n_bins, out, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -35,8 +35,8 @@ import numpy as np
 import torch
 
 from ..ops.histogram import (bins_to_words, histogram_for_leaf_bucketed,
-                             histogram_for_leaf_masked, root_histogram,
-                             wants_packed_mirror)
+                             histogram_for_leaf_masked, leaf_pass_scale,
+                             root_histogram, wants_packed_mirror)
 from ..ops.split import NEG_INF, SplitHyper, find_best_split, leaf_output
 from ..utils import log
 
@@ -159,9 +159,13 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         return h if scale_vec is None else h * scale_vec
 
     hk = dict(n_bins=hp.n_bins, hist_dtype=hp.hist_dtype)
+    # grad/hess stay the same all tree long: the radix-single kernel's
+    # float32 scale is found once, for the root and every masked pass
+    pscale = (leaf_pass_scale(grad, hess, hist_kernel=hp.hist_kernel, **hk)
+              if hp.leaf_hist == "masked" else None)
     hist0 = scaled(root_histogram(bins_t, grad, hess, row_mask,
                                   hist_kernel=hp.hist_kernel,
-                                  bins_words_t=words_t, **hk))
+                                  bins_words_t=words_t, scale=pscale, **hk))
     g0 = (grad * mask_f).sum()
     h0 = (hess * mask_f).sum()
     c0 = mask_f.sum()
@@ -225,7 +229,8 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         if hp.leaf_hist == "masked":
             h_small = histogram_for_leaf_masked(
                 bins_t, grad, hess, lor, smaller, row_mask,
-                hist_kernel=hp.hist_kernel, bins_words_t=words_t, **hk)
+                hist_kernel=hp.hist_kernel, bins_words_t=words_t,
+                scale=pscale, **hk)
         else:
             h_small = histogram_for_leaf_bucketed(
                 bins_t, grad, hess, lor, smaller, min(lcn, rcn), row_mask,

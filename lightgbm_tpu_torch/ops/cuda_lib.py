@@ -47,7 +47,9 @@ _SIGNATURES = {
     },
     "radix": {
         "lgbt_hist_radix_single": (_P, _L, _I, _P, _P, _P, _I, _I, _P, _P,
-                                   _P),
+                                   _P, _P),
+        "lgbt_radix_single_scratch": (_L, _I),
+        "lgbt_pass_scale": (_P, _P, _L, _P, _P),
         "lgbt_hist_radix_joint": (_P, _L, _I, _P, _P, _P, _P, _I, _I, _I, _P,
                                   _P, _P),
         "lgbt_hist_radix2": (_P, _L, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P,
@@ -58,7 +60,7 @@ _SIGNATURES = {
                              _P, _P),
     },
     "rows": {
-        "lgbt_hist_rows": (_P, _L, _I, _P, _I, _I, _I, _P, _P, _P),
+        "lgbt_hist_rows": (_P, _L, _I, _P, _I, _I, _I, _P, _P),
     },
     "partition": {
         "lgbt_partition_payload": (_P, _L, _I, _P, _I, _P, _P, _P, _P, _P, _I,
@@ -145,9 +147,11 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def stream_handle(t) -> int:
-    """PyTorch's current CUDA stream on ``t``'s device, as a pointer."""
+    """PyTorch's current CUDA stream on ``t``'s device, as a pointer (the
+    raw handle: building a ``torch.cuda.Stream`` costs microseconds a
+    launch)."""
     import torch
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def check(code: int, what: str) -> None:

@@ -20,7 +20,10 @@ kernel:
   packed word mirror, replacing ``histogram_leaves_packed_pallas``,
   csrc/packed.cu;
 * :func:`histogram_rows_t` — the plain [F, B, C] histogram of a row set
-  with C value channels, replacing ``histogram_pallas``, csrc/rows.cu.
+  with C value channels, replacing ``histogram_pallas``, csrc/rows.cu;
+* :func:`pass_scale` — the float32/bfloat16 scale of a pass (max finite
+  |grad|, |hess|), which the strict grower computes once per tree and hands
+  to every :func:`histogram_radix_single` call of the tree.
 
 Each masked pass returns f32 [K, F, B, 4] ([F, B, 4] for the root pass;
 channel 3 zero; a slot repeating an earlier slot's leaf gets a copy).  On
@@ -30,13 +33,19 @@ runs its plain version.  ``hist_dtype`` picks the arithmetic: ``int8``
 (values rounded to bf16).  The plain versions sum float32 and bfloat16 in
 f32; the kernels sum them in 64-bit fixed point at a per-call power-of-two
 scale (csrc/hist_common.cuh), so a kernel gives the same bits on every
-call, the correctly rounded exact sum on integer-valued inputs.  The radix
-and packed kernels compute what the TPU kernels compute, not their nibble
-or SWAR formulation, so their plain versions are the flat histogram's.
+call, the correctly rounded exact sum on integer-valued inputs.
+:func:`fixed_shift`, :func:`histogram_rows_t_fixed` and
+:func:`histogram_radix_single_fixed` mirror that arithmetic in PyTorch (an
+int64 ``index_add_`` of ``round(v * 2^s)``): the kernels' bits exactly, on
+any values.  The radix and packed kernels compute what the TPU kernels
+compute, not their nibble or SWAR formulation, so their plain versions are
+the flat histogram's.
 """
 
 from __future__ import annotations
 
+import collections
+import math
 from typing import Callable, Optional
 
 import torch
@@ -52,6 +61,8 @@ radix_joint_launches = 0
 radix2_launches = 0
 packed_launches = 0
 rows_launches = 0
+#: histogram_rows_t launches by row count S
+rows_launches_by_size: collections.Counter = collections.Counter()
 
 _MODES = {"int8": 0, "float32": 1, "bfloat16": 2}
 
@@ -64,22 +75,20 @@ def _mode(hist_dtype: str) -> int:
     return m
 
 
-def _scratch(cells: int, channels: int, mode: int,
-             dev: torch.device) -> torch.Tensor:
-    """The zeroed global accumulator of a kernel: int32 sums of int8
-    levels, or int64 fixed-point sums followed by room for one f32 bit
-    pattern per value channel (the pass's max |value|, csrc/hist_common.cuh
+def _scratch(cells: int, mode: int, dev: torch.device) -> torch.Tensor:
+    """The zeroed global accumulator of a block-core kernel: int32 sums of
+    int8 levels, or int64 fixed-point sums followed by room for the f32 bit
+    patterns of max |grad| and max |hess| (csrc/hist_common.cuh
     run_hist)."""
     if mode == 0:
         return torch.zeros(cells, dtype=torch.int32, device=dev)
-    return torch.zeros(cells + (channels + 1) // 2, dtype=torch.int64,
-                       device=dev)
+    return torch.zeros(cells + 1, dtype=torch.int64, device=dev)
 
 
 def _buffers(K: int, num_f: int, n_bins: int, mode: int,
              dev: torch.device):
     """Zeroed global accumulator and the f32 [K, F, B, 4] output."""
-    scratch = _scratch(K * num_f * n_bins * 3, 2, mode, dev)
+    scratch = _scratch(K * num_f * n_bins * 3, mode, dev)
     out = torch.empty(K, num_f, n_bins, 4, dtype=torch.float32, device=dev)
     return scratch, out
 
@@ -248,15 +257,18 @@ def _check_pass(what: str, n: int, grad: torch.Tensor, hess: torch.Tensor,
         log.fatal(f"{what} kernel takes f32 grad/hess and i32 leaf ids")
     if grad.shape != (n,) or hess.shape != (n,) or lor.shape != (n,):
         log.fatal(f"{what}: grad/hess/leaf_of_row must be [n]")
-    ops = (grad, hess, lor) + ((leaves,) if leaves is not None else ())
-    if any(t.device != dev for t in ops):
+    # device indices, not torch.device objects: this runs once per split
+    d = dev.index
+    if (grad.get_device() != d or hess.get_device() != d
+            or lor.get_device() != d
+            or (leaves is not None and leaves.get_device() != d)):
         log.fatal(f"{what}: all operands must be on one device")
     if not 1 <= n_bins <= 256:
         log.fatal(f"{what}: n_bins={n_bins} outside [1, 256]")
 
 
 def _c(*ts):
-    return tuple(t.contiguous() for t in ts)
+    return [t if t.is_contiguous() else t.contiguous() for t in ts]
 
 
 def histogram_radix_single_plain(bins_t: torch.Tensor, grad: torch.Tensor,
@@ -271,12 +283,48 @@ def histogram_radix_single_plain(bins_t: torch.Tensor, grad: torch.Tensor,
                                   n_bins=n_bins, hist_dtype=hist_dtype)[0]
 
 
+#: (n, num_f) -> whether the radix-single pass of that shape takes the
+#: block core's global accumulator (csrc/radix.cu plan_single)
+_radix_scratch: dict = {}
+
+
+def pass_scale_plain(grad: torch.Tensor, hess: torch.Tensor
+                     ) -> torch.Tensor:
+    """Plain version of :func:`pass_scale`."""
+    return torch.stack([absmax_bits(grad), absmax_bits(hess)])
+
+
+def pass_scale(grad: torch.Tensor, hess: torch.Tensor) -> torch.Tensor:
+    """i32 [2]: the f32 bit patterns of the largest finite |grad| and
+    |hess| (0 when there is none), found on the device with no host read.
+    It is the scale of :func:`histogram_radix_single`'s float32 and
+    bfloat16 sums over these values; a caller that makes several passes
+    over the same grad/hess computes it once and hands it to each."""
+    if not grad.is_cuda:
+        return pass_scale_plain(grad, hess)
+    n = grad.shape[0]
+    if (grad.dtype != torch.float32 or hess.dtype != torch.float32
+            or grad.shape != (n,) or hess.shape != (n,)
+            or hess.device != grad.device):
+        log.fatal("pass_scale takes f32 grad/hess [n] on one device")
+    grad, hess = _c(grad, hess)
+    out = torch.zeros(2, dtype=torch.int32, device=grad.device)
+    code = cuda_lib.load("radix").lgbt_pass_scale(
+        grad.data_ptr(), hess.data_ptr(), n, out.data_ptr(),
+        cuda_lib.stream_handle(grad))
+    cuda_lib.check(code, "pass_scale")
+    return out
+
+
 def histogram_radix_single(bins_t: torch.Tensor, grad: torch.Tensor,
                            hess: torch.Tensor, lor: torch.Tensor, *,
-                           n_bins: int,
-                           hist_dtype: str = "float32") -> torch.Tensor:
+                           n_bins: int, hist_dtype: str = "float32",
+                           scale: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
     """Root-pass histogram f32 [F, n_bins, 4] over every row whose
-    ``lor`` (i32 [n]) is >= 0.  bins_t: u8 [F, n]; grad/hess: f32 [n]."""
+    ``lor`` (i32 [n]) is >= 0.  bins_t: u8 [F, n]; grad/hess: f32 [n];
+    ``scale``: :func:`pass_scale` of these grad/hess (float32/bfloat16),
+    found here when not given."""
     if not bins_t.is_cuda:
         return histogram_radix_single_plain(bins_t, grad, hess, lor,
                                             n_bins=n_bins,
@@ -286,17 +334,37 @@ def histogram_radix_single(bins_t: torch.Tensor, grad: torch.Tensor,
     num_f, n = bins_t.shape
     if bins_t.dtype != torch.uint8:
         log.fatal("histogram_radix_single kernel takes u8 bins")
+    if n >= (1 << 31):
+        log.fatal("histogram_radix_single counts rows in 32 bits: n < 2^31")
     _check_pass("histogram_radix_single", n, grad, hess, lor, None, n_bins,
                 bins_t.device)
+    vmax = None
+    if scale is not None and mode != 0:
+        if (scale.dtype != torch.int32 or scale.shape != (2,)
+                or scale.get_device() != bins_t.get_device()
+                or not scale.is_contiguous()):
+            log.fatal("histogram_radix_single: scale must be pass_scale's "
+                      "i32 [2] on the device")
+        vmax = scale.data_ptr()
     bins_t, grad, hess, lor = _c(bins_t, grad, hess, lor)
-    scratch, out = _buffers(1, num_f, n_bins, mode, bins_t.device)
-    code = cuda_lib.load("radix").lgbt_hist_radix_single(
+    lib = cuda_lib.load("radix")
+    out = torch.empty(num_f, n_bins, 4, dtype=torch.float32,
+                      device=bins_t.device)
+    scratch = None
+    needs = _radix_scratch.get((n, num_f))
+    if needs is None:
+        needs = _radix_scratch[n, num_f] = bool(
+            lib.lgbt_radix_single_scratch(n, num_f))
+    if needs:
+        scratch = _scratch(num_f * n_bins * 3, mode, bins_t.device)
+    code = lib.lgbt_hist_radix_single(
         bins_t.data_ptr(), n, num_f, grad.data_ptr(), hess.data_ptr(),
-        lor.data_ptr(), n_bins, mode, scratch.data_ptr(), out.data_ptr(),
+        lor.data_ptr(), n_bins, mode, vmax,
+        None if scratch is None else scratch.data_ptr(), out.data_ptr(),
         cuda_lib.stream_handle(bins_t))
     cuda_lib.check(code, "histogram_radix_single")
     radix_single_launches += 1
-    return out[0]
+    return out
 
 
 def _radix_masked(entry: str, what: str, bins_t, grad, hess, lor, leaves,
@@ -457,12 +525,117 @@ def histogram_rows_t(bins_t: torch.Tensor, vals_t: torch.Tensor, *,
     if not 1 <= n_bins <= 256:
         log.fatal(f"histogram_rows_t: n_bins={n_bins} outside [1, 256]")
     bins_t, vals_t = _c(bins_t, vals_t)
-    scratch = _scratch(num_f * n_bins * C, C, mode, bins_t.device)
     out = torch.empty(num_f, n_bins, C, dtype=torch.float32,
                       device=bins_t.device)
     code = cuda_lib.load("rows").lgbt_hist_rows(
         bins_t.data_ptr(), S, num_f, vals_t.data_ptr(), C, n_bins, mode,
-        scratch.data_ptr(), out.data_ptr(), cuda_lib.stream_handle(bins_t))
+        out.data_ptr(), cuda_lib.stream_handle(bins_t))
     cuda_lib.check(code, "histogram_rows_t")
     rows_launches += 1
+    rows_launches_by_size[S] += 1
+    return out
+
+
+# ---- the kernels' fixed-point arithmetic, mirrored (csrc/hist_common.cuh
+# fixed_shift, Fixed, Val<1>/Val<2>; the scale of absmax_kernel)
+
+def absmax_bits(v: torch.Tensor) -> torch.Tensor:
+    """i32 0-d: the f32 bit pattern of the largest finite |v| (0 when
+    there is none; NaN and infinities ignored)."""
+    a = v.abs()
+    a = torch.where(torch.isfinite(a), a, torch.zeros_like(a))
+    m = a.max() if a.numel() else torch.zeros((), dtype=torch.float32,
+                                              device=v.device)
+    return m.reshape(1).view(torch.int32)[0]
+
+
+def fixed_shift(vmax_bits: int, n: int) -> int:
+    """The fixed-point exponent s of one channel: n values below 2^e
+    (vmax < 2^e) scaled by 2^s sum to less than 2^62."""
+    vmax = torch.tensor([int(vmax_bits)], dtype=torch.int32).view(
+        torch.float32).item()
+    if not vmax > 0.0:
+        return 0
+    _, e = math.frexp(vmax)
+    return 62 - max(int(n), 1).bit_length() - e
+
+
+def _pow2(shifts, dev) -> torch.Tensor:
+    """f64 [len(shifts)]: 2^s for each s, exactly."""
+    return torch.tensor([math.ldexp(1.0, s) for s in shifts],
+                        dtype=torch.float64, device=dev)
+
+
+def _fix(v: torch.Tensor, scale: torch.Tensor, mode: int) -> torch.Tensor:
+    """round(v * scale) in int64, half to even (after rounding v to bf16 in
+    mode 2); ``scale`` (powers of two, f64) broadcasts against v."""
+    if mode == 2:
+        v = v.to(torch.bfloat16).to(torch.float32)
+    return torch.round(v.double() * scale).to(torch.int64)
+
+
+def _unfix(q: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
+    """An int64 sum to f32: one rounding to f32, then the exact scale ``inv``
+    (2^-s; rounding again only into f32's subnormals, as scalbnf does)."""
+    return (q.to(torch.float32).double() * inv).to(torch.float32)
+
+
+def histogram_rows_t_fixed(bins_t: torch.Tensor, vals_t: torch.Tensor, *,
+                           n_bins: int, hist_dtype: str = "float32"
+                           ) -> torch.Tensor:
+    """:func:`histogram_rows_t` as the kernel computes it, bit for bit:
+    each channel summed in int64 at 2^fixed_shift(max finite |channel|,
+    S), in any order (int8 sums are exact: the plain version)."""
+    mode = _mode(hist_dtype)
+    if mode == 0:
+        return histogram_rows_t_plain(bins_t, vals_t, n_bins=n_bins,
+                                      hist_dtype=hist_dtype)
+    num_f, S = bins_t.shape
+    C = vals_t.shape[0]
+    s = [fixed_shift(int(absmax_bits(vals_t[c])), S) for c in range(C)]
+    dev = vals_t.device
+    q = _fix(vals_t, _pow2(s, dev)[:, None], mode).t()             # [S, C]
+    cells = num_f * n_bins
+    b = bins_t.long()
+    base = torch.arange(num_f, device=b.device)[:, None] * n_bins
+    idx = torch.where(b < n_bins, base + b, cells).reshape(-1)
+    acc = torch.zeros(cells + 1, C, dtype=torch.int64, device=q.device)
+    acc.index_add_(0, idx, q.repeat(num_f, 1))
+    return _unfix(acc[:cells], _pow2([-x for x in s], dev)).reshape(
+        num_f, n_bins, C)
+
+
+def histogram_radix_single_fixed(bins_t: torch.Tensor, grad: torch.Tensor,
+                                 hess: torch.Tensor, lor: torch.Tensor, *,
+                                 n_bins: int, hist_dtype: str = "float32"
+                                 ) -> torch.Tensor:
+    """:func:`histogram_radix_single` as the kernel computes it, bit for
+    bit: grad and hess of the rows with ``lor >= 0`` summed in int64 at
+    2^fixed_shift(max finite |grad| (|hess|) over all n rows, n), counts
+    exactly (int8 sums are exact: the plain version)."""
+    mode = _mode(hist_dtype)
+    if mode == 0:
+        return histogram_radix_single_plain(bins_t, grad, hess, lor,
+                                            n_bins=n_bins,
+                                            hist_dtype=hist_dtype)
+    num_f, n = bins_t.shape
+    dev = grad.device
+    s = [fixed_shift(int(absmax_bits(v)), n) for v in (grad, hess)] + [0]
+    sel = lor >= 0
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    p2 = _pow2(s, dev)
+    q = torch.stack([_fix(torch.where(sel, grad, zero), p2[0], mode),
+                     _fix(torch.where(sel, hess, zero), p2[1], mode),
+                     sel.to(torch.int64)], 1)                       # [n, 3]
+    cells = num_f * n_bins
+    acc = torch.zeros(cells + 1, 3, dtype=torch.int64, device=q.device)
+    for f in range(num_f):
+        b = bins_t[f].long()
+        idx = torch.where(sel & (b < n_bins), f * n_bins + b,
+                          torch.full_like(b, cells))
+        acc.index_add_(0, idx, q)
+    out = torch.zeros(num_f, n_bins, 4, dtype=torch.float32,
+                      device=grad.device)
+    out[..., :3] = _unfix(acc[:cells], _pow2([-x for x in s], dev)
+                          ).reshape(num_f, n_bins, 3)
     return out

@@ -40,7 +40,8 @@ from ..utils import log
 from .hist_kernels import (RADIX_JOINT_MAX_LEAVES, histogram_leaves,
                            histogram_leaves_packed, histogram_leaves_radix2,
                            histogram_payload, histogram_radix_joint,
-                           histogram_radix_single, histogram_rows_t)
+                           histogram_radix_single, histogram_rows_t,
+                           pass_scale)
 
 NUM_CHANNELS = 4  # grad, hess, count, pad
 
@@ -175,25 +176,41 @@ def histogram_for_leaf_masked(bins_t: torch.Tensor, grad: torch.Tensor,
                               row_mask: Optional[torch.Tensor] = None, *,
                               n_bins: int = 256, hist_dtype: str = "float32",
                               hist_kernel: str = "auto",
-                              bins_words_t: Optional[torch.Tensor] = None
+                              bins_words_t: Optional[torch.Tensor] = None,
+                              scale: Optional[torch.Tensor] = None
                               ) -> torch.Tensor:
     """One leaf's histogram f32 [F, B, 4] by one full masked pass.  Under
     ``auto`` at >= 128 bins it is the radix-single kernel over the rows of
-    ``leaf``; otherwise the one-leaf masked pass of the mode's kernel."""
+    ``leaf`` (``scale``: :func:`leaf_pass_scale`, else found per call);
+    otherwise the one-leaf masked pass of the mode's kernel."""
     hk = resolve_hist_kernel(hist_kernel)
     lor = leaf_of_row.to(torch.int32)
     if hk == "auto" and _radix_ok(n_bins):
+        # the leaf's rows keep their (non-negative) id, the rest get -1
         sel = lor == leaf
         if row_mask is not None:
             sel = sel & row_mask
-        lor1 = torch.where(sel, 0, -1).to(torch.int32)
+        lor1 = torch.where(sel, lor, -1)
         return histogram_radix_single(bins_t, grad, hess, lor1,
-                                      n_bins=n_bins, hist_dtype=hist_dtype)
+                                      n_bins=n_bins, hist_dtype=hist_dtype,
+                                      scale=scale)
     leaf_arr = torch.full((1,), int(leaf), dtype=torch.int32,
                           device=lor.device)
     return histogram_for_leaves_masked(
         bins_t, grad, hess, lor, leaf_arr, row_mask, n_bins=n_bins,
         hist_dtype=hist_dtype, hist_kernel=hk, bins_words_t=bins_words_t)[0]
+
+
+def leaf_pass_scale(grad: torch.Tensor, hess: torch.Tensor, *,
+                    n_bins: int, hist_dtype: str, hist_kernel: str = "auto"
+                    ) -> Optional[torch.Tensor]:
+    """The radix-single kernel's float32/bfloat16 scale of these grad/hess
+    (``pass_scale``), for a caller that makes many single-leaf passes over
+    them; None when the dispatch takes another kernel or sums int8."""
+    if (resolve_hist_kernel(hist_kernel) != "auto" or not _radix_ok(n_bins)
+            or hist_dtype == "int8"):
+        return None
+    return pass_scale(grad, hess)
 
 
 def histogram_for_leaf_bucketed(bins_t: torch.Tensor, grad: torch.Tensor,
@@ -251,17 +268,20 @@ def root_histogram(bins_t: torch.Tensor, grad: torch.Tensor,
                    row_mask: Optional[torch.Tensor] = None, *,
                    n_bins: int = 256, hist_dtype: str = "float32",
                    hist_kernel: str = "auto",
-                   bins_words_t: Optional[torch.Tensor] = None
+                   bins_words_t: Optional[torch.Tensor] = None,
+                   scale: Optional[torch.Tensor] = None
                    ) -> torch.Tensor:
     """Root histogram f32 [F, B, 4]: the single-leaf masked pass over leaf
-    0, which under ``auto`` at >= 128 bins is the radix-single kernel."""
+    0, which under ``auto`` at >= 128 bins is the radix-single kernel
+    (``scale`` as :func:`histogram_for_leaf_masked`)."""
     hk = resolve_hist_kernel(hist_kernel)
     lor = torch.zeros(grad.shape, dtype=torch.int32, device=grad.device)
     if row_mask is not None:
         lor = torch.where(row_mask, lor, torch.full_like(lor, -1))
     if hk == "auto" and _radix_ok(n_bins):
         return histogram_radix_single(bins_t, grad, hess, lor,
-                                      n_bins=n_bins, hist_dtype=hist_dtype)
+                                      n_bins=n_bins, hist_dtype=hist_dtype,
+                                      scale=scale)
     leaves = torch.zeros(1, dtype=torch.int32, device=grad.device)
     return histogram_for_leaves_masked(
         bins_t, grad, hess, lor, leaves, None, n_bins=n_bins,

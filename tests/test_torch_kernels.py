@@ -23,6 +23,7 @@ from lightgbm_tpu.ops.round_fuse import (partition_payload_pallas,
                                          partition_select_pallas)
 from lightgbm_tpu.ops.table import _take_pallas
 
+from lightgbm_tpu_torch.ops import hist_kernels as HK
 from lightgbm_tpu_torch.ops import histogram as TH
 from lightgbm_tpu_torch.ops.hist_kernels import (histogram_leaves,
                                                  histogram_leaves_packed,
@@ -392,3 +393,145 @@ def test_masked_pass_takes_the_dispatched_kernel(monkeypatch, hk, n_bins, K,
     assert torch.equal(root, histogram_leaves(
         bt, _t(g), _t(h), zero, zero[:1], n_bins=n_bins,
         hist_dtype="int8")[0])
+
+
+# ---- the kernels' fixed-point arithmetic mirrored in PyTorch: float32 and
+# bfloat16 histograms sum round(v * 2^s) in int64, s = fixed_shift(max
+# finite |value|, n) per channel.  On integer values the mirror is the
+# plain version bit for bit; on real values each term rounds by at most
+# 2^-s / 2, so a cell is within n * 2^-s of the float64 sum, plus the one
+# rounding of that sum to f32.
+
+def _fixed_values(case, n, rng):
+    v = rng.normal(size=n).astype(np.float32)
+    if case == "all_zeros":
+        v[:] = 0.0
+    elif case == "single_nonzero":
+        v[:] = 0.0
+        v[n // 3] = -2.75
+    elif case == "denormal_max":
+        v = (rng.normal(size=n) * 1e-39).astype(np.float32)
+    elif case == "inf_nan_ignored":
+        v[::7] = np.nan
+        v[3] = np.inf
+        v[5] = -np.inf
+    return v
+
+
+def _within_fixed(got, v64, n, s):
+    tol = n * 2.0 ** -s + np.abs(v64) * 2.0 ** -24
+    assert np.isfinite(got).all()
+    assert (np.abs(got.astype(np.float64) - v64) <= tol).all(), (
+        np.abs(got - v64).max(), s)
+
+
+@pytest.mark.parametrize("mode", ["int8", "float32", "bfloat16"])
+def test_rows_fixed_reference_exact_on_integer_values(mode):
+    rng = np.random.default_rng(21)
+    bins = _t(rng.integers(0, 70, size=(5, 1999)).astype(np.uint8))
+    vals = _t(rng.integers(-4, 5, size=(8, 1999)).astype(np.float32))
+    got = HK.histogram_rows_t_fixed(bins, vals, n_bins=64, hist_dtype=mode)
+    want = HK.histogram_rows_t_plain(bins, vals, n_bins=64, hist_dtype=mode)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("mode", ["int8", "float32", "bfloat16"])
+def test_radix_single_fixed_reference_exact_on_integer_values(mode):
+    rng = np.random.default_rng(22)
+    n = 2003
+    bins = _t(rng.integers(0, 256, size=(6, n)).astype(np.uint8))
+    g = rng.integers(-3, 4, size=n).astype(np.float32)
+    h = rng.integers(0, 5, size=n).astype(np.float32)
+    lor = rng.integers(-1, 2, size=n).astype(np.int32)
+    g[lor < 0] = np.nan                      # excluded rows never count
+    args = (bins, _t(g), _t(h), _t(lor))
+    got = HK.histogram_radix_single_fixed(*args, n_bins=200, hist_dtype=mode)
+    want = HK.histogram_radix_single_plain(*args, n_bins=200,
+                                           hist_dtype=mode)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("case", ["real", "all_zeros", "single_nonzero",
+                                  "denormal_max", "inf_nan_ignored"])
+def test_fixed_reference_close_to_float64_sums(case):
+    rng = np.random.default_rng(23)
+    n, f, nb = 3001, 4, 32
+    bins = rng.integers(0, nb, size=(f, n)).astype(np.uint8)
+    v = _fixed_values(case, n, rng)
+    w = rng.uniform(0.5, 1.5, size=n).astype(np.float32)
+    finite = np.isfinite(v)
+    s = HK.fixed_shift(int(HK.absmax_bits(_t(v))), n)
+    # rows: channel 0 = v on its finite rows (the callers zero the rest)
+    vals = np.stack([np.where(finite, v, 0), w]).astype(np.float32)
+    got = HK.histogram_rows_t_fixed(_t(bins), _t(vals), n_bins=nb,
+                                    hist_dtype="float32").numpy()
+    want = np.zeros((f, nb))
+    for j in range(f):
+        np.add.at(want[j], bins[j], vals[0].astype(np.float64))
+    _within_fixed(got[..., 0], want, n, s)
+    # radix single: rows whose value is not finite are excluded
+    lor = np.where(finite, 0, -1).astype(np.int32)
+    got = HK.histogram_radix_single_fixed(
+        _t(bins), _t(v), _t(w), _t(lor), n_bins=nb,
+        hist_dtype="float32").numpy()
+    _within_fixed(got[..., 0], want, n, s)
+    cnt = np.zeros((f, nb))
+    for j in range(f):
+        np.add.at(cnt[j], bins[j][finite], 1.0)
+    np.testing.assert_array_equal(got[..., 2], cnt)
+    if case == "all_zeros":
+        assert s == 0 and not got[..., 0].any()
+
+
+def _numpy_shift(vmax, n):
+    if not vmax > 0:
+        return 0
+    _, e = np.frexp(np.float64(vmax))
+    k = int(np.floor(np.log2(max(n, 1)))) + 1
+    return 62 - k - int(e)
+
+
+@pytest.mark.parametrize("vmax,n", [(3.0, 3000), (0.0, 10), (1.0, 1),
+                                    (1.0, 1 << 20), (0.999, (1 << 20) - 1),
+                                    (1e-40, 90_000), (3.4e38, 2),
+                                    (float("nan"), 5)])
+def test_fixed_shift_mirror(vmax, n):
+    bits = int(np.array([vmax], np.float32).view(np.int32)[0])
+    s = HK.fixed_shift(bits, n)
+    assert s == _numpy_shift(np.float32(vmax), n)
+    if vmax > 0:
+        # n values below 2^e at 2^s sum below 2^62
+        assert n * 2.0 ** (s + np.frexp(np.float64(np.float32(vmax)))[1]) \
+            <= 2.0 ** 62
+
+
+@pytest.mark.parametrize("case", ["real", "inf_nan_ignored", "denormal_max",
+                                  "all_zeros"])
+def test_pass_scale_matches_numpy(case):
+    rng = np.random.default_rng(24)
+    g = _fixed_values(case, 777, rng)
+    h = rng.uniform(0, 3, size=777).astype(np.float32)
+    if case == "inf_nan_ignored":
+        h[:] = np.nan                       # nothing finite: 0
+    got = HK.pass_scale(_t(g), _t(h)).numpy()
+    assert got.dtype == np.int32 and got.shape == (2,)
+    for v, bits in zip((g, h), got):
+        a = np.abs(v[np.isfinite(v)])
+        want = a.max() if a.size else np.float32(0)
+        assert bits == np.array([want], np.float32).view(np.int32)[0]
+
+
+@pytest.mark.parametrize("hk,n_bins,dtype,wanted", [
+    ("auto", 256, "float32", True), ("auto", 256, "bfloat16", True),
+    ("auto", 256, "int8", False), ("auto", 64, "float32", False),
+    ("onehot", 256, "float32", False)])
+def test_leaf_pass_scale_only_where_radix_single_reads_it(hk, n_bins, dtype,
+                                                          wanted):
+    g = _t(np.array([1.5, -4.0, np.nan], np.float32))
+    h = _t(np.array([0.25, 1.0, 2.0], np.float32))
+    got = TH.leaf_pass_scale(g, h, n_bins=n_bins, hist_dtype=dtype,
+                             hist_kernel=hk)
+    assert (got is not None) == wanted
+    if wanted:
+        np.testing.assert_array_equal(
+            got.numpy(), np.array([4.0, 2.0], np.float32).view(np.int32))

@@ -247,3 +247,35 @@ def test_strict_slice_matches_jax(trained_strict):
     Xt[::11, 2] = np.nan
     np.testing.assert_allclose(bt.predict(Xt), bj.predict(Xt), rtol=0,
                                atol=1e-5)
+
+
+def test_grow_tree_finds_the_scale_once_per_tree(monkeypatch):
+    """The masked strict tree computes the radix-single kernel's float32
+    scale once and hands the same tensor to the root pass and to every
+    split's single-leaf pass (on the CPU the plain versions ignore it)."""
+    bins, g, h, num_bins, nan_bin = _inputs(256, seed=3)
+    scales, seen = [], []
+    real_scale, real_radix = TH.pass_scale, TH.histogram_radix_single
+
+    def counting_scale(grad, hess):
+        scales.append(real_scale(grad, hess))
+        return scales[-1]
+
+    def recording_radix(*a, scale=None, **kw):
+        seen.append(scale)
+        return real_radix(*a, scale=scale, **kw)
+
+    monkeypatch.setattr(TH, "pass_scale", counting_scale)
+    monkeypatch.setattr(TH, "histogram_radix_single", recording_radix)
+    hp = SplitHyper(num_leaves=31, min_data_in_leaf=5, n_bins=256,
+                    lambda_l2=1.0, leaf_hist="masked")
+    tarr, _ = grow_tree(_t(bins), _t(g), _t(h), None, _t(num_bins),
+                        _t(nan_bin), None, hp)
+    splits = int(tarr.num_leaves) - 1
+    assert len(scales) == 1
+    assert len(seen) == splits + 1                     # root + one per split
+    assert all(s is scales[0] for s in seen)
+    np.testing.assert_array_equal(
+        scales[0].numpy(),
+        np.array([np.abs(g).max(), np.abs(h).max()], np.float32).view(
+            np.int32))
