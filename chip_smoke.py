@@ -7,7 +7,9 @@ else: no jax, no network.  Phases, each of which fails the run on error:
 
 1. environment and build: the card's name and power limit, the versions,
    and every kernel of ``lightgbm_tpu_torch/csrc`` compiled at once, with
-   the atomic opcodes the radix-single and rows kernels compiled to;
+   the atomic opcodes the radix-single, rows and masked cluster kernels
+   compiled to (the masked one must add with native ``ATOMS.ADD``, no
+   compare-and-swap loop and no global atomic);
 2. kernel checks: each of the ten kernels against its plain PyTorch
    version on the card, at the shapes of the HIGGS main path (n = 1M rows,
    F = 28 features, B = 256 bins, K = 42 leaves per round, T = 255 leaf
@@ -31,7 +33,13 @@ else: no jax, no network.  Phases, each of which fails the run on error:
    the 1M-row root pass and the edges: C = 8 with a ragged S, B = 64
    with bins past it, NaN and inf on excluded rows, an empty selection,
    an all-zero bucket, one row), with each wrapper's launches per call
-   from the profiler;
+   from the profiler; then the masked K-leaf pass of the batched grower
+   (one cluster kernel behind ``histogram_leaves_radix2`` and
+   ``histogram_leaves``) at n = 1M: radix2 at K = 16 and K = 42, leaves at
+   K = 42 and at the pooled rounds' 84 slots, each held bit for bit
+   against ``histogram_leaves_fixed`` (float32 and bfloat16 on real
+   values) and timed in int8 and float32 beside its byte bound, with its
+   launches per call;
 3. the slice: ``train()`` on a 1M x 28 HIGGS-shaped synthetic set (seeded
    numpy) with the default configuration of the HIGGS recipe
    (``hist_kernel`` and ``stochastic_rounding`` unset: the radix kernels,
@@ -47,8 +55,9 @@ else: no jax, no network.  Phases, each of which fails the run on error:
    ``tpu_leaf_hist=bucketed`` (90k x 5, the rows kernel); and the pooled
    default (1M x 10 with ``histogram_pool_size=8``: 128 slots,
    ``partition_select``), each with its own launch counts; the sha256 of
-   the default recipe's, the strict default's and the bucketed run's
-   model text, and the bucketed run's rows launches by S;
+   the model text of the default recipe, the onehot run, the strict
+   default, the bucketed run and the pooled run, and the bucketed run's
+   rows launches by S;
 4. cross-check: the default recipe at 100k rows x 5 rounds on the card and
    on the CPU (plain versions), the held-out set also a valid set scored on
    the device each round: tree 0's splits must match, the held-out AUCs
@@ -144,16 +153,18 @@ def bound_ms(nbytes, ops):
 
 
 def sass_atomics(cuda_lib):
-    """How the shared-memory adds of the radix-single and rows kernels
-    compiled: per kernel and mode (0 int8, 1 float32, 2 bfloat16), the
-    count of each atomic opcode in ``cuobjdump -sass`` of the built
-    library (a 64-bit add that is not native shows as the compare-and-swap
-    loop ``ATOMS.CAST.SPIN.64``).  None when cuobjdump is missing."""
+    """How the shared-memory adds of the radix-single, rows and masked
+    cluster kernels compiled: per kernel and mode (0 int8, 1 float32, 2
+    bfloat16), the count of each atomic and reduction opcode in
+    ``cuobjdump -sass`` of the built library (a 64-bit add that is not
+    native shows as the compare-and-swap loop ``ATOMS.CAST.SPIN.64``, a
+    global atomic as ``ATOMG``, ``RED`` or ``REDG``; ``REDUX`` is a warp
+    reduction).  None when cuobjdump is missing."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return None
     kern = re.compile(r"(radix_single_cluster|radix_single_kernel|"
-                      r"rows_channel)ILi(\d)E")
+                      r"rows_channel|masked_cluster)ILi(\d)E")
     op = re.compile(r"\b(ATOMS\.[A-Z0-9.]+|ATOMG\.[A-Z0-9.]+|"
                     r"RED[A-Z]*\.[A-Z0-9.]+)")
     found = {}
@@ -262,7 +273,7 @@ def check_kernels(torch, dev):
         + bins_t.long(), K * F * B).reshape(-1)
     vals = torch.stack([g, h, torch.ones_like(g)], 1).repeat(F, 1)
     acc = torch.zeros(K * F * B + 1, 3, device=dev)
-    row("histogram_leaves", "lightgbm_tpu_torch/csrc/hist.cu",
+    row("histogram_leaves", "lightgbm_tpu_torch/csrc/masked.cuh",
         "lightgbm_tpu/ops/hist_pallas.py:188",
         time_ms(torch, lambda: HK.histogram_leaves(bins_t, g, h, lor, leaves,
                                                    **kw), flush),
@@ -287,14 +298,29 @@ def check_kernels(torch, dev):
                "histogram_payload int8")
     c = int(cnt.item())
     sel_p = int(torch.isin(lor[:c], leaves).sum().item())
+    # library yardstick: ONE index_add_ of every (row, feature) value triple
+    # into its cell, taken from the payload's bin bytes and the row's leaf
+    # slot; rows at or past cnt and rows of no slot go to a trash cell
+    lor_p = payload[:, W + 2]
+    sel = torch.isin(lor_p, leaves) & (torch.arange(S, device=dev) < cnt)
+    slot = (lor_p[None, :] == leaves[:, None]).to(torch.uint8).argmax(0)
+    fi = torch.arange(F, device=dev)
+    pbin = (payload[:, fi // 4].t() >> (8 * (fi % 4))[:, None]) & 255
+    cell = torch.where(sel[None, :], (slot[None, :].long() * F
+                                      + fi[:, None]) * B + pbin.long(),
+                       K * F * B).reshape(-1)
+    vals = torch.stack([g[:S], h[:S], torch.ones_like(g[:S])], 1).repeat(F, 1)
+    acc = torch.zeros(K * F * B + 1, 3, device=dev)
     row("histogram_payload", "lightgbm_tpu_torch/csrc/hist.cu",
         "lightgbm_tpu/ops/hist_pallas.py:318",
         time_ms(torch, lambda: HK.histogram_payload(payload, leaves, cnt,
                                                     **kwp), flush),
         time_ms(torch, lambda: HK.histogram_payload_plain(
             payload, leaves, cnt, **kwp), flush),
-        None, c * 4 * (W + 3) + 4 * K + 4 + 16 * K * F * B,
+        time_ms(torch, lambda: acc.index_add_(0, cell, vals), flush),
+        c * 4 * (W + 3) + 4 * K + 4 + 16 * K * F * B,
         3 * F * sel_p, err)
+    del lor_p, sel, slot, pbin, cell, vals, acc
 
     # -- 4. fused partition + payload (bitwise on all three outputs)
     par = np.sort(rng.permutation(64)[:K]).astype(np.int32)
@@ -389,7 +415,7 @@ def check_kernels(torch, dev):
                "histogram_leaves_radix2 int8 K=42")
     sel, slot = masked_slot(lor, leaves)
     n_sel = int(sel.sum().item())
-    row("histogram_leaves_radix2", "lightgbm_tpu_torch/csrc/radix.cu",
+    row("histogram_leaves_radix2", "lightgbm_tpu_torch/csrc/masked.cuh",
         "lightgbm_tpu/ops/hist_pallas.py:557",
         time_ms(torch, lambda: HK.histogram_leaves_radix2(
             bins_t, g, h, lor, leaves, **kw), flush),
@@ -591,23 +617,58 @@ def check_kernels(torch, dev):
     return rows
 
 
-def device_per_call(torch, fn, reps=10):
+def device_work(prof):
+    """[(name, count, device us)] of the kernels, memsets and copies in a
+    torch.profiler window."""
+    work = []
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = getattr(e, "self_cuda_time_total", 0)
+            work.append((e.key, e.count, us))
+    return work
+
+
+def host_launches(prof):
+    """The launch, memset and copy calls the host made in the window."""
+    return sum(e.count for e in prof.key_averages() if re.match(
+        r"cu(da)?(LaunchKernel|LaunchCooperativeKernel|Memset|Memcpy)",
+        e.key))
+
+
+#: the device work of the latest device_per_call window, by name
+last_window = {}
+#: windows measured again because the profiler lost a record
+lost_windows = []
+
+
+def device_per_call(torch, fn, reps=10, tries=3):
     """(device launches, device ms) per call of ``fn`` (kernels and
     memsets, inputs warm in L2), from the profiler; (None, None) when it
     saw none.  Beside time_ms, which also holds the host's time to reach
-    the launch, this is the kernel's own time."""
+    the launch, this is the kernel's own time.  CUPTI now and then loses
+    a kernel's device record, so a window whose device records disagree
+    with the launches the host made in it is measured again, up to
+    ``tries`` windows in all."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    n, us = 0, 0.0
-    for e in prof.key_averages():
-        if str(getattr(e, "device_type", "")).endswith("CUDA"):
-            n += e.count
-            us += getattr(e, "self_device_time_total", 0)
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        work = device_work(prof)
+        n = sum(w[1] for w in work)
+        launched = host_launches(prof)
+        if n == launched:
+            break
+        lost_windows.append(dict(device=n, host=launched))
+    last_window.clear()
+    last_window.update((name[:60], cnt) for name, cnt, _ in work)
+    last_window["host launches"] = launched
+    us = sum(w[2] for w in work)
     return (n / reps, us / 1e3 / reps) if n else (None, None)
 
 
@@ -804,10 +865,77 @@ def check_path_shapes(torch, dev):
           "for bit (f32, bf16 on real values; int8/f32/bf16 on integer "
           "values) at every shape and edge; launches per call "
           + json.dumps(out["launches_per_call"]), flush=True)
-    want_one = [k for k, v in out["launches_per_call"].items()
+    want_one = [(k, v) for k, v in out["launches_per_call"].items()
                 if "n = 1M" not in k and "pass_scale" not in k and v != 1]
     if want_one:
         fail(f"more than one launch per call: {want_one}")
+    return out
+
+
+def check_masked_shapes(torch, dev):
+    """Phase 2c: the masked K-leaf pass of the batched grower at n = 1M
+    (``histogram_leaves_radix2`` at K = 16, the warm-up ladder's width, and
+    K = 42, every full pass of the default recipe; ``histogram_leaves`` at
+    K = 42, the onehot recipe's, and at the pooled rounds' 84 slots): held
+    bit for bit against ``histogram_leaves_fixed`` (float32 and bfloat16 on
+    real values), then timed in int8 (the path's dtype) and float32 (one
+    call after an L2 flush, and the profiler's device time) beside its byte
+    bound, with its launches per call."""
+    from lightgbm_tpu_torch.ops import hist_kernels as HK
+    rng = np.random.default_rng(11)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+
+    def t(a):
+        return torch.as_tensor(a, device=dev)
+
+    bins = t(rng.integers(0, B - 1, size=(F, N), dtype=np.uint8))
+    gi = t(rng.integers(-2, 3, size=N).astype(np.float32))
+    hi = t(rng.integers(0, 5, size=N).astype(np.float32))
+    gr = t(rng.normal(size=N).astype(np.float32))
+    hr = t(rng.random(N).astype(np.float32))
+    out = []
+    for name, fn, k, ids in (
+            ("histogram_leaves_radix2", HK.histogram_leaves_radix2, 16, 64),
+            ("histogram_leaves_radix2", HK.histogram_leaves_radix2, K, 64),
+            ("histogram_leaves", HK.histogram_leaves, K, 64),
+            ("histogram_leaves", HK.histogram_leaves, 2 * K, 128)):
+        lor = t(rng.integers(0, ids, size=N, dtype=np.int32))
+        lv = rng.permutation(ids)[:k].astype(np.int32)
+        lv[-2:] = lv[0]                           # repeated dummy slots
+        leaves = t(lv)
+        for mode in ("float32", "bfloat16"):
+            kw = dict(n_bins=B, hist_dtype=mode)
+            got = fn(bins, gr, hr, lor, leaves, **kw)
+            want = HK.histogram_leaves_fixed(bins, gr, hr, lor, leaves, **kw)
+            if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+                d = (got.double() - want.double()).abs().max().item()
+                fail(f"{name} {mode} (K = {k}): kernel differs from the "
+                     f"fixed-point reference (max abs diff {d})")
+        n_sel = int(torch.isin(lor, leaves).sum().item())
+        b_ms, b_by = bound_ms(F * N + 12 * N + 4 * k + 16 * k * F * B,
+                              3 * F * n_sel)
+        r = dict(kernel=name, n=N, K=k, selected=n_sel)
+        for mode, g, h in (("int8", gi, hi), ("float32", gr, hr)):
+            def call(g=g, h=h, mode=mode):
+                return fn(bins, g, h, lor, leaves, n_bins=B, hist_dtype=mode)
+
+            r[f"ms_{mode}"] = time_ms(torch, call, flush)
+            r[f"launches_{mode}"], r[f"device_ms_{mode}"] = \
+                device_per_call(torch, call)
+            if r[f"launches_{mode}"] != 1:
+                r[f"window_{mode}"] = dict(last_window)   # 10 calls
+        r.update(bound_ms=b_ms, bound_by=b_by)
+        out.append(r)
+        print("path shape: " + json.dumps(r), flush=True)
+        del lor, leaves
+    print("path shapes (masked pass): both wrappers equal "
+          "histogram_leaves_fixed bit for bit (f32, bf16 on real values) at "
+          "K = 16, 42, 84", flush=True)
+    many = [(r["kernel"], r["K"], r["launches_int8"], r["launches_float32"])
+            for r in out
+            if r["launches_int8"] != 1 or r["launches_float32"] != 1]
+    if many:
+        fail(f"masked pass: more than one launch per call: {many}")
     return out
 
 
@@ -893,13 +1021,7 @@ def profile_round(torch, bst):
         bst.update()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kern = []
-    for e in prof.key_averages():
-        if str(getattr(e, "device_type", "")).endswith("CUDA"):
-            us = getattr(e, "self_device_time_total", None)
-            if us is None:
-                us = getattr(e, "self_cuda_time_total", 0)
-            kern.append((us / 1e3, e.count, e.key))
+    kern = [(us / 1e3, cnt, name) for name, cnt, us in device_work(prof)]
     busy = sum(k[0] for k in kern)
     if busy <= 0:
         print("profile: device time not measured (the profiler saw none)",
@@ -1048,6 +1170,19 @@ def main():
     sass = sass_atomics(cuda_lib)
     print("sass atomics (cuobjdump): " + ("not measured" if sass is None
                                           else json.dumps(sass)), flush=True)
+    if sass is not None:
+        masked = {k: v for k, v in sass.items()
+                  if k.startswith("masked_cluster")}
+        wrong = {k: [o for o in v if o.startswith(("ATOMS.CAST", "ATOMG"))
+                     or re.match(r"REDG?\.", o)]
+                 for k, v in masked.items()}
+        if (len(masked) != 3 or any(wrong.values())
+                or not all("ATOMS.ADD" in v for v in masked.values())):
+            fail(f"masked_cluster atomics: {json.dumps(masked)}")
+        print("sass atomics (masked_cluster, the kernel of histogram_leaves "
+              "and histogram_leaves_radix2): native ATOMS.ADD, no "
+              "ATOMS.CAST.SPIN, no global RED/ATOM: "
+              + json.dumps(masked), flush=True)
     for name, text in sorted(cuda_lib.build_log.items()):
         for ln in text.splitlines():
             if "registers" in ln or "error" in ln.lower():
@@ -1056,7 +1191,10 @@ def main():
     # ---- 2. kernel checks
     rows = check_kernels(torch, torch.device("cuda"))
     check_path_shapes(torch, torch.device("cuda"))
+    check_masked_shapes(torch, torch.device("cuda"))
     check_determinism(torch, torch.device("cuda"))
+    print(f"profiler: {len(lost_windows)} window(s) measured again after "
+          f"a lost record {json.dumps(lost_windows)}", flush=True)
 
     # ---- 3. the default recipe on the card; counts zeroed just before,
     # read just after
@@ -1116,6 +1254,8 @@ def main():
           f"held-out AUC {auc1h:.6f}; kernels {json.dumps(c1h)}", flush=True)
     if c1h["histogram_leaves"] <= 0:
         fail("the onehot recipe never launched histogram_leaves")
+    print(f"model text sha256 (onehot, 100k x 3): {text_sha256(bst)}",
+          flush=True)
     launches["histogram_leaves"] = c1h["histogram_leaves"]
     del bst
 
@@ -1202,6 +1342,11 @@ def main():
              "partition_payload")
     if abs(auc_p - auc_main) > 1e-3:
         fail(f"pooled AUC {auc_p} vs unpooled {auc_main}: more than 1e-3")
+    if cp["histogram_leaves"] <= 0:
+        fail("the pooled run never launched histogram_leaves (the extended "
+             "pass)")
+    print(f"model text sha256 (pooled default, 1M x 10): {text_sha256(bst)}",
+          flush=True)
     launches["partition_select"] = cp["partition_select"]
     del bst
     for r in rows:

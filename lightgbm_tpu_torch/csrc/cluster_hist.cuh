@@ -1,12 +1,12 @@
-// The one-launch histograms of radix.cu (radix_single up to 131,072 rows)
-// and rows.cu: Acc (a shared-memory plane of 64-bit sums on 32-bit native
-// atomics) and Cvt (the fixed-point conversion with its scale taken once)
-// serve both; the rest serves radix_single's clusters, one per feature
-// group covering every row: the blocks of a cluster find the float32 scale
-// together (each block's max |value|, combined through distributed shared
-// memory), sum their shared-memory histograms through distributed shared
-// memory and write the f32 result themselves.  No global accumulator, no
-// memset, no finalize kernel.
+// The one-launch histograms of radix.cu (radix_single up to 131,072 rows),
+// rows.cu and masked.cuh: Acc (a shared-memory plane of 64-bit sums on
+// 32-bit native atomics) and Cvt (the fixed-point conversion with its
+// scale taken once) serve all three; the rest serves the clusters of
+// radix_single and masked.cuh, each covering every row: the blocks of a
+// cluster find the float32 scale together (each block's max |value|,
+// combined through distributed shared memory), sum their shared-memory
+// histograms through distributed shared memory and write the f32 result
+// themselves.  No global accumulator, no memset, no finalize kernel.
 
 #pragma once
 
@@ -162,24 +162,37 @@ __device__ inline void cluster_write(cg::cluster_group& cl,
   }
 }
 
-// Launch ``kernel`` over grid (groups, cs) as clusters of (1, cs, 1)
-template <typename... Args, typename... Act>
-int launch_clusters(void (*kernel)(Args...), int groups, int cs, int threads,
-                    size_t smem, cudaStream_t s, Act&&... args) {
-  int err = allow_smem(reinterpret_cast<const void*>(kernel), smem);
-  if (err) return err;
+// The launch of ``kernel`` over ``grid`` as clusters of (1, grid.y, 1)
+// (attr: storage for the cluster attribute)
+inline cudaLaunchConfig_t cluster_config(dim3 grid, int threads, size_t smem,
+                                         cudaStream_t s,
+                                         cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(groups, cs, 1);
+  cfg.gridDim = grid;
   cfg.blockDim = dim3(threads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = cs;
-  attr[0].val.clusterDim.z = 1;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = 1;
+  attr->val.clusterDim.y = grid.y;
+  attr->val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
+  return cfg;
+}
+
+inline bool aligned(const void* p, int bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+// Launch ``kernel`` over ``grid`` as clusters of (1, grid.y, 1)
+template <typename... Args, typename... Act>
+int launch_clusters(void (*kernel)(Args...), dim3 grid, int threads,
+                    size_t smem, cudaStream_t s, Act&&... args) {
+  int err = allow_smem(reinterpret_cast<const void*>(kernel), smem);
+  if (err) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(grid, threads, smem, s, &attr);
   err = (int)cudaLaunchKernelEx(&cfg, kernel, std::forward<Act>(args)...);
   if (err) return err;
   return (int)cudaGetLastError();

@@ -1,0 +1,377 @@
+// The masked K-leaf (grad, hess, count) histogram of hist.cu
+// (histogram_leaves, every masked pass of hist_kernel=onehot and the pooled
+// rounds' extended pass) and radix.cu (histogram_leaves_radix2, the K > 4
+// masked passes of hist_kernel=auto): the two compute the same function and
+// launch the same kernel.
+//
+// Function: each row whose leaf id is one of leaves[0, K) adds (grad, hess,
+// 1) to the cell (first slot of its leaf, feature, bin); bins >= n_bins add
+// nothing; the result is f32 [K, F, B, 4] with channel 3 zero, and a slot
+// whose leaf id repeats an earlier slot's gets a copy of that slot.  Modes
+// as hist_common.cuh: int8 levels summed exactly in int32; float32 and
+// bfloat16 in 64-bit fixed point at 2^fixed_shift(max finite |grad|
+// (|hess|) over all n rows, n), so every call gives the same bits.
+//
+// Design: ONE launch of thread-block clusters, one cluster per (feature
+// group, slot group) covering all n rows, block q of the cluster taking the
+// q-th chunk of rows.  A block keeps the leaf -> first-slot table and an
+// accumulator of planes (slot, channel, feature) x B bins in shared memory
+// (Acc: int32 cells, or 64-bit sums as two native 32-bit atomics; the bin
+// innermost, so the lanes of a warp adding rows to random bins spread over
+// the banks).  It scans its rows four to a 16-byte load of leaf ids, two
+// quads in flight, finds each row's slot in the table (leaf ids outside
+// [0, 2048) fall back to a linear search over the K ids), and loads grad,
+// hess and each feature's four bin bytes (one 32-bit load) only for quads
+// that hold a row of its slot group.  In float32/bfloat16 the blocks first
+// find their chunk's max |grad|, |hess| and combine them through
+// distributed shared memory, so the scale is the one over all rows.  After
+// a cluster barrier the blocks sum the cluster's accumulators through
+// distributed shared memory, each taking a share of the outputs, and write
+// f32 [K, F, B, 4] themselves: a repeated slot is written from the first
+// slot's sums (the per-block table of first slots says which).  No global
+// accumulator, memset, finalize kernel or global atomic.
+//
+// The plan (plan_masked) weighs the features per block and slot groups
+// that the shared memory holds against the cluster size (up to the
+// portable 8) and the clusters cudaOccupancyMaxActiveClusters lets run at
+// once.  A shape no plan fits, or a cluster launch the device refuses,
+// returns its CUDA error: there is no other path.  (cluster_write, which
+// radix_single's clusters use, writes one float a lane and made this
+// kernel 10% slower at K = 42 than its own float4 loop.)
+//
+// Bound on the H100: bytes.  A 1M-row pass at F = 28 reads 28 MB of bins and
+// 12 MB of grad, hess and leaf ids and writes K*F*B*16 bytes (4.8 MB at
+// K = 42, B = 256): 44.8 MB, 0.0134 ms at 3.35 TB/s.  At K = 42 in int8 a
+// block holds one feature's 129 KB, so 28 clusters of 4 blocks run on 112
+// of the 132 SMs, each block over 250,000 rows, and every cluster re-reads
+// the leaf ids, grad and hess (from L2).  Development variants put the pace
+// in that per-row path, not in the atomics: without its shared-memory
+// atomics the kernel ran 6% faster, with one quad in flight as fast as
+// with two, with four slower.
+
+#pragma once
+
+#include "cluster_hist.cuh"
+
+namespace {
+
+constexpr int kMaskedThreads = 1024;
+constexpr int kMaskedMaxFpb = 4;
+constexpr int kReduceBatch = 4;  // remote reads in flight per channel
+
+struct Masked {
+  const uint8_t* bins_t;  // u8 [F, n]
+  long n;
+  int num_f;
+  const float* grad;
+  const float* hess;
+  const int* lor;
+  const int* leaves;
+  int K;
+  int n_bins;
+  int fpb;   // features per block
+  int spg;   // slots per slot group
+  long rpb;  // rows per block, a multiple of 4
+  float4* out;
+};
+
+// Shared memory before the accumulator: the slot table, four header words
+// (use the table, owned slots, max |grad|, max |hess|), first[K], own[K]
+__host__ __device__ inline size_t masked_head_bytes(int K) {
+  return ((size_t)(kFixedInts + 2 * K) * sizeof(int) + 15) / 16 * 16;
+}
+
+template <int MODE, int VEC>
+__global__ void __launch_bounds__(kMaskedThreads, 1)
+    masked_cluster(const Masked t) {
+  typedef typename Val<MODE>::T T;
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cl = cg::this_cluster();
+  int* tab = reinterpret_cast<int*>(smem);
+  int* hdr = tab + kLeafTable;
+  unsigned* part = reinterpret_cast<unsigned*>(hdr + 2);
+  int* first = tab + kFixedInts;  // slot k -> first slot of its leaf
+  int* own = first + t.K;         // slots written by this slot group
+  unsigned* w = reinterpret_cast<unsigned*>(smem + masked_head_bytes(t.K));
+  const int f0 = blockIdx.x * t.fpb;
+  const int nf = min(t.fpb, t.num_f - f0);
+  const int k0 = blockIdx.z * t.spg;
+  const int ns = min(t.spg, t.K - k0);
+  const long r0 = (long)cl.block_rank() * t.rpb;
+  const long r1 = min(t.n, r0 + t.rpb);
+  const int nb = t.n_bins;
+  const int plane = t.fpb * nb;  // one (slot, channel): features x bins
+  const int cells = ns * 3 * plane;
+  for (int i = threadIdx.x; i < cells * Acc<MODE>::kWords; i += blockDim.x)
+    w[i] = 0;
+  if (threadIdx.x < 3) hdr[1 + threadIdx.x] = 0;
+  build_slot_table(tab, hdr, t.leaves, t.K);  // syncs the zeroing too
+  const int ut = hdr[0];
+  for (int k = threadIdx.x; k < t.K; k += blockDim.x)
+    first[k] = slot_of(__ldg(t.leaves + k), tab, ut, t.leaves, t.K);
+  __syncthreads();
+  if (threadIdx.x == 0) {  // in slot order: every block deals the same list
+    int m = 0;
+    for (int k = 0; k < t.K; ++k)
+      if (first[k] >= k0 && first[k] < k0 + ns) own[m++] = k;
+    hdr[1] = m;
+  }
+  int sg = 0, sh = 0;
+  if (MODE != 0) {
+    block_absmax2<VEC>(t.grad, t.hess, r0, r1, part);
+    cl.sync();
+    sg = fixed_shift(cluster_max(cl, part, 0), t.n);
+    sh = fixed_shift(cluster_max(cl, part, 1), t.n);
+  } else {
+    __syncthreads();
+  }
+  // a row's slot in this group, or -1
+  auto slot = [&](int l) {
+    const int s = slot_of(l, tab, ut, t.leaves, t.K) - k0;
+    return s >= 0 && s < ns ? s : -1;
+  };
+  const Acc<MODE> a = {w, cells};
+  const Cvt<MODE> cvg = {ldexp(1.0, sg)}, cvh = {ldexp(1.0, sh)};
+  // one row of local slot s: (grad, hess, 1) into each feature's planes;
+  // byte u of bw[j] is the row's bin of feature f0 + j
+  auto add = [&](float gv, float hv, const unsigned* bw, int u, int s) {
+    const T g = cvg(gv);
+    const T h = cvh(hv);
+    const int c0 = s * 3 * plane;
+#pragma unroll
+    for (int j = 0; j < kMaskedMaxFpb; ++j) {
+      const int b = (bw[j] >> (8 * u)) & 255;
+      if (j < nf && b < nb) {
+        const int c = c0 + j * nb + b;
+        a.add(c, g);
+        a.add(c + plane, h);
+        a.inc(c + 2 * plane);
+      }
+    }
+  };
+  if (VEC == 4) {
+    const long step = 4L * blockDim.x;
+    for (long r = r0 + 4L * threadIdx.x; r < r1; r += 2 * step) {
+      const long rr[2] = {r, r + step};
+      int s[2][4];
+      bool any[2];
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int4 l = rr[k] < r1
+                           ? __ldg(reinterpret_cast<const int4*>(t.lor + rr[k]))
+                           : make_int4(-1, -1, -1, -1);
+        s[k][0] = slot(l.x);
+        s[k][1] = slot(l.y);
+        s[k][2] = slot(l.z);
+        s[k][3] = slot(l.w);
+        any[k] = (s[k][0] & s[k][1] & s[k][2] & s[k][3]) >= 0;
+      }
+      float4 g4[2], h4[2];
+      unsigned bw[2][kMaskedMaxFpb];
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        if (any[k]) {
+          g4[k] = __ldg(reinterpret_cast<const float4*>(t.grad + rr[k]));
+          h4[k] = __ldg(reinterpret_cast<const float4*>(t.hess + rr[k]));
+        }
+#pragma unroll
+        for (int j = 0; j < kMaskedMaxFpb; ++j)
+          bw[k][j] = any[k] && j < nf
+                         ? __ldg(reinterpret_cast<const unsigned*>(
+                               t.bins_t + (long)(f0 + j) * t.n + rr[k]))
+                         : 0u;
+      }
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        if (!any[k]) continue;
+        if (s[k][0] >= 0) add(g4[k].x, h4[k].x, bw[k], 0, s[k][0]);
+        if (s[k][1] >= 0) add(g4[k].y, h4[k].y, bw[k], 1, s[k][1]);
+        if (s[k][2] >= 0) add(g4[k].z, h4[k].z, bw[k], 2, s[k][2]);
+        if (s[k][3] >= 0) add(g4[k].w, h4[k].w, bw[k], 3, s[k][3]);
+      }
+    }
+  } else {
+    for (long r = r0 + threadIdx.x; r < r1; r += blockDim.x) {
+      const int s = slot(__ldg(t.lor + r));
+      if (s < 0) continue;
+      unsigned bw[kMaskedMaxFpb];
+#pragma unroll
+      for (int j = 0; j < kMaskedMaxFpb; ++j)
+        bw[j] = j < nf ? __ldg(t.bins_t + (long)(f0 + j) * t.n + r) : 0u;
+      add(__ldg(t.grad + r), __ldg(t.hess + r), bw, 0, s);
+    }
+  }
+  cl.sync();
+  // outputs (owned slot, feature, bin), bin fastest, dealt to the blocks of
+  // the cluster a block-width at a time; each sums its cell of every
+  // block's accumulator (an owned slot reads its first slot's), a batch of
+  // remote reads per channel in flight, and writes one float4
+  const int nbl = (int)cl.num_blocks();
+  const int n_out = hdr[1] * nf * nb;
+  for (int o = (int)cl.block_rank() * blockDim.x + threadIdx.x; o < n_out;
+       o += nbl * blockDim.x) {
+    const int b = o % nb;
+    const int j = o / nb % nf;
+    const int k = own[o / nb / nf];
+    const int c = (first[k] - k0) * 3 * plane + j * nb + b;
+    T v[3] = {0, 0, 0};
+    for (int q0 = 0; q0 < nbl; q0 += kReduceBatch) {
+      T p[3][kReduceBatch];
+#pragma unroll
+      for (int u = 0; u < kReduceBatch; ++u) {
+        const bool in = q0 + u < nbl;
+        const unsigned* ws = cl.map_shared_rank(w, in ? q0 + u : 0);
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch)
+          p[ch][u] = in ? a.get(ws, c + ch * plane) : (T)0;
+      }
+#pragma unroll
+      for (int u = 0; u < kReduceBatch; ++u)
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) v[ch] += p[ch][u];
+    }
+    t.out[((long)k * t.num_f + f0 + j) * nb + b] =
+        make_float4(Val<MODE>::out(v[0], sg), Val<MODE>::out(v[1], sh),
+                    Val<MODE>::out(v[2], 0), 0.0f);
+  }
+  cl.sync();  // no block leaves while another reads its shared memory
+}
+
+struct MaskedPlan {
+  dim3 grid;  // (feature groups, cluster size, slot groups)
+  int fpb, spg;
+  long rpb;
+  size_t smem;
+};
+
+// cudaOccupancyMaxActiveClusters of ``fn`` over ``grid`` (0: the device
+// takes no cluster of that size)
+inline int max_clusters(const void* fn, dim3 grid, size_t smem) {
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      cluster_config(grid, kMaskedThreads, smem, 0, &attr);
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(&n, fn, &cfg) != cudaSuccess) {
+    cudaGetLastError();
+    return 0;
+  }
+  return n;
+}
+
+// The launch of ``fn`` for n rows, F features, K slots, B bins at ``words``
+// 32-bit words a cell: for each features-per-block (4, 2, 1) with the
+// fewest slot groups that fit, and each cluster size the device takes at
+// that shared memory, the cost waves x rows per block x (2 + features per
+// block) (a row's leaf id, slot and values, then its bin and three atomics
+// per feature); the cheapest wins, the smaller cluster on a tie.
+inline int plan_masked(const void* fn, long n, int num_f, int K, int n_bins,
+                       int words, MaskedPlan* best) {
+  int optin = 0;
+  int err = optin_smem(&optin);
+  if (err) return err;
+  const size_t head = masked_head_bytes(K);
+  const size_t per = (size_t)3 * n_bins * sizeof(unsigned) * words;
+  double best_cost = -1.0;
+  for (int fpb = kMaskedMaxFpb; fpb >= 1; fpb >>= 1) {
+    if (fpb > num_f && fpb > 1) continue;
+    if (head + per * fpb > (size_t)optin) continue;
+    int spg = (int)(((size_t)optin - head) / (per * fpb));
+    const int sgroups = (K + spg - 1) / spg;
+    spg = (K + sgroups - 1) / sgroups;
+    const size_t smem = head + per * fpb * spg;
+    const int fgroups = (num_f + fpb - 1) / fpb;
+    err = allow_smem(fn, smem);
+    if (err) return err;
+    for (int cs = 1; cs <= kMaxCluster; ++cs) {
+      const dim3 grid(fgroups, cs, sgroups);
+      const int active = max_clusters(fn, grid, smem);
+      if (active <= 0) continue;
+      const long clusters = (long)fgroups * sgroups;
+      const long waves = (clusters + active - 1) / active;
+      const long rpb = ((n + cs - 1) / cs + 3) / 4 * 4;
+      const double cost = (double)waves * (double)rpb * (2.0 + fpb);
+      if (best_cost < 0 || cost < best_cost) {
+        best_cost = cost;
+        *best = {grid, fpb, spg, rpb, smem};
+      }
+    }
+  }
+  return best_cost < 0 ? (int)cudaErrorInvalidConfiguration : 0;
+}
+
+// plan_masked's plans, cached per (kernel, device, n, F, K, B): a launch
+// plans nothing once its shape has run
+struct PlanCache {
+  std::mutex mu;
+  struct Entry {
+    const void* fn;
+    int dev, num_f, K, n_bins;
+    long n;
+    MaskedPlan p;
+  } e[64];
+  int used = 0, next = 0;
+};
+
+inline int cached_plan(const void* fn, long n, int num_f, int K, int n_bins,
+                       int words, MaskedPlan* p) {
+  static PlanCache c;
+  int dev = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (err) return err;
+  std::lock_guard<std::mutex> g(c.mu);
+  for (int k = 0; k < c.used; ++k) {
+    const PlanCache::Entry& x = c.e[k];
+    if (x.fn == fn && x.dev == dev && x.n == n && x.num_f == num_f &&
+        x.K == K && x.n_bins == n_bins) {
+      *p = x.p;
+      return 0;
+    }
+  }
+  err = plan_masked(fn, n, num_f, K, n_bins, words, p);
+  if (err) return err;
+  c.e[c.next] = {fn, dev, num_f, K, n_bins, n, *p};
+  c.next = (c.next + 1) % 64;
+  if (c.used < 64) ++c.used;
+  return 0;
+}
+
+template <int MODE, int VEC>
+int launch_masked(Masked t, cudaStream_t s) {
+  const void* fn = reinterpret_cast<const void*>(masked_cluster<MODE, VEC>);
+  MaskedPlan p;
+  int err = cached_plan(fn, t.n, t.num_f, t.K, t.n_bins, Acc<MODE>::kWords,
+                        &p);
+  if (err) return err;
+  t.fpb = p.fpb;
+  t.spg = p.spg;
+  t.rpb = p.rpb;
+  return launch_clusters(masked_cluster<MODE, VEC>, p.grid, kMaskedThreads,
+                         p.smem, s, t);
+}
+
+// The masked pass into out f32 [K, num_f, n_bins, 4]; mode 0 int8, 1
+// float32, 2 bfloat16.  An empty output launches nothing.
+inline int run_masked(const uint8_t* bins_t, long n, int num_f,
+                      const float* grad, const float* hess, const int* lor,
+                      const int* leaves, int K, int n_bins, int mode,
+                      float* out, cudaStream_t s) {
+  if (K <= 0 || num_f <= 0) return 0;
+  Masked t = {bins_t, n, num_f, grad, hess, lor, leaves, K, n_bins, 0, 0, 0,
+              reinterpret_cast<float4*>(out)};
+  const bool vec = n % 4 == 0 && aligned(bins_t, 4) && aligned(grad, 16) &&
+                   aligned(hess, 16) && aligned(lor, 16);
+#define LGBT_MASKED(M) \
+  return vec ? launch_masked<M, 4>(t, s) : launch_masked<M, 1>(t, s)
+  switch (mode) {
+    case 0:
+      LGBT_MASKED(0);
+    case 1:
+      LGBT_MASKED(1);
+    case 2:
+      LGBT_MASKED(2);
+  }
+#undef LGBT_MASKED
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace

@@ -9,7 +9,9 @@
 //     pass of G <= 4 leaves (the warm-up ladder's widths 1 and 4),
 //     f32 [G, F, B, 4];
 //   * histogram_leaves_radix2_pallas -> lgbt_hist_radix2: the masked pass of
-//     K > 4 leaves (width 16 and every K = 42 full pass), f32 [K, F, B, 4].
+//     K > 4 leaves (width 16 and every K = 42 full pass), f32 [K, F, B, 4]:
+//     the one-launch cluster kernel of masked.cuh (the function hist.cu's
+//     lgbt_hist_leaves computes too).
 // Slots repeating an earlier slot's leaf get identical copies.
 //
 // The TPU kernels split bin = 16*hi + lo and contract nibble one-hots on the
@@ -38,9 +40,7 @@
 //     for four features (96 KB at B = 256 in int8, two blocks per SM; the
 //     64-bit sums of float32 and bfloat16 take 192 KB);
 //   * radix_joint: G <= 4 leaf ids sit in registers (no slot table); 4
-//     features x G slots x 2 copies (96 KB at G = 4, B = 256);
-//   * radix2: the leaf -> slot table in shared memory; as many features per
-//     block as fit beside K slots (4 at K = 16, 1 at K = 42, 129 KB).
+//     features x G slots x 2 copies (96 KB at G = 4, B = 256).
 //
 // Bound on the H100: bytes.  A 1M-row pass at F = 28 reads 28 MB of bins and
 // 12 MB of grad, hess and leaf ids and writes K*F*B*16 bytes (0.46 MB per
@@ -55,7 +55,7 @@
 // feature group (from L2) and flushes one global atomic per non-zero cell
 // per block.
 
-#include "cluster_hist.cuh"
+#include "masked.cuh"
 
 namespace {
 
@@ -69,12 +69,6 @@ template <int MODE>
 __global__ void __launch_bounds__(kThreads)
     radix_joint_kernel(Task t, typename Val<MODE>::T* __restrict__ glob) {
   hist_block<MODE, SEL_FEW, SRC_BYTES>(t, glob);
-}
-
-template <int MODE>
-__global__ void __launch_bounds__(kThreads)
-    radix2_kernel(Task t, typename Val<MODE>::T* __restrict__ glob) {
-  hist_block<MODE, SEL_TABLE, SRC_BYTES>(t, glob);
 }
 
 constexpr int kRadixThreads = 512;
@@ -206,10 +200,6 @@ __global__ void __launch_bounds__(kRadixThreads, 2)
   cl.sync();  // no block leaves while another reads its shared memory
 }
 
-inline bool aligned(const void* p, int bytes) {
-  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
-}
-
 // The cluster path's shape for n rows, or false when n needs the block
 // core (more than kClusterRows rows per block)
 struct ClusterPlan {
@@ -244,10 +234,10 @@ int run_single(Task t, void* scratch, float* out, cudaStream_t s) {
                    aligned(t.lor, 16);
   const bool own = MODE != 0 && t.vmax == nullptr;
 #define LGBT_SINGLE(OWN, VEC)                                              \
-  return launch_clusters(radix_single_cluster<MODE, OWN, VEC>, p.groups,  \
-                         p.cs, kRadixThreads, smem, s, t.bins_t, t.n,     \
-                         t.num_f, t.grad, t.hess, t.lor, t.n_bins, p.fpb, \
-                         p.rpb, t.vmax, out)
+  return launch_clusters(radix_single_cluster<MODE, OWN, VEC>,            \
+                         dim3(p.groups, p.cs), kRadixThreads, smem, s,    \
+                         t.bins_t, t.n, t.num_f, t.grad, t.hess, t.lor,   \
+                         t.n_bins, p.fpb, p.rpb, t.vmax, out)
   if (own) {
     if (vec) LGBT_SINGLE(true, 4);
     LGBT_SINGLE(true, 1);
@@ -257,7 +247,7 @@ int run_single(Task t, void* scratch, float* out, cudaStream_t s) {
 #undef LGBT_SINGLE
 }
 
-enum { KIND_SINGLE = 0, KIND_JOINT = 1, KIND_RADIX2 = 2 };
+enum { KIND_SINGLE = 0, KIND_JOINT = 1 };
 
 template <int MODE>
 int run(int kind, Task t, void* scratch, float* out, cudaStream_t s) {
@@ -266,9 +256,6 @@ int run(int kind, Task t, void* scratch, float* out, cudaStream_t s) {
       return run_single<MODE>(t, scratch, out, s);
     case KIND_JOINT:
       return run_hist<MODE>(radix_joint_kernel<MODE>, t, 4, false, 2, false,
-                            scratch, out, s);
-    case KIND_RADIX2:
-      return run_hist<MODE>(radix2_kernel<MODE>, t, 4, false, 1, true,
                             scratch, out, s);
   }
   return (int)cudaErrorInvalidValue;
@@ -332,11 +319,12 @@ extern "C" int lgbt_hist_radix_joint(const uint8_t* bins_t, long n,
   return dispatch(KIND_JOINT, mode, t, scratch, out, stream);
 }
 
+// out: f32 [K, num_f, n_bins, 4] (masked.cuh run_masked)
 extern "C" int lgbt_hist_radix2(const uint8_t* bins_t, long n, int num_f,
                                 const float* grad, const float* hess,
                                 const int* lor, const int* leaves, int K,
-                                int n_bins, int mode, void* scratch,
-                                float* out, void* stream) {
-  Task t = {bins_t, nullptr, n, num_f, grad, hess, lor, leaves, K, n_bins};
-  return dispatch(KIND_RADIX2, mode, t, scratch, out, stream);
+                                int n_bins, int mode, float* out,
+                                void* stream) {
+  return run_masked(bins_t, n, num_f, grad, hess, lor, leaves, K, n_bins,
+                    mode, out, (cudaStream_t)stream);
 }

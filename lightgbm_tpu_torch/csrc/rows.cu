@@ -39,7 +39,7 @@
 // feature (from L2), and at the strict path's sizes the launch, the block
 // reduction and the atomics' latency set the pace.
 
-#include "cluster_hist.cuh"  // Acc, Cvt
+#include "cluster_hist.cuh"  // Acc, Cvt, aligned
 
 namespace {
 
@@ -139,10 +139,6 @@ __global__ void __launch_bounds__(1024)
   float* o = out + (long)f * n_bins * C + c;
   for (int b = threadIdx.x; b < n_bins; b += blockDim.x)
     o[(long)b * C] = Val<MODE>::out(a.get(w, b), s);
-}
-
-inline bool aligned(const void* p, int bytes) {
-  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
 template <int MODE>

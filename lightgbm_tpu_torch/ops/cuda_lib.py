@@ -41,8 +41,7 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
 _SIGNATURES = {
     "take": {"lgbt_take": (_P, _L, _P, _I, _P, _P)},
     "hist": {
-        "lgbt_hist_leaves": (_P, _L, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P,
-                             _P),
+        "lgbt_hist_leaves": (_P, _L, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P),
         "lgbt_hist_payload": (_P, _L, _I, _I, _P, _I, _P, _I, _I, _P, _P, _P),
     },
     "radix": {
@@ -52,8 +51,7 @@ _SIGNATURES = {
         "lgbt_pass_scale": (_P, _P, _L, _P, _P),
         "lgbt_hist_radix_joint": (_P, _L, _I, _P, _P, _P, _P, _I, _I, _I, _P,
                                   _P, _P),
-        "lgbt_hist_radix2": (_P, _L, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P,
-                             _P),
+        "lgbt_hist_radix2": (_P, _L, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P),
     },
     "packed": {
         "lgbt_hist_packed": (_P, _I, _L, _I, _P, _P, _P, _P, _I, _I, _I, _P,

@@ -5,7 +5,8 @@ kernel:
 
 * :func:`histogram_leaves` — the masked K-leaf (grad, hess, count)
   histogram from the transposed bin matrix, replacing
-  ``_histogram_leaves_impl`` (``histogram_leaves_pallas``), csrc/hist.cu;
+  ``_histogram_leaves_impl`` (``histogram_leaves_pallas``), csrc/hist.cu
+  (the one-launch cluster kernel of csrc/masked.cuh);
 * :func:`histogram_payload` — the same histogram straight from the
   compacted i32 payload, replacing ``histogram_payload_pallas``,
   csrc/hist.cu;
@@ -15,7 +16,8 @@ kernel:
   replacing ``histogram_radix_joint_pallas``, csrc/radix.cu;
 * :func:`histogram_leaves_radix2` — the masked pass of K leaves at a bin
   count that is a multiple of 16, replacing
-  ``histogram_leaves_radix2_pallas``, csrc/radix.cu;
+  ``histogram_leaves_radix2_pallas``, csrc/radix.cu (the same function
+  and the same cluster kernel as :func:`histogram_leaves`);
 * :func:`histogram_leaves_packed` — the masked pass from the transposed
   packed word mirror, replacing ``histogram_leaves_packed_pallas``,
   csrc/packed.cu;
@@ -34,12 +36,12 @@ runs its plain version.  ``hist_dtype`` picks the arithmetic: ``int8``
 f32; the kernels sum them in 64-bit fixed point at a per-call power-of-two
 scale (csrc/hist_common.cuh), so a kernel gives the same bits on every
 call, the correctly rounded exact sum on integer-valued inputs.
-:func:`fixed_shift`, :func:`histogram_rows_t_fixed` and
-:func:`histogram_radix_single_fixed` mirror that arithmetic in PyTorch (an
-int64 ``index_add_`` of ``round(v * 2^s)``): the kernels' bits exactly, on
-any values.  The radix and packed kernels compute what the TPU kernels
-compute, not their nibble or SWAR formulation, so their plain versions are
-the flat histogram's.
+:func:`fixed_shift`, :func:`histogram_rows_t_fixed`,
+:func:`histogram_leaves_fixed` and :func:`histogram_radix_single_fixed`
+mirror that arithmetic in PyTorch (an int64 ``index_add_`` of
+``round(v * 2^s)``): the kernels' bits exactly, on any values.  The radix
+and packed kernels compute what the TPU kernels compute, not their nibble
+or SWAR formulation, so their plain versions are the flat histogram's.
 """
 
 from __future__ import annotations
@@ -96,10 +98,13 @@ def _buffers(K: int, num_f: int, n_bins: int, mode: int,
 def _hist_plain(bin_of: Callable[[int], torch.Tensor], num_f: int,
                 grad: torch.Tensor, hess: torch.Tensor, lor: torch.Tensor,
                 row_ok: Optional[torch.Tensor], leaves: torch.Tensor,
-                n_bins: int, hist_dtype: str) -> torch.Tensor:
-    """The arithmetic both kernels share, one feature at a time:
+                n_bins: int, hist_dtype: str,
+                fixed: bool = False) -> torch.Tensor:
+    """The arithmetic every masked kernel shares, one feature at a time:
     each selected row adds (grad, hess, 1) to the cell (first slot of its
-    leaf, feature, bin); excluded rows add nothing (NaN-safe)."""
+    leaf, feature, bin); excluded rows add nothing (NaN-safe).  float32 and
+    bfloat16 sum in f32, or with ``fixed`` as the cluster kernel does: in
+    int64 at 2^fixed_shift(max finite |grad| (|hess|) over all rows, n)."""
     mode = _mode(hist_dtype)
     dev = grad.device
     K = leaves.shape[0]
@@ -116,6 +121,14 @@ def _hist_plain(bin_of: Callable[[int], torch.Tensor], num_f: int,
         vals = torch.stack([lvl(grad), lvl(hess),
                             torch.ones_like(lor, dtype=torch.int64)], 1)
         vals = torch.where(sel[:, None], vals, torch.zeros_like(vals))
+    elif fixed:
+        n = grad.shape[0]
+        s = [fixed_shift(int(absmax_bits(v)), n) for v in (grad, hess)] + [0]
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        p2 = _pow2(s, dev)
+        vals = torch.stack([_fix(torch.where(sel, grad, zero), p2[0], mode),
+                            _fix(torch.where(sel, hess, zero), p2[1], mode),
+                            sel.to(torch.int64)], 1)
     else:
         zero = torch.zeros((), dtype=torch.float32, device=dev)
         vals = torch.stack([torch.where(sel, grad, zero),
@@ -131,8 +144,11 @@ def _hist_plain(bin_of: Callable[[int], torch.Tensor], num_f: int,
         idx = torch.where(ok, (slot * num_f + f) * n_bins + b,
                           torch.full_like(b, cells))           # trash row
         acc.index_add_(0, idx, vals)
+    sums = acc[:cells]
+    if mode != 0 and fixed:
+        sums = _unfix(sums, _pow2([-x for x in s], dev))
     out = torch.zeros(K, num_f, n_bins, 4, dtype=torch.float32, device=dev)
-    out[..., :3] = acc[:cells].reshape(K, num_f, n_bins, 3).to(torch.float32)
+    out[..., :3] = sums.reshape(K, num_f, n_bins, 3).to(torch.float32)
     first = (leaves[:, None] == leaves[None, :]).to(torch.uint8).argmax(1)
     return out[first]
 
@@ -144,6 +160,20 @@ def histogram_leaves_plain(bins_t: torch.Tensor, grad: torch.Tensor,
     """Plain version of :func:`histogram_leaves`."""
     return _hist_plain(lambda f: bins_t[f], bins_t.shape[0], grad, hess,
                        leaf_of_row, None, leaves, n_bins, hist_dtype)
+
+
+def histogram_leaves_fixed(bins_t: torch.Tensor, grad: torch.Tensor,
+                           hess: torch.Tensor, leaf_of_row: torch.Tensor,
+                           leaves: torch.Tensor, *, n_bins: int,
+                           hist_dtype: str = "float32") -> torch.Tensor:
+    """:func:`histogram_leaves` (and :func:`histogram_leaves_radix2`) as
+    the kernel computes it, bit for bit: grad and hess of the selected rows
+    summed in int64 at 2^fixed_shift(max finite |grad| (|hess|) over all n
+    rows, n), counts exactly, repeated slots copied (int8 sums are exact:
+    the plain version)."""
+    return _hist_plain(lambda f: bins_t[f], bins_t.shape[0], grad, hess,
+                       leaf_of_row, None, leaves, n_bins, hist_dtype,
+                       fixed=True)
 
 
 def histogram_leaves(bins_t: torch.Tensor, grad: torch.Tensor,
@@ -162,32 +192,10 @@ def histogram_leaves(bins_t: torch.Tensor, grad: torch.Tensor,
                                       leaves, n_bins=n_bins,
                                       hist_dtype=hist_dtype)
     global leaves_launches
-    mode = _mode(hist_dtype)
-    num_f, n = bins_t.shape
-    K = leaves.shape[0]
-    dev = bins_t.device
-    if (bins_t.dtype != torch.uint8 or grad.dtype != torch.float32
-            or hess.dtype != torch.float32
-            or leaf_of_row.dtype != torch.int32
-            or leaves.dtype != torch.int32):
-        log.fatal("histogram_leaves kernel takes u8 bins, f32 grad/hess, "
-                  "i32 leaf ids")
-    if grad.shape != (n,) or hess.shape != (n,) or leaf_of_row.shape != (n,):
-        log.fatal("histogram_leaves: grad/hess/leaf_of_row must be [n]")
-    if any(t.device != dev for t in (grad, hess, leaf_of_row, leaves)):
-        log.fatal("histogram_leaves: all operands must be on one device")
-    if not 1 <= n_bins <= 256:
-        log.fatal(f"histogram_leaves: n_bins={n_bins} outside [1, 256]")
-    bins_t, grad, hess = (t.contiguous() for t in (bins_t, grad, hess))
-    leaf_of_row, leaves = leaf_of_row.contiguous(), leaves.contiguous()
-    scratch, out = _buffers(K, num_f, n_bins, mode, dev)
-    lib = cuda_lib.load("hist")
-    code = lib.lgbt_hist_leaves(
-        bins_t.data_ptr(), n, num_f, grad.data_ptr(), hess.data_ptr(),
-        leaf_of_row.data_ptr(), leaves.data_ptr(), K, n_bins, mode,
-        scratch.data_ptr(), out.data_ptr(), cuda_lib.stream_handle(bins_t))
-    cuda_lib.check(code, "histogram_leaves")
-    leaves_launches += 1
+    out = _leaf_pass("hist", "lgbt_hist_leaves", "histogram_leaves", bins_t,
+                     grad, hess, leaf_of_row, leaves, n_bins, hist_dtype)
+    if out.numel():
+        leaves_launches += 1
     return out
 
 
@@ -367,8 +375,13 @@ def histogram_radix_single(bins_t: torch.Tensor, grad: torch.Tensor,
     return out
 
 
-def _radix_masked(entry: str, what: str, bins_t, grad, hess, lor, leaves,
-                  n_bins, hist_dtype):
+def _leaf_pass(lib: str, entry: str, what: str, bins_t, grad, hess, lor,
+               leaves, n_bins, hist_dtype, block_core: bool = False
+               ) -> torch.Tensor:
+    """Check the operands of a masked pass over bins_t u8 [F, n] and launch
+    ``entry`` of csrc/<lib>.cu into f32 [K, F, n_bins, 4] (an empty output
+    launches nothing); ``block_core``: the kernel also takes the block
+    core's zeroed global accumulator."""
     mode = _mode(hist_dtype)
     num_f, n = bins_t.shape
     K = leaves.shape[0]
@@ -376,11 +389,17 @@ def _radix_masked(entry: str, what: str, bins_t, grad, hess, lor, leaves,
         log.fatal(f"{what} kernel takes u8 bins")
     _check_pass(what, n, grad, hess, lor, leaves, n_bins, bins_t.device)
     bins_t, grad, hess, lor, leaves = _c(bins_t, grad, hess, lor, leaves)
-    scratch, out = _buffers(K, num_f, n_bins, mode, bins_t.device)
-    code = getattr(cuda_lib.load("radix"), entry)(
-        bins_t.data_ptr(), n, num_f, grad.data_ptr(), hess.data_ptr(),
-        lor.data_ptr(), leaves.data_ptr(), K, n_bins, mode,
-        scratch.data_ptr(), out.data_ptr(), cuda_lib.stream_handle(bins_t))
+    out = torch.empty(K, num_f, n_bins, 4, dtype=torch.float32,
+                      device=bins_t.device)
+    if out.numel() == 0:
+        return out
+    args = [bins_t.data_ptr(), n, num_f, grad.data_ptr(), hess.data_ptr(),
+            lor.data_ptr(), leaves.data_ptr(), K, n_bins, mode]
+    if block_core:
+        args.append(_scratch(K * num_f * n_bins * 3, mode,
+                             bins_t.device).data_ptr())
+    code = getattr(cuda_lib.load(lib), entry)(
+        *args, out.data_ptr(), cuda_lib.stream_handle(bins_t))
     cuda_lib.check(code, what)
     return out
 
@@ -406,10 +425,12 @@ def histogram_radix_joint(bins_t: torch.Tensor, grad: torch.Tensor,
     if not 1 <= leaves.shape[0] <= RADIX_JOINT_MAX_LEAVES:
         log.fatal(f"histogram_radix_joint takes 1 to "
                   f"{RADIX_JOINT_MAX_LEAVES} leaves, got {leaves.shape[0]}")
-    out = _radix_masked("lgbt_hist_radix_joint", "histogram_radix_joint",
-                        bins_t, grad, hess, leaf_of_row, leaves, n_bins,
-                        hist_dtype)
-    radix_joint_launches += 1
+    out = _leaf_pass("radix", "lgbt_hist_radix_joint",
+                     "histogram_radix_joint", bins_t, grad, hess,
+                     leaf_of_row, leaves, n_bins, hist_dtype,
+                     block_core=True)
+    if out.numel():
+        radix_joint_launches += 1
     return out
 
 
@@ -424,10 +445,11 @@ def histogram_leaves_radix2(bins_t: torch.Tensor, grad: torch.Tensor,
                                              leaves, n_bins=n_bins,
                                              hist_dtype=hist_dtype)
     global radix2_launches
-    out = _radix_masked("lgbt_hist_radix2", "histogram_leaves_radix2",
-                        bins_t, grad, hess, leaf_of_row, leaves, n_bins,
-                        hist_dtype)
-    radix2_launches += 1
+    out = _leaf_pass("radix", "lgbt_hist_radix2", "histogram_leaves_radix2",
+                     bins_t, grad, hess, leaf_of_row, leaves, n_bins,
+                     hist_dtype)
+    if out.numel():
+        radix2_launches += 1
     return out
 
 
@@ -613,29 +635,7 @@ def histogram_radix_single_fixed(bins_t: torch.Tensor, grad: torch.Tensor,
     bit: grad and hess of the rows with ``lor >= 0`` summed in int64 at
     2^fixed_shift(max finite |grad| (|hess|) over all n rows, n), counts
     exactly (int8 sums are exact: the plain version)."""
-    mode = _mode(hist_dtype)
-    if mode == 0:
-        return histogram_radix_single_plain(bins_t, grad, hess, lor,
-                                            n_bins=n_bins,
-                                            hist_dtype=hist_dtype)
-    num_f, n = bins_t.shape
-    dev = grad.device
-    s = [fixed_shift(int(absmax_bits(v)), n) for v in (grad, hess)] + [0]
-    sel = lor >= 0
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
-    p2 = _pow2(s, dev)
-    q = torch.stack([_fix(torch.where(sel, grad, zero), p2[0], mode),
-                     _fix(torch.where(sel, hess, zero), p2[1], mode),
-                     sel.to(torch.int64)], 1)                       # [n, 3]
-    cells = num_f * n_bins
-    acc = torch.zeros(cells + 1, 3, dtype=torch.int64, device=q.device)
-    for f in range(num_f):
-        b = bins_t[f].long()
-        idx = torch.where(sel & (b < n_bins), f * n_bins + b,
-                          torch.full_like(b, cells))
-        acc.index_add_(0, idx, q)
-    out = torch.zeros(num_f, n_bins, 4, dtype=torch.float32,
-                      device=grad.device)
-    out[..., :3] = _unfix(acc[:cells], _pow2([-x for x in s], dev)
-                          ).reshape(num_f, n_bins, 3)
-    return out
+    sel = torch.where(lor >= 0, 0, -1).to(torch.int32)
+    leaves = torch.zeros(1, dtype=torch.int32, device=lor.device)
+    return histogram_leaves_fixed(bins_t, grad, hess, sel, leaves,
+                                  n_bins=n_bins, hist_dtype=hist_dtype)[0]

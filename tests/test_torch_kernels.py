@@ -69,18 +69,28 @@ def _hist_inputs(case, n, f, n_bins, seed=0):
     leaves = np.array([0, 2, 5, 6, 7, 1, 3, 4][:K], np.int32)
     if case == "repeated_slots":
         leaves = np.array([0, 2, 5, 2, 0], np.int32)
-    if case in ("f32_real", "f32_nan_excluded"):
+    elif case == "leaf_ids_past_table":     # the kernel's linear search
+        lor = np.where(lor < 0, -1, lor + 2999).astype(np.int32)
+        leaves = np.array([3000, 3002, 3005, 3002, 2047], np.int32)
+    elif case == "k84":                     # the pooled extended pass
+        lor = rng.integers(-1, 100, size=n).astype(np.int32)
+        leaves = rng.permutation(100)[:84].astype(np.int32)
+        leaves[-3:] = leaves[0]
+    elif case == "empty_selection":
+        leaves = np.array([20, 21, 22, 20], np.int32)
+    if case in ("f32_real", "f32_nan_excluded", "empty_selection"):
         grad = rng.uniform(0.5, 1.5, size=n).astype(np.float32)
         hess = rng.uniform(0.5, 1.5, size=n).astype(np.float32)
     else:
         grad = rng.integers(-3, 4, size=n).astype(np.float32)
         hess = rng.integers(0, 5, size=n).astype(np.float32)
-    if case == "f32_nan_excluded":
+    if case in ("f32_nan_excluded", "empty_selection"):
         out = ~np.isin(lor, leaves)
         grad[out] = np.nan
         hess[out] = np.nan
     mode = "int8" if case in ("int8", "k1", "k8", "repeated_slots",
-                              "ragged_n") else "float32"
+                              "ragged_n", "leaf_ids_past_table",
+                              "k84") else "float32"
     return bins, grad, hess, lor, leaves, mode
 
 
@@ -93,7 +103,9 @@ def _assert_hist(got, want, real):
 
 @pytest.mark.parametrize("case", ["int8", "f32_int_valued", "f32_real",
                                   "f32_nan_excluded", "repeated_slots",
-                                  "ragged_n", "k1", "k8"])
+                                  "ragged_n", "k1", "k8",
+                                  "leaf_ids_past_table", "k84",
+                                  "empty_selection"])
 def test_histogram_leaves_matches_pallas(case):
     n = 2000 if case == "ragged_n" else 2048   # 2000: not a block multiple
     bins, grad, hess, lor, leaves, mode = _hist_inputs(case, n, 9, 64)
@@ -106,6 +118,8 @@ def test_histogram_leaves_matches_pallas(case):
                            _t(hess), _t(lor), _t(leaves), n_bins=64,
                            hist_dtype=mode).numpy()
     assert np.isfinite(got).all()
+    if case == "empty_selection":
+        assert not got.any()
     _assert_hist(got, want, case in ("f32_real", "f32_nan_excluded"))
 
 
@@ -286,12 +300,28 @@ def test_radix_joint_matches_pallas(case):
     _assert_hist(got, want, real)
 
 
-@pytest.mark.parametrize("case", sorted(_AUTO_CASES))
+# radix2 beyond _AUTO_CASES: (inputs of that case, leaf ids, and the map
+# lor -> lor * mul + off of its leaf ids >= 0): leaf ids past the kernel's
+# 2048-entry slot table (its linear search), the pooled pass's 84 slots
+# (repeats among them) and no selected row
+_RADIX2_EXTRA = {
+    "leaf_ids_past_table": ("int8_256_bins", [3000, 3002, 3005, 3002, 2047],
+                            1, 2999),
+    "k84": ("f32_int_valued_f6", list(range(80)) + [11, 66, 11, 0], 11, 0),
+    "empty_selection": ("f32_real", [20, 21, 22, 20, 23], 1, 0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_AUTO_CASES) + sorted(_RADIX2_EXTRA))
 def test_radix2_matches_pallas(case):
     lv = {"int8_256_bins": [0, 2, 5, 7, 1, 3], "repeated_slots":
           [4, 2, 4, 4, 6, 2]}.get(case)
+    base, mul, off = case, 1, 0
+    if case in _RADIX2_EXTRA:
+        base, lv, mul, off = _RADIX2_EXTRA[case]
     bins, grad, hess, lor, leaves, n_bins, mode, real = _auto_inputs(
-        case, seed=7, leaves=lv)
+        base, seed=7, leaves=lv)
+    lor = np.where(lor < 0, -1, lor * mul + off).astype(np.int32)
     p = JP.radix2_pick_p(bins.shape[1], leaves.shape[0], n_bins)
     assert p > 0
     want = np.asarray(JP.histogram_leaves_radix2_pallas(
@@ -302,6 +332,8 @@ def test_radix2_matches_pallas(case):
                                   _t(hess), _t(lor), _t(leaves),
                                   n_bins=n_bins, hist_dtype=mode).numpy()
     assert np.isfinite(got).all()
+    if case == "empty_selection":
+        assert not got.any()
     _assert_hist(got, want, real)
 
 
@@ -449,6 +481,53 @@ def test_radix_single_fixed_reference_exact_on_integer_values(mode):
     want = HK.histogram_radix_single_plain(*args, n_bins=200,
                                            hist_dtype=mode)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("mode", ["int8", "float32", "bfloat16"])
+def test_leaves_fixed_reference_exact_on_integer_values(mode):
+    rng = np.random.default_rng(25)
+    n = 2003
+    bins = _t(rng.integers(0, 70, size=(5, n)).astype(np.uint8))
+    lor = rng.integers(-1, 9, size=n).astype(np.int32)
+    leaves = np.array([0, 2, 5, 2, 7, 0, 3000], np.int32)   # repeats, > 2047
+    lor[::11] = 3000
+    g = rng.integers(-3, 4, size=n).astype(np.float32)
+    h = rng.integers(0, 5, size=n).astype(np.float32)
+    g[~np.isin(lor, leaves)] = np.nan        # excluded rows never count
+    args = (bins, _t(g), _t(h), _t(lor), _t(leaves))
+    got = HK.histogram_leaves_fixed(*args, n_bins=64, hist_dtype=mode)
+    want = HK.histogram_leaves_plain(*args, n_bins=64, hist_dtype=mode)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("case", ["real", "all_zeros", "single_nonzero",
+                                  "denormal_max", "inf_nan_ignored"])
+def test_leaves_fixed_reference_close_to_float64_sums(case):
+    rng = np.random.default_rng(26)
+    n, f, nb = 3001, 4, 32
+    bins = rng.integers(0, nb, size=(f, n)).astype(np.uint8)
+    v = _fixed_values(case, n, rng)
+    w = rng.uniform(0.5, 1.5, size=n).astype(np.float32)
+    # rows whose value is not finite are excluded; leaf 1 is not selected
+    # but its rows set the scale, which is over all n rows
+    lor = np.where(np.isfinite(v), rng.integers(0, 4, size=n), -1)
+    lor = lor.astype(np.int32)
+    leaves = np.array([0, 2, 3, 2], np.int32)
+    s = HK.fixed_shift(int(HK.absmax_bits(_t(v))), n)
+    got = HK.histogram_leaves_fixed(_t(bins), _t(v), _t(w), _t(lor),
+                                    _t(leaves), n_bins=nb,
+                                    hist_dtype="float32").numpy()
+    for k, leaf in enumerate(leaves):
+        rows = lor == leaf
+        want = np.zeros((f, nb))
+        cnt = np.zeros((f, nb))
+        for j in range(f):
+            np.add.at(want[j], bins[j][rows], v[rows].astype(np.float64))
+            np.add.at(cnt[j], bins[j][rows], 1.0)
+        _within_fixed(got[k, ..., 0], want, n, s)
+        np.testing.assert_array_equal(got[k, ..., 2], cnt)
+    np.testing.assert_array_equal(got[3], got[1])         # the copy
+    assert not got[..., 3].any()
 
 
 @pytest.mark.parametrize("case", ["real", "all_zeros", "single_nonzero",
