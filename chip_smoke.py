@@ -8,8 +8,9 @@ else: no jax, no network.  Phases, each of which fails the run on error:
 1. environment and build: the card's name and power limit, the versions,
    and every kernel of ``lightgbm_tpu_torch/csrc`` compiled at once, with
    the atomic opcodes the radix-single, rows and masked cluster kernels
-   compiled to (the masked one must add with native ``ATOMS.ADD``, no
-   compare-and-swap loop and no global atomic);
+   compiled to (the masked one, in radix.cu and in packed.cu, must add
+   with native ``ATOMS.ADD``, no compare-and-swap loop and no global
+   atomic);
 2. kernel checks: each of the ten kernels against its plain PyTorch
    version on the card, at the shapes of the HIGGS main path (n = 1M rows,
    F = 28 features, B = 256 bins, K = 42 leaves per round, T = 255 leaf
@@ -39,7 +40,17 @@ else: no jax, no network.  Phases, each of which fails the run on error:
    K = 42 and at the pooled rounds' 84 slots, each held bit for bit
    against ``histogram_leaves_fixed`` (float32 and bfloat16 on real
    values) and timed in int8 and float32 beside its byte bound, with its
-   launches per call;
+   launches per call; the packed pass (``histogram_leaves_packed``, every
+   masked pass of max_bin=63: K = 1, 16, 42 at n = 1M, B = 64) held the
+   same way against ``histogram_leaves_fixed`` on the unpacked bins, and
+   the fused partition (``partition_payload`` at K = 42,
+   ``partition_select`` at K = 42 and 1) against its plain version on
+   every output, each timed with its launches per call (exactly one), and
+   both partition kernels at their edges (two valid slots with one
+   parent, ``smaller`` holding -1 and invalid slots' ids, split features
+   -1, F and 4W - 1, leaf ids past 2048); then the device time and
+   launches per call of the kernels still to redesign (take, payload,
+   radix-joint, the 1M root pass) at the kernel table's shapes;
 3. the slice: ``train()`` on a 1M x 28 HIGGS-shaped synthetic set (seeded
    numpy) with the default configuration of the HIGGS recipe
    (``hist_kernel`` and ``stochastic_rounding`` unset: the radix kernels,
@@ -55,9 +66,9 @@ else: no jax, no network.  Phases, each of which fails the run on error:
    ``tpu_leaf_hist=bucketed`` (90k x 5, the rows kernel); and the pooled
    default (1M x 10 with ``histogram_pool_size=8``: 128 slots,
    ``partition_select``), each with its own launch counts; the sha256 of
-   the model text of the default recipe, the onehot run, the strict
-   default, the bucketed run and the pooled run, and the bucketed run's
-   rows launches by S;
+   the model text of the default recipe, the max_bin=63 run, the onehot
+   run, the strict default, the bucketed run and the pooled run, and the
+   bucketed run's rows launches by S;
 4. cross-check: the default recipe at 100k rows x 5 rounds on the card and
    on the CPU (plain versions), the held-out set also a valid set scored on
    the device each round: tree 0's splits must match, the held-out AUCs
@@ -70,6 +81,10 @@ else: no jax, no network.  Phases, each of which fails the run on error:
 
 It prints one JSON line with every kernel's numbers, the card's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --ab DIR`` instead compares these kernels with
+those of another checkout of the port in DIR (``git archive`` of another
+commit), in one process: see ``ab_main``.
 """
 
 import collections
@@ -154,7 +169,8 @@ def bound_ms(nbytes, ops):
 
 def sass_atomics(cuda_lib):
     """How the shared-memory adds of the radix-single, rows and masked
-    cluster kernels compiled: per kernel and mode (0 int8, 1 float32, 2
+    cluster kernels compiled (the masked one of radix.cu, and of packed.cu
+    as "... packed"): per kernel and mode (0 int8, 1 float32, 2
     bfloat16), the count of each atomic and reduction opcode in
     ``cuobjdump -sass`` of the built library (a 64-bit add that is not
     native shows as the compare-and-swap loop ``ATOMS.CAST.SPIN.64``, a
@@ -168,7 +184,7 @@ def sass_atomics(cuda_lib):
     op = re.compile(r"\b(ATOMS\.[A-Z0-9.]+|ATOMG\.[A-Z0-9.]+|"
                     r"RED[A-Z]*\.[A-Z0-9.]+)")
     found = {}
-    for name in ("radix", "rows"):
+    for name in ("radix", "rows", "packed"):
         text = subprocess.run([tool, "-sass", str(cuda_lib._lib_path(name))],
                               capture_output=True, text=True,
                               timeout=300).stdout
@@ -176,7 +192,9 @@ def sass_atomics(cuda_lib):
         for ln in text.splitlines():
             if "Function :" in ln:
                 m = kern.search(ln)
-                key = f"{m.group(1)}<{m.group(2)}>" if m else None
+                key = (f"{m.group(1)}<{m.group(2)}>"
+                       + (" packed" if name == "packed" else "")) if m \
+                    else None
             elif key is not None:
                 o = op.search(ln)
                 if o:
@@ -512,11 +530,11 @@ def check_kernels(torch, dev):
                                ("new leaf map", "sort key")):
             err = same(a, b_, f"partition_select {what} (K = {k})")
     moving = int(torch.isin(lor, d["parents"][d["validk"] > 0]).sum().item())
+    args_k = sel_args(K)
     row("partition_select", "lightgbm_tpu_torch/csrc/partition.cu",
         "lightgbm_tpu/ops/round_fuse.py:76",
-        time_ms(torch, lambda: RF.partition_select(*sel_args(K)), flush),
-        time_ms(torch, lambda: RF.partition_select_plain(*sel_args(K)),
-                flush),
+        time_ms(torch, lambda: RF.partition_select(*args_k), flush),
+        time_ms(torch, lambda: RF.partition_select_plain(*args_k), flush),
         None, 8 * N + moving + 8 * N + 32 * K, 2 * K * N, err)
 
     # -- edges of the four, bitwise: a ragged n, F = 30 (half a word of
@@ -564,6 +582,30 @@ def check_kernels(torch, dev):
             fail(f"{name} float32 (real values): outside 1e-5 of |values|")
     print(f"kernel edges (radix/packed): n = {ne}, F = {fe}, int8 / f32 / "
           "bf16 bitwise on integer values, f32 on real values", flush=True)
+
+    # -- the partition kernels' edges, bitwise on every output, at the
+    # ragged n and F = 30 above (W = 8; garbage in the padding bytes)
+    words_p = bins_to_words(bins_e.t())
+    words_p[:, -1] |= torch.as_tensor(rng.integers(0, 1 << 15, size=ne,
+                                                   dtype=np.int32),
+                                      device=dev) << 16
+    mask_p, edges = partition_edges(rng, ne, fe, words_p.shape[1])
+    mask_p = torch.as_tensor(mask_p, device=dev)
+    for what, lor_p, dsc in edges:
+        lor_p = torch.as_tensor(lor_p, device=dev)
+        dsc = [torch.as_tensor(dsc[nm], device=dev) for nm in PART_DESC]
+        args = (bins_e, words_p, ge, he, lor_p, mask_p, *dsc)
+        for a, b_, out in zip(RF.partition_payload(*args),
+                              RF.partition_payload_plain(*args),
+                              ("new leaf map", "sort key", "payload")):
+            same(a, b_, f"partition_payload {out} ({what})")
+        args = (bins_e, lor_p, mask_p, *dsc)
+        for a, b_, out in zip(RF.partition_select(*args),
+                              RF.partition_select_plain(*args),
+                              ("new leaf map", "sort key")):
+            same(a, b_, f"partition_select {out} ({what})")
+    print(f"kernel edges (partition): n = {ne}, F = {fe}, "
+          + "; ".join(w for w, _, _ in edges) + ": bitwise", flush=True)
 
     # -- edges off the main path, bitwise: 80 slots (two slot groups of
     # shared memory at 256 bins), leaf ids past the slot table (linear
@@ -617,6 +659,58 @@ def check_kernels(torch, dev):
     return rows
 
 
+#: the partition kernels' slot descriptors, in their argument order
+PART_DESC = ("feats", "thr", "dl", "nanb", "parents", "new_leaves", "validk",
+             "smaller")
+
+
+def partition_edges(rng, n, num_f, W):
+    """The edges a leaf -> slot table must keep, K = 6 slots (4 valid) over
+    leaf ids 0-8: (a bagging mask, [(what, leaf map, descriptors)]).  Two
+    valid slots with one parent (their moves sum), also at K = 3, where the
+    kernel takes its loops and no tables; ``smaller`` holding -1
+    and the ids of invalid slots; split features -1, F and 4W - 1; leaf ids
+    past the 2048-entry table."""
+    K = 6
+    base = rng.integers(0, 9, size=n).astype(np.int32)
+
+    def desc():
+        par = rng.permutation(9)[:K].astype(np.int32)
+        nl = (9 + np.arange(K)).astype(np.int32)
+        return dict(
+            feats=rng.integers(0, num_f, size=K, dtype=np.int32),
+            thr=rng.integers(0, 256, size=K, dtype=np.int32),
+            dl=rng.integers(0, 2, size=K, dtype=np.int32),
+            nanb=np.where(rng.random(K) < 0.5, 200, -1).astype(np.int32),
+            parents=par, new_leaves=nl,
+            validk=(np.arange(K) < 4).astype(np.int32),
+            smaller=np.where(rng.random(K) < 0.5, par, nl).astype(np.int32))
+
+    edges = []
+    d = desc()
+    d["parents"][:] = [2, 2, 5, 2, 7, 2]
+    edges.append(("two valid slots with one parent", base, d))
+    edges.append(("the same at K = 3 (the loops, no tables)", base,
+                  {nm: v[:3].copy() for nm, v in d.items()}))
+    d = desc()
+    d["smaller"][:] = [-1, d["parents"][1], d["new_leaves"][2], -1,
+                       d["parents"][4], d["parents"][5]]
+    edges.append(("smaller holds -1 and invalid slots' ids", base, d))
+    d = desc()
+    d["feats"][:] = [-1, num_f, 4 * W - 1, 3, -7, 1000]
+    d["thr"][:3] = 0
+    edges.append(("split features -1, F, 4W - 1", base, d))
+    d = desc()
+    d["parents"] += 2995
+    d["parents"][1] = d["parents"][0]
+    d["new_leaves"] += 3991
+    d["smaller"] = np.where(rng.random(K) < 0.5, d["parents"],
+                            d["new_leaves"]).astype(np.int32)
+    d["smaller"][0] = 2047
+    edges.append(("leaf ids >= 2048", base + 2995, d))
+    return (rng.random(n) >= 0.2).astype(np.int32), edges
+
+
 def device_work(prof):
     """[(name, count, device us)] of the kernels, memsets and copies in a
     torch.profiler window."""
@@ -641,6 +735,8 @@ def host_launches(prof):
 last_window = {}
 #: windows measured again because the profiler lost a record
 lost_windows = []
+#: [(name, count, device us)] of the latest device_per_call window
+last_work = []
 
 
 def device_per_call(torch, fn, reps=10, tries=3):
@@ -667,6 +763,7 @@ def device_per_call(torch, fn, reps=10, tries=3):
         lost_windows.append(dict(device=n, host=launched))
     last_window.clear()
     last_window.update((name[:60], cnt) for name, cnt, _ in work)
+    last_work[:] = work
     last_window["host launches"] = launched
     us = sum(w[2] for w in work)
     return (n / reps, us / 1e3 / reps) if n else (None, None)
@@ -939,6 +1036,230 @@ def check_masked_shapes(torch, dev):
     return out
 
 
+def packed_inputs(torch, dev, rng, n=N):
+    """The max_bin=63 masked pass's operands at n rows, F = 28: bins
+    [F, n] (B = 64), their packed mirror words_t [W, n], integer and real
+    grad/hess, a leaf map over 64 leaf ids and the root's (5% of rows
+    excluded)."""
+    def t(a):
+        return torch.as_tensor(a, device=dev)
+    from lightgbm_tpu_torch.ops.histogram import bins_to_words
+    bins = t(rng.integers(0, N64 - 1, size=(F, n), dtype=np.uint8))
+    return dict(
+        bins=bins, words_t=bins_to_words(bins.t()).t().contiguous(),
+        gi=t(rng.integers(-2, 3, size=n).astype(np.float32)),
+        hi=t(rng.integers(0, 5, size=n).astype(np.float32)),
+        gr=t(rng.normal(size=n).astype(np.float32)),
+        hr=t(rng.random(n).astype(np.float32)),
+        lor=t(rng.integers(0, 64, size=n, dtype=np.int32)),
+        lor_root=t(np.where(rng.random(n) < 0.05, -1, 0).astype(np.int32)))
+
+
+def packed_leaves(torch, dev, rng, k):
+    """K slot leaf ids: the root's [0], else K of the 64 ids with the last
+    two repeating the first (dummy slots)."""
+    if k == 1:
+        return torch.zeros(1, dtype=torch.int32, device=dev)
+    lv = rng.permutation(64)[:k].astype(np.int32)
+    lv[-2:] = lv[0]
+    return torch.as_tensor(lv, device=dev)
+
+
+def partition_inputs(torch, dev, rng, n=N):
+    """The fused partition's operands at the default round's shape: n rows,
+    F = 28 (W = 7 words), a tenth of the rows masked out, K = 42 slots over
+    64 leaf ids (the last 3 invalid)."""
+    from lightgbm_tpu_torch.ops.histogram import bins_to_words
+
+    def t(a):
+        return torch.as_tensor(a, device=dev)
+    bins = t(rng.integers(0, B - 1, size=(F, n), dtype=np.uint8))
+    par = np.sort(rng.permutation(64)[:K]).astype(np.int32)
+    desc = dict(
+        feats=rng.integers(0, F, size=K, dtype=np.int32),
+        thr=rng.integers(0, B, size=K, dtype=np.int32),
+        dl=rng.integers(0, 2, size=K, dtype=np.int32),
+        nanb=np.where(rng.random(K) < 0.5, B - 2, -1).astype(np.int32),
+        parents=par, new_leaves=(64 + np.arange(K)).astype(np.int32),
+        validk=(np.arange(K) < K - 3).astype(np.int32),
+        smaller=np.where(rng.random(K) < 0.5, par,
+                         64 + np.arange(K)).astype(np.int32))
+    return dict(bins=bins, words=bins_to_words(bins.t()),
+                g=t(rng.normal(size=n).astype(np.float32)),
+                h=t(rng.random(n).astype(np.float32)),
+                lor=t(rng.integers(0, 64, size=n, dtype=np.int32)),
+                mask=t((rng.random(n) >= 0.1).astype(np.int32)),
+                desc=[t(desc[nm]) for nm in PART_DESC])
+
+
+def check_packed_partition_shapes(torch, dev):
+    """Phase 2d: the two kernels this slice redesigned, at the shapes the
+    main path gives them, n = 1M: ``histogram_leaves_packed`` (every masked
+    pass of max_bin=63: the root K = 1, the ladder's 16, the full K = 42;
+    F = 28, B = 64, W = 7) held bit for bit against its plain version (int8
+    and integer values) and against ``histogram_leaves_fixed`` on the
+    unpacked bins (float32 and bfloat16 on real values), timed in int8 and
+    float32; ``partition_payload`` (K = 42, every default round) and
+    ``partition_select`` (K = 42 and 1, the pooled rounds) bit for bit on
+    every output; each with its one-call ms, device ms, launches per call
+    (exactly 1) and byte bound."""
+    from lightgbm_tpu_torch.ops import hist_kernels as HK
+    from lightgbm_tpu_torch.ops import round_fuse as RF
+    rng = np.random.default_rng(13)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    x = packed_inputs(torch, dev, rng)
+    out = []
+    for k in (1, 16, K):
+        lv = packed_leaves(torch, dev, rng, k)
+        lor = x["lor_root"] if k == 1 else x["lor"]
+        for mode in ("int8", "float32", "bfloat16"):
+            kw = dict(num_f=F, n_bins=N64, hist_dtype=mode)
+            got = HK.histogram_leaves_packed(x["words_t"], x["gi"], x["hi"],
+                                             lor, lv, **kw)
+            if not torch.equal(got, HK.histogram_leaves_packed_plain(
+                    x["words_t"], x["gi"], x["hi"], lor, lv, **kw)):
+                fail(f"histogram_leaves_packed {mode} (K = {k}, integer "
+                     f"values): kernel differs from its plain version")
+            if mode == "int8":
+                continue
+            got = HK.histogram_leaves_packed(x["words_t"], x["gr"], x["hr"],
+                                             lor, lv, **kw)
+            want = HK.histogram_leaves_fixed(x["bins"], x["gr"], x["hr"],
+                                             lor, lv, n_bins=N64,
+                                             hist_dtype=mode)
+            if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+                d = (got.double() - want.double()).abs().max().item()
+                fail(f"histogram_leaves_packed {mode} (K = {k}): kernel "
+                     f"differs from the fixed-point reference on the "
+                     f"unpacked bins (max abs diff {d})")
+        n_sel = int(torch.isin(lor, lv).sum().item())
+        # bytes: words, grad, hess, leaf ids and the K ids read once, the
+        # f32 [K, F, 64, 4] output written once
+        b_ms, b_by = bound_ms(4 * W * N + 12 * N + 4 * k + 16 * k * F * N64,
+                              3 * F * n_sel)
+        r = dict(kernel="histogram_leaves_packed", n=N, F=F, B=N64, K=k,
+                 selected=n_sel)
+        for mode, g, h in (("int8", x["gi"], x["hi"]),
+                           ("float32", x["gr"], x["hr"])):
+            def call(g=g, h=h, mode=mode, lor=lor, lv=lv):
+                return HK.histogram_leaves_packed(
+                    x["words_t"], g, h, lor, lv, num_f=F, n_bins=N64,
+                    hist_dtype=mode)
+
+            r[f"ms_{mode}"] = time_ms(torch, call, flush)
+            r[f"launches_{mode}"], r[f"device_ms_{mode}"] = \
+                device_per_call(torch, call)
+            if r[f"launches_{mode}"] != 1:
+                r[f"window_{mode}"] = dict(last_window)
+        r.update(bound_ms=b_ms, bound_by=b_by)
+        out.append(r)
+        print("path shape: " + json.dumps(r), flush=True)
+    del x
+    p = partition_inputs(torch, dev, rng)
+    rows_in = (p["bins"], p["words"], p["g"], p["h"], p["lor"], p["mask"])
+    for k in (K, 1):
+        dsc = [d[:k].contiguous() for d in p["desc"]]
+        calls = [("partition_select", RF.partition_select,
+                  RF.partition_select_plain,
+                  (p["bins"], p["lor"], p["mask"], *dsc))]
+        if k == K:
+            calls.insert(0, ("partition_payload", RF.partition_payload,
+                             RF.partition_payload_plain, (*rows_in, *dsc)))
+        valid_par = dsc[4][dsc[6] > 0]
+        moving = int(torch.isin(p["lor"], valid_par).sum().item())
+        for name, fn, plain, args in calls:
+            for a, b_, what in zip(fn(*args), plain(*args),
+                                   ("new leaf map", "sort key", "payload")):
+                if not torch.equal(a, b_):
+                    fail(f"{name} {what} (K = {k}): kernel differs from its "
+                         f"plain version")
+            if name == "partition_payload":     # words, grad, hess, lor,
+                nbytes = N * (4 * W + 16) + N * (8 + 4 * (W + 3))  # mask
+            else:                                # lor, mask, moving bins
+                nbytes = 8 * N + moving + 8 * N
+            b_ms, b_by = bound_ms(nbytes + 32 * k, 2 * k * N)
+            r = dict(kernel=name, n=N, W=W, K=k, moving=moving)
+
+            def call(fn=fn, args=args):
+                return fn(*args)
+
+            r["ms"] = time_ms(torch, call, flush)
+            r["launches"], r["device_ms"] = device_per_call(torch, call)
+            if r["launches"] != 1:
+                r["window"] = dict(last_window)
+            r.update(bound_ms=b_ms, bound_by=b_by)
+            out.append(r)
+            print("path shape: " + json.dumps(r), flush=True)
+    print("path shapes (packed pass, partition): histogram_leaves_packed "
+          "equals its plain version (int8, integer values) and "
+          "histogram_leaves_fixed on the unpacked bins bit for bit (f32, "
+          "bf16 on real values) at K = 1, 16, 42; both partition kernels "
+          "equal their plain versions on every output", flush=True)
+    many = [(r["kernel"], r["K"]) for r in out
+            if any(r[key] != 1 for key in r if key.startswith("launches"))]
+    if many:
+        fail(f"packed pass / partition: more than one launch per call: "
+             f"{many}")
+    return out
+
+
+def check_remaining_shapes(torch, dev):
+    """Phase 2e: the kernels still to redesign, at the kernel table's
+    shapes (n = 1M, F = 28, B = 256): ``take_small_table`` (T = 255),
+    ``histogram_payload`` (S = 251,904, cnt = 201,523, K = 42),
+    ``histogram_radix_joint`` (G = 4) and ``histogram_radix_single``'s 1M
+    root pass (block core), int8: one-call ms, the profiler's device ms and
+    launches per call beside the byte bound, to rank the next redesigns."""
+    from lightgbm_tpu_torch.ops import hist_kernels as HK
+    from lightgbm_tpu_torch.ops import table as TB
+    from lightgbm_tpu_torch.ops.histogram import bins_to_words
+    rng = np.random.default_rng(17)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+
+    def t(a):
+        return torch.as_tensor(a, device=dev)
+    bins = t(rng.integers(0, B - 1, size=(F, N), dtype=np.uint8))
+    g = t(rng.integers(-2, 3, size=N).astype(np.float32))
+    h = t(rng.integers(0, 5, size=N).astype(np.float32))
+    lor = t(rng.integers(0, 64, size=N, dtype=np.int32))
+    leaves = t(rng.permutation(64)[:K].astype(np.int32))
+    lv4 = leaves[:4].contiguous()
+    lor_root = t(np.where(rng.random(N) < 0.05, -1, 0).astype(np.int32))
+    table = t(rng.normal(size=T).astype(np.float32))
+    idx = t(rng.integers(0, T, size=N, dtype=np.int32))
+    S = (N // 4 + 2047) // 2048 * 2048
+    cnt = torch.tensor([int(0.8 * S)], dtype=torch.int32, device=dev)
+    payload = torch.cat([bins_to_words(bins.t())[:S],
+                         g[:S].view(torch.int32)[:, None],
+                         h[:S].view(torch.int32)[:, None], lor[:S, None]],
+                        1).contiguous()
+    c = int(cnt.item())
+    kw = dict(n_bins=B, hist_dtype="int8")
+    shapes = (
+        ("take_small_table", lambda: TB.take_small_table(table, idx),
+         8 * N + 4 * T, N),
+        ("histogram_payload", lambda: HK.histogram_payload(
+            payload, leaves, cnt, num_f=F, **kw),
+         c * 4 * (W + 3) + 4 * K + 4 + 16 * K * F * B,
+         3 * F * int(torch.isin(lor[:c], leaves).sum().item())),
+        ("histogram_radix_joint", lambda: HK.histogram_radix_joint(
+            bins, g, h, lor, lv4, **kw),
+         F * N + 12 * N + 16 + 16 * 4 * F * B,
+         3 * F * int(torch.isin(lor, lv4).sum().item())),
+        ("histogram_radix_single (1M root)",
+         lambda: HK.histogram_radix_single(bins, g, h, lor_root, **kw),
+         F * N + 12 * N + 16 * F * B, 3 * F * int((lor_root >= 0).sum())))
+    out = []
+    for name, call, nbytes, ops in shapes:
+        b_ms, b_by = bound_ms(nbytes, ops)
+        r = dict(kernel=name, ms=time_ms(torch, call, flush))
+        r["launches"], r["device_ms"] = device_per_call(torch, call)
+        r.update(bound_ms=b_ms, bound_by=b_by)
+        out.append(r)
+        print("path shape: " + json.dumps(r), flush=True)
+    return out
+
+
 def check_determinism(torch, dev):
     """Every histogram kernel twice in float32 and in bfloat16 on real
     values at the main path's shapes: identical bits, or the run fails.
@@ -1141,6 +1462,165 @@ def leading_agreement(a, b):
     return k
 
 
+# ---- A/B against another checkout: python3 chip_smoke.py --ab DIR
+
+def load_other(root):
+    """The port package of another checkout (``root``/lightgbm_tpu_torch),
+    imported as ``lgbt_other`` beside this one; its kernels build into its
+    own ``_build/``."""
+    import importlib
+    import importlib.util
+    pkg = os.path.join(root, "lightgbm_tpu_torch")
+    spec = importlib.util.spec_from_file_location(
+        "lgbt_other", os.path.join(pkg, "__init__.py"),
+        submodule_search_locations=[pkg])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["lgbt_other"] = mod
+    spec.loader.exec_module(mod)
+    ops = {m: importlib.import_module(f"lgbt_other.ops.{m}")
+           for m in ("cuda_lib", "hist_kernels", "round_fuse")}
+    return mod, ops
+
+
+def ab_trainings(torch, old_pkg, new_pkg, pairs=10):
+    """The max_bin=63 (1M x 5), default and pooled (1M x 10) trainings and
+    the strict default (90k x 10), the two packages alternating (old/new,
+    then new/old, ...) on one Dataset each, so that the host's drift falls
+    on both.  Returns the runs whose model text differs from the first's;
+    prints per package the median round (each run's first excluded), the
+    pairs' new - old medians, their mean with its standard error, and the
+    pairs the new package won."""
+    bad = []
+    for tag, n, rounds, extra in (
+            ("max_bin=63 1M x 5", N, 5, dict(max_bin=63)),
+            ("default 1M x 10", N, 10, {}),
+            ("pooled 1M x 10", N, 10, dict(histogram_pool_size=8)),
+            ("strict default 90k x 10", N_STRICT, 10, {})):
+        params = dict(RECIPE, **extra)
+        X, y, _ = synth_higgs(n, F, np.random.default_rng(0))
+        pkgs = {"old": old_pkg, "new": new_pkg}
+        dss = {who: pkg.Dataset(X, y, params={"max_bin": params["max_bin"],
+                                                "verbosity": -1})
+               for who, pkg in pkgs.items()}
+        for ds in dss.values():
+            ds.construct()
+        texts, diffs, rounds_s = set(), [], {"old": [], "new": []}
+        for i in range(pairs):
+            med = {}
+            for who in (("old", "new") if i % 2 == 0 else ("new", "old")):
+                stamps = []
+
+                def clock(env):
+                    torch.cuda.synchronize()
+                    stamps.append(time.perf_counter())
+                t0 = time.perf_counter()
+                bst = pkgs[who].train(params, dss[who],
+                                      num_boost_round=rounds,
+                                      callbacks=[clock])
+                texts.add(text_sha256(bst))
+                t = list(np.diff([t0] + stamps)[1:])
+                rounds_s[who] += t
+                med[who] = float(np.median(t))
+            diffs.append(med["new"] - med["old"])
+        if len(texts) != 1:
+            bad.append(f"{tag}: model text differs")
+        print("ab train: " + json.dumps(dict(
+            run=tag, same_text=len(texts) == 1, sha256=sorted(texts),
+            pairs=pairs, old_median_s=float(np.median(rounds_s["old"])),
+            new_median_s=float(np.median(rounds_s["new"])),
+            new_minus_old_s=float(np.mean(diffs)),
+            stderr_s=float(np.std(diffs, ddof=1) / np.sqrt(pairs)),
+            new_won=sum(d < 0 for d in diffs), pair_diffs_s=diffs)),
+            flush=True)
+        del dss
+    return bad
+
+
+def ab_main(other_root):
+    """Phase A/B: this checkout's kernels against another checkout's, in one
+    process, old/new/new/old: the packed pass at K = 1, 16, 42 (int8,
+    float32), partition_payload at K = 42 and partition_select at K = 42
+    and 1 (n = 1M), each with identical bits required, one-call ms (20
+    calls, L2 flushed) and the profiler's device ms and launches per call;
+    then the trainings of ab_trainings, whose model text must be
+    identical."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a card")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import lightgbm_tpu_torch as new_pkg
+    from lightgbm_tpu_torch.ops import cuda_lib
+    from lightgbm_tpu_torch.ops import hist_kernels as HK
+    from lightgbm_tpu_torch.ops import round_fuse as RF
+    old_pkg, old = load_other(os.path.abspath(other_root))
+    OK, ORF = old["hist_kernels"], old["round_fuse"]
+    dev = torch.device("cuda")
+    print("card: " + subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True,
+        text=True).stdout.strip(), flush=True)
+    t0 = time.perf_counter()
+    cuda_lib.build_all()
+    old["cuda_lib"].build_all()
+    print(f"ab: build {time.perf_counter() - t0:.1f} s", flush=True)
+    rng = np.random.default_rng(23)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    bad = []
+    x = packed_inputs(torch, dev, rng)
+    p = partition_inputs(torch, dev, rng)
+    rows_in = (p["bins"], p["words"], p["g"], p["h"], p["lor"], p["mask"])
+    shapes = []
+    for k in (1, 16, K):
+        lv = packed_leaves(torch, dev, rng, k)
+        lor = x["lor_root"] if k == 1 else x["lor"]
+        for mode, g, h in (("int8", x["gi"], x["hi"]),
+                           ("float32", x["gr"], x["hr"])):
+            shapes.append((f"packed K = {k}, {mode}", lambda m, g=g, h=h,
+                           lor=lor, lv=lv, mode=mode:
+                           m.histogram_leaves_packed(
+                               x["words_t"], g, h, lor, lv, num_f=F,
+                               n_bins=N64, hist_dtype=mode), HK, OK))
+    for k in (K, 1):
+        dsc = [d[:k].contiguous() for d in p["desc"]]
+        if k == K:
+            shapes.append((f"partition_payload K = {k}", lambda m, dsc=dsc:
+                           m.partition_payload(*rows_in, *dsc), RF, ORF))
+        shapes.append((f"partition_select K = {k}", lambda m, dsc=dsc:
+                       m.partition_select(p["bins"], p["lor"], p["mask"],
+                                          *dsc), RF, ORF))
+    res = []
+    for tag, fn, mnew, mold in shapes:
+        a, b_ = fn(mnew), fn(mold)
+        a = a if isinstance(a, tuple) else (a,)
+        b_ = b_ if isinstance(b_, tuple) else (b_,)
+        if not all(u.shape == v.shape and torch.equal(u.view(torch.int32),
+                                                      v.view(torch.int32))
+                   for u, v in zip(a, b_)):
+            bad.append(f"{tag}: bits differ")
+        r = dict(shape=tag, old_ms=[], new_ms=[], old_device_ms=[],
+                 new_device_ms=[])
+        for who, m in (("old", mold), ("new", mnew), ("new", mnew),
+                       ("old", mold)):
+            call = (lambda m=m: fn(m))
+            r[f"{who}_ms"].append(time_ms(torch, call, flush, reps=20))
+            nl, dms = device_per_call(torch, call)
+            r[f"{who}_device_ms"].append(dms)
+            r[f"{who}_launches"] = nl
+            r[f"{who}_device_by_kernel"] = {
+                k_[:50]: round(us / 10e3, 5) for k_, _, us in last_work}
+        r["new_over_old"] = float(np.mean(r["new_ms"]) / np.mean(r["old_ms"]))
+        res.append(r)
+        print("ab: " + json.dumps(r), flush=True)
+    del x, p
+    torch.cuda.empty_cache()
+
+    bad += ab_trainings(torch, old_pkg, new_pkg)
+    print("ab: " + json.dumps(dict(failures=bad)), flush=True)
+    if bad:
+        fail(f"A/B: {bad}")
+    print(json.dumps({"ok": True, "ab": len(res)}), flush=True)
+
+
 def main():
     t_script = time.perf_counter()
     import torch
@@ -1176,13 +1656,13 @@ def main():
         wrong = {k: [o for o in v if o.startswith(("ATOMS.CAST", "ATOMG"))
                      or re.match(r"REDG?\.", o)]
                  for k, v in masked.items()}
-        if (len(masked) != 3 or any(wrong.values())
+        if (len(masked) != 6 or any(wrong.values())
                 or not all("ATOMS.ADD" in v for v in masked.values())):
             fail(f"masked_cluster atomics: {json.dumps(masked)}")
         print("sass atomics (masked_cluster, the kernel of histogram_leaves "
-              "and histogram_leaves_radix2): native ATOMS.ADD, no "
-              "ATOMS.CAST.SPIN, no global RED/ATOM: "
-              + json.dumps(masked), flush=True)
+              "and histogram_leaves_radix2, and of histogram_leaves_packed "
+              "in packed.cu): native ATOMS.ADD, no ATOMS.CAST.SPIN, no "
+              "global RED/ATOM: " + json.dumps(masked), flush=True)
     for name, text in sorted(cuda_lib.build_log.items()):
         for ln in text.splitlines():
             if "registers" in ln or "error" in ln.lower():
@@ -1192,6 +1672,8 @@ def main():
     rows = check_kernels(torch, torch.device("cuda"))
     check_path_shapes(torch, torch.device("cuda"))
     check_masked_shapes(torch, torch.device("cuda"))
+    check_packed_partition_shapes(torch, torch.device("cuda"))
+    check_remaining_shapes(torch, torch.device("cuda"))
     check_determinism(torch, torch.device("cuda"))
     print(f"profiler: {len(lost_windows)} window(s) measured again after "
           f"a lost record {json.dumps(lost_windows)}", flush=True)
@@ -1243,6 +1725,8 @@ def main():
     if not auc63 > 0.7:
         fail(f"max_bin=63 held-out AUC {auc63} is not that of a trained "
              f"model")
+    print(f"model text sha256 (max_bin=63, 1M x 5): {text_sha256(bst)}",
+          flush=True)
     launches["histogram_leaves_packed"] = c63["histogram_leaves_packed"]
     del bst
 
@@ -1413,4 +1897,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) == 3 and sys.argv[1] == "--ab":
+        ab_main(sys.argv[2])
+    else:
+        main()

@@ -181,10 +181,6 @@ inline cudaLaunchConfig_t cluster_config(dim3 grid, int threads, size_t smem,
   return cfg;
 }
 
-inline bool aligned(const void* p, int bytes) {
-  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
-}
-
 // Launch ``kernel`` over ``grid`` as clusters of (1, grid.y, 1)
 template <typename... Args, typename... Act>
 int launch_clusters(void (*kernel)(Args...), dim3 grid, int threads,

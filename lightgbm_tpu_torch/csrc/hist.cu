@@ -42,8 +42,8 @@ template <int MODE>
 int run_payload(const int* payload, long S, int W, int num_f,
                 const int* leaves, int K, const int* cnt, int n_bins,
                 void* scratch, float* out, cudaStream_t s) {
-  Task t = {nullptr, nullptr, S, num_f, nullptr, nullptr, nullptr, leaves,
-            K, n_bins};
+  Task t = {nullptr, S, num_f, nullptr, nullptr, nullptr, leaves, K,
+            n_bins};
   t.payload = payload;
   t.W = W;
   t.cnt = cnt;

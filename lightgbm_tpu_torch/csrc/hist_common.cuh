@@ -1,5 +1,6 @@
-// Shared core of the masked (grad, hess, count) histogram kernels of
-// hist.cu, radix.cu and packed.cu, and the value arithmetic rows.cu uses too.
+// Shared core of the block-core (grad, hess, count) histogram kernels of
+// hist.cu and radix.cu, and the value arithmetic, slot table and host
+// caches that masked.cuh, rows.cu and partition.cu use too.
 //
 // Every kernel computes the same function as the TPU kernels it replaces:
 // each selected row adds (grad, hess, 1) to the cell (slot of its leaf,
@@ -52,6 +53,10 @@ constexpr int kThreads = 1024;
 constexpr int kFixedInts = kLeafTable + 4;  // table + use-table flag (+pad)
 constexpr int kFewSlots = 4;      // SEL_FEW keeps up to 4 leaf ids in registers
 constexpr int kSMs = 132;         // H100 SXM
+
+inline bool aligned(const void* p, int bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
 
 // The fixed-point exponent of one channel: at most n values of magnitude
 // below 2^e (vmax < 2^e) scaled by 2^s sum to less than 2^62.
@@ -169,12 +174,12 @@ enum { SEL_ROOT = 0,    // slot 0 when leaf_of_row >= 0 (the root pass)
 // Where a row's bins come from
 enum { SRC_BYTES = 0,     // bins_t u8 [F, n]: one byte row per feature
        SRC_WORDS = 1,     // words_t i32 [W, n]: byte j of word w = feature 4w+j
+                          // (masked.cuh only)
        SRC_PAYLOAD = 2 };  // payload i32 [n, W+3]: bin words, grad bits, hess
                            // bits, leaf id; rows at >= *cnt excluded
 
 struct Task {
   const uint8_t* bins_t;  // SRC_BYTES
-  const int* words_t;     // SRC_WORDS
   long n;
   int num_f;
   const float* grad;
@@ -183,7 +188,7 @@ struct Task {
   const int* leaves;  // null for SEL_ROOT
   int K;
   int n_bins;
-  int fpb;     // features per block (SRC_WORDS: 4, one word)
+  int fpb;     // features per block
   int spg;     // slots per block (the slot group)
   int copies;  // private accumulator copies
   long rows_per_chunk;
@@ -257,12 +262,6 @@ __device__ inline void hist_block(const Task& t,
       for (int j = 0; j < nf; ++j) {
         const int f = f0 + j;
         const int b = (prow[f >> 2] >> ((f & 3) * 8)) & 255;
-        if (b < t.n_bins) add_row<T>(as, j, b, t.n_bins, g, h);
-      }
-    } else if (SRC == SRC_WORDS) {
-      const unsigned w = (unsigned)t.words_t[(long)(f0 >> 2) * t.n + r];
-      for (int j = 0; j < nf; ++j) {
-        const int b = (w >> (8 * j)) & 255;
         if (b < t.n_bins) add_row<T>(as, j, b, t.n_bins, g, h);
       }
     } else {

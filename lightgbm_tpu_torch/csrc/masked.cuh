@@ -1,8 +1,12 @@
 // The masked K-leaf (grad, hess, count) histogram of hist.cu
 // (histogram_leaves, every masked pass of hist_kernel=onehot and the pooled
-// rounds' extended pass) and radix.cu (histogram_leaves_radix2, the K > 4
-// masked passes of hist_kernel=auto): the two compute the same function and
-// launch the same kernel.
+// rounds' extended pass), radix.cu (histogram_leaves_radix2, the K > 4
+// masked passes of hist_kernel=auto) and packed.cu
+// (histogram_leaves_packed, every masked pass below 128 bins): the three
+// compute the same function and launch the same kernel, the first two
+// reading bins_t u8 [F, n] (SRC_BYTES), the third the packed mirror
+// words_t i32 [W, n] (SRC_WORDS: one 16-byte load gives four rows of a
+// word's four features, transposed into the layout of four bins_t rows).
 //
 // Function: each row whose leaf id is one of leaves[0, K) adds (grad, hess,
 // 1) to the cell (first slot of its leaf, feature, bin); bins >= n_bins add
@@ -33,9 +37,11 @@
 //
 // The plan (plan_masked) weighs the features per block and slot groups
 // that the shared memory holds against the cluster size (up to the
-// portable 8) and the clusters cudaOccupancyMaxActiveClusters lets run at
-// once.  A shape no plan fits, or a cluster launch the device refuses,
-// returns its CUDA error: there is no other path.  (cluster_write, which
+// portable 8 for bins_t; up to 16, non-portable, for the words, whose F =
+// 28 makes only 7 groups of four features) and the clusters
+// cudaOccupancyMaxActiveClusters lets run at once.  A shape no plan fits,
+// or a cluster launch the device refuses, returns its CUDA error: there is
+// no other path.  (cluster_write, which
 // radix_single's clusters use, writes one float a lane and made this
 // kernel 10% slower at K = 42 than its own float4 loop.)
 //
@@ -58,9 +64,11 @@ namespace {
 constexpr int kMaskedThreads = 1024;
 constexpr int kMaskedMaxFpb = 4;
 constexpr int kReduceBatch = 4;  // remote reads in flight per channel
+constexpr int kMaxClusterWords = 16;  // non-portable: the packed source
 
 struct Masked {
-  const uint8_t* bins_t;  // u8 [F, n]
+  const uint8_t* bins_t;     // SRC_BYTES: u8 [F, n]
+  const unsigned* words_t;   // SRC_WORDS: i32 [W, n], byte j = feature 4w+j
   long n;
   int num_f;
   const float* grad;
@@ -81,7 +89,23 @@ __host__ __device__ inline size_t masked_head_bytes(int K) {
   return ((size_t)(kFixedInts + 2 * K) * sizeof(int) + 15) / 16 * 16;
 }
 
-template <int MODE, int VEC>
+// Byte u of m[u'] is feature u of row u' -> byte u' of bw[u] (a 4 x 4 byte
+// transpose: four rows of a word into the layout of four bins_t rows)
+__device__ inline void rows_to_features(unsigned m0, unsigned m1, unsigned m2,
+                                        unsigned m3, unsigned* bw) {
+  const unsigned t0 = __byte_perm(m0, m1, 0x5140);  // m0.0 m1.0 m0.1 m1.1
+  const unsigned t1 = __byte_perm(m0, m1, 0x7362);  // m0.2 m1.2 m0.3 m1.3
+  const unsigned t2 = __byte_perm(m2, m3, 0x5140);
+  const unsigned t3 = __byte_perm(m2, m3, 0x7362);
+  bw[0] = __byte_perm(t0, t2, 0x5410);
+  bw[1] = __byte_perm(t0, t2, 0x7632);
+  bw[2] = __byte_perm(t1, t3, 0x5410);
+  bw[3] = __byte_perm(t1, t3, 0x7632);
+}
+
+// SRC: SRC_BYTES (hist_common.cuh) reads feature f's row of bins_t; SRC_WORDS
+// reads word f >> 2 of words_t, shifted so that byte j is feature f0 + j
+template <int MODE, int VEC, int SRC>
 __global__ void __launch_bounds__(kMaskedThreads, 1)
     masked_cluster(const Masked t) {
   typedef typename Val<MODE>::T T;
@@ -95,6 +119,9 @@ __global__ void __launch_bounds__(kMaskedThreads, 1)
   unsigned* w = reinterpret_cast<unsigned*>(smem + masked_head_bytes(t.K));
   const int f0 = blockIdx.x * t.fpb;
   const int nf = min(t.fpb, t.num_f - f0);
+  const unsigned* wrow = SRC == SRC_WORDS ? t.words_t + (long)(f0 >> 2) * t.n
+                                          : nullptr;
+  const int wsh = 8 * (f0 & 3);
   const int k0 = blockIdx.z * t.spg;
   const int ns = min(t.spg, t.K - k0);
   const long r0 = (long)cl.block_rank() * t.rpb;
@@ -174,12 +201,20 @@ __global__ void __launch_bounds__(kMaskedThreads, 1)
           g4[k] = __ldg(reinterpret_cast<const float4*>(t.grad + rr[k]));
           h4[k] = __ldg(reinterpret_cast<const float4*>(t.hess + rr[k]));
         }
+        if (SRC == SRC_WORDS) {
+          const uint4 m = any[k] ? __ldg(reinterpret_cast<const uint4*>(
+                                       wrow + rr[k]))
+                                 : make_uint4(0u, 0u, 0u, 0u);
+          rows_to_features(m.x >> wsh, m.y >> wsh, m.z >> wsh, m.w >> wsh,
+                           bw[k]);
+        } else {
 #pragma unroll
-        for (int j = 0; j < kMaskedMaxFpb; ++j)
-          bw[k][j] = any[k] && j < nf
-                         ? __ldg(reinterpret_cast<const unsigned*>(
-                               t.bins_t + (long)(f0 + j) * t.n + rr[k]))
-                         : 0u;
+          for (int j = 0; j < kMaskedMaxFpb; ++j)
+            bw[k][j] = any[k] && j < nf
+                           ? __ldg(reinterpret_cast<const unsigned*>(
+                                 t.bins_t + (long)(f0 + j) * t.n + rr[k]))
+                           : 0u;
+        }
       }
 #pragma unroll
       for (int k = 0; k < 2; ++k) {
@@ -195,9 +230,13 @@ __global__ void __launch_bounds__(kMaskedThreads, 1)
       const int s = slot(__ldg(t.lor + r));
       if (s < 0) continue;
       unsigned bw[kMaskedMaxFpb];
+      const unsigned m = SRC == SRC_WORDS ? __ldg(wrow + r) >> wsh : 0u;
 #pragma unroll
       for (int j = 0; j < kMaskedMaxFpb; ++j)
-        bw[j] = j < nf ? __ldg(t.bins_t + (long)(f0 + j) * t.n + r) : 0u;
+        bw[j] = SRC == SRC_WORDS
+                    ? m >> (8 * j)
+                    : (j < nf ? __ldg(t.bins_t + (long)(f0 + j) * t.n + r)
+                              : 0u);
       add(__ldg(t.grad + r), __ldg(t.hess + r), bw, 0, s);
     }
   }
@@ -260,15 +299,22 @@ inline int max_clusters(const void* fn, dim3 grid, size_t smem) {
 
 // The launch of ``fn`` for n rows, F features, K slots, B bins at ``words``
 // 32-bit words a cell: for each features-per-block (4, 2, 1) with the
-// fewest slot groups that fit, and each cluster size the device takes at
-// that shared memory, the cost waves x rows per block x (2 + features per
-// block) (a row's leaf id, slot and values, then its bin and three atomics
-// per feature); the cheapest wins, the smaller cluster on a tie.
+// fewest slot groups that fit, and each cluster size up to ``max_cs`` that
+// the device takes at that shared memory, the cost waves x rows per block x
+// (2 + features per block) (a row's leaf id, slot and values, then its bin
+// and three atomics per feature); the cheapest wins, the smaller cluster on
+// a tie.  Sizes above the portable 8 need the non-portable attribute.
 inline int plan_masked(const void* fn, long n, int num_f, int K, int n_bins,
-                       int words, MaskedPlan* best) {
+                       int words, int max_cs, MaskedPlan* best) {
   int optin = 0;
   int err = optin_smem(&optin);
   if (err) return err;
+  if (max_cs > kMaxCluster &&
+      cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed,
+                           1) != cudaSuccess) {
+    cudaGetLastError();
+    max_cs = kMaxCluster;
+  }
   const size_t head = masked_head_bytes(K);
   const size_t per = (size_t)3 * n_bins * sizeof(unsigned) * words;
   double best_cost = -1.0;
@@ -282,7 +328,7 @@ inline int plan_masked(const void* fn, long n, int num_f, int K, int n_bins,
     const int fgroups = (num_f + fpb - 1) / fpb;
     err = allow_smem(fn, smem);
     if (err) return err;
-    for (int cs = 1; cs <= kMaxCluster; ++cs) {
+    for (int cs = 1; cs <= max_cs; ++cs) {
       const dim3 grid(fgroups, cs, sgroups);
       const int active = max_clusters(fn, grid, smem);
       if (active <= 0) continue;
@@ -313,7 +359,7 @@ struct PlanCache {
 };
 
 inline int cached_plan(const void* fn, long n, int num_f, int K, int n_bins,
-                       int words, MaskedPlan* p) {
+                       int words, int max_cs, MaskedPlan* p) {
   static PlanCache c;
   int dev = 0;
   int err = (int)cudaGetDevice(&dev);
@@ -327,7 +373,7 @@ inline int cached_plan(const void* fn, long n, int num_f, int K, int n_bins,
       return 0;
     }
   }
-  err = plan_masked(fn, n, num_f, K, n_bins, words, p);
+  err = plan_masked(fn, n, num_f, K, n_bins, words, max_cs, p);
   if (err) return err;
   c.e[c.next] = {fn, dev, num_f, K, n_bins, n, *p};
   c.next = (c.next + 1) % 64;
@@ -335,33 +381,28 @@ inline int cached_plan(const void* fn, long n, int num_f, int K, int n_bins,
   return 0;
 }
 
-template <int MODE, int VEC>
+template <int MODE, int VEC, int SRC>
 int launch_masked(Masked t, cudaStream_t s) {
-  const void* fn = reinterpret_cast<const void*>(masked_cluster<MODE, VEC>);
+  const void* fn =
+      reinterpret_cast<const void*>(masked_cluster<MODE, VEC, SRC>);
   MaskedPlan p;
   int err = cached_plan(fn, t.n, t.num_f, t.K, t.n_bins, Acc<MODE>::kWords,
+                        SRC == SRC_WORDS ? kMaxClusterWords : kMaxCluster,
                         &p);
   if (err) return err;
   t.fpb = p.fpb;
   t.spg = p.spg;
   t.rpb = p.rpb;
-  return launch_clusters(masked_cluster<MODE, VEC>, p.grid, kMaskedThreads,
-                         p.smem, s, t);
+  return launch_clusters(masked_cluster<MODE, VEC, SRC>, p.grid,
+                         kMaskedThreads, p.smem, s, t);
 }
 
-// The masked pass into out f32 [K, num_f, n_bins, 4]; mode 0 int8, 1
-// float32, 2 bfloat16.  An empty output launches nothing.
-inline int run_masked(const uint8_t* bins_t, long n, int num_f,
-                      const float* grad, const float* hess, const int* lor,
-                      const int* leaves, int K, int n_bins, int mode,
-                      float* out, cudaStream_t s) {
-  if (K <= 0 || num_f <= 0) return 0;
-  Masked t = {bins_t, n, num_f, grad, hess, lor, leaves, K, n_bins, 0, 0, 0,
-              reinterpret_cast<float4*>(out)};
-  const bool vec = n % 4 == 0 && aligned(bins_t, 4) && aligned(grad, 16) &&
-                   aligned(hess, 16) && aligned(lor, 16);
-#define LGBT_MASKED(M) \
-  return vec ? launch_masked<M, 4>(t, s) : launch_masked<M, 1>(t, s)
+template <int SRC>
+int dispatch_masked(const Masked& t, bool vec, int mode, cudaStream_t s) {
+  if (t.K <= 0 || t.num_f <= 0) return 0;
+#define LGBT_MASKED(M)                                \
+  return vec ? launch_masked<M, 4, SRC>(t, s)         \
+             : launch_masked<M, 1, SRC>(t, s)
   switch (mode) {
     case 0:
       LGBT_MASKED(0);
@@ -372,6 +413,34 @@ inline int run_masked(const uint8_t* bins_t, long n, int num_f,
   }
 #undef LGBT_MASKED
   return (int)cudaErrorInvalidValue;
+}
+
+// The masked pass over bins_t u8 [F, n] into out f32 [K, num_f, n_bins, 4];
+// mode 0 int8, 1 float32, 2 bfloat16.  An empty output launches nothing.
+inline int run_masked(const uint8_t* bins_t, long n, int num_f,
+                      const float* grad, const float* hess, const int* lor,
+                      const int* leaves, int K, int n_bins, int mode,
+                      float* out, cudaStream_t s) {
+  const Masked t = {bins_t, nullptr, n, num_f, grad, hess, lor, leaves, K,
+                    n_bins, 0, 0, 0, reinterpret_cast<float4*>(out)};
+  const bool vec = n % 4 == 0 && aligned(bins_t, 4) && aligned(grad, 16) &&
+                   aligned(hess, 16) && aligned(lor, 16);
+  return dispatch_masked<SRC_BYTES>(t, vec, mode, s);
+}
+
+// The same pass over the packed mirror words_t i32 [W, n] (4W >= num_f;
+// bytes past num_f are dropped)
+inline int run_masked_words(const int* words_t, long n, int num_f,
+                            const float* grad, const float* hess,
+                            const int* lor, const int* leaves, int K,
+                            int n_bins, int mode, float* out,
+                            cudaStream_t s) {
+  const Masked t = {nullptr, reinterpret_cast<const unsigned*>(words_t), n,
+                    num_f, grad, hess, lor, leaves, K, n_bins, 0, 0, 0,
+                    reinterpret_cast<float4*>(out)};
+  const bool vec = n % 4 == 0 && aligned(words_t, 16) && aligned(grad, 16) &&
+                   aligned(hess, 16) && aligned(lor, 16);
+  return dispatch_masked<SRC_WORDS>(t, vec, mode, s);
 }
 
 }  // namespace

@@ -294,7 +294,7 @@ extern "C" int lgbt_hist_radix_single(const uint8_t* bins_t, long n,
                                       int n_bins, int mode,
                                       const unsigned* vmax, void* scratch,
                                       float* out, void* stream) {
-  Task t = {bins_t, nullptr, n, num_f, grad, hess, lor, nullptr, 1, n_bins};
+  Task t = {bins_t, n, num_f, grad, hess, lor, nullptr, 1, n_bins};
   t.vmax = vmax;
   return dispatch(KIND_SINGLE, mode, t, scratch, out, stream);
 }
@@ -315,7 +315,7 @@ extern "C" int lgbt_hist_radix_joint(const uint8_t* bins_t, long n,
                                      int mode, void* scratch, float* out,
                                      void* stream) {
   if (G > kFewSlots) return (int)cudaErrorInvalidValue;
-  Task t = {bins_t, nullptr, n, num_f, grad, hess, lor, leaves, G, n_bins};
+  Task t = {bins_t, n, num_f, grad, hess, lor, leaves, G, n_bins};
   return dispatch(KIND_JOINT, mode, t, scratch, out, stream);
 }
 

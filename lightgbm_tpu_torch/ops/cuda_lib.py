@@ -36,6 +36,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+_DESC = (_P,) * 8  # the partition kernels' eight [K] slot descriptors
 #: C signatures of the exported functions (all return the launch's
 #: cudaGetLastError() code)
 _SIGNATURES = {
@@ -55,15 +56,16 @@ _SIGNATURES = {
     },
     "packed": {
         "lgbt_hist_packed": (_P, _I, _L, _I, _P, _P, _P, _P, _I, _I, _I, _P,
-                             _P, _P),
+                             _P),
     },
     "rows": {
         "lgbt_hist_rows": (_P, _L, _I, _P, _I, _I, _I, _P, _P),
     },
     "partition": {
-        "lgbt_partition_payload": (_P, _L, _I, _P, _I, _P, _P, _P, _P, _P, _I,
-                                   _P, _P, _P, _P),
-        "lgbt_partition_select": (_P, _L, _I, _P, _P, _P, _I, _P, _P, _P),
+        "lgbt_partition_payload": (_L, _I, _P, _I, _P, _P, _P, _P) + _DESC
+        + (_I, _P, _P, _P, _P),
+        "lgbt_partition_select": (_P, _L, _I, _P, _P) + _DESC
+        + (_I, _P, _P, _P),
     },
 }
 

@@ -20,7 +20,8 @@ kernel:
   and the same cluster kernel as :func:`histogram_leaves`);
 * :func:`histogram_leaves_packed` — the masked pass from the transposed
   packed word mirror, replacing ``histogram_leaves_packed_pallas``,
-  csrc/packed.cu;
+  csrc/packed.cu (the cluster kernel of csrc/masked.cuh with the words as
+  its row source);
 * :func:`histogram_rows_t` — the plain [F, B, C] histogram of a row set
   with C value channels, replacing ``histogram_pallas``, csrc/rows.cu;
 * :func:`pass_scale` — the float32/bfloat16 scale of a pass (max finite
@@ -490,13 +491,18 @@ def histogram_leaves_packed(words_t: torch.Tensor, grad: torch.Tensor,
                   f"features")
     _check_pass("histogram_leaves_packed", n, grad, hess, leaf_of_row,
                 leaves, n_bins, words_t.device)
+    if n >= (1 << 31):
+        log.fatal("histogram_leaves_packed counts rows in 32 bits: n < 2^31")
     words_t, grad, hess, leaf_of_row, leaves = _c(words_t, grad, hess,
                                                   leaf_of_row, leaves)
-    scratch, out = _buffers(K, num_f, n_bins, mode, words_t.device)
+    out = torch.empty(K, num_f, n_bins, 4, dtype=torch.float32,
+                      device=words_t.device)
+    if out.numel() == 0:
+        return out
     code = cuda_lib.load("packed").lgbt_hist_packed(
         words_t.data_ptr(), W, n, num_f, grad.data_ptr(), hess.data_ptr(),
         leaf_of_row.data_ptr(), leaves.data_ptr(), K, n_bins, mode,
-        scratch.data_ptr(), out.data_ptr(), cuda_lib.stream_handle(words_t))
+        out.data_ptr(), cuda_lib.stream_handle(words_t))
     cuda_lib.check(code, "histogram_leaves_packed")
     packed_launches += 1
     return out

@@ -144,9 +144,21 @@ def test_histogram_payload_matches_pallas(case):
     _assert_hist(got, want, case == "f32_real")
 
 
+#: the partition edges a leaf -> slot table must keep: two valid slots
+#: splitting one parent (their moves sum), ``smaller`` holding -1 and the
+#: ids of invalid slots, split features -1, F and 4W - 1 (F = 6, W = 2: a
+#: padding byte), leaf ids past a 2048-entry table
+_PARTITION_EDGES = ("same_parent", "smaller_minus_one", "feats_out_of_range",
+                    "leaf_ids_past_table")
+
+
 def _partition_inputs(case, rng):
     n = 3001 if case == "ragged_n" else 3072
     f, K = 7, {"k1": 1, "k8": 8, "k1_zero_mask": 1}.get(case, 3)
+    if case in _PARTITION_EDGES:
+        K = 6
+    if case == "feats_out_of_range":
+        f = 6                                          # W = 2, 4W - 1 = 7
     bins = rng.integers(0, 32, size=(n, f)).astype(np.uint8)
     lor = rng.integers(0, 9, size=n).astype(np.int32)
     mask = rng.integers(0, 2, size=n).astype(np.int32)
@@ -163,12 +175,30 @@ def _partition_inputs(case, rng):
     validk = (np.arange(K) < max(1, K - 2)).astype(np.int32)
     smaller = np.where(rng.random(K) < 0.5, parents,
                        new_leaves).astype(np.int32)
+    if case == "same_parent":
+        parents[:] = [2, 2, 5, 2, 7, 2]                # slot 5 invalid
+        thr[:] = [31, 8, 12, 20, 5, 0]                 # slot 0 never moves
+    elif case == "smaller_minus_one":
+        smaller[:] = [-1, parents[1], new_leaves[2], -1, parents[4],
+                      parents[5]]                      # 4, 5 invalid
+    elif case == "feats_out_of_range":
+        feats[:] = [-1, f, 4 * 2 - 1, 3, -7, 1000]
+        thr[:3] = 0                                    # column 0 goes left
+    elif case == "leaf_ids_past_table":
+        lor = (lor + 2995).astype(np.int32)            # 2995 .. 3003
+        parents = (parents + 2995).astype(np.int32)
+        parents[1] = parents[0]                        # and one shared
+        new_leaves = (new_leaves + 3991).astype(np.int32)
+        smaller = np.where(rng.random(K) < 0.5, parents,
+                           new_leaves).astype(np.int32)
+        smaller[0] = 2047
     words = np.asarray(jax_bins_to_words(jnp.asarray(bins)))
     return (bins.T.copy(), words, grad, hess, lor, mask), (
         feats, thr, dl, nanb, parents, new_leaves, validk, smaller)
 
 
-@pytest.mark.parametrize("case", ["k3", "k1", "k8", "ragged_n"])
+@pytest.mark.parametrize("case", ["k3", "k1", "k8", "ragged_n",
+                                  *_PARTITION_EDGES])
 def test_partition_payload_matches_pallas(case):
     rows, desc = _partition_inputs(case, np.random.default_rng(3))
     ops = rows + desc
@@ -179,10 +209,12 @@ def test_partition_payload_matches_pallas(case):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
-@pytest.mark.parametrize("case", ["k3", "k1_zero_mask", "k8", "ragged_n"])
+@pytest.mark.parametrize("case", ["k3", "k1_zero_mask", "k8", "ragged_n",
+                                  *_PARTITION_EDGES])
 def test_partition_select_matches_pallas(case):
     """Bitwise on both outputs; k8 and k3 carry invalid slots (validk 0),
-    k1_zero_mask masks every row out of the next pass's keys."""
+    k1_zero_mask masks every row out of the next pass's keys; the edges of
+    ``_PARTITION_EDGES``."""
     (bins_t, _, _, _, lor, mask), desc = _partition_inputs(
         case, np.random.default_rng(4))
     ops = (bins_t, lor, mask) + desc
@@ -337,10 +369,24 @@ def test_radix2_matches_pallas(case):
     _assert_hist(got, want, real)
 
 
-@pytest.mark.parametrize("case", sorted(_AUTO_CASES))
+#: packed beyond _AUTO_CASES: the K = 42 pass of every max_bin=63 round at a
+#: ragged n (not a multiple of 4), from the inputs of ``f30``
+_PACKED_EXTRA = {"k42_ragged_n": ("f30", 2001, 42)}
+
+
+@pytest.mark.parametrize("case", sorted(_AUTO_CASES) + sorted(_PACKED_EXTRA))
 def test_packed_matches_pallas(case):
+    base, lv = case, None
+    if case in _PACKED_EXTRA:
+        base, n_cut, k = _PACKED_EXTRA[case]
+        lv = np.random.default_rng(2).permutation(8)[:6].tolist()
+        lv = (lv * 7)[:k]                              # repeated slots
     bins, grad, hess, lor, leaves, n_bins, mode, real = _auto_inputs(
-        case, seed=8)
+        base, seed=8, leaves=lv)
+    if case in _PACKED_EXTRA:
+        bins, grad, hess, lor = (np.ascontiguousarray(a[:n_cut])
+                                 for a in (bins, grad, hess, lor))
+        assert bins.shape[0] % 4 and leaves.shape[0] == 42
     n, f = bins.shape
     words_t = np.ascontiguousarray(np.asarray(
         jax_bins_to_words(jnp.asarray(bins))).T)
