@@ -8,9 +8,9 @@ else: no jax, no network.  Phases, each of which fails the run on error:
 1. environment and build: the card's name and power limit, the versions,
    and every kernel of ``lightgbm_tpu_torch/csrc`` compiled at once, with
    the atomic opcodes the radix-single, rows and masked cluster kernels
-   compiled to (the masked one, in radix.cu and in packed.cu, must add
-   with native ``ATOMS.ADD``, no compare-and-swap loop and no global
-   atomic);
+   compiled to (the masked one, in radix.cu, packed.cu and hist.cu, the
+   payload pass's included, must add with native ``ATOMS.ADD``, no
+   compare-and-swap loop and no global atomic);
 2. kernel checks: each of the ten kernels against its plain PyTorch
    version on the card, at the shapes of the HIGGS main path (n = 1M rows,
    F = 28 features, B = 256 bins, K = 42 leaves per round, T = 255 leaf
@@ -49,8 +49,19 @@ else: no jax, no network.  Phases, each of which fails the run on error:
    both partition kernels at their edges (two valid slots with one
    parent, ``smaller`` holding -1 and invalid slots' ids, split features
    -1, F and 4W - 1, leaf ids past 2048); then the device time and
-   launches per call of the kernels still to redesign (take, payload,
-   radix-joint, the 1M root pass) at the kernel table's shapes;
+   launches per call of the kernels still to redesign (radix-joint, the 1M
+   root pass) at the kernel table's shapes beside one index_add_ of the
+   same cells; then ``take_small_table`` at n = 1M, T = 255 against
+   ``index_select``, the two taken in turn (device and one-call ms), and
+   ``histogram_payload`` at the four compaction buckets of 1M rows (S =
+   251,904, 126,976, 63,488, 16,384; cnt = 0.8 S, K = 42; int8 and
+   float32; and at K = 1, K = 4, F = 4 and F = 3 in float32, bfloat16 and
+   int8) held bit for bit against ``histogram_payload_fixed`` (float32
+   and bfloat16 on real values) and its plain version, each with its edges
+   (take: a ragged n, T = 1 and 3000, indices -1 and T, an unaligned view;
+   payload: cnt 0 and S, leaf ids past 2048, bins past n_bins, NaN and inf
+   past cnt, an unaligned payload), its launches per call (exactly one),
+   byte bound and library call;
 3. the slice: ``train()`` on a 1M x 28 HIGGS-shaped synthetic set (seeded
    numpy) with the default configuration of the HIGGS recipe
    (``hist_kernel`` and ``stochastic_rounding`` unset: the radix kernels,
@@ -65,10 +76,12 @@ else: no jax, no network.  Phases, each of which fails the run on error:
    per split and a profiled round; the same with
    ``tpu_leaf_hist=bucketed`` (90k x 5, the rows kernel); and the pooled
    default (1M x 10 with ``histogram_pool_size=8``: 128 slots,
-   ``partition_select``), each with its own launch counts; the sha256 of
-   the model text of the default recipe, the max_bin=63 run, the onehot
-   run, the strict default, the bucketed run and the pooled run, and the
-   bucketed run's rows launches by S;
+   ``partition_select``) and ``deterministic=true`` (1M x 5: the batched
+   grower in float32, twice, the two model texts equal), each with its own
+   launch counts; the sha256 of the model text of the default recipe, the
+   max_bin=63 run, the onehot run, the strict default, the bucketed run,
+   the pooled run and the deterministic run, and the bucketed run's rows
+   launches by S;
 4. cross-check: the default recipe at 100k rows x 5 rounds on the card and
    on the CPU (plain versions), the held-out set also a valid set scored on
    the device each round: tree 0's splits must match, the held-out AUCs
@@ -82,9 +95,10 @@ else: no jax, no network.  Phases, each of which fails the run on error:
 It prints one JSON line with every kernel's numbers, the card's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``.
 
-``python3 chip_smoke.py --ab DIR`` instead compares these kernels with
-those of another checkout of the port in DIR (``git archive`` of another
-commit), in one process: see ``ab_main``.
+``python3 chip_smoke.py --ab DIR`` instead compares ``take_small_table``
+and ``histogram_payload`` with those of another checkout of the port in
+DIR (``git archive`` of another commit), in one process, then alternates
+the two packages' trainings: see ``ab_main``.
 """
 
 import collections
@@ -167,24 +181,34 @@ def bound_ms(nbytes, ops):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
+#: masked_cluster's row sources (its third template argument)
+MASKED_SOURCES = {"0": "bytes", "1": "words", "2": "payload"}
+
+
 def sass_atomics(cuda_lib):
     """How the shared-memory adds of the radix-single, rows and masked
-    cluster kernels compiled (the masked one of radix.cu, and of packed.cu
-    as "... packed"): per kernel and mode (0 int8, 1 float32, 2
-    bfloat16), the count of each atomic and reduction opcode in
-    ``cuobjdump -sass`` of the built library (a 64-bit add that is not
-    native shows as the compare-and-swap loop ``ATOMS.CAST.SPIN.64``, a
-    global atomic as ``ATOMG``, ``RED`` or ``REDG``; ``REDUX`` is a warp
-    reduction).  None when cuobjdump is missing."""
+    cluster kernels compiled (the masked one, in every library that
+    builds it, as "masked_cluster<mode> <row source>": bytes, the bins_t
+    of histogram_leaves and histogram_leaves_radix2; words, the packed
+    mirror of histogram_leaves_packed; payload, the rows of
+    histogram_payload): per kernel and mode (0 int8, 1 float32, 2
+    bfloat16), the count of each atomic and reduction instruction in
+    ``cuobjdump -sass`` of the built libraries, by opcode (a 64-bit add
+    that is not native shows as the compare-and-swap loop
+    ``ATOMS.CAST.SPIN.64``, a global atomic as ``ATOMG``, ``RED`` or
+    ``REDG``; ``REDUX`` is a warp reduction).  None when cuobjdump is
+    missing."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return None
     kern = re.compile(r"(radix_single_cluster|radix_single_kernel|"
-                      r"rows_channel|masked_cluster)ILi(\d)E")
-    op = re.compile(r"\b(ATOMS\.[A-Z0-9.]+|ATOMG\.[A-Z0-9.]+|"
-                    r"RED[A-Z]*\.[A-Z0-9.]+)")
+                      r"rows_channel|masked_cluster)ILi(\d)E"
+                      r"(?:Li\d+ELi(\d)E)?")
+    # an instruction: its address, an optional predicate, its opcode
+    instr = re.compile(r"^\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                       r"([A-Z][A-Z0-9_]*(?:\.[A-Z0-9_]+)*)")
     found = {}
-    for name in ("radix", "rows", "packed"):
+    for name in ("radix", "rows", "packed", "hist"):
         text = subprocess.run([tool, "-sass", str(cuda_lib._lib_path(name))],
                               capture_output=True, text=True,
                               timeout=300).stdout
@@ -192,12 +216,14 @@ def sass_atomics(cuda_lib):
         for ln in text.splitlines():
             if "Function :" in ln:
                 m = kern.search(ln)
-                key = (f"{m.group(1)}<{m.group(2)}>"
-                       + (" packed" if name == "packed" else "")) if m \
-                    else None
+                key = None
+                if m:
+                    key = f"{m.group(1)}<{m.group(2)}>"
+                    if m.group(1) == "masked_cluster":
+                        key += " " + MASKED_SOURCES[m.group(3)]
             elif key is not None:
-                o = op.search(ln)
-                if o:
+                o = instr.match(ln)
+                if o and o.group(1).startswith(("ATOM", "RED")):
                     c = found.setdefault(key, {})
                     c[o.group(1)] = c.get(o.group(1), 0) + 1
     return found
@@ -329,7 +355,7 @@ def check_kernels(torch, dev):
                        K * F * B).reshape(-1)
     vals = torch.stack([g[:S], h[:S], torch.ones_like(g[:S])], 1).repeat(F, 1)
     acc = torch.zeros(K * F * B + 1, 3, device=dev)
-    row("histogram_payload", "lightgbm_tpu_torch/csrc/hist.cu",
+    row("histogram_payload", "lightgbm_tpu_torch/csrc/masked.cuh",
         "lightgbm_tpu/ops/hist_pallas.py:318",
         time_ms(torch, lambda: HK.histogram_payload(payload, leaves, cnt,
                                                     **kwp), flush),
@@ -739,14 +765,16 @@ lost_windows = []
 last_work = []
 
 
-def device_per_call(torch, fn, reps=10, tries=3):
-    """(device launches, device ms) per call of ``fn`` (kernels and
-    memsets, inputs warm in L2), from the profiler; (None, None) when it
-    saw none.  Beside time_ms, which also holds the host's time to reach
-    the launch, this is the kernel's own time.  CUPTI now and then loses
-    a kernel's device record, so a window whose device records disagree
-    with the launches the host made in it is measured again, up to
-    ``tries`` windows in all."""
+def device_per_call(torch, fn, reps=10, tries=5):
+    """(launches, device ms) per call of ``fn`` (kernels and memsets,
+    inputs warm in L2), from the profiler; (None, None) when it saw no
+    device record.  Beside time_ms, which also holds the host's time to
+    reach the launch, this is the kernel's own time.  CUPTI now and then
+    loses a kernel's device record, so a window whose device records
+    disagree with the launch calls the host made in it is measured again,
+    up to ``tries`` windows in all; if the last still disagrees, the
+    host's launch calls count the launches and the records seen give
+    their mean time (the "profiler:" line lists such windows as kept)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -760,13 +788,16 @@ def device_per_call(torch, fn, reps=10, tries=3):
         launched = host_launches(prof)
         if n == launched:
             break
-        lost_windows.append(dict(device=n, host=launched))
+        lost_windows.append(dict(device=n, host=launched,
+                                 kept=attempt == tries - 1))
     last_window.clear()
     last_window.update((name[:60], cnt) for name, cnt, _ in work)
     last_work[:] = work
     last_window["host launches"] = launched
     us = sum(w[2] for w in work)
-    return (n / reps, us / 1e3 / reps) if n else (None, None)
+    if not n:
+        return None, None
+    return launched / reps, us / 1e3 / n * launched / reps
 
 
 def launches_per_call(torch, fn):
@@ -1205,14 +1236,12 @@ def check_packed_partition_shapes(torch, dev):
 
 def check_remaining_shapes(torch, dev):
     """Phase 2e: the kernels still to redesign, at the kernel table's
-    shapes (n = 1M, F = 28, B = 256): ``take_small_table`` (T = 255),
-    ``histogram_payload`` (S = 251,904, cnt = 201,523, K = 42),
-    ``histogram_radix_joint`` (G = 4) and ``histogram_radix_single``'s 1M
-    root pass (block core), int8: one-call ms, the profiler's device ms and
-    launches per call beside the byte bound, to rank the next redesigns."""
+    shapes (n = 1M, F = 28, B = 256): ``histogram_radix_joint`` (G = 4) and
+    ``histogram_radix_single``'s 1M root pass (block core), int8: one-call
+    ms, the profiler's device ms and launches per call beside the byte
+    bound and one index_add_ of the same cells (one-call and device ms),
+    to rank the next redesigns."""
     from lightgbm_tpu_torch.ops import hist_kernels as HK
-    from lightgbm_tpu_torch.ops import table as TB
-    from lightgbm_tpu_torch.ops.histogram import bins_to_words
     rng = np.random.default_rng(17)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
 
@@ -1222,41 +1251,301 @@ def check_remaining_shapes(torch, dev):
     g = t(rng.integers(-2, 3, size=N).astype(np.float32))
     h = t(rng.integers(0, 5, size=N).astype(np.float32))
     lor = t(rng.integers(0, 64, size=N, dtype=np.int32))
-    leaves = t(rng.permutation(64)[:K].astype(np.int32))
-    lv4 = leaves[:4].contiguous()
+    lv4 = t(rng.permutation(64)[:4].astype(np.int32))
     lor_root = t(np.where(rng.random(N) < 0.05, -1, 0).astype(np.int32))
-    table = t(rng.normal(size=T).astype(np.float32))
-    idx = t(rng.integers(0, T, size=N, dtype=np.int32))
-    S = (N // 4 + 2047) // 2048 * 2048
-    cnt = torch.tensor([int(0.8 * S)], dtype=torch.int32, device=dev)
-    payload = torch.cat([bins_to_words(bins.t())[:S],
-                         g[:S].view(torch.int32)[:, None],
-                         h[:S].view(torch.int32)[:, None], lor[:S, None]],
-                        1).contiguous()
-    c = int(cnt.item())
     kw = dict(n_bins=B, hist_dtype="int8")
-    shapes = (
-        ("take_small_table", lambda: TB.take_small_table(table, idx),
-         8 * N + 4 * T, N),
-        ("histogram_payload", lambda: HK.histogram_payload(
-            payload, leaves, cnt, num_f=F, **kw),
-         c * 4 * (W + 3) + 4 * K + 4 + 16 * K * F * B,
-         3 * F * int(torch.isin(lor[:c], leaves).sum().item())),
-        ("histogram_radix_joint", lambda: HK.histogram_radix_joint(
-            bins, g, h, lor, lv4, **kw),
-         F * N + 12 * N + 16 + 16 * 4 * F * B,
-         3 * F * int(torch.isin(lor, lv4).sum().item())),
-        ("histogram_radix_single (1M root)",
-         lambda: HK.histogram_radix_single(bins, g, h, lor_root, **kw),
-         F * N + 12 * N + 16 * F * B, 3 * F * int((lor_root >= 0).sum())))
+    vals = torch.stack([g, h, torch.ones_like(g)], 1).repeat(F, 1)
+    fi = torch.arange(F, device=dev)[:, None]
     out = []
-    for name, call, nbytes, ops in shapes:
-        b_ms, b_by = bound_ms(nbytes, ops)
+    for name, call, sel, slot, nslot, nbytes in (
+            ("histogram_radix_joint", lambda: HK.histogram_radix_joint(
+                bins, g, h, lor, lv4, **kw), torch.isin(lor, lv4),
+             (lor[None, :] == lv4[:, None]).to(torch.uint8).argmax(0), 4,
+             F * N + 12 * N + 16 + 16 * 4 * F * B),
+            ("histogram_radix_single (1M root)",
+             lambda: HK.histogram_radix_single(bins, g, h, lor_root, **kw),
+             lor_root >= 0, torch.zeros_like(lor_root), 1,
+             F * N + 12 * N + 16 * F * B)):
+        # library: ONE index_add_ of every (row, feature) value triple into
+        # its (slot, feature, bin) cell, the cell index precomputed
+        cell = torch.where(sel[None, :], (slot[None, :].long() * F + fi) * B
+                           + bins.long(), nslot * F * B).reshape(-1)
+        acc = torch.zeros(nslot * F * B + 1, 3, device=dev)
+
+        def lib():
+            return acc.index_add_(0, cell, vals)
+
+        b_ms, b_by = bound_ms(nbytes, 3 * F * int(sel.sum().item()))
         r = dict(kernel=name, ms=time_ms(torch, call, flush))
         r["launches"], r["device_ms"] = device_per_call(torch, call)
-        r.update(bound_ms=b_ms, bound_by=b_by)
+        r.update(bound_ms=b_ms, bound_by=b_by,
+                 library_ms=time_ms(torch, lib, flush),
+                 library_device_ms=device_per_call(torch, lib)[1])
         out.append(r)
         print("path shape: " + json.dumps(r), flush=True)
+        del cell, acc
+    return out
+
+
+def payload_bucket(torch, dev, rng, S, real, lor_ids=64):
+    """A compacted payload i32 [S, W+3] as the default recipe gathers it:
+    F = 28 bins in W = 7 words, grad and hess bits (integer levels, or real
+    values), leaf ids in [0, lor_ids)."""
+    bins = rng.integers(0, B - 1, size=(S, 4 * W), dtype=np.uint8)
+    bins[:, F:] = 0
+    if real:
+        g = rng.normal(size=S).astype(np.float32)
+        h = rng.random(S).astype(np.float32)
+    else:
+        g = rng.integers(-2, 3, size=S).astype(np.float32)
+        h = rng.integers(0, 5, size=S).astype(np.float32)
+    lor = rng.integers(0, lor_ids, size=S, dtype=np.int32)
+    return torch.as_tensor(np.ascontiguousarray(np.concatenate(
+        [bins.view(np.int32), g.view(np.int32)[:, None],
+         h.view(np.int32)[:, None], lor[:, None]], 1)), device=dev)
+
+
+def payload_bytes(S, c, mode, k=K, f=F, w=W):
+    """The bytes the payload pass must move: the rows below cnt (4(w+3)
+    bytes each), grad and hess of the rows past it in float32/bfloat16 (the
+    scale is over all S rows), the k ids, cnt and the f32 [k, f, B, 4]
+    output."""
+    past = 8 * (S - c) if mode != "int8" else 0
+    return c * 4 * (w + 3) + past + 4 * k + 4 + 16 * k * f * B
+
+
+#: the four compaction buckets of 1M rows (ops/histogram.py): n/4, n/8,
+#: n/16 and n/64, each rounded up to 2048
+BUCKETS = tuple((N // d + 2047) // 2048 * 2048 for d in (4, 8, 16, 64))
+
+
+def alternating(torch, calls, flush, rounds=4):
+    """Device ms (profiler, warm L2) and one-call ms (events, L2 flushed)
+    of each named call, the calls taken in turn, forwards then backwards,
+    ``rounds`` times: medians, launches per call and the lists."""
+    res = {k: dict(device_ms=[], ms=[]) for k in calls}
+    order = list(calls)
+    for i in range(rounds):
+        for k in (order if i % 2 == 0 else order[::-1]):
+            nl, dms = device_per_call(torch, calls[k])
+            res[k]["launches"] = nl
+            res[k]["device_ms"].append(dms)
+            res[k]["ms"].append(time_ms(torch, calls[k], flush, reps=20))
+            if nl != 1:
+                res[k]["window"] = dict(last_window)
+    for r in res.values():
+        r["device_ms_median"] = float(np.median(r["device_ms"]))
+        r["ms_median"] = float(np.median(r["ms"]))
+    return res
+
+
+def check_take_payload_shapes(torch, dev):
+    """Phase 2f: the two kernels this slice redesigned, at the shapes the
+    main path gives them.  ``take_small_table`` (the score update) at
+    n = 1M, T = 255 against ``index_select`` on the same operands, the two
+    taken in turn in this process (device ms from the profiler, one-call ms
+    from events), plus its edges bit for bit (n = 1M + 3, n = 1 and 3,
+    T = 1, T = 3000, indices -1 and T, a view that is not 16-byte aligned).
+    ``histogram_payload`` (the default recipe's compacted pass) at the four
+    buckets of 1M rows with cnt = 0.8 S and K = 42 in int8 and float32,
+    held bit for bit against ``histogram_payload_fixed`` (float32 and
+    bfloat16 on real values) and its plain version (int8, integer values),
+    plus its edges (cnt 0 and S, leaf ids >= 2048, bins >= n_bins, NaN and
+    inf past cnt, a payload that is not 16-byte aligned).  Each shape: one-
+    call ms, device ms, launches per call (exactly 1), byte bound, and one
+    library call's one-call and device ms (``index_select``; one
+    ``index_add_`` of the same cells)."""
+    from lightgbm_tpu_torch.ops import hist_kernels as HK
+    from lightgbm_tpu_torch.ops import table as TB
+    rng = np.random.default_rng(19)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    out = []
+
+    def t(a):
+        return torch.as_tensor(a, device=dev)
+
+    def bitwise(a, b, what):
+        if a.shape != b.shape or not torch.equal(a.view(torch.int32),
+                                                 b.view(torch.int32)):
+            d = ((a.double() - b.double()).abs().max().item()
+                 if a.shape == b.shape else float("nan"))
+            fail(f"{what}: kernel differs from its reference (max abs diff "
+                 f"{d})")
+
+    # -- take: edges, then the main path's shape against index_select
+    for n, tt, lo, hi in ((N + 3, T, -1, T + 1), (1, T, -1, T + 1),
+                          (3, T, -1, T + 1), (4099, 1, -1, 2),
+                          (N + 3, 3000, -1, 3001), (5000, 3000, -5, 4000)):
+        table = t(rng.normal(size=tt).astype(np.float32))
+        idx = t(rng.integers(lo, hi, size=n, dtype=np.int32))
+        idx[::7] = -1
+        idx[1::7] = tt
+        for v, tag in ((idx, ""), (idx[1:], ", not 16-byte aligned")):
+            bitwise(TB.take_small_table(table, v),
+                    TB.take_small_table_plain(table, v),
+                    f"take_small_table (n = {v.shape[0]}, T = {tt}{tag})")
+    table = t(rng.normal(size=T).astype(np.float32))
+    idx = t(rng.integers(0, T, size=N, dtype=np.int32))
+    bitwise(TB.take_small_table(table, idx),
+            TB.take_small_table_plain(table, idx), "take_small_table")
+    b_ms, b_by = bound_ms(8 * N + 4 * T, N)
+    res = alternating(torch, {
+        "take_small_table": lambda: TB.take_small_table(table, idx),
+        "index_select": lambda: table.index_select(0, idx)}, flush,
+        rounds=8)
+    mine, lib = res["take_small_table"], res["index_select"]
+    r = dict(kernel="take_small_table", n=N, T=T, ms=mine["ms_median"],
+             device_ms=mine["device_ms_median"], launches=mine["launches"],
+             bound_ms=b_ms, bound_by=b_by, library_ms=lib["ms_median"],
+             library_device_ms=lib["device_ms_median"],
+             alternating=res)
+    out.append(r)
+    print("path shape: " + json.dumps(r), flush=True)
+
+    # -- payload: the four buckets, int8 and float32
+    lv = rng.permutation(64)[:K].astype(np.int32)
+    lv[-2:] = lv[0]                               # repeated dummy slots
+    leaves = t(lv)
+    fi = torch.arange(F, device=dev)
+    for S in BUCKETS:
+        c = int(0.8 * S)
+        cnt = torch.tensor([c], dtype=torch.int32, device=dev)
+        pay = {"int8": payload_bucket(torch, dev, rng, S, False),
+               "float32": payload_bucket(torch, dev, rng, S, True)}
+        for mode in ("float32", "bfloat16"):
+            kw = dict(num_f=F, n_bins=B, hist_dtype=mode)
+            bitwise(HK.histogram_payload(pay["float32"], leaves, cnt, **kw),
+                    HK.histogram_payload_fixed(pay["float32"], leaves, cnt,
+                                               **kw),
+                    f"histogram_payload {mode} (S = {S}, real values)")
+        for mode in ("int8", "float32", "bfloat16"):
+            kw = dict(num_f=F, n_bins=B, hist_dtype=mode)
+            bitwise(HK.histogram_payload(pay["int8"], leaves, cnt, **kw),
+                    HK.histogram_payload_plain(pay["int8"], leaves, cnt,
+                                               **kw),
+                    f"histogram_payload {mode} (S = {S}, integer values)")
+        for mode, p in pay.items():
+            lor_p = p[:, W + 2]
+            sel = torch.isin(lor_p, leaves) & (torch.arange(
+                S, device=dev) < c)
+            slot = (lor_p[None, :] == leaves[:, None]).to(
+                torch.uint8).argmax(0)
+            pbin = (p[:, fi // 4].t() >> (8 * (fi % 4))[:, None]) & 255
+            cell = torch.where(sel[None, :], (slot[None, :].long() * F
+                                              + fi[:, None]) * B
+                               + pbin.long(), K * F * B).reshape(-1)
+            gv = p[:, W].view(torch.float32)
+            hv = p[:, W + 1].view(torch.float32)
+            vals = torch.stack([gv, hv, torch.ones_like(gv)],
+                               1).repeat(F, 1)
+            acc = torch.zeros(K * F * B + 1, 3, device=dev)
+            b_ms, b_by = bound_ms(payload_bytes(S, c, mode),
+                                  3 * F * int(sel.sum().item()))
+
+            def call(p=p, mode=mode):
+                return HK.histogram_payload(p, leaves, cnt, num_f=F,
+                                            n_bins=B, hist_dtype=mode)
+
+            def libcall(acc=acc, cell=cell, vals=vals):
+                return acc.index_add_(0, cell, vals)
+
+            r = dict(kernel="histogram_payload", S=S, cnt=c, K=K,
+                     mode=mode, ms=time_ms(torch, call, flush, reps=20))
+            r["launches"], r["device_ms"] = device_per_call(torch, call)
+            if r["launches"] != 1:
+                r["window"] = dict(last_window)
+            r.update(bound_ms=b_ms, bound_by=b_by,
+                     library_ms=time_ms(torch, libcall, flush),
+                     library_device_ms=device_per_call(torch, libcall)[1])
+            out.append(r)
+            print("path shape: " + json.dumps(r), flush=True)
+            del cell, vals, acc, pbin, slot, sel
+    # few slots (K = 1, 4: the warm-up ladder's compacted rounds) and few
+    # features (F = 4, 3 in W = 1 word), whose plans take other cluster
+    # sizes (up to 16, non-portable), at every bucket: float32 and
+    # bfloat16 bit for bit against the fixed-point reference on real
+    # values, int8 against the plain version on integer values
+    for S in BUCKETS:
+        c = int(0.8 * S)
+        cnt = torch.tensor([c], dtype=torch.int32, device=dev)
+        pr = payload_bucket(torch, dev, rng, S, True)
+        pint = payload_bucket(torch, dev, rng, S, False)
+        for tag, nf, lvx in (("K = 1", F, leaves[:1]),
+                             ("K = 4", F, leaves[:4]),
+                             ("F = 4", 4, leaves), ("F = 3", 3, leaves)):
+            cols = list(range(W + 3)) if nf == F else [0, W, W + 1, W + 2]
+            for mode in ("float32", "bfloat16", "int8"):
+                pp = (pint if mode == "int8" else pr)[:, cols].contiguous()
+                kw = dict(num_f=nf, n_bins=B, hist_dtype=mode)
+                ref = (HK.histogram_payload_plain if mode == "int8"
+                       else HK.histogram_payload_fixed)
+
+                def call(pp=pp, lvx=lvx, kw=kw):
+                    return HK.histogram_payload(pp, lvx, cnt, **kw)
+
+                bitwise(call(), ref(pp, lvx, cnt, **kw),
+                        f"histogram_payload {mode} ({tag}, S = {S})")
+                b_ms, b_by = bound_ms(
+                    payload_bytes(S, c, mode, lvx.shape[0], nf,
+                                  len(cols) - 3),
+                    3 * nf * int(torch.isin(pp[:c, -1], lvx).sum().item()))
+                r = dict(kernel="histogram_payload", S=S, cnt=c,
+                         K=lvx.shape[0], F=nf, mode=mode,
+                         ms=time_ms(torch, call, flush, reps=20))
+                r["launches"], r["device_ms"] = device_per_call(torch, call)
+                if r["launches"] != 1:
+                    r["window"] = dict(last_window)
+                r.update(bound_ms=b_ms, bound_by=b_by)
+                out.append(r)
+                print("path shape: " + json.dumps(r), flush=True)
+        del pr, pint
+    # edges at the smallest bucket, bit for bit
+    S = BUCKETS[-1]
+    base = payload_bucket(torch, dev, rng, S + 1, True)
+    for tag in ("cnt = 0", "cnt = S", "leaf ids >= 2048", "bins >= n_bins",
+                "NaN and inf past cnt", "not 16-byte aligned"):
+        p, c, lvx, nb = base[:S].clone(), int(0.8 * S), leaves, B
+        if tag == "cnt = 0":
+            c = 0
+        elif tag == "cnt = S":
+            c = S
+        elif tag == "leaf ids >= 2048":
+            p[:, W + 2] += 2990
+            lvx = (leaves + 2990).to(torch.int32)
+        elif tag == "bins >= n_bins":
+            nb = 200
+        elif tag == "NaN and inf past cnt":
+            p[c::2, W] = torch.tensor([float("nan")], device=dev).view(
+                torch.int32)
+            p[c + 1::2, W] = torch.tensor([float("inf")], device=dev).view(
+                torch.int32)
+            p[c::3, W + 1] = torch.tensor([float("-inf")], device=dev).view(
+                torch.int32)
+        else:
+            p = base[1:]
+        cnt = torch.tensor([c], dtype=torch.int32, device=dev)
+        for mode in ("float32", "bfloat16"):
+            kw = dict(num_f=F, n_bins=nb, hist_dtype=mode)
+            bitwise(HK.histogram_payload(p, lvx, cnt, **kw),
+                    HK.histogram_payload_fixed(p, lvx, cnt, **kw),
+                    f"histogram_payload {mode} ({tag})")
+        pi = p.clone()
+        pi[:, W] = pi[:, W].view(torch.float32).round().clamp(
+            -3, 3).nan_to_num(0, 0, 0).view(torch.int32)
+        kw = dict(num_f=F, n_bins=nb, hist_dtype="int8")
+        bitwise(HK.histogram_payload(pi, lvx, cnt, **kw),
+                HK.histogram_payload_plain(pi, lvx, cnt, **kw),
+                f"histogram_payload int8 ({tag})")
+    print("path shapes (take, payload): take_small_table equals its plain "
+          "version at every shape and edge; histogram_payload equals "
+          "histogram_payload_fixed bit for bit (f32, bf16 on real values) "
+          "and its plain version (int8/f32/bf16 on integer values) at the "
+          "four buckets, K = 1 and 4, F = 3 and 4, and every edge",
+          flush=True)
+    many = [(r["kernel"], r.get("S"), r.get("mode")) for r in out
+            if r["launches"] != 1]
+    if many:
+        fail(f"take / payload: more than one launch per call: {many}")
     return out
 
 
@@ -1478,7 +1767,7 @@ def load_other(root):
     sys.modules["lgbt_other"] = mod
     spec.loader.exec_module(mod)
     ops = {m: importlib.import_module(f"lgbt_other.ops.{m}")
-           for m in ("cuda_lib", "hist_kernels", "round_fuse")}
+           for m in ("cuda_lib", "hist_kernels", "table")}
     return mod, ops
 
 
@@ -1538,12 +1827,12 @@ def ab_trainings(torch, old_pkg, new_pkg, pairs=10):
 
 def ab_main(other_root):
     """Phase A/B: this checkout's kernels against another checkout's, in one
-    process, old/new/new/old: the packed pass at K = 1, 16, 42 (int8,
-    float32), partition_payload at K = 42 and partition_select at K = 42
-    and 1 (n = 1M), each with identical bits required, one-call ms (20
-    calls, L2 flushed) and the profiler's device ms and launches per call;
-    then the trainings of ab_trainings, whose model text must be
-    identical."""
+    process, old/new/new/old: take_small_table at n = 1M, T = 255 and
+    histogram_payload at the four compaction buckets of 1M rows (cnt =
+    0.8 S, K = 42; int8, and float32 on real values), each with identical
+    bits required, one-call ms (20 calls, L2 flushed) and the profiler's
+    device ms and launches per call; then the trainings of ab_trainings,
+    whose model text must be identical."""
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
@@ -1551,9 +1840,9 @@ def ab_main(other_root):
     import lightgbm_tpu_torch as new_pkg
     from lightgbm_tpu_torch.ops import cuda_lib
     from lightgbm_tpu_torch.ops import hist_kernels as HK
-    from lightgbm_tpu_torch.ops import round_fuse as RF
+    from lightgbm_tpu_torch.ops import table as TB
     old_pkg, old = load_other(os.path.abspath(other_root))
-    OK, ORF = old["hist_kernels"], old["round_fuse"]
+    OK, OTB = old["hist_kernels"], old["table"]
     dev = torch.device("cuda")
     print("card: " + subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1566,28 +1855,24 @@ def ab_main(other_root):
     rng = np.random.default_rng(23)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     bad = []
-    x = packed_inputs(torch, dev, rng)
-    p = partition_inputs(torch, dev, rng)
-    rows_in = (p["bins"], p["words"], p["g"], p["h"], p["lor"], p["mask"])
-    shapes = []
-    for k in (1, 16, K):
-        lv = packed_leaves(torch, dev, rng, k)
-        lor = x["lor_root"] if k == 1 else x["lor"]
-        for mode, g, h in (("int8", x["gi"], x["hi"]),
-                           ("float32", x["gr"], x["hr"])):
-            shapes.append((f"packed K = {k}, {mode}", lambda m, g=g, h=h,
-                           lor=lor, lv=lv, mode=mode:
-                           m.histogram_leaves_packed(
-                               x["words_t"], g, h, lor, lv, num_f=F,
-                               n_bins=N64, hist_dtype=mode), HK, OK))
-    for k in (K, 1):
-        dsc = [d[:k].contiguous() for d in p["desc"]]
-        if k == K:
-            shapes.append((f"partition_payload K = {k}", lambda m, dsc=dsc:
-                           m.partition_payload(*rows_in, *dsc), RF, ORF))
-        shapes.append((f"partition_select K = {k}", lambda m, dsc=dsc:
-                       m.partition_select(p["bins"], p["lor"], p["mask"],
-                                          *dsc), RF, ORF))
+    table = torch.as_tensor(rng.normal(size=T).astype(np.float32),
+                            device=dev)
+    idx = torch.as_tensor(rng.integers(0, T, size=N, dtype=np.int32),
+                          device=dev)
+    shapes = [(f"take_small_table n = {N}, T = {T}",
+               lambda m: m.take_small_table(table, idx), TB, OTB)]
+    lv = rng.permutation(64)[:K].astype(np.int32)
+    lv[-2:] = lv[0]
+    leaves = torch.as_tensor(lv, device=dev)
+    for S in BUCKETS:
+        cnt = torch.tensor([int(0.8 * S)], dtype=torch.int32, device=dev)
+        for mode in ("int8", "float32"):
+            p = payload_bucket(torch, dev, rng, S, mode == "float32")
+            shapes.append((f"histogram_payload S = {S}, {mode}",
+                           lambda m, p=p, cnt=cnt, mode=mode:
+                           m.histogram_payload(p, leaves, cnt, num_f=F,
+                                               n_bins=B, hist_dtype=mode),
+                           HK, OK))
     res = []
     for tag, fn, mnew, mold in shapes:
         a, b_ = fn(mnew), fn(mold)
@@ -1611,7 +1896,7 @@ def ab_main(other_root):
         r["new_over_old"] = float(np.mean(r["new_ms"]) / np.mean(r["old_ms"]))
         res.append(r)
         print("ab: " + json.dumps(r), flush=True)
-    del x, p
+    del shapes
     torch.cuda.empty_cache()
 
     bad += ab_trainings(torch, old_pkg, new_pkg)
@@ -1656,13 +1941,16 @@ def main():
         wrong = {k: [o for o in v if o.startswith(("ATOMS.CAST", "ATOMG"))
                      or re.match(r"REDG?\.", o)]
                  for k, v in masked.items()}
-        if (len(masked) != 6 or any(wrong.values())
+        want = {f"masked_cluster<{m}> {src}" for m in range(3)
+                for src in MASKED_SOURCES.values()}
+        if (set(masked) != want or any(wrong.values())
                 or not all("ATOMS.ADD" in v for v in masked.values())):
             fail(f"masked_cluster atomics: {json.dumps(masked)}")
         print("sass atomics (masked_cluster, the kernel of histogram_leaves "
-              "and histogram_leaves_radix2, and of histogram_leaves_packed "
-              "in packed.cu): native ATOMS.ADD, no ATOMS.CAST.SPIN, no "
-              "global RED/ATOM: " + json.dumps(masked), flush=True)
+              "and histogram_leaves_radix2 (bytes), histogram_leaves_packed "
+              "(words) and histogram_payload (payload)): native ATOMS.ADD, "
+              "no ATOMS.CAST.SPIN, no global RED/ATOM: "
+              + json.dumps(masked), flush=True)
     for name, text in sorted(cuda_lib.build_log.items()):
         for ln in text.splitlines():
             if "registers" in ln or "error" in ln.lower():
@@ -1674,6 +1962,7 @@ def main():
     check_masked_shapes(torch, torch.device("cuda"))
     check_packed_partition_shapes(torch, torch.device("cuda"))
     check_remaining_shapes(torch, torch.device("cuda"))
+    check_take_payload_shapes(torch, torch.device("cuda"))
     check_determinism(torch, torch.device("cuda"))
     print(f"profiler: {len(lost_windows)} window(s) measured again after "
           f"a lost record {json.dumps(lost_windows)}", flush=True)
@@ -1833,6 +2122,33 @@ def main():
           flush=True)
     launches["partition_select"] = cp["partition_select"]
     del bst
+
+    # (f) deterministic=true at 1M rows: the batched grower in float32,
+    # every payload pass in float32; a second run must give the same text
+    zero_counts(HK, RF, TB, prng)
+    bst, auc_d, _, t_d, steps_d = train_slice(torch, lgbt, N, 5,
+                                              deterministic=True)
+    cd = launch_counts(HK, RF, TB, prng)
+    g = bst._gbdt
+    print(f"slice (deterministic=true, 1M x 5): train {t_d:.2f} s, s/iter "
+          f"(2-5) {float(np.mean(steps_d[1:])):.4f}, held-out AUC "
+          f"{auc_d:.6f}; kernels {json.dumps(cd)}", flush=True)
+    if g.hp.hist_dtype != "float32" or not g._use_batched_grower():
+        fail(f"deterministic=true at 1M rows resolved hist_dtype="
+             f"{g.hp.hist_dtype}, batched={g._use_batched_grower()}")
+    if cd["histogram_payload"] <= 0:
+        fail("the deterministic run never launched histogram_payload")
+    if not auc_d > 0.7:
+        fail(f"deterministic held-out AUC {auc_d} is not that of a trained "
+             f"model")
+    d_again, *_ = train_slice(torch, lgbt, N, 5, deterministic=True)
+    if d_again.model_to_string() != bst.model_to_string():
+        fail("two card trainings with deterministic=true gave different "
+             "model text")
+    print(f"model text sha256 (deterministic=true, 1M x 5): "
+          f"{text_sha256(bst)}; a second card run gave the same text",
+          flush=True)
+    del bst, d_again
     for r in rows:
         r["launches"] = launches[r["name"]]
 

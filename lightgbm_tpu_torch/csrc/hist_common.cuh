@@ -1,6 +1,7 @@
 // Shared core of the block-core (grad, hess, count) histogram kernels of
-// hist.cu and radix.cu, and the value arithmetic, slot table and host
-// caches that masked.cuh, rows.cu and partition.cu use too.
+// radix.cu (radix-joint and the radix-single pass above 131,072 rows), and
+// the value arithmetic, slot table and host caches that masked.cuh, rows.cu
+// and partition.cu use too.
 //
 // Every kernel computes the same function as the TPU kernels it replaces:
 // each selected row adds (grad, hess, 1) to the cell (slot of its leaf,
@@ -100,31 +101,27 @@ struct Val<2> : Fixed {
   }
 };
 
-// Largest finite |v| of channel blockIdx.y (v + blockIdx.y * chan_stride,
-// n entries at ``stride``) as float bits into out[blockIdx.y] (zeroed by
-// the caller); non-negative floats order as their bit patterns, so an
-// integer atomicMax finds it.
-__global__ void absmax_kernel(const float* __restrict__ v, long n, long stride,
-                              long chan_stride, unsigned* __restrict__ out) {
-  v += blockIdx.y * chan_stride;
+// Largest finite |v| of v[0, n) as float bits into *out (zeroed by the
+// caller); non-negative floats order as their bit patterns, so an integer
+// atomicMax finds it.
+__global__ void absmax_kernel(const float* __restrict__ v, long n,
+                              unsigned* __restrict__ out) {
   unsigned m = 0;
   for (long r = (long)blockIdx.x * blockDim.x + threadIdx.x; r < n;
        r += (long)gridDim.x * blockDim.x) {
-    const float a = fabsf(v[r * stride]);
+    const float a = fabsf(v[r]);
     if (a <= FLT_MAX && __float_as_uint(a) > m) m = __float_as_uint(a);
   }
   for (int o = 16; o > 0; o >>= 1)
     m = max(m, __shfl_xor_sync(0xffffffffu, m, o));
-  if ((threadIdx.x & 31) == 0 && m != 0) atomicMax(out + blockIdx.y, m);
+  if ((threadIdx.x & 31) == 0 && m != 0) atomicMax(out, m);
 }
 
-int launch_absmax(const float* v, long n, long stride, long chan_stride,
-                  int C, unsigned* out, cudaStream_t s) {
-  if (n <= 0 || C <= 0) return 0;
+int launch_absmax(const float* v, long n, unsigned* out, cudaStream_t s) {
+  if (n <= 0) return 0;
   long want = (n + 255) / 256;
   int blocks = (int)(want < kSMs * 4L ? want : kSMs * 4L);
-  absmax_kernel<<<dim3(blocks, C), 256, 0, s>>>(v, n, stride, chan_stride,
-                                                  out);
+  absmax_kernel<<<blocks, 256, 0, s>>>(v, n, out);
   return (int)cudaGetLastError();
 }
 
@@ -171,11 +168,11 @@ __device__ inline void add_row(T* acc, int slot, int bin, int n_bins, T g,
 enum { SEL_ROOT = 0,    // slot 0 when leaf_of_row >= 0 (the root pass)
        SEL_FEW = 1,     // first of K <= kFewSlots leaf ids, in registers
        SEL_TABLE = 2 };  // the leaf -> first-slot table in shared memory
-// Where a row's bins come from
+// Where a row's bins come from (masked.cuh's row sources; the block core
+// reads bins_t)
 enum { SRC_BYTES = 0,     // bins_t u8 [F, n]: one byte row per feature
        SRC_WORDS = 1,     // words_t i32 [W, n]: byte j of word w = feature 4w+j
-                          // (masked.cuh only)
-       SRC_PAYLOAD = 2 };  // payload i32 [n, W+3]: bin words, grad bits, hess
+       SRC_PAYLOAD = 2 };  // payload i32 [S, W+3]: bin words, grad bits, hess
                            // bits, leaf id; rows at >= *cnt excluded
 
 struct Task {
@@ -192,15 +189,12 @@ struct Task {
   int spg;     // slots per block (the slot group)
   int copies;  // private accumulator copies
   long rows_per_chunk;
-  const int* payload;  // SRC_PAYLOAD (grad, hess, lor unused)
-  int W;               // SRC_PAYLOAD: bin words per row
-  const int* cnt;      // SRC_PAYLOAD: rows in use, read on the device
   const unsigned* vmax;  // modes 1, 2: max |grad|, max |hess| as float bits
 };
 
 // One block's share: features [f0, f0+fpb) x rows of chunk blockIdx.y x
 // slots of group blockIdx.z, flushed into glob [K, F, B, 3].
-template <int MODE, int SEL, int SRC>
+template <int MODE, int SEL>
 __device__ inline void hist_block(const Task& t,
                                   typename Val<MODE>::T* __restrict__ glob) {
   typedef typename Val<MODE>::T T;
@@ -211,10 +205,8 @@ __device__ inline void hist_block(const Task& t,
       smem + (SEL == SEL_TABLE ? kFixedInts * sizeof(int) : 0));
   const int f0 = blockIdx.x * t.fpb;
   const int nf = min(t.fpb, t.num_f - f0);
-  const long limit =
-      SRC == SRC_PAYLOAD ? min(t.n, (long)max(*t.cnt, 0)) : t.n;
   const long r0 = (long)blockIdx.y * t.rows_per_chunk;
-  const long r1 = min(limit, r0 + t.rows_per_chunk);
+  const long r1 = min(t.n, r0 + t.rows_per_chunk);
   const int k0 = blockIdx.z * t.spg;
   const int ns = min(t.K - k0, t.spg);
   const int cell = t.n_bins * 3;
@@ -238,8 +230,7 @@ __device__ inline void hist_block(const Task& t,
   }
   T* a = acc + ((threadIdx.x >> 5) % t.copies) * per_copy;
   for (long r = r0 + threadIdx.x; r < r1; r += blockDim.x) {
-    const int* prow = SRC == SRC_PAYLOAD ? t.payload + r * (t.W + 3) : nullptr;
-    const int l = SRC == SRC_PAYLOAD ? prow[t.W + 2] : t.lor[r];
+    const int l = t.lor[r];
     int k;
     if (SEL == SEL_ROOT) {
       k = l >= 0 ? 0 : -1;
@@ -253,22 +244,12 @@ __device__ inline void hist_block(const Task& t,
     }
     k -= k0;
     if (k < 0 || k >= ns) continue;
-    const T g = Val<MODE>::cvt(
-        SRC == SRC_PAYLOAD ? __int_as_float(prow[t.W]) : t.grad[r], sg);
-    const T h = Val<MODE>::cvt(
-        SRC == SRC_PAYLOAD ? __int_as_float(prow[t.W + 1]) : t.hess[r], sh);
+    const T g = Val<MODE>::cvt(t.grad[r], sg);
+    const T h = Val<MODE>::cvt(t.hess[r], sh);
     T* as = a + k * slot_stride;
-    if (SRC == SRC_PAYLOAD) {
-      for (int j = 0; j < nf; ++j) {
-        const int f = f0 + j;
-        const int b = (prow[f >> 2] >> ((f & 3) * 8)) & 255;
-        if (b < t.n_bins) add_row<T>(as, j, b, t.n_bins, g, h);
-      }
-    } else {
-      for (int j = 0; j < nf; ++j) {
-        const int b = t.bins_t[(long)(f0 + j) * t.n + r];
-        if (b < t.n_bins) add_row<T>(as, j, b, t.n_bins, g, h);
-      }
+    for (int j = 0; j < nf; ++j) {
+      const int b = t.bins_t[(long)(f0 + j) * t.n + r];
+      if (b < t.n_bins) add_row<T>(as, j, b, t.n_bins, g, h);
     }
   }
   __syncthreads();
@@ -460,14 +441,8 @@ int run_hist(Kernel kernel, Task t, int fpb_max, bool fpb_fixed, int copies,
   if (given) vmax = const_cast<unsigned*>(t.vmax);
   t.vmax = vmax;
   if (MODE != 0 && t.n > 0 && !given) {
-    int err;
-    if (t.payload != nullptr) {  // grad, hess: payload columns W, W+1
-      err = launch_absmax(reinterpret_cast<const float*>(t.payload) + t.W,
-                          t.n, t.W + 3, 1, 2, vmax, s);
-    } else {
-      err = launch_absmax(t.grad, t.n, 1, 0, 1, vmax, s);
-      if (!err) err = launch_absmax(t.hess, t.n, 1, 0, 1, vmax + 1, s);
-    }
+    int err = launch_absmax(t.grad, t.n, vmax, s);
+    if (!err) err = launch_absmax(t.hess, t.n, vmax + 1, s);
     if (err) return err;
   }
   if (t.n > 0 && t.K > 0 && t.num_f > 0) {

@@ -1,12 +1,15 @@
 // The masked K-leaf (grad, hess, count) histogram of hist.cu
 // (histogram_leaves, every masked pass of hist_kernel=onehot and the pooled
-// rounds' extended pass), radix.cu (histogram_leaves_radix2, the K > 4
-// masked passes of hist_kernel=auto) and packed.cu
-// (histogram_leaves_packed, every masked pass below 128 bins): the three
-// compute the same function and launch the same kernel, the first two
-// reading bins_t u8 [F, n] (SRC_BYTES), the third the packed mirror
-// words_t i32 [W, n] (SRC_WORDS: one 16-byte load gives four rows of a
-// word's four features, transposed into the layout of four bins_t rows).
+// rounds' extended pass; histogram_payload, the compacted passes of the
+// default recipe), radix.cu (histogram_leaves_radix2, the K > 4 masked
+// passes of hist_kernel=auto) and packed.cu (histogram_leaves_packed, every
+// masked pass below 128 bins): the four compute the same function and
+// launch the same kernel, reading bins_t u8 [F, n] (SRC_BYTES), the packed
+// mirror words_t i32 [W, n] (SRC_WORDS: one 16-byte load gives four rows
+// of a word's four features, transposed into the layout of four bins_t
+// rows) or the compacted payload i32 [S, W+3] (SRC_PAYLOAD: only its first
+// *cnt rows, staged in shared memory a tile at a time; the scale is over
+// all S rows, n = S).
 //
 // Function: each row whose leaf id is one of leaves[0, K) adds (grad, hess,
 // 1) to the cell (first slot of its leaf, feature, bin); bins >= n_bins add
@@ -35,15 +38,23 @@
 // slot's sums (the per-block table of first slots says which).  No global
 // accumulator, memset, finalize kernel or global atomic.
 //
+// The payload's rows are 40 contiguous bytes at W = 7: a block brings them
+// in 1,024-row tiles (a row a thread), two in a ring, with 16-byte
+// cp.async copies, and takes a row's leaf id, grad, hess and bin word from
+// shared memory.  Every feature group's cluster reads the rows again from
+// L2, which sets the pace in int8 (on an H100 80GB HBM3 at 700 W the same
+// kernel without its shared-memory adds ran in 85% of the time); in
+// float32 and bfloat16 every cluster also scans all S rows for the scale.
+//
 // The plan (plan_masked) weighs the features per block and slot groups
 // that the shared memory holds against the cluster size (up to the
 // portable 8 for bins_t; up to 16, non-portable, for the words, whose F =
-// 28 makes only 7 groups of four features) and the clusters
-// cudaOccupancyMaxActiveClusters lets run at once.  A shape no plan fits,
-// or a cluster launch the device refuses, returns its CUDA error: there is
-// no other path.  (cluster_write, which
-// radix_single's clusters use, writes one float a lane and made this
-// kernel 10% slower at K = 42 than its own float4 loop.)
+// 28 makes only 7 groups of four features, and the payload) and the
+// clusters cudaOccupancyMaxActiveClusters lets run at once.  A shape no
+// plan fits, or a cluster launch the device refuses, returns its CUDA
+// error: there is no other path.  (cluster_write, which radix_single's
+// clusters use, writes one float a lane and made this kernel 10% slower at
+// K = 42 than its own float4 loop.)
 //
 // Bound on the H100: bytes.  A 1M-row pass at F = 28 reads 28 MB of bins and
 // 12 MB of grad, hess and leaf ids and writes K*F*B*16 bytes (4.8 MB at
@@ -65,11 +76,12 @@ constexpr int kMaskedThreads = 1024;
 constexpr int kMaskedMaxFpb = 4;
 constexpr int kReduceBatch = 4;  // remote reads in flight per channel
 constexpr int kMaxClusterWords = 16;  // non-portable: the packed source
+                                      // and the payload
 
 struct Masked {
   const uint8_t* bins_t;     // SRC_BYTES: u8 [F, n]
   const unsigned* words_t;   // SRC_WORDS: i32 [W, n], byte j = feature 4w+j
-  long n;
+  long n;                    // rows (SRC_PAYLOAD: S, the scale's count)
   int num_f;
   const float* grad;
   const float* hess;
@@ -81,7 +93,90 @@ struct Masked {
   int spg;   // slots per slot group
   long rpb;  // rows per block, a multiple of 4
   float4* out;
+  const int* payload;  // SRC_PAYLOAD: i32 [S, W+3]: W bin words, grad
+  int W;               // bits, hess bits, leaf id; rows at >= *cnt excluded
+  const int* cnt;      // i32 [1], read on the device
+  int tile_rows;       // SRC_PAYLOAD: rows of each row tile
 };
+
+// SRC_PAYLOAD's row tiles in shared memory: kStages tiles of at most
+// kTileBytes / kStages bytes each, kStages - 1 of them in flight (two of
+// 1,024 rows measured faster than three of 680 or four of 512, which
+// leave threads without a row; H100 80GB HBM3, 700 W)
+constexpr int kStages = 2;
+constexpr int kTileBytes = 80 << 10;
+
+// Rows of a payload row tile: 1,024 rows (a row a thread) of W + 3 words at
+// W = 7, a multiple of 4 (so a tile of a chunk that starts at a multiple of
+// 4 starts 16-byte aligned)
+__host__ __device__ inline int payload_tile_rows(int W) {
+  const int r = kTileBytes / kStages / (4 * (W + 3)) / 4 * 4;
+  return r < 4 ? 4 : (r > kMaskedThreads ? kMaskedThreads : r);
+}
+
+// Shared-memory bytes of the accumulator of ``slots`` slots and ``fpb``
+// features, rounded up to 16 (the row tiles follow it)
+__host__ __device__ inline size_t masked_acc_bytes(int slots, int fpb,
+                                                   int n_bins, int words) {
+  return ((size_t)slots * 3 * fpb * n_bins * words * sizeof(unsigned) + 15) /
+         16 * 16;
+}
+
+// cp.async: a 16-byte (both addresses 16-byte aligned) or 4-byte copy from
+// device memory into shared memory that no register holds; commit closes a
+// group of copies, wait<N> waits until at most N groups are in flight
+__device__ inline void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ inline void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ inline void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ inline void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// The block's copy of ``bytes`` (a multiple of 4; both 16-byte aligned)
+// from src to dst: 16 bytes a thread, the rest in words, with cp.async
+__device__ inline void copy_tile(int* dst, const int* src, int bytes) {
+  const int n16 = bytes >> 4;
+  for (int i = threadIdx.x; i < n16; i += blockDim.x)
+    cp_async16(dst + 4 * i, src + 4 * i);
+  for (int i = 4 * n16 + threadIdx.x; i < bytes >> 2; i += blockDim.x)
+    cp_async4(dst + i, src + i);
+}
+
+// Largest finite |grad| and |hess| (payload columns W and W + 1) of rows
+// [r0, r1) as float bits into out[0], out[1] (as block_absmax2; four rows
+// a thread in flight measured slower on an H100 80GB HBM3 at 700 W)
+__device__ inline void block_absmax_payload(const int* __restrict__ payload,
+                                            int W, long r0, long r1,
+                                            unsigned* out) {
+  unsigned m[2] = {0u, 0u};
+  for (long r = r0 + threadIdx.x; r < r1; r += blockDim.x) {
+    const int* p = payload + r * (W + 3) + W;
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const float y = fabsf(__int_as_float(__ldg(p + k)));
+      if (y <= FLT_MAX && __float_as_uint(y) > m[k]) m[k] = __float_as_uint(y);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const unsigned y = __reduce_max_sync(0xffffffffu, m[k]);
+    if ((threadIdx.x & 31) == 0 && y != 0) atomicMax(out + k, y);
+  }
+}
 
 // Shared memory before the accumulator: the slot table, four header words
 // (use the table, owned slots, max |grad|, max |hess|), first[K], own[K]
@@ -104,7 +199,8 @@ __device__ inline void rows_to_features(unsigned m0, unsigned m1, unsigned m2,
 }
 
 // SRC: SRC_BYTES (hist_common.cuh) reads feature f's row of bins_t; SRC_WORDS
-// reads word f >> 2 of words_t, shifted so that byte j is feature f0 + j
+// reads word f >> 2 of words_t, shifted so that byte j is feature f0 + j;
+// SRC_PAYLOAD reads word f >> 2 of a payload row in a shared-memory tile
 template <int MODE, int VEC, int SRC>
 __global__ void __launch_bounds__(kMaskedThreads, 1)
     masked_cluster(const Masked t) {
@@ -117,6 +213,9 @@ __global__ void __launch_bounds__(kMaskedThreads, 1)
   int* first = tab + kFixedInts;  // slot k -> first slot of its leaf
   int* own = first + t.K;         // slots written by this slot group
   unsigned* w = reinterpret_cast<unsigned*>(smem + masked_head_bytes(t.K));
+  int* tiles = reinterpret_cast<int*>(
+      smem + masked_head_bytes(t.K) +
+      masked_acc_bytes(t.spg, t.fpb, t.n_bins, Acc<MODE>::kWords));
   const int f0 = blockIdx.x * t.fpb;
   const int nf = min(t.fpb, t.num_f - f0);
   const unsigned* wrow = SRC == SRC_WORDS ? t.words_t + (long)(f0 >> 2) * t.n
@@ -145,7 +244,14 @@ __global__ void __launch_bounds__(kMaskedThreads, 1)
   }
   int sg = 0, sh = 0;
   if (MODE != 0) {
-    block_absmax2<VEC>(t.grad, t.hess, r0, r1, part);
+    if constexpr (SRC == SRC_PAYLOAD) {  // all S rows, over every block
+      const long nbl = (long)cl.num_blocks();
+      const long ra = (t.n + nbl - 1) / nbl;
+      const long a0 = (long)cl.block_rank() * ra;
+      block_absmax_payload(t.payload, t.W, a0, min(t.n, a0 + ra), part);
+    } else {
+      block_absmax2<VEC>(t.grad, t.hess, r0, r1, part);
+    }
     cl.sync();
     sg = fixed_shift(cluster_max(cl, part, 0), t.n);
     sh = fixed_shift(cluster_max(cl, part, 1), t.n);
@@ -176,7 +282,48 @@ __global__ void __launch_bounds__(kMaskedThreads, 1)
       }
     }
   };
-  if (VEC == 4) {
+  if constexpr (SRC == SRC_PAYLOAD) {
+    // rows [0, cnt) dealt to the blocks of the cluster in chunks of a
+    // multiple of 4, each chunk through two row tiles in shared memory,
+    // the next in flight (16-byte cp.async copies) while the block adds
+    // the rows of this one, a row a thread
+    const long c = min(t.n, (long)max(__ldg(t.cnt), 0));
+    const long ncs = (long)cl.num_blocks();
+    const long rp = ((c + ncs - 1) / ncs + 3) / 4 * 4;
+    const long p0 = (long)cl.block_rank() * rp;
+    const long p1 = min(c, p0 + rp);
+    const int wp = t.W + 3;
+    const int R = t.tile_rows;
+    const int fw = f0 >> 2;
+    static_assert(kStages == 2, "the staging toggles two tiles");
+    auto copy = [&](long q, int buf) {  // rows [q, q + R) of the chunk
+      copy_tile(tiles + buf * R * wp, t.payload + q * wp,
+                (int)min((long)R, p1 - q) * wp * 4);
+    };
+    if (p0 < p1) copy(p0, 0);
+    cp_async_commit();
+    int buf = 0;
+    for (long q = p0; q < p1; q += R, buf ^= 1) {
+      if (q + R < p1) copy(q + R, buf ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();
+      const int* tile = tiles + buf * R * wp;
+      const int rows = (int)min((long)R, p1 - q);
+      for (int r = threadIdx.x; r < rows; r += blockDim.x) {
+        const int* row = tile + r * wp;
+        const int s = slot(row[wp - 1]);
+        if (s < 0) continue;
+        const unsigned m = (unsigned)row[fw] >> wsh;
+        unsigned bw[kMaskedMaxFpb];
+#pragma unroll
+        for (int j = 0; j < kMaskedMaxFpb; ++j) bw[j] = m >> (8 * j);
+        add(__int_as_float(row[t.W]), __int_as_float(row[t.W + 1]), bw, 0,
+            s);
+      }
+      __syncthreads();  // the tile is free for the copy after next
+    }
+  } else if (VEC == 4) {
     const long step = 4L * blockDim.x;
     for (long r = r0 + 4L * threadIdx.x; r < r1; r += 2 * step) {
       const long rr[2] = {r, r + step};
@@ -298,14 +445,16 @@ inline int max_clusters(const void* fn, dim3 grid, size_t smem) {
 }
 
 // The launch of ``fn`` for n rows, F features, K slots, B bins at ``words``
-// 32-bit words a cell: for each features-per-block (4, 2, 1) with the
-// fewest slot groups that fit, and each cluster size up to ``max_cs`` that
-// the device takes at that shared memory, the cost waves x rows per block x
-// (2 + features per block) (a row's leaf id, slot and values, then its bin
-// and three atomics per feature); the cheapest wins, the smaller cluster on
-// a tie.  Sizes above the portable 8 need the non-portable attribute.
+// 32-bit words a cell and ``tiles`` bytes of row tiles: for each
+// features-per-block (4, 2, 1) with the fewest slot groups that fit, and
+// each cluster size up to ``max_cs`` that the device takes at that shared
+// memory, the cost waves x rows per block x (2 + features per block) (a
+// row's leaf id, slot and values, then its bin and three atomics per
+// feature); the cheapest wins, the smaller cluster on a tie.  Sizes above
+// the portable 8 need the non-portable attribute.
 inline int plan_masked(const void* fn, long n, int num_f, int K, int n_bins,
-                       int words, int max_cs, MaskedPlan* best) {
+                       int words, int max_cs, size_t tiles,
+                       MaskedPlan* best) {
   int optin = 0;
   int err = optin_smem(&optin);
   if (err) return err;
@@ -315,7 +464,7 @@ inline int plan_masked(const void* fn, long n, int num_f, int K, int n_bins,
     cudaGetLastError();
     max_cs = kMaxCluster;
   }
-  const size_t head = masked_head_bytes(K);
+  const size_t head = masked_head_bytes(K) + tiles + 16;  // 16: rounding
   const size_t per = (size_t)3 * n_bins * sizeof(unsigned) * words;
   double best_cost = -1.0;
   for (int fpb = kMaskedMaxFpb; fpb >= 1; fpb >>= 1) {
@@ -324,7 +473,8 @@ inline int plan_masked(const void* fn, long n, int num_f, int K, int n_bins,
     int spg = (int)(((size_t)optin - head) / (per * fpb));
     const int sgroups = (K + spg - 1) / spg;
     spg = (K + sgroups - 1) / sgroups;
-    const size_t smem = head + per * fpb * spg;
+    const size_t smem = masked_head_bytes(K) +
+                        masked_acc_bytes(spg, fpb, n_bins, words) + tiles;
     const int fgroups = (num_f + fpb - 1) / fpb;
     err = allow_smem(fn, smem);
     if (err) return err;
@@ -345,21 +495,22 @@ inline int plan_masked(const void* fn, long n, int num_f, int K, int n_bins,
   return best_cost < 0 ? (int)cudaErrorInvalidConfiguration : 0;
 }
 
-// plan_masked's plans, cached per (kernel, device, n, F, K, B): a launch
-// plans nothing once its shape has run
+// plan_masked's plans, cached per (kernel, device, n, F, K, B, tiles): a
+// launch plans nothing once its shape has run
 struct PlanCache {
   std::mutex mu;
   struct Entry {
     const void* fn;
     int dev, num_f, K, n_bins;
     long n;
+    size_t tiles;
     MaskedPlan p;
   } e[64];
   int used = 0, next = 0;
 };
 
 inline int cached_plan(const void* fn, long n, int num_f, int K, int n_bins,
-                       int words, int max_cs, MaskedPlan* p) {
+                       int words, int max_cs, size_t tiles, MaskedPlan* p) {
   static PlanCache c;
   int dev = 0;
   int err = (int)cudaGetDevice(&dev);
@@ -368,14 +519,14 @@ inline int cached_plan(const void* fn, long n, int num_f, int K, int n_bins,
   for (int k = 0; k < c.used; ++k) {
     const PlanCache::Entry& x = c.e[k];
     if (x.fn == fn && x.dev == dev && x.n == n && x.num_f == num_f &&
-        x.K == K && x.n_bins == n_bins) {
+        x.K == K && x.n_bins == n_bins && x.tiles == tiles) {
       *p = x.p;
       return 0;
     }
   }
-  err = plan_masked(fn, n, num_f, K, n_bins, words, max_cs, p);
+  err = plan_masked(fn, n, num_f, K, n_bins, words, max_cs, tiles, p);
   if (err) return err;
-  c.e[c.next] = {fn, dev, num_f, K, n_bins, n, *p};
+  c.e[c.next] = {fn, dev, num_f, K, n_bins, n, tiles, *p};
   c.next = (c.next + 1) % 64;
   if (c.used < 64) ++c.used;
   return 0;
@@ -386,9 +537,12 @@ int launch_masked(Masked t, cudaStream_t s) {
   const void* fn =
       reinterpret_cast<const void*>(masked_cluster<MODE, VEC, SRC>);
   MaskedPlan p;
+  // the payload's two row tiles
+  const size_t tiles =
+      SRC == SRC_PAYLOAD ? (size_t)kStages * t.tile_rows * (t.W + 3) * 4 : 0;
   int err = cached_plan(fn, t.n, t.num_f, t.K, t.n_bins, Acc<MODE>::kWords,
-                        SRC == SRC_WORDS ? kMaxClusterWords : kMaxCluster,
-                        &p);
+                        SRC == SRC_BYTES ? kMaxCluster : kMaxClusterWords,
+                        tiles, &p);
   if (err) return err;
   t.fpb = p.fpb;
   t.spg = p.spg;
@@ -397,21 +551,29 @@ int launch_masked(Masked t, cudaStream_t s) {
                          kMaskedThreads, p.smem, s, t);
 }
 
+// VEC = 4 when the row source takes 16-byte loads (the payload always:
+// run_masked_payload refuses an unaligned one)
+template <int MODE, int SRC>
+int launch_vec(const Masked& t, bool vec, cudaStream_t s) {
+  if constexpr (SRC == SRC_PAYLOAD) {
+    return launch_masked<MODE, 4, SRC>(t, s);
+  } else {
+    return vec ? launch_masked<MODE, 4, SRC>(t, s)
+               : launch_masked<MODE, 1, SRC>(t, s);
+  }
+}
+
 template <int SRC>
 int dispatch_masked(const Masked& t, bool vec, int mode, cudaStream_t s) {
   if (t.K <= 0 || t.num_f <= 0) return 0;
-#define LGBT_MASKED(M)                                \
-  return vec ? launch_masked<M, 4, SRC>(t, s)         \
-             : launch_masked<M, 1, SRC>(t, s)
   switch (mode) {
     case 0:
-      LGBT_MASKED(0);
+      return launch_vec<0, SRC>(t, vec, s);
     case 1:
-      LGBT_MASKED(1);
+      return launch_vec<1, SRC>(t, vec, s);
     case 2:
-      LGBT_MASKED(2);
+      return launch_vec<2, SRC>(t, vec, s);
   }
-#undef LGBT_MASKED
   return (int)cudaErrorInvalidValue;
 }
 

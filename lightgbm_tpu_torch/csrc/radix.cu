@@ -62,13 +62,13 @@ namespace {
 template <int MODE>
 __global__ void __launch_bounds__(kThreads)
     radix_single_kernel(Task t, typename Val<MODE>::T* __restrict__ glob) {
-  hist_block<MODE, SEL_ROOT, SRC_BYTES>(t, glob);
+  hist_block<MODE, SEL_ROOT>(t, glob);
 }
 
 template <int MODE>
 __global__ void __launch_bounds__(kThreads)
     radix_joint_kernel(Task t, typename Val<MODE>::T* __restrict__ glob) {
-  hist_block<MODE, SEL_FEW, SRC_BYTES>(t, glob);
+  hist_block<MODE, SEL_FEW>(t, glob);
 }
 
 constexpr int kRadixThreads = 512;
@@ -303,8 +303,8 @@ extern "C" int lgbt_hist_radix_single(const uint8_t* bins_t, long n,
 extern "C" int lgbt_pass_scale(const float* grad, const float* hess, long n,
                                unsigned* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  int err = launch_absmax(grad, n, 1, 0, 1, out, s);
-  if (!err) err = launch_absmax(hess, n, 1, 0, 1, out + 1, s);
+  int err = launch_absmax(grad, n, out, s);
+  if (!err) err = launch_absmax(hess, n, out + 1, s);
   return err;
 }
 

@@ -2,45 +2,51 @@
 //
 // Replaces the TPU kernel lightgbm_tpu/ops/table.py _take_pallas (a radix
 // one-hot contraction on the MXU, which the TPU needs because it has no
-// fast gather).  On Hopper a gather from a table in shared memory is cheap,
-// so the design is the direct one: each block stages the table (T <= 2048
-// f32, 8 KB) in shared memory and each thread maps one row.
+// fast gather).  On Hopper a gather from a small table is cheap, so the
+// design is the direct one: each thread maps four rows at a time, a 16-byte
+// load of four indices and a 16-byte store of four values, over a grid of
+// one wave, the table read through the read-only cache (at T = 255 and
+// n = 1M on an H100 80GB HBM3 at 700 W this measured 2% faster than
+// staging the table in shared memory per block, and needs no other path
+// for T > 2048).  A ragged tail (n % 4
+// rows, or every row when idx or out is not 16-byte aligned) goes one row
+// a thread.
 //
 // Bound on the H100: bytes.  4 B of index read and 4 B of value written per
-// row; the table is read once per block and stays in L2.  The out-of-range
-// rule matches the TPU kernel exactly: it pads the table with zeros to a
-// multiple of 128 and its one-hot never matches a negative or too-large
-// index, so every index outside [0, T) reads 0.
+// row (8 MB at n = 1M: 0.0024 ms at 3.35 TB/s); the table stays in L1 and
+// L2.  The out-of-range rule matches the TPU kernel exactly: it pads the
+// table with zeros to a multiple of 128 and its one-hot never matches a
+// negative or too-large index, so every index outside [0, T) reads 0.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kSmemTable = 2048;
+constexpr int kThreads = 256;
+constexpr int kBlocksPerSM = 8;  // 2,048 threads: the SM's limit
 
-__global__ void take_smem_kernel(const int* __restrict__ idx, long n,
-                                 const float* __restrict__ table, int T,
-                                 float* __restrict__ out) {
-  __shared__ float tab[kSmemTable];
-  for (int i = threadIdx.x; i < T; i += blockDim.x) tab[i] = table[i];
-  __syncthreads();
-  long stride = (long)gridDim.x * blockDim.x;
-  for (long i = (long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    int j = idx[i];
-    out[i] = (j >= 0 && j < T) ? tab[j] : 0.0f;
-  }
+__device__ inline float lookup(const float* __restrict__ table, int T,
+                               int j) {
+  return j >= 0 && j < T ? __ldg(table + j) : 0.0f;
 }
 
-__global__ void take_global_kernel(const int* __restrict__ idx, long n,
-                                   const float* __restrict__ table, int T,
-                                   float* __restrict__ out) {
-  long stride = (long)gridDim.x * blockDim.x;
-  for (long i = (long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    int j = idx[i];
-    out[i] = (j >= 0 && j < T) ? __ldg(table + j) : 0.0f;
+// quads [0, nq) as int4 -> float4, then rows [4 nq, n) one a thread
+__global__ void __launch_bounds__(kThreads)
+    take_kernel(const int* __restrict__ idx, long n, long nq,
+                const float* __restrict__ table, int T,
+                float* __restrict__ out) {
+  const long stride = (long)gridDim.x * blockDim.x;
+  const long i0 = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int4* idx4 = reinterpret_cast<const int4*>(idx);
+  float4* out4 = reinterpret_cast<float4*>(out);
+  for (long q = i0; q < nq; q += stride) {
+    const int4 j = __ldg(idx4 + q);
+    out4[q] = make_float4(lookup(table, T, j.x), lookup(table, T, j.y),
+                          lookup(table, T, j.z), lookup(table, T, j.w));
   }
+  for (long i = 4 * nq + i0; i < n; i += stride)
+    out[i] = lookup(table, T, __ldg(idx + i));
 }
 
 }  // namespace
@@ -48,14 +54,22 @@ __global__ void take_global_kernel(const int* __restrict__ idx, long n,
 extern "C" int lgbt_take(const int* idx, long n, const float* table, int T,
                          float* out, void* stream) {
   if (n <= 0) return 0;
-  const int threads = 256;
-  long want = (n + threads - 1) / threads;
-  int blocks = (int)(want < 132L * 16 ? want : 132L * 16);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (T <= kSmemTable) {
-    take_smem_kernel<<<blocks, threads, 0, s>>>(idx, n, table, T, out);
-  } else {
-    take_global_kernel<<<blocks, threads, 0, s>>>(idx, n, table, T, out);
+  static int sms = 0;  // the SM count of the first device asked (132 on
+                       // every H100 SXM)
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      sms = 132;
   }
+  const bool vec = reinterpret_cast<uintptr_t>(idx) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const long nq = vec ? n / 4 : 0;
+  const long want = (nq + (n - 4 * nq) + kThreads - 1) / kThreads;
+  const long wave = (long)sms * kBlocksPerSM;
+  const int blocks = (int)(want < wave ? want : wave);
+  take_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(idx, n, nq,
+                                                             table, T, out);
   return (int)cudaGetLastError();
 }

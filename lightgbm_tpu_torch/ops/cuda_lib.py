@@ -43,7 +43,7 @@ _SIGNATURES = {
     "take": {"lgbt_take": (_P, _L, _P, _I, _P, _P)},
     "hist": {
         "lgbt_hist_leaves": (_P, _L, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P),
-        "lgbt_hist_payload": (_P, _L, _I, _I, _P, _I, _P, _I, _I, _P, _P, _P),
+        "lgbt_hist_payload": (_P, _L, _I, _I, _P, _I, _P, _I, _I, _P, _P),
     },
     "radix": {
         "lgbt_hist_radix_single": (_P, _L, _I, _P, _P, _P, _I, _I, _P, _P,
@@ -131,7 +131,12 @@ def build_all() -> float:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library of ``csrc/<name>.cu``, built first if needed.
+    A library already loaded is returned without taking the lock (a dict
+    read is atomic): every launch of every wrapper comes through here."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is not None:

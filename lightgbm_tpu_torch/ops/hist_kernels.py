@@ -9,7 +9,8 @@ kernel:
   (the one-launch cluster kernel of csrc/masked.cuh);
 * :func:`histogram_payload` — the same histogram straight from the
   compacted i32 payload, replacing ``histogram_payload_pallas``,
-  csrc/hist.cu;
+  csrc/hist.cu (the cluster kernel of csrc/masked.cuh with the payload
+  rows as its row source);
 * :func:`histogram_radix_single` — the root pass (rows with leaf < 0
   excluded), replacing ``histogram_radix_single_pallas``, csrc/radix.cu;
 * :func:`histogram_radix_joint` — the masked pass of G <= 4 leaves,
@@ -38,7 +39,8 @@ f32; the kernels sum them in 64-bit fixed point at a per-call power-of-two
 scale (csrc/hist_common.cuh), so a kernel gives the same bits on every
 call, the correctly rounded exact sum on integer-valued inputs.
 :func:`fixed_shift`, :func:`histogram_rows_t_fixed`,
-:func:`histogram_leaves_fixed` and :func:`histogram_radix_single_fixed`
+:func:`histogram_leaves_fixed`, :func:`histogram_payload_fixed` and
+:func:`histogram_radix_single_fixed`
 mirror that arithmetic in PyTorch (an int64 ``index_add_`` of
 ``round(v * 2^s)``): the kernels' bits exactly, on any values.  The radix
 and packed kernels compute what the TPU kernels compute, not their nibble
@@ -86,14 +88,6 @@ def _scratch(cells: int, mode: int, dev: torch.device) -> torch.Tensor:
     if mode == 0:
         return torch.zeros(cells, dtype=torch.int32, device=dev)
     return torch.zeros(cells + 1, dtype=torch.int64, device=dev)
-
-
-def _buffers(K: int, num_f: int, n_bins: int, mode: int,
-             dev: torch.device):
-    """Zeroed global accumulator and the f32 [K, F, B, 4] output."""
-    scratch = _scratch(K * num_f * n_bins * 3, mode, dev)
-    out = torch.empty(K, num_f, n_bins, 4, dtype=torch.float32, device=dev)
-    return scratch, out
 
 
 def _hist_plain(bin_of: Callable[[int], torch.Tensor], num_f: int,
@@ -200,10 +194,9 @@ def histogram_leaves(bins_t: torch.Tensor, grad: torch.Tensor,
     return out
 
 
-def histogram_payload_plain(payload: torch.Tensor, leaves: torch.Tensor,
-                            cnt: torch.Tensor, *, num_f: int, n_bins: int,
-                            hist_dtype: str = "float32") -> torch.Tensor:
-    """Plain version of :func:`histogram_payload`."""
+def _payload_plain(payload: torch.Tensor, leaves: torch.Tensor,
+                   cnt: torch.Tensor, num_f: int, n_bins: int,
+                   hist_dtype: str, fixed: bool) -> torch.Tensor:
     S, wp3 = payload.shape
     W = wp3 - 3
     pos_ok = torch.arange(S, device=payload.device) < cnt.reshape(())
@@ -214,7 +207,27 @@ def histogram_payload_plain(payload: torch.Tensor, leaves: torch.Tensor,
         return (payload[:, f // 4] >> (8 * (f % 4))) & 255
 
     return _hist_plain(bin_of, num_f, g, h, payload[:, W + 2], pos_ok,
-                       leaves, n_bins, hist_dtype)
+                       leaves, n_bins, hist_dtype, fixed=fixed)
+
+
+def histogram_payload_plain(payload: torch.Tensor, leaves: torch.Tensor,
+                            cnt: torch.Tensor, *, num_f: int, n_bins: int,
+                            hist_dtype: str = "float32") -> torch.Tensor:
+    """Plain version of :func:`histogram_payload`."""
+    return _payload_plain(payload, leaves, cnt, num_f, n_bins, hist_dtype,
+                          fixed=False)
+
+
+def histogram_payload_fixed(payload: torch.Tensor, leaves: torch.Tensor,
+                            cnt: torch.Tensor, *, num_f: int, n_bins: int,
+                            hist_dtype: str = "float32") -> torch.Tensor:
+    """:func:`histogram_payload` as the kernel computes it, bit for bit: grad
+    and hess of the selected rows below ``cnt`` summed in int64 at
+    2^fixed_shift(max finite |grad| (|hess|) over all S payload rows, rows
+    at or past ``cnt`` included, S), counts exactly, repeated slots copied
+    (int8 sums are exact: the plain version)."""
+    return _payload_plain(payload, leaves, cnt, num_f, n_bins, hist_dtype,
+                          fixed=True)
 
 
 def histogram_payload(payload: torch.Tensor, leaves: torch.Tensor,
@@ -223,7 +236,9 @@ def histogram_payload(payload: torch.Tensor, leaves: torch.Tensor,
     """Masked multi-leaf histogram f32 [K, num_f, n_bins, 4] from the
     compaction payload i32 [S, W+3] (per row: W words of 4 little-endian
     bin bytes, grad bits, hess bits, leaf id).  Rows at positions >=
-    ``cnt`` (i32 [1], read on the device: no host sync) are excluded."""
+    ``cnt`` (i32 [1], read on the device: no host sync) are excluded.  One
+    launch of the cluster kernel of csrc/masked.cuh (no scratch); float32
+    and bfloat16 give the bits of :func:`histogram_payload_fixed`."""
     if not payload.is_cuda:
         return histogram_payload_plain(payload, leaves, cnt, num_f=num_f,
                                        n_bins=n_bins, hist_dtype=hist_dtype)
@@ -244,12 +259,15 @@ def histogram_payload(payload: torch.Tensor, leaves: torch.Tensor,
         log.fatal("histogram_payload: all operands must be on one device")
     if not 1 <= n_bins <= 256:
         log.fatal(f"histogram_payload: n_bins={n_bins} outside [1, 256]")
-    payload, leaves, cnt = (t.contiguous() for t in (payload, leaves, cnt))
-    scratch, out = _buffers(K, num_f, n_bins, mode, dev)
-    lib = cuda_lib.load("hist")
-    code = lib.lgbt_hist_payload(
+    payload, leaves, cnt = _c(payload, leaves, cnt)
+    if payload.data_ptr() % 16:      # the kernel copies 16 bytes at a time
+        payload = payload.clone()
+    out = torch.empty(K, num_f, n_bins, 4, dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    code = cuda_lib.load("hist").lgbt_hist_payload(
         payload.data_ptr(), S, W, num_f, leaves.data_ptr(), K,
-        cnt.data_ptr(), n_bins, mode, scratch.data_ptr(), out.data_ptr(),
+        cnt.data_ptr(), n_bins, mode, out.data_ptr(),
         cuda_lib.stream_handle(payload))
     cuda_lib.check(code, "histogram_payload")
     payload_launches += 1

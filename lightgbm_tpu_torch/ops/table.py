@@ -32,23 +32,30 @@ def take_small_table_plain(table: torch.Tensor,
 
 def take_small_table(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``table[idx]`` for f32 ``table`` [T] and i32 ``idx`` [n]; indices
-    outside [0, T) give 0.0."""
+    outside [0, T) give 0.0.
+
+    The score update calls this once a round: the checks compare device
+    indices, not ``torch.device`` objects, and an operand that already is
+    contiguous is not copied."""
     if table.dim() != 1 or idx.dim() != 1:
         log.fatal("take_small_table needs a 1-D table and 1-D indices")
     if not table.is_cuda:
         return take_small_table_plain(table, idx)
     global launches
     if (table.dtype != torch.float32 or idx.dtype != torch.int32
-            or idx.device != table.device):
+            or idx.get_device() != table.get_device()):
         log.fatal("take_small_table kernel takes an f32 table and i32 "
                   "indices on the same CUDA device")
-    table = table.contiguous()
-    idx = idx.contiguous()
-    out = torch.empty(idx.shape[0], dtype=torch.float32, device=idx.device)
-    lib = cuda_lib.load("take")
-    code = lib.lgbt_take(idx.data_ptr(), idx.shape[0], table.data_ptr(),
-                         table.shape[0], out.data_ptr(),
-                         cuda_lib.stream_handle(idx))
-    cuda_lib.check(code, "take_small_table")
+    if not table.is_contiguous():
+        table = table.contiguous()
+    if not idx.is_contiguous():
+        idx = idx.contiguous()
+    n = idx.shape[0]
+    out = torch.empty(n, dtype=torch.float32, device=idx.device)
+    code = cuda_lib.load("take").lgbt_take(
+        idx.data_ptr(), n, table.data_ptr(), table.shape[0], out.data_ptr(),
+        cuda_lib.stream_handle(idx))
+    if code:
+        cuda_lib.check(code, "take_small_table")
     launches += 1
     return out

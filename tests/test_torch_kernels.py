@@ -41,24 +41,40 @@ def _t(a):
     return torch.as_tensor(np.array(a))
 
 
+#: take's (n, T) where a case changes them: one row, three rows (no full
+#: quad of the kernel's 16-byte loads), 1M + 3 rows (a ragged tail after
+#: the quads), a one-entry table, a table of more than 2048 floats
+_TAKE_SHAPES = {"ragged_n": (1000, 100), "n1": (1, 100), "n3": (3, 100),
+                "n_1m_plus_3": (1_000_003, 255), "t1": (2048, 1),
+                "t_past_2048": (5000, 3000), "minus_one_and_t": (4099, 255)}
+
+
 @pytest.mark.parametrize("case", ["in_range", "minus_one",
                                   "past_table_in_pad", "past_pad",
-                                  "ragged_n"])
+                                  "ragged_n", "n1", "n3", "n_1m_plus_3",
+                                  "t1", "t_past_2048", "minus_one_and_t"])
 def test_take_matches_pallas(case):
     rng = np.random.default_rng(1)
-    T = 100                                    # padded to 128 by the kernel
-    n = 1000 if case == "ragged_n" else 1024   # 1000: not a block multiple
+    # n = 1000: not a block multiple; T = 100 is padded to 128 by the kernel
+    n, T = _TAKE_SHAPES.get(case, (1024, 100))
     lo, hi = {"in_range": (0, T), "minus_one": (-1, T),
               "past_table_in_pad": (0, 128), "past_pad": (-5, 400),
-              "ragged_n": (-1, 128)}[case]
+              "ragged_n": (-1, 128)}.get(case, (-1, T + 1))
     idx = rng.integers(lo, hi, size=n).astype(np.int32)
     if case == "minus_one":
         idx[::7] = -1
+    elif case == "minus_one_and_t":         # exactly the two edges
+        idx[::3] = -1
+        idx[1::3] = T
     table = rng.normal(size=T).astype(np.float32)
     want = np.asarray(_take_pallas(jnp.asarray(idx), jnp.asarray(table),
-                                   rows_per_block=256, interpret=True))
+                                   rows_per_block=8192 if n > 10_000
+                                   else 256, interpret=True))
     got = take_small_table(_t(table), _t(idx)).numpy()
     np.testing.assert_array_equal(got, want)
+    ok = (idx >= 0) & (idx < T)
+    assert not got[~ok].any()
+    np.testing.assert_array_equal(got[ok], table[idx[ok]])
 
 
 def _hist_inputs(case, n, f, n_bins, seed=0):
@@ -123,25 +139,57 @@ def test_histogram_leaves_matches_pallas(case):
     _assert_hist(got, want, case in ("f32_real", "f32_nan_excluded"))
 
 
-@pytest.mark.parametrize("case", ["int8", "f32_int_valued", "f32_real",
-                                  "repeated_slots", "k1", "k8"])
-def test_histogram_payload_matches_pallas(case):
-    n, f = 3000, 10                          # f % 4 != 0: a padded word
-    bins, grad, hess, lor, leaves, mode = _hist_inputs(case, n, f, 64,
-                                                       seed=2)
+#: the payload pass's edges: no row in use, every row in use, rows below
+#: cnt whose leaf is none of the K ids, leaf ids past the kernel's
+#: 2048-entry slot table, bins past n_bins, NaN and inf in rows past cnt
+_PAYLOAD_EDGES = ("cnt_zero", "cnt_full", "foreign_leaves",
+                  "leaf_ids_past_table", "bins_past_n_bins",
+                  "nan_inf_past_cnt")
+
+
+def _payload_inputs(case, seed=2):
+    """Compacted payload i32 [S, W+3] (S = 2500 of 3000 rows, F = 10: a
+    padded word), leaf ids, cnt, hist_dtype and whether values are real."""
+    n, f, S = 3000, 10, 2500
+    base = {"cnt_zero": "int8", "cnt_full": "f32_int_valued",
+            "foreign_leaves": "int8", "bins_past_n_bins": "f32_int_valued",
+            "nan_inf_past_cnt": "f32_real"}.get(case, case)
+    bins, grad, hess, lor, leaves, mode = _hist_inputs(base, n, f, 64,
+                                                       seed=seed)
+    rng = np.random.default_rng(seed + 100)
+    cnt = {"cnt_zero": 0, "cnt_full": S}.get(case, 1700)
+    if case == "foreign_leaves":            # a third of the rows in use
+        lor[rng.random(n) < 0.35] = 40
+    elif case == "bins_past_n_bins":
+        bins[rng.random(bins.shape) < 0.2] = 200
+    elif case == "nan_inf_past_cnt":
+        grad[cnt::2] = np.nan
+        grad[cnt + 1::2] = np.inf
+        hess[cnt::3] = -np.inf
     words = np.asarray(jax_bins_to_words(jnp.asarray(bins)))
     payload = np.concatenate([words, grad.view(np.int32)[:, None],
                               hess.view(np.int32)[:, None], lor[:, None]],
                              axis=1)
-    S, cnt = 2500, np.array([1700], np.int32)  # rows >= cnt are excluded
-    pc = np.ascontiguousarray(payload[:S])
+    return (np.ascontiguousarray(payload[:S]), leaves,
+            np.array([cnt], np.int32), f, mode,
+            base in ("f32_real", "f32_nan_excluded"))
+
+
+@pytest.mark.parametrize("case", ["int8", "f32_int_valued", "f32_real",
+                                  "repeated_slots", "k1", "k8",
+                                  *_PAYLOAD_EDGES])
+def test_histogram_payload_matches_pallas(case):
+    pc, leaves, cnt, f, mode, real = _payload_inputs(case)
     cdt = jnp.int8 if mode == "int8" else jnp.float32
     want = np.asarray(histogram_payload_pallas(
         jnp.asarray(pc), jnp.asarray(leaves), jnp.asarray(cnt), num_f=f,
         n_bins=64, rows_per_block=512, compute_dtype=cdt, interpret=True))
     got = histogram_payload(_t(pc), _t(leaves), _t(cnt), num_f=f, n_bins=64,
                             hist_dtype=mode).numpy()
-    _assert_hist(got, want, case == "f32_real")
+    assert np.isfinite(got).all()
+    if case == "cnt_zero":
+        assert not got.any()
+    _assert_hist(got, want, real)
 
 
 #: the partition edges a leaf -> slot table must keep: two valid slots
@@ -574,6 +622,59 @@ def test_leaves_fixed_reference_close_to_float64_sums(case):
         np.testing.assert_array_equal(got[k, ..., 2], cnt)
     np.testing.assert_array_equal(got[3], got[1])         # the copy
     assert not got[..., 3].any()
+
+
+@pytest.mark.parametrize("mode", ["int8", "float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["int8", "repeated_slots",
+                                  *_PAYLOAD_EDGES[:-1]])
+def test_payload_fixed_reference_exact_on_integer_values(case, mode):
+    pc, leaves, cnt, f, _, real = _payload_inputs(case)
+    assert not real
+    args = (_t(pc), _t(leaves), _t(cnt))
+    got = HK.histogram_payload_fixed(*args, num_f=f, n_bins=64,
+                                     hist_dtype=mode)
+    want = HK.histogram_payload_plain(*args, num_f=f, n_bins=64,
+                                      hist_dtype=mode)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("case", ["f32_real", "nan_inf_past_cnt",
+                                  "cnt_full_real", "big_past_cnt"])
+def test_payload_fixed_reference_close_to_float64_sums(case):
+    pc, leaves, cnt, f, _, _ = _payload_inputs(
+        {"cnt_full_real": "f32_real", "big_past_cnt": "f32_real"}.get(
+            case, case))
+    S, W = pc.shape[0], pc.shape[1] - 3
+    if case == "cnt_full_real":
+        cnt[0] = S
+    g = pc[:, W].view(np.float32).copy()
+    h = pc[:, W + 1].view(np.float32).copy()
+    if case == "big_past_cnt":      # a row past cnt sets the scale alone
+        g[S - 1] = 1e4
+        pc = pc.copy()
+        pc[:, W] = g.view(np.int32)
+    c = int(cnt[0])
+    # the scale is over all S rows, rows at or past cnt included
+    sg = HK.fixed_shift(int(HK.absmax_bits(_t(g))), S)
+    sh = HK.fixed_shift(int(HK.absmax_bits(_t(h))), S)
+    got = HK.histogram_payload_fixed(_t(pc), _t(leaves), _t(cnt), num_f=f,
+                                     n_bins=64,
+                                     hist_dtype="float32").numpy()
+    lor = pc[:, W + 2]
+    for k, leaf in enumerate(leaves):
+        first = int(np.argmax(leaves == leaf))
+        rows = np.flatnonzero(lor[:c] == leaf)
+        for j in range(f):
+            b = (pc[rows, j // 4] >> (8 * (j % 4))) & 255
+            keep = b < 64
+            for ch, (v, s) in enumerate(((g, sg), (h, sh))):
+                want = np.zeros(64)
+                np.add.at(want, b[keep], v[rows][keep].astype(np.float64))
+                _within_fixed(got[k, j, :, ch], want, S, s)
+            cnt_want = np.bincount(b[keep], minlength=64)[:64]
+            np.testing.assert_array_equal(got[k, j, :, 2], cnt_want)
+        np.testing.assert_array_equal(got[k], got[first])
+    assert np.isfinite(got).all() and not got[..., 3].any()
 
 
 @pytest.mark.parametrize("case", ["real", "all_zeros", "single_nonzero",
