@@ -8,17 +8,19 @@ else: no jax, no network.  Phases, each of which fails the run on error:
 1. environment and build: the card's name and power limit, the versions,
    and every kernel of ``lightgbm_tpu_torch/csrc`` compiled at once, with
    the atomic opcodes the radix-single, rows and masked cluster kernels
-   compiled to (the masked one, in radix.cu, packed.cu and hist.cu, the
-   payload pass's included, must add with native ``ATOMS.ADD``, no
-   compare-and-swap loop and no global atomic);
-2. kernel checks: each of the ten kernels against its plain PyTorch
+   compiled to (the masked one, in radix.cu, packed.cu and hist.cu, every
+   row source and the root pass's selector included, must add with native
+   ``ATOMS.ADD``, no compare-and-swap loop and no global atomic);
+2. kernel checks: each of the eleven kernels against its plain PyTorch
    version on the card, at the shapes of the HIGGS main path (n = 1M rows,
    F = 28 features, B = 256 bins, K = 42 leaves per round, T = 255 leaf
    values; B = 64 for the packed kernel; S = 45,056 compacted rows of the
-   90k-row strict path for the rows histogram), with its time, the plain
-   version's, one PyTorch library call's where one computes the same
-   function, and the least time the card could take (bytes at 3.35 TB/s or
-   operations at the CUDA-core rate), plus edge checks off the main path;
+   90k-row strict path for the rows histogram; S = 251,904 row-major rows
+   for ``histogram_leaves_rows``, which no training path calls), with its
+   time, the plain version's, one PyTorch library call's where one
+   computes the same function, and the least time the card could take
+   (bytes at 3.35 TB/s or operations at the CUDA-core rate), plus edge
+   checks off the main path;
    every histogram kernel called twice in float32 and in bfloat16 on real
    values must give the same bits, and their float32 times are printed
    beside the int8 ones; leaf renewal's fixed-order sums (the same bits
@@ -30,8 +32,8 @@ else: no jax, no network.  Phases, each of which fails the run on error:
    (one call between CUDA events, and its device time from the profiler)
    beside its byte bound (the rows these inputs need) and one index_add_
    of the same cells, held bit for bit against the fixed-point reference
-   (float32 and bfloat16 on real values, also at S = 22,528 and 90,112,
-   the 1M-row root pass and the edges: C = 8 with a ragged S, B = 64
+   (float32 and bfloat16 on real values, also at S = 22,528 and 90,112
+   and the edges: C = 8 with a ragged S, B = 64
    with bins past it, NaN and inf on excluded rows, an empty selection,
    an all-zero bucket, one row), with each wrapper's launches per call
    from the profiler; then the masked K-leaf pass of the batched grower
@@ -48,10 +50,15 @@ else: no jax, no network.  Phases, each of which fails the run on error:
    every output, each timed with its launches per call (exactly one), and
    both partition kernels at their edges (two valid slots with one
    parent, ``smaller`` holding -1 and invalid slots' ids, split features
-   -1, F and 4W - 1, leaf ids past 2048); then the device time and
-   launches per call of the kernels still to redesign (radix-joint, the 1M
-   root pass) at the kernel table's shapes beside one index_add_ of the
-   same cells; then ``take_small_table`` at n = 1M, T = 255 against
+   -1, F and 4W - 1, leaf ids past 2048); then ``histogram_radix_joint``
+   (G = 1, 4 and a repeated layout) and ``histogram_radix_single``'s 1M
+   root pass, both the masked cluster kernel, held bit for bit against
+   their plain versions and fixed-point references on uniform bins and on
+   bins where 3 of the 28 features take 3 values, also at 200,000 rows
+   with strict-style leaf ids, and timed on both (int8; float32 on uniform
+   bins) beside their byte bounds and one index_add_ of the same cells,
+   one launch per call each; then ``take_small_table`` at n = 1M, T = 255
+   against
    ``index_select``, the two taken in turn (device and one-call ms), and
    ``histogram_payload`` at the four compaction buckets of 1M rows (S =
    251,904, 126,976, 63,488, 16,384; cnt = 0.8 S, K = 42; int8 and
@@ -95,8 +102,9 @@ else: no jax, no network.  Phases, each of which fails the run on error:
 It prints one JSON line with every kernel's numbers, the card's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``.
 
-``python3 chip_smoke.py --ab DIR`` instead compares ``take_small_table``
-and ``histogram_payload`` with those of another checkout of the port in
+``python3 chip_smoke.py --ab DIR`` instead compares ``take_small_table``,
+``histogram_payload``, ``histogram_radix_single`` (the 1M root pass) and
+``histogram_radix_joint`` with those of another checkout of the port in
 DIR (``git archive`` of another commit), in one process, then alternates
 the two packages' trainings: see ``ab_main``.
 """
@@ -182,28 +190,36 @@ def bound_ms(nbytes, ops):
 
 
 #: masked_cluster's row sources (its third template argument)
-MASKED_SOURCES = {"0": "bytes", "1": "words", "2": "payload"}
+MASKED_SOURCES = {"0": "bytes", "1": "words", "2": "payload", "3": "rows"}
+#: the masked_cluster instantiations the libraries must hold, as
+#: sass_atomics names them: every row source with the slot table, and
+#: histogram_radix_single's root pass (bins_t, slot 0 for every leaf id
+#: >= 0: "any"), each in modes 0-2
+MASKED_KERNELS = {f"masked_cluster<{m}> {src}" for m in range(3)
+                  for src in MASKED_SOURCES.values()} | {
+                      f"masked_cluster<{m}> bytes any" for m in range(3)}
 
 
 def sass_atomics(cuda_lib):
     """How the shared-memory adds of the radix-single, rows and masked
     cluster kernels compiled (the masked one, in every library that
-    builds it, as "masked_cluster<mode> <row source>": bytes, the bins_t
-    of histogram_leaves and histogram_leaves_radix2; words, the packed
-    mirror of histogram_leaves_packed; payload, the rows of
-    histogram_payload): per kernel and mode (0 int8, 1 float32, 2
-    bfloat16), the count of each atomic and reduction instruction in
-    ``cuobjdump -sass`` of the built libraries, by opcode (a 64-bit add
-    that is not native shows as the compare-and-swap loop
+    builds it, as "masked_cluster<mode> <row source>[ any]": bytes, the
+    bins_t of histogram_leaves, histogram_leaves_radix2 and
+    histogram_radix_joint, and with "any" the root pass of
+    histogram_radix_single above 131,072 rows; words, the packed mirror of
+    histogram_leaves_packed; payload, the rows of histogram_payload; rows,
+    the row-major bins of histogram_leaves_rows): per kernel and mode (0
+    int8, 1 float32, 2 bfloat16), the count of each atomic and reduction
+    instruction in ``cuobjdump -sass`` of the built libraries, by opcode (a
+    64-bit add that is not native shows as the compare-and-swap loop
     ``ATOMS.CAST.SPIN.64``, a global atomic as ``ATOMG``, ``RED`` or
     ``REDG``; ``REDUX`` is a warp reduction).  None when cuobjdump is
     missing."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return None
-    kern = re.compile(r"(radix_single_cluster|radix_single_kernel|"
-                      r"rows_channel|masked_cluster)ILi(\d)E"
-                      r"(?:Li\d+ELi(\d)E)?")
+    kern = re.compile(r"(radix_single_cluster|rows_channel|masked_cluster)"
+                      r"ILi(\d)E(?:Li\d+ELi(\d)ELi(\d)E)?")
     # an instruction: its address, an optional predicate, its opcode
     instr = re.compile(r"^\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]+\s+)?"
                        r"([A-Z][A-Z0-9_]*(?:\.[A-Z0-9_]+)*)")
@@ -221,6 +237,7 @@ def sass_atomics(cuda_lib):
                     key = f"{m.group(1)}<{m.group(2)}>"
                     if m.group(1) == "masked_cluster":
                         key += " " + MASKED_SOURCES[m.group(3)]
+                        key += " any" if m.group(4) == "1" else ""
             elif key is not None:
                 o = instr.match(ln)
                 if o and o.group(1).startswith(("ATOM", "RED")):
@@ -410,7 +427,8 @@ def check_kernels(torch, dev):
         eq = lor_[None, :] == leaves_[:, None]
         return eq.any(0), eq.to(torch.uint8).argmax(0)
 
-    # radix_single: the root pass; ~5% of rows excluded (leaf -1)
+    # radix_single: the root pass; ~5% of rows excluded (leaf -1).  Bound:
+    # every leaf id, then the bins, grad and hess of the selected rows
     lor_root = torch.as_tensor(
         np.where(rng.random(N) < 0.05, -1, 0).astype(np.int32), device=dev)
     err = same(HK.histogram_radix_single(bins_t, g, h, lor_root, **kw),
@@ -425,9 +443,10 @@ def check_kernels(torch, dev):
         time_ms(torch, lambda: HK.histogram_radix_single_plain(
             bins_t, g, h, lor_root, **kw), flush),
         yardstick(bins_t.long(), sel, torch.zeros_like(lor_root), 1, B),
-        F * N + 12 * N + 16 * F * B, 3 * F * n_sel, err)
+        4 * N + n_sel * (F + 8) + 16 * F * B, 3 * F * n_sel, err)
 
-    # radix_joint: ladder widths 1 and 4 (a repeated slot checked too)
+    # radix_joint: ladder widths 1 and 4 (a repeated slot checked too);
+    # bound as radix_single's
     for G, lv in ((1, [7]), (4, [3, 9, 3, 60])):
         lvt = torch.tensor(lv, dtype=torch.int32, device=dev)
         same(HK.histogram_radix_joint(bins_t, g, h, lor, lvt, **kw),
@@ -446,7 +465,7 @@ def check_kernels(torch, dev):
         time_ms(torch, lambda: HK.histogram_radix_joint_plain(
             bins_t, g, h, lor, lv4, **kw), flush),
         yardstick(bins_t.long(), sel, slot, 4, B),
-        F * N + 12 * N + 16 + 16 * 4 * F * B, 3 * F * n_sel, err)
+        4 * N + n_sel * (F + 8) + 16 + 16 * 4 * F * B, 3 * F * n_sel, err)
 
     # radix2: width 16 and every K = 42 full pass (repeated dummy slots)
     same(HK.histogram_leaves_radix2(bins_t, g, h, lor, leaves[:16], **kw),
@@ -485,6 +504,33 @@ def check_kernels(torch, dev):
         yardstick(bins_t64.long(), sel, slot, K, N64),
         4 * W * N + 12 * N + 4 * K + 16 * K * F * N64, 3 * F * n_sel, err)
     del bins_t64, words_t
+
+    # leaves_rows: the masked pass from row-major bins u8 [S, F], at the
+    # n/4 bucket of rows (no training path calls it: the JAX package
+    # reaches it only under its LGBMTPU_NO_PAYLOAD_KERNEL hatch).  Bound:
+    # the S leaf ids, then the bins, grad and hess of the selected rows
+    br = bins_rows[:S]
+    gs, hs, ls = g[:S], h[:S], lor[:S]
+    err = same(HK.histogram_leaves_rows(br, gs, hs, ls, leaves, **kw),
+               HK.histogram_leaves_rows_plain(br, gs, hs, ls, leaves, **kw),
+               "histogram_leaves_rows int8")
+    sel, slot = masked_slot(ls, leaves)
+    n_sel = int(sel.sum().item())
+    cell = torch.where(sel[None, :], (slot[None, :].long() * F
+                                      + torch.arange(F, device=dev)[:, None])
+                       * B + br.t().long(), K * F * B).reshape(-1)
+    vals = torch.stack([gs, hs, torch.ones_like(gs)], 1).repeat(F, 1)
+    acc = torch.zeros(K * F * B + 1, 3, device=dev)
+    row("histogram_leaves_rows", "lightgbm_tpu_torch/csrc/masked.cuh",
+        "lightgbm_tpu/ops/hist_pallas.py:308",
+        time_ms(torch, lambda: HK.histogram_leaves_rows(
+            br, gs, hs, ls, leaves, **kw), flush),
+        time_ms(torch, lambda: HK.histogram_leaves_rows_plain(
+            br, gs, hs, ls, leaves, **kw), flush),
+        time_ms(torch, lambda: acc.index_add_(0, cell, vals), flush),
+        4 * S + n_sel * (F + 8) + 4 * K + 16 * K * F * B, 3 * F * n_sel,
+        err)
+    del br, cell, vals, acc
 
     # -- rows histogram (the strict path's bucketed pass) at F = 28,
     # B = 256, C = 4 (grad, hess, valid, 0; a quarter of the rows masked)
@@ -906,18 +952,6 @@ def check_path_shapes(torch, dev):
     g_e = torch.where(lor_e >= 0, g_e, torch.full_like(g_e, float("inf")))
     h_e = t(rng.random(ne).astype(np.float32))
     radix_fixed(bins_e, g_e, h_e, lor_e, N64, f"n = {ne}, F = 30, B = 64")
-    # the 1M-row root pass takes the block core
-    nr = N
-    bins_r = t(rng.integers(0, B - 1, size=(F, nr), dtype=np.uint8))
-    lor_r = t(np.where(rng.random(nr) < 0.05, -1, 0).astype(np.int32))
-    g_r = t(rng.normal(size=nr).astype(np.float32))
-    h_r = t(rng.random(nr).astype(np.float32))
-    radix_fixed(bins_r, g_r, h_r, lor_r, B, f"n = {nr}, root pass")
-    g_ri = t(rng.integers(-2, 3, size=nr).astype(np.float32))
-    out["launches_per_call"]["histogram_radix_single (n = 1M, int8)"] = \
-        launches_per_call(torch, lambda: HK.histogram_radix_single(
-            bins_r, g_ri, h_r, lor_r, n_bins=B, hist_dtype="int8"))
-    del bins_r, lor_r, g_r, h_r, g_ri
 
     # -- rows_t at the bucket sizes of 90k rows: C = 4 (grad, hess, valid,
     # 0), a quarter of the rows masked
@@ -994,7 +1028,7 @@ def check_path_shapes(torch, dev):
           "values) at every shape and edge; launches per call "
           + json.dumps(out["launches_per_call"]), flush=True)
     want_one = [(k, v) for k, v in out["launches_per_call"].items()
-                if "n = 1M" not in k and "pass_scale" not in k and v != 1]
+                if "pass_scale" not in k and v != 1]
     if want_one:
         fail(f"more than one launch per call: {want_one}")
     return out
@@ -1234,13 +1268,37 @@ def check_packed_partition_shapes(torch, dev):
     return out
 
 
-def check_remaining_shapes(torch, dev):
-    """Phase 2e: the kernels still to redesign, at the kernel table's
-    shapes (n = 1M, F = 28, B = 256): ``histogram_radix_joint`` (G = 4) and
-    ``histogram_radix_single``'s 1M root pass (block core), int8: one-call
-    ms, the profiler's device ms and launches per call beside the byte
-    bound and one index_add_ of the same cells (one-call and device ms),
-    to rank the next redesigns."""
+#: features that take 3 values in the skewed bins (3 of 28, as HIGGS's
+#: b-tag columns do after binning)
+SKEWED_FEATURES = (4, 12, 20)
+
+
+def skewed_bins(torch, bins, rng):
+    """A copy of bins u8 [F, n] in which SKEWED_FEATURES take only bins 0, 1
+    and 2 (half, 30% and 20% of rows): a warp's lanes then share a few
+    cells, the case that serializes shared-memory adds."""
+    out = bins.clone()
+    for f in SKEWED_FEATURES:
+        out[f] = torch.as_tensor(rng.choice(3, size=bins.shape[1],
+                                            p=[0.5, 0.3, 0.2]).astype(
+            np.uint8), device=bins.device)
+    return out
+
+
+def check_radix_shapes(torch, dev):
+    """Phase 2e: ``histogram_radix_joint`` and ``histogram_radix_single``'s
+    root pass above 131,072 rows, both masked.cuh's cluster kernel, held
+    bit for bit against their plain versions (int8, and float32/bfloat16 on
+    integer values) and the fixed-point references (float32/bfloat16 on
+    real values, radix_single also with the scale given) at n = 1M on
+    uniform bins and on bins where 3 of the 28 features take 3 values (the
+    root pass with 5% of rows excluded; joint G = 1, 4 and a repeated
+    layout), and at n = 200,000 with strict-style leaf ids (1/32 of rows
+    selected, leaf 37; joint over 128 ids); then timed on both bin sets in
+    int8 and on the uniform bins in float32 (one-call ms, the profiler's
+    device ms and launches per call, exactly one) beside the byte bound
+    (the leaf ids, then the selected rows' bins, grad and hess) and one
+    index_add_ of the same cells."""
     from lightgbm_tpu_torch.ops import hist_kernels as HK
     rng = np.random.default_rng(17)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
@@ -1248,43 +1306,212 @@ def check_remaining_shapes(torch, dev):
     def t(a):
         return torch.as_tensor(a, device=dev)
     bins = t(rng.integers(0, B - 1, size=(F, N), dtype=np.uint8))
-    g = t(rng.integers(-2, 3, size=N).astype(np.float32))
-    h = t(rng.integers(0, 5, size=N).astype(np.float32))
+    sets = {"uniform": bins, "skewed": skewed_bins(torch, bins, rng)}
+    gi = t(rng.integers(-2, 3, size=N).astype(np.float32))
+    hi = t(rng.integers(0, 5, size=N).astype(np.float32))
+    gr = t(rng.normal(size=N).astype(np.float32))
+    hr = t(rng.random(N).astype(np.float32))
     lor = t(rng.integers(0, 64, size=N, dtype=np.int32))
-    lv4 = t(rng.permutation(64)[:4].astype(np.int32))
+    lv = rng.permutation(64)[:4].astype(np.int32)
+    joints = {"G = 1": t(lv[:1]), "G = 4": t(lv),
+              "G = 4 repeated": t(lv[[0, 1, 0, 0]])}
     lor_root = t(np.where(rng.random(N) < 0.05, -1, 0).astype(np.int32))
-    kw = dict(n_bins=B, hist_dtype="int8")
-    vals = torch.stack([g, h, torch.ones_like(g)], 1).repeat(F, 1)
-    fi = torch.arange(F, device=dev)[:, None]
+
+    def bitwise(a, b, what):
+        if a.shape != b.shape or not torch.equal(a.view(torch.int32),
+                                                 b.view(torch.int32)):
+            d = ((a.double() - b.double()).abs().max().item()
+                 if a.shape == b.shape else float("nan"))
+            fail(f"{what}: kernel differs (max abs diff {d})")
+
+    def hold(kernel, plain, fixed, args, what, scale=False):
+        """args(g, h) -> the call's operands"""
+        for mode in ("int8", "float32", "bfloat16"):
+            kw = dict(n_bins=B, hist_dtype=mode)
+            bitwise(kernel(*args(gi, hi), **kw), plain(*args(gi, hi), **kw),
+                    f"{what} {mode}, integer values, vs plain")
+            if mode == "int8":
+                continue
+            ref = fixed(*args(gr, hr), **kw)
+            bitwise(kernel(*args(gr, hr), **kw), ref,
+                    f"{what} {mode} vs fixed-point")
+            if scale:
+                sc = HK.pass_scale(*args(gr, hr)[1:3])
+                bitwise(kernel(*args(gr, hr), scale=sc, **kw), ref,
+                        f"{what} {mode}, scale given, vs fixed-point")
+
+    for bk, bb in sets.items():
+        hold(HK.histogram_radix_single, HK.histogram_radix_single_plain,
+             HK.histogram_radix_single_fixed,
+             lambda g, h, bb=bb: (bb, g, h, lor_root),
+             f"histogram_radix_single (n = 1M, {bk})", scale=True)
+        for jn, lvt in joints.items():
+            hold(HK.histogram_radix_joint, HK.histogram_radix_joint_plain,
+                 HK.histogram_leaves_fixed,
+                 lambda g, h, bb=bb, lvt=lvt: (bb, g, h, lor, lvt),
+                 f"histogram_radix_joint ({jn}, n = 1M, {bk})")
+    # strict-style leaf ids at 200,000 rows (the cluster kernel too: above
+    # 131,072 rows), NaN grad on the excluded rows
+    n2 = 200_000
+    sel2 = rng.random(n2) < 1 / 32
+    lor2 = t(np.where(sel2, 37, -1).astype(np.int32))
+    lor3 = t(rng.integers(0, 128, size=n2, dtype=np.int32))
+    b2 = bins[:, :n2].contiguous()
+    nan = float("nan")
+
+    def args2(g, h):
+        return (b2, torch.where(lor2 >= 0, g[:n2], nan), h[:n2].contiguous(),
+                lor2)
+
+    hold(HK.histogram_radix_single, HK.histogram_radix_single_plain,
+         HK.histogram_radix_single_fixed, args2,
+         f"histogram_radix_single (n = {n2}, 1/32 selected, leaf 37)",
+         scale=True)
+    hold(HK.histogram_radix_joint, HK.histogram_radix_joint_plain,
+         HK.histogram_leaves_fixed,
+         lambda g, h: (b2, g[:n2].contiguous(), h[:n2].contiguous(), lor3,
+                       joints["G = 4"]),
+         f"histogram_radix_joint (G = 4, n = {n2}, 1/32 selected)")
+    print("path shapes (radix): histogram_radix_single (1M root, 200,000 "
+          "strict ids) and histogram_radix_joint (G = 1, 4, repeated) equal "
+          "their plain versions and the fixed-point references bit for bit "
+          "on uniform and skewed bins", flush=True)
+
     out = []
-    for name, call, sel, slot, nslot, nbytes in (
-            ("histogram_radix_joint", lambda: HK.histogram_radix_joint(
-                bins, g, h, lor, lv4, **kw), torch.isin(lor, lv4),
-             (lor[None, :] == lv4[:, None]).to(torch.uint8).argmax(0), 4,
-             F * N + 12 * N + 16 + 16 * 4 * F * B),
+    vals = torch.stack([gi, hi, torch.ones_like(gi)], 1).repeat(F, 1)
+    fi = torch.arange(F, device=dev)[:, None]
+    for name, make, sel, slot, nslot in (
             ("histogram_radix_single (1M root)",
-             lambda: HK.histogram_radix_single(bins, g, h, lor_root, **kw),
-             lor_root >= 0, torch.zeros_like(lor_root), 1,
-             F * N + 12 * N + 16 * F * B)):
-        # library: ONE index_add_ of every (row, feature) value triple into
-        # its (slot, feature, bin) cell, the cell index precomputed
-        cell = torch.where(sel[None, :], (slot[None, :].long() * F + fi) * B
-                           + bins.long(), nslot * F * B).reshape(-1)
-        acc = torch.zeros(nslot * F * B + 1, 3, device=dev)
+             lambda bb, g, h, mode: lambda: HK.histogram_radix_single(
+                 bb, g, h, lor_root, n_bins=B, hist_dtype=mode),
+             lor_root >= 0, torch.zeros_like(lor_root), 1),
+            ("histogram_radix_joint (G = 4)",
+             lambda bb, g, h, mode: lambda: HK.histogram_radix_joint(
+                 bb, g, h, lor, joints["G = 4"], n_bins=B, hist_dtype=mode),
+             torch.isin(lor, joints["G = 4"]),
+             (lor[None, :] == joints["G = 4"][:, None]).to(
+                 torch.uint8).argmax(0), 4),
+            ("histogram_radix_joint (G = 1)",
+             lambda bb, g, h, mode: lambda: HK.histogram_radix_joint(
+                 bb, g, h, lor, joints["G = 1"], n_bins=B, hist_dtype=mode),
+             lor == joints["G = 1"][0], torch.zeros_like(lor), 1)):
+        n_sel = int(sel.sum().item())
+        b_ms, b_by = bound_ms(4 * N + n_sel * (F + 8) + 4 * nslot
+                              + 16 * nslot * F * B, 3 * F * n_sel)
+        for bk, bb in sets.items():
+            r = dict(kernel=name, bins=bk, selected=n_sel, bound_ms=b_ms,
+                     bound_by=b_by)
+            for mode, g, h in (("int8", gi, hi), ("float32", gr, hr)):
+                if mode == "float32" and bk == "skewed":
+                    continue
+                call = make(bb, g, h, mode)
+                r[f"ms_{mode}"] = time_ms(torch, call, flush)
+                r[f"launches_{mode}"], r[f"device_ms_{mode}"] = \
+                    device_per_call(torch, call)
+            # library: ONE index_add_ of every (row, feature) value triple
+            # into its (slot, feature, bin) cell, the cell index precomputed
+            cell = torch.where(sel[None, :], (slot[None, :].long() * F + fi)
+                               * B + bb.long(), nslot * F * B).reshape(-1)
+            acc = torch.zeros(nslot * F * B + 1, 3, device=dev)
+
+            def lib():
+                return acc.index_add_(0, cell, vals)
+
+            r.update(library_ms=time_ms(torch, lib, flush),
+                     library_device_ms=device_per_call(torch, lib)[1])
+            out.append(r)
+            print("path shape: " + json.dumps(r), flush=True)
+            del cell, acc
+    many = [(r["kernel"], r["bins"], r.get("launches_int8"),
+             r.get("launches_float32")) for r in out
+            if r["launches_int8"] != 1
+            or r.get("launches_float32", 1) != 1]
+    if many:
+        fail(f"radix passes: more than one launch per call: {many}")
+    return out
+
+
+def check_leaves_rows(torch, dev):
+    """Phase 2e, continued: ``histogram_leaves_rows`` (the masked pass from
+    row-major bins u8 [S, F]; no training path calls it) at S = 251,904,
+    F = 28, K = 42 (repeated slots; one 32-bit load gives a row's four
+    bins of a block's features) and at a ragged S = 100,003 with F = 30
+    (a byte a bin): int8 and float32/bfloat16 on integer values against
+    its plain version, float32/bfloat16 on real values against
+    ``histogram_leaves_fixed`` on the transposed bins, bit for bit; timed
+    at S = 251,904 in int8 and float32 with its launches per call (exactly
+    one) beside its byte bound and one index_add_ of the same cells."""
+    from lightgbm_tpu_torch.ops import hist_kernels as HK
+    rng = np.random.default_rng(19)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+
+    def t(a):
+        return torch.as_tensor(a, device=dev)
+
+    lv = rng.permutation(64)[:K].astype(np.int32)
+    lv[-2:] = lv[0]
+    leaves = t(lv)
+    r = None
+    for S, nf in ((BUCKETS[0], F), (100_003, 30)):
+        br = t(rng.integers(0, B - 1, size=(S, nf), dtype=np.uint8))
+        lor = t(rng.integers(0, 64, size=S, dtype=np.int32))
+        gi = t(rng.integers(-2, 3, size=S).astype(np.float32))
+        hi = t(rng.integers(0, 5, size=S).astype(np.float32))
+        gr = t(rng.normal(size=S).astype(np.float32))
+        hr = t(rng.random(S).astype(np.float32))
+        for mode in ("int8", "float32", "bfloat16"):
+            kw = dict(n_bins=B, hist_dtype=mode)
+            checks = [(HK.histogram_leaves_rows(br, gi, hi, lor, leaves, **kw),
+                       HK.histogram_leaves_rows_plain(br, gi, hi, lor, leaves,
+                                                      **kw), "plain")]
+            if mode != "int8":
+                checks.append((
+                    HK.histogram_leaves_rows(br, gr, hr, lor, leaves, **kw),
+                    HK.histogram_leaves_fixed(br.t().contiguous(), gr, hr,
+                                              lor, leaves, **kw),
+                    "the fixed-point reference"))
+            for a, b_, what in checks:
+                if not torch.equal(a.view(torch.int32), b_.view(torch.int32)):
+                    d = (a.double() - b_.double()).abs().max().item()
+                    fail(f"histogram_leaves_rows {mode} (S = {S}, F = {nf}) "
+                         f"differs from {what} (max abs diff {d})")
+        if r is not None:
+            continue
+        sel = torch.isin(lor, leaves)
+        n_sel = int(sel.sum().item())
+        b_ms, b_by = bound_ms(4 * S + n_sel * (F + 8) + 4 * K
+                              + 16 * K * F * B, 3 * F * n_sel)
+        r = dict(kernel="histogram_leaves_rows", S=S, K=K, selected=n_sel,
+                 bound_ms=b_ms, bound_by=b_by)
+        for mode, g, h in (("int8", gi, hi), ("float32", gr, hr)):
+            def call(g=g, h=h, mode=mode):
+                return HK.histogram_leaves_rows(br, g, h, lor, leaves,
+                                                n_bins=B, hist_dtype=mode)
+
+            r[f"ms_{mode}"] = time_ms(torch, call, flush)
+            r[f"launches_{mode}"], r[f"device_ms_{mode}"] = \
+                device_per_call(torch, call)
+        slot = (lor[None, :] == leaves[:, None]).to(torch.uint8).argmax(0)
+        cell = torch.where(sel[None, :], (slot[None, :].long() * F
+                                          + torch.arange(F, device=dev)[
+                                              :, None]) * B + br.t().long(),
+                           K * F * B).reshape(-1)
+        vals = torch.stack([gi, hi, torch.ones_like(gi)], 1).repeat(F, 1)
+        acc = torch.zeros(K * F * B + 1, 3, device=dev)
 
         def lib():
             return acc.index_add_(0, cell, vals)
 
-        b_ms, b_by = bound_ms(nbytes, 3 * F * int(sel.sum().item()))
-        r = dict(kernel=name, ms=time_ms(torch, call, flush))
-        r["launches"], r["device_ms"] = device_per_call(torch, call)
-        r.update(bound_ms=b_ms, bound_by=b_by,
-                 library_ms=time_ms(torch, lib, flush),
+        r.update(library_ms=time_ms(torch, lib, flush),
                  library_device_ms=device_per_call(torch, lib)[1])
-        out.append(r)
         print("path shape: " + json.dumps(r), flush=True)
-        del cell, acc
-    return out
+        del cell, vals, acc
+    print("path shapes (rows-major): histogram_leaves_rows equals its plain "
+          "version and the fixed-point reference bit for bit at S = "
+          f"{BUCKETS[0]} (F = 28) and S = 100,003 (F = 30)", flush=True)
+    if r["launches_int8"] != 1 or r["launches_float32"] != 1:
+        fail(f"histogram_leaves_rows: not one launch per call: {r}")
+    return r
 
 
 def payload_bucket(torch, dev, rng, S, real, lor_ids=64):
@@ -1710,6 +1937,7 @@ def train_slice(torch, lgbt, n_train, rounds, device_type=None, seed=0,
 def launch_counts(HK, RF, TB, prng):
     return {"take_small_table": TB.launches,
             "histogram_leaves": HK.leaves_launches,
+            "histogram_leaves_rows": HK.leaves_rows_launches,
             "histogram_payload": HK.payload_launches,
             "partition_payload": RF.launches,
             "partition_select": RF.select_launches,
@@ -1724,6 +1952,7 @@ def launch_counts(HK, RF, TB, prng):
 def zero_counts(HK, RF, TB, prng):
     TB.launches = RF.launches = RF.select_launches = prng.launches = 0
     HK.leaves_launches = HK.payload_launches = HK.rows_launches = 0
+    HK.leaves_rows_launches = 0
     HK.radix_single_launches = HK.radix_joint_launches = 0
     HK.radix2_launches = HK.packed_launches = 0
     HK.rows_launches_by_size.clear()
@@ -1827,12 +2056,15 @@ def ab_trainings(torch, old_pkg, new_pkg, pairs=10):
 
 def ab_main(other_root):
     """Phase A/B: this checkout's kernels against another checkout's, in one
-    process, old/new/new/old: take_small_table at n = 1M, T = 255 and
+    process, old/new/new/old: take_small_table at n = 1M, T = 255,
     histogram_payload at the four compaction buckets of 1M rows (cnt =
-    0.8 S, K = 42; int8, and float32 on real values), each with identical
-    bits required, one-call ms (20 calls, L2 flushed) and the profiler's
-    device ms and launches per call; then the trainings of ab_trainings,
-    whose model text must be identical."""
+    0.8 S, K = 42; int8, and float32 on real values), and
+    histogram_radix_single's 1M root pass (5% of rows excluded) and
+    histogram_radix_joint (G = 4 and 1) at n = 1M, int8 on uniform bins and
+    on bins where 3 of the 28 features take 3 values, float32 on uniform
+    bins, each with identical bits required, one-call ms (20 calls, L2
+    flushed) and the profiler's device ms and launches per call; then the
+    trainings of ab_trainings, whose model text must be identical."""
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
@@ -1873,6 +2105,34 @@ def ab_main(other_root):
                            m.histogram_payload(p, leaves, cnt, num_f=F,
                                                n_bins=B, hist_dtype=mode),
                            HK, OK))
+    bins = torch.as_tensor(rng.integers(0, B - 1, size=(F, N),
+                                        dtype=np.uint8), device=dev)
+    sets = {"uniform": bins, "skewed": skewed_bins(torch, bins, rng)}
+    vals = {"int8": [torch.as_tensor(a.astype(np.float32), device=dev)
+                     for a in (rng.integers(-2, 3, size=N),
+                               rng.integers(0, 5, size=N))],
+            "float32": [torch.as_tensor(a.astype(np.float32), device=dev)
+                        for a in (rng.normal(size=N), rng.random(N))]}
+    lor = torch.as_tensor(rng.integers(0, 64, size=N, dtype=np.int32),
+                          device=dev)
+    lor_root = torch.as_tensor(np.where(rng.random(N) < 0.05, -1, 0).astype(
+        np.int32), device=dev)
+    lv4 = torch.as_tensor(rng.permutation(64)[:4].astype(np.int32),
+                          device=dev)
+    for bk, mode in (("uniform", "int8"), ("skewed", "int8"),
+                     ("uniform", "float32")):
+        bb, (g, h) = sets[bk], vals[mode]
+        shapes.append((f"histogram_radix_single n = {N} root, {bk}, {mode}",
+                       lambda m, bb=bb, g=g, h=h, mode=mode:
+                       m.histogram_radix_single(bb, g, h, lor_root, n_bins=B,
+                                                hist_dtype=mode), HK, OK))
+        for G in ((4, 1) if mode == "int8" else (4,)):
+            shapes.append((f"histogram_radix_joint n = {N} G = {G}, {bk}, "
+                           f"{mode}",
+                           lambda m, bb=bb, g=g, h=h, mode=mode, G=G:
+                           m.histogram_radix_joint(bb, g, h, lor, lv4[:G],
+                                                   n_bins=B, hist_dtype=mode),
+                           HK, OK))
     res = []
     for tag, fn, mnew, mold in shapes:
         a, b_ = fn(mnew), fn(mold)
@@ -1896,7 +2156,7 @@ def ab_main(other_root):
         r["new_over_old"] = float(np.mean(r["new_ms"]) / np.mean(r["old_ms"]))
         res.append(r)
         print("ab: " + json.dumps(r), flush=True)
-    del shapes
+    del shapes, bins, sets, vals, lor, lor_root
     torch.cuda.empty_cache()
 
     bad += ab_trainings(torch, old_pkg, new_pkg)
@@ -1941,16 +2201,16 @@ def main():
         wrong = {k: [o for o in v if o.startswith(("ATOMS.CAST", "ATOMG"))
                      or re.match(r"REDG?\.", o)]
                  for k, v in masked.items()}
-        want = {f"masked_cluster<{m}> {src}" for m in range(3)
-                for src in MASKED_SOURCES.values()}
-        if (set(masked) != want or any(wrong.values())
+        if (set(masked) != MASKED_KERNELS or any(wrong.values())
                 or not all("ATOMS.ADD" in v for v in masked.values())):
             fail(f"masked_cluster atomics: {json.dumps(masked)}")
-        print("sass atomics (masked_cluster, the kernel of histogram_leaves "
-              "and histogram_leaves_radix2 (bytes), histogram_leaves_packed "
-              "(words) and histogram_payload (payload)): native ATOMS.ADD, "
-              "no ATOMS.CAST.SPIN, no global RED/ATOM: "
-              + json.dumps(masked), flush=True)
+        print("sass atomics (masked_cluster, the kernel of histogram_leaves, "
+              "histogram_leaves_radix2 and histogram_radix_joint (bytes), "
+              "histogram_radix_single above 131,072 rows (bytes any), "
+              "histogram_leaves_packed (words), histogram_payload (payload) "
+              "and histogram_leaves_rows (rows)): native ATOMS.ADD, no "
+              "ATOMS.CAST.SPIN, no global RED/ATOM: " + json.dumps(masked),
+              flush=True)
     for name, text in sorted(cuda_lib.build_log.items()):
         for ln in text.splitlines():
             if "registers" in ln or "error" in ln.lower():
@@ -1961,7 +2221,8 @@ def main():
     check_path_shapes(torch, torch.device("cuda"))
     check_masked_shapes(torch, torch.device("cuda"))
     check_packed_partition_shapes(torch, torch.device("cuda"))
-    check_remaining_shapes(torch, torch.device("cuda"))
+    check_radix_shapes(torch, torch.device("cuda"))
+    check_leaves_rows(torch, torch.device("cuda"))
     check_take_payload_shapes(torch, torch.device("cuda"))
     check_determinism(torch, torch.device("cuda"))
     print(f"profiler: {len(lost_windows)} window(s) measured again after "

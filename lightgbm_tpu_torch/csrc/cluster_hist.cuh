@@ -61,10 +61,11 @@ struct Acc {
   }
 };
 
-// Val<MODE>::cvt with the scale taken once, f = 2^s: round((double)v * f)
-// is scalbn((double)v, s) rounded, exactly (2^s and the product are normal
-// doubles for every s fixed_shift gives), for a multiply in place of the
-// library call.
+// A value into its mode's sum type, the scale taken once, f = 2^s: int8
+// levels through f32 -> i32 -> i8 (Val<0>::cvt); float32 (bfloat16 after
+// rounding to bf16) as round((double)v * f), which is scalbn((double)v, s)
+// rounded, exactly (2^s and the product are normal doubles for every s
+// fixed_shift gives).
 template <int MODE>
 struct Cvt {
   typedef typename Val<MODE>::T T;

@@ -1,15 +1,21 @@
 // The masked K-leaf (grad, hess, count) histogram of hist.cu
 // (histogram_leaves, every masked pass of hist_kernel=onehot and the pooled
-// rounds' extended pass; histogram_payload, the compacted passes of the
-// default recipe), radix.cu (histogram_leaves_radix2, the K > 4 masked
-// passes of hist_kernel=auto) and packed.cu (histogram_leaves_packed, every
-// masked pass below 128 bins): the four compute the same function and
-// launch the same kernel, reading bins_t u8 [F, n] (SRC_BYTES), the packed
-// mirror words_t i32 [W, n] (SRC_WORDS: one 16-byte load gives four rows
-// of a word's four features, transposed into the layout of four bins_t
-// rows) or the compacted payload i32 [S, W+3] (SRC_PAYLOAD: only its first
+// rounds' extended pass; histogram_leaves_rows, the same from row-major
+// bins; histogram_payload, the compacted passes of the default recipe),
+// radix.cu (histogram_leaves_radix2 and histogram_radix_joint, the masked
+// passes of hist_kernel=auto at K > 4 and K <= 4, and the root pass of
+// histogram_radix_single above 131,072 rows) and packed.cu
+// (histogram_leaves_packed, every masked pass below 128 bins): all compute
+// the same function and launch the same kernel, reading bins_t u8 [F, n]
+// (SRC_BYTES), the packed mirror words_t i32 [W, n] (SRC_WORDS: one
+// 16-byte load gives four rows of a word's four features, transposed into
+// the layout of four bins_t rows), row-major bins u8 [n, F] (SRC_ROWS: a
+// 32-bit word of each of four rows, transposed the same way, at F % 4 ==
+// 0) or the compacted payload i32 [S, W+3] (SRC_PAYLOAD: only its first
 // *cnt rows, staged in shared memory a tile at a time; the scale is over
-// all S rows, n = S).
+// all S rows, n = S).  A row finds its slot in the leaf -> first-slot table
+// of leaves[0, K) (PICK_TABLE), or, in the root pass, takes slot 0 when its
+// leaf id is >= 0 (PICK_ANY: K = 1, no leaf ids, no table).
 //
 // Function: each row whose leaf id is one of leaves[0, K) adds (grad, hess,
 // 1) to the cell (first slot of its leaf, feature, bin); bins >= n_bins add
@@ -36,7 +42,9 @@
 // distributed shared memory, each taking a share of the outputs, and write
 // f32 [K, F, B, 4] themselves: a repeated slot is written from the first
 // slot's sums (the per-block table of first slots says which).  No global
-// accumulator, memset, finalize kernel or global atomic.
+// accumulator, memset, finalize kernel or global atomic.  A caller that
+// holds the float32/bfloat16 scale of the pass (pass_scale) hands it in
+// and the blocks skip their scan.
 //
 // The payload's rows are 40 contiguous bytes at W = 7: a block brings them
 // in 1,024-row tiles (a row a thread), two in a ring, with 16-byte
@@ -48,11 +56,14 @@
 //
 // The plan (plan_masked) weighs the features per block and slot groups
 // that the shared memory holds against the cluster size (up to the
-// portable 8 for bins_t; up to 16, non-portable, for the words, whose F =
-// 28 makes only 7 groups of four features, and the payload) and the
-// clusters cudaOccupancyMaxActiveClusters lets run at once.  A shape no
-// plan fits, or a cluster launch the device refuses, returns its CUDA
-// error: there is no other path.  (cluster_write, which radix_single's
+// portable 8 for bins_t and row-major bins; up to 16, non-portable, for the
+// words, whose F = 28 makes only 7 groups of four features, and the
+// payload) and the clusters cudaOccupancyMaxActiveClusters lets run at
+// once.  At K <= 4 and K = 1 (n = 1M, F = 28, B = 256) it takes two
+// features a block in clusters of 8, the fastest of every (features a
+// block, cluster size) forced on an H100 80GB HBM3.  A shape no plan
+// fits, or a cluster launch the device refuses, returns its CUDA error:
+// there is no other path.  (cluster_write, which radix_single's
 // clusters use, writes one float a lane and made this kernel 10% slower at
 // K = 42 than its own float4 loop.)
 //
@@ -78,8 +89,23 @@ constexpr int kReduceBatch = 4;  // remote reads in flight per channel
 constexpr int kMaxClusterWords = 16;  // non-portable: the packed source
                                       // and the payload
 
+// How a row finds its slot (masked_cluster's fourth template argument)
+enum { PICK_TABLE = 0,  // the first of leaves[0, K) equal to its leaf id,
+                        // through the leaf -> first-slot table
+       PICK_ANY = 1 };  // slot 0 when its leaf id is >= 0 (K = 1, no ids:
+                        // the root pass of histogram_radix_single)
+
+// PICK_ANY's private accumulator copies, lane i adding into copy
+// i % kAnyCopies (each copy one word further along the banks): with every
+// row in one slot, the lanes of a warp that share a bin share an address,
+// and a feature of few values serializes the warp's adds.  1M-row root
+// pass, int8, bins of 3 of the 28 features taking 3 values (NVIDIA H100
+// 80GB HBM3, 700 W): 1 copy 0.1025 ms, 2 0.0940, 4 0.0832, 8 0.0714; on
+// uniform bins 0.0627 with 1 copy, 0.0641 with 8.
+constexpr int kAnyCopies = 8;
+
 struct Masked {
-  const uint8_t* bins_t;     // SRC_BYTES: u8 [F, n]
+  const uint8_t* bins_t;     // SRC_BYTES: u8 [F, n]; SRC_ROWS: u8 [n, F]
   const unsigned* words_t;   // SRC_WORDS: i32 [W, n], byte j = feature 4w+j
   long n;                    // rows (SRC_PAYLOAD: S, the scale's count)
   int num_f;
@@ -93,8 +119,15 @@ struct Masked {
   int spg;   // slots per slot group
   long rpb;  // rows per block, a multiple of 4
   float4* out;
-  const int* payload;  // SRC_PAYLOAD: i32 [S, W+3]: W bin words, grad
-  int W;               // bits, hess bits, leaf id; rows at >= *cnt excluded
+  union {
+    const int* payload;    // SRC_PAYLOAD: i32 [S, W+3]: W bin words, grad
+                           // bits, hess bits, leaf id; rows at >= *cnt
+                           // excluded
+    const unsigned* vmax;  // PICK_ANY: null, or the float bits of max
+                           // finite |grad|, |hess| over all n rows
+                           // (pass_scale): no scan
+  };
+  int W;               // SRC_PAYLOAD: bin words a row
   const int* cnt;      // i32 [1], read on the device
   int tile_rows;       // SRC_PAYLOAD: rows of each row tile
 };
@@ -115,10 +148,14 @@ __host__ __device__ inline int payload_tile_rows(int W) {
 }
 
 // Shared-memory bytes of the accumulator of ``slots`` slots and ``fpb``
-// features, rounded up to 16 (the row tiles follow it)
+// features in ``copies`` copies (more than one: a word of padding each, so
+// that a bin's cell falls in another bank in every copy), rounded up to 16
+// (the row tiles follow it)
 __host__ __device__ inline size_t masked_acc_bytes(int slots, int fpb,
-                                                   int n_bins, int words) {
-  return ((size_t)slots * 3 * fpb * n_bins * words * sizeof(unsigned) + 15) /
+                                                   int n_bins, int words,
+                                                   int copies) {
+  return ((size_t)copies * ((size_t)slots * 3 * fpb * n_bins * words +
+                            (copies > 1 ? 1 : 0)) * sizeof(unsigned) + 15) /
          16 * 16;
 }
 
@@ -200,11 +237,15 @@ __device__ inline void rows_to_features(unsigned m0, unsigned m1, unsigned m2,
 
 // SRC: SRC_BYTES (hist_common.cuh) reads feature f's row of bins_t; SRC_WORDS
 // reads word f >> 2 of words_t, shifted so that byte j is feature f0 + j;
-// SRC_PAYLOAD reads word f >> 2 of a payload row in a shared-memory tile
-template <int MODE, int VEC, int SRC>
+// SRC_PAYLOAD reads word f >> 2 of a payload row in a shared-memory tile;
+// SRC_ROWS reads a row's bytes f0.. of bins_t (VEC = 4: word f0 >> 2 of
+// four rows, F % 4 == 0, transposed as the words are).  PICK: PICK_TABLE
+// or PICK_ANY.
+template <int MODE, int VEC, int SRC, int PICK>
 __global__ void __launch_bounds__(kMaskedThreads, 1)
     masked_cluster(const Masked t) {
   typedef typename Val<MODE>::T T;
+  constexpr int kCopies = PICK == PICK_ANY ? kAnyCopies : 1;
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cl = cg::this_cluster();
   int* tab = reinterpret_cast<int*>(smem);
@@ -215,7 +256,7 @@ __global__ void __launch_bounds__(kMaskedThreads, 1)
   unsigned* w = reinterpret_cast<unsigned*>(smem + masked_head_bytes(t.K));
   int* tiles = reinterpret_cast<int*>(
       smem + masked_head_bytes(t.K) +
-      masked_acc_bytes(t.spg, t.fpb, t.n_bins, Acc<MODE>::kWords));
+      masked_acc_bytes(t.spg, t.fpb, t.n_bins, Acc<MODE>::kWords, kCopies));
   const int f0 = blockIdx.x * t.fpb;
   const int nf = min(t.fpb, t.num_f - f0);
   const unsigned* wrow = SRC == SRC_WORDS ? t.words_t + (long)(f0 >> 2) * t.n
@@ -228,22 +269,36 @@ __global__ void __launch_bounds__(kMaskedThreads, 1)
   const int nb = t.n_bins;
   const int plane = t.fpb * nb;  // one (slot, channel): features x bins
   const int cells = ns * 3 * plane;
-  for (int i = threadIdx.x; i < cells * Acc<MODE>::kWords; i += blockDim.x)
-    w[i] = 0;
+  // words of one accumulator copy (masked_acc_bytes)
+  const int cw = cells * Acc<MODE>::kWords + (kCopies > 1 ? 1 : 0);
+  for (int i = threadIdx.x; i < kCopies * cw; i += blockDim.x) w[i] = 0;
   if (threadIdx.x < 3) hdr[1 + threadIdx.x] = 0;
-  build_slot_table(tab, hdr, t.leaves, t.K);  // syncs the zeroing too
-  const int ut = hdr[0];
-  for (int k = threadIdx.x; k < t.K; k += blockDim.x)
-    first[k] = slot_of(__ldg(t.leaves + k), tab, ut, t.leaves, t.K);
-  __syncthreads();
-  if (threadIdx.x == 0) {  // in slot order: every block deals the same list
-    int m = 0;
-    for (int k = 0; k < t.K; ++k)
-      if (first[k] >= k0 && first[k] < k0 + ns) own[m++] = k;
-    hdr[1] = m;
+  int ut = 0;
+  if constexpr (PICK == PICK_TABLE) {
+    build_slot_table(tab, hdr, t.leaves, t.K);  // syncs the zeroing too
+    ut = hdr[0];
+    for (int k = threadIdx.x; k < t.K; k += blockDim.x)
+      first[k] = slot_of(__ldg(t.leaves + k), tab, ut, t.leaves, t.K);
+    __syncthreads();
+    if (threadIdx.x == 0) {  // in slot order: every block deals the same list
+      int m = 0;
+      for (int k = 0; k < t.K; ++k)
+        if (first[k] >= k0 && first[k] < k0 + ns) own[m++] = k;
+      hdr[1] = m;
+    }
+  } else {
+    if (threadIdx.x == 0) {  // the one slot, after thread 0 zeroed hdr[1]
+      first[0] = own[0] = 0;
+      hdr[1] = 1;
+    }
+    __syncthreads();
   }
   int sg = 0, sh = 0;
-  if (MODE != 0) {
+  if (PICK == PICK_ANY && MODE != 0 && t.vmax != nullptr) {  // no scan
+    __syncthreads();
+    sg = fixed_shift(__ldg(t.vmax), t.n);
+    sh = fixed_shift(__ldg(t.vmax + 1), t.n);
+  } else if (MODE != 0) {
     if constexpr (SRC == SRC_PAYLOAD) {  // all S rows, over every block
       const long nbl = (long)cl.num_blocks();
       const long ra = (t.n + nbl - 1) / nbl;
@@ -260,10 +315,15 @@ __global__ void __launch_bounds__(kMaskedThreads, 1)
   }
   // a row's slot in this group, or -1
   auto slot = [&](int l) {
-    const int s = slot_of(l, tab, ut, t.leaves, t.K) - k0;
-    return s >= 0 && s < ns ? s : -1;
+    if constexpr (PICK == PICK_ANY) {
+      return l >= 0 ? 0 : -1;
+    } else {
+      const int s = slot_of(l, tab, ut, t.leaves, t.K) - k0;
+      return s >= 0 && s < ns ? s : -1;
+    }
   };
-  const Acc<MODE> a = {w, cells};
+  const Acc<MODE> a = {
+      kCopies > 1 ? w + (int)(threadIdx.x % kCopies) * cw : w, cells};
   const Cvt<MODE> cvg = {ldexp(1.0, sg)}, cvh = {ldexp(1.0, sh)};
   // one row of local slot s: (grad, hess, 1) into each feature's planes;
   // byte u of bw[j] is the row's bin of feature f0 + j
@@ -354,6 +414,18 @@ __global__ void __launch_bounds__(kMaskedThreads, 1)
                                  : make_uint4(0u, 0u, 0u, 0u);
           rows_to_features(m.x >> wsh, m.y >> wsh, m.z >> wsh, m.w >> wsh,
                            bw[k]);
+        } else if (SRC == SRC_ROWS) {
+          // word f0 >> 2 of each of the four rows (F / 4 words a row)
+          const unsigned* rw = reinterpret_cast<const unsigned*>(
+                                   t.bins_t) + rr[k] * (t.num_f >> 2) +
+                               (f0 >> 2);
+          unsigned m[4] = {0u, 0u, 0u, 0u};
+          if (any[k]) {
+#pragma unroll
+            for (int u = 0; u < 4; ++u)
+              m[u] = __ldg(rw + u * (t.num_f >> 2)) >> wsh;
+          }
+          rows_to_features(m[0], m[1], m[2], m[3], bw[k]);
         } else {
 #pragma unroll
           for (int j = 0; j < kMaskedMaxFpb; ++j)
@@ -379,12 +451,27 @@ __global__ void __launch_bounds__(kMaskedThreads, 1)
       unsigned bw[kMaskedMaxFpb];
       const unsigned m = SRC == SRC_WORDS ? __ldg(wrow + r) >> wsh : 0u;
 #pragma unroll
-      for (int j = 0; j < kMaskedMaxFpb; ++j)
-        bw[j] = SRC == SRC_WORDS
-                    ? m >> (8 * j)
-                    : (j < nf ? __ldg(t.bins_t + (long)(f0 + j) * t.n + r)
-                              : 0u);
+      for (int j = 0; j < kMaskedMaxFpb; ++j) {
+        if (SRC == SRC_WORDS)
+          bw[j] = m >> (8 * j);
+        else if (j >= nf)
+          bw[j] = 0u;
+        else if (SRC == SRC_ROWS)
+          bw[j] = __ldg(t.bins_t + r * t.num_f + f0 + j);
+        else
+          bw[j] = __ldg(t.bins_t + (long)(f0 + j) * t.n + r);
+      }
       add(__ldg(t.grad + r), __ldg(t.hess + r), bw, 0, s);
+    }
+  }
+  if constexpr (kCopies > 1) {  // fold the copies into copy 0
+    __syncthreads();
+    const Acc<MODE> a0 = {w, cells};
+    for (int i = threadIdx.x; i < cells; i += blockDim.x) {
+      T v = a0.get(w, i);
+#pragma unroll
+      for (int q = 1; q < kCopies; ++q) v += a0.get(w + q * cw, i);
+      a0.set(i, v);
     }
   }
   cl.sync();
@@ -445,15 +532,15 @@ inline int max_clusters(const void* fn, dim3 grid, size_t smem) {
 }
 
 // The launch of ``fn`` for n rows, F features, K slots, B bins at ``words``
-// 32-bit words a cell and ``tiles`` bytes of row tiles: for each
-// features-per-block (4, 2, 1) with the fewest slot groups that fit, and
-// each cluster size up to ``max_cs`` that the device takes at that shared
-// memory, the cost waves x rows per block x (2 + features per block) (a
-// row's leaf id, slot and values, then its bin and three atomics per
-// feature); the cheapest wins, the smaller cluster on a tie.  Sizes above
-// the portable 8 need the non-portable attribute.
+// 32-bit words a cell, ``copies`` accumulator copies and ``tiles`` bytes of
+// row tiles: for each features-per-block (4, 2, 1) with the fewest slot
+// groups that fit, and each cluster size up to ``max_cs`` that the device
+// takes at that shared memory, the cost waves x rows per block x
+// (2 + features per block) (a row's leaf id, slot and values, then its bin
+// and three atomics per feature); the cheapest wins, the smaller cluster
+// on a tie.  Sizes above the portable 8 need the non-portable attribute.
 inline int plan_masked(const void* fn, long n, int num_f, int K, int n_bins,
-                       int words, int max_cs, size_t tiles,
+                       int words, int copies, int max_cs, size_t tiles,
                        MaskedPlan* best) {
   int optin = 0;
   int err = optin_smem(&optin);
@@ -464,8 +551,9 @@ inline int plan_masked(const void* fn, long n, int num_f, int K, int n_bins,
     cudaGetLastError();
     max_cs = kMaxCluster;
   }
-  const size_t head = masked_head_bytes(K) + tiles + 16;  // 16: rounding
-  const size_t per = (size_t)3 * n_bins * sizeof(unsigned) * words;
+  // 16: rounding; 4 a copy: its padding word
+  const size_t head = masked_head_bytes(K) + tiles + 16 + 4 * copies;
+  const size_t per = (size_t)3 * n_bins * sizeof(unsigned) * words * copies;
   double best_cost = -1.0;
   for (int fpb = kMaskedMaxFpb; fpb >= 1; fpb >>= 1) {
     if (fpb > num_f && fpb > 1) continue;
@@ -474,7 +562,8 @@ inline int plan_masked(const void* fn, long n, int num_f, int K, int n_bins,
     const int sgroups = (K + spg - 1) / spg;
     spg = (K + sgroups - 1) / sgroups;
     const size_t smem = masked_head_bytes(K) +
-                        masked_acc_bytes(spg, fpb, n_bins, words) + tiles;
+                        masked_acc_bytes(spg, fpb, n_bins, words, copies) +
+                        tiles;
     const int fgroups = (num_f + fpb - 1) / fpb;
     err = allow_smem(fn, smem);
     if (err) return err;
@@ -510,7 +599,8 @@ struct PlanCache {
 };
 
 inline int cached_plan(const void* fn, long n, int num_f, int K, int n_bins,
-                       int words, int max_cs, size_t tiles, MaskedPlan* p) {
+                       int words, int copies, int max_cs, size_t tiles,
+                       MaskedPlan* p) {
   static PlanCache c;
   int dev = 0;
   int err = (int)cudaGetDevice(&dev);
@@ -524,7 +614,8 @@ inline int cached_plan(const void* fn, long n, int num_f, int K, int n_bins,
       return 0;
     }
   }
-  err = plan_masked(fn, n, num_f, K, n_bins, words, max_cs, tiles, p);
+  err = plan_masked(fn, n, num_f, K, n_bins, words, copies, max_cs, tiles,
+                    p);
   if (err) return err;
   c.e[c.next] = {fn, dev, num_f, K, n_bins, n, tiles, *p};
   c.next = (c.next + 1) % 64;
@@ -532,47 +623,49 @@ inline int cached_plan(const void* fn, long n, int num_f, int K, int n_bins,
   return 0;
 }
 
-template <int MODE, int VEC, int SRC>
+template <int MODE, int VEC, int SRC, int PICK>
 int launch_masked(Masked t, cudaStream_t s) {
   const void* fn =
-      reinterpret_cast<const void*>(masked_cluster<MODE, VEC, SRC>);
+      reinterpret_cast<const void*>(masked_cluster<MODE, VEC, SRC, PICK>);
   MaskedPlan p;
   // the payload's two row tiles
   const size_t tiles =
       SRC == SRC_PAYLOAD ? (size_t)kStages * t.tile_rows * (t.W + 3) * 4 : 0;
-  int err = cached_plan(fn, t.n, t.num_f, t.K, t.n_bins, Acc<MODE>::kWords,
-                        SRC == SRC_BYTES ? kMaxCluster : kMaxClusterWords,
-                        tiles, &p);
+  int err = cached_plan(
+      fn, t.n, t.num_f, t.K, t.n_bins, Acc<MODE>::kWords,
+      PICK == PICK_ANY ? kAnyCopies : 1,
+      SRC == SRC_BYTES || SRC == SRC_ROWS ? kMaxCluster : kMaxClusterWords,
+      tiles, &p);
   if (err) return err;
   t.fpb = p.fpb;
   t.spg = p.spg;
   t.rpb = p.rpb;
-  return launch_clusters(masked_cluster<MODE, VEC, SRC>, p.grid,
+  return launch_clusters(masked_cluster<MODE, VEC, SRC, PICK>, p.grid,
                          kMaskedThreads, p.smem, s, t);
 }
 
 // VEC = 4 when the row source takes 16-byte loads (the payload always:
 // run_masked_payload refuses an unaligned one)
-template <int MODE, int SRC>
+template <int MODE, int SRC, int PICK>
 int launch_vec(const Masked& t, bool vec, cudaStream_t s) {
   if constexpr (SRC == SRC_PAYLOAD) {
-    return launch_masked<MODE, 4, SRC>(t, s);
+    return launch_masked<MODE, 4, SRC, PICK>(t, s);
   } else {
-    return vec ? launch_masked<MODE, 4, SRC>(t, s)
-               : launch_masked<MODE, 1, SRC>(t, s);
+    return vec ? launch_masked<MODE, 4, SRC, PICK>(t, s)
+               : launch_masked<MODE, 1, SRC, PICK>(t, s);
   }
 }
 
-template <int SRC>
+template <int SRC, int PICK = PICK_TABLE>
 int dispatch_masked(const Masked& t, bool vec, int mode, cudaStream_t s) {
   if (t.K <= 0 || t.num_f <= 0) return 0;
   switch (mode) {
     case 0:
-      return launch_vec<0, SRC>(t, vec, s);
+      return launch_vec<0, SRC, PICK>(t, vec, s);
     case 1:
-      return launch_vec<1, SRC>(t, vec, s);
+      return launch_vec<1, SRC, PICK>(t, vec, s);
     case 2:
-      return launch_vec<2, SRC>(t, vec, s);
+      return launch_vec<2, SRC, PICK>(t, vec, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -3,24 +3,24 @@
 // Replaces three TPU kernels of lightgbm_tpu/ops/hist_pallas.py, each over
 // bins_t u8 [F, n], grad/hess f32 [n] and leaf_of_row i32 [n]:
 //   * histogram_radix_single_pallas -> lgbt_hist_radix_single: the root
-//     pass and the strict grower's per-split pass, f32 [F, B, 4]; rows with
-//     leaf_of_row < 0 are excluded;
-//   * histogram_radix_joint_pallas -> lgbt_hist_radix_joint: the masked
-//     pass of G <= 4 leaves (the warm-up ladder's widths 1 and 4),
-//     f32 [G, F, B, 4];
-//   * histogram_leaves_radix2_pallas -> lgbt_hist_radix2: the masked pass of
-//     K > 4 leaves (width 16 and every K = 42 full pass), f32 [K, F, B, 4]:
-//     the one-launch cluster kernel of masked.cuh (the function hist.cu's
-//     lgbt_hist_leaves computes too).
-// Slots repeating an earlier slot's leaf get identical copies.
+//     pass and the strict grower's per-split pass, f32 [F, B, 4]; every row
+//     whose leaf_of_row is >= 0 counts, whatever its id;
+//   * histogram_radix_joint_pallas (G <= 4 leaves, the warm-up ladder's
+//     widths 1 and 4) and histogram_leaves_radix2_pallas (K > 4 leaves,
+//     width 16 and every K = 42 full pass) -> lgbt_hist_radix2: the masked
+//     pass, f32 [K, F, B, 4], slots repeating an earlier slot's leaf
+//     getting copies: the one-launch cluster kernel of masked.cuh (the
+//     function hist.cu's lgbt_hist_leaves computes too), whose plan picks
+//     the features per block and the cluster size for the K it is given.
 //
 // The TPU kernels split bin = 16*hi + lo and contract nibble one-hots on the
 // MXU, with p-fold off-diagonal waste, because the TPU has no fast scatter.
 // None of that carries over: on Hopper the function is a scatter into
-// shared memory, and the kernels differ in how a row finds its slot and how
-// a block's shared memory is spent:
-//   * radix_single up to 131,072 rows (the strict grower runs below 100k):
-//     one cluster of up to 8 blocks per feature group covers every row
+// shared memory, summed across a thread-block cluster through distributed
+// shared memory, in one launch (no global accumulator, memset, finalize or
+// global atomic).  radix_single takes one of two cluster kernels:
+//   * up to 131,072 rows (the strict grower runs below 100k): one cluster
+//     of up to 8 blocks per feature group covers every row
 //     (cluster_hist.cuh), one feature per block at F = 28 (224 blocks of
 //     512 threads).  Each block scans its chunk of leaf ids four rows at a
 //     time, two quads in flight (one 16-byte load each; grad, hess and the
@@ -29,47 +29,27 @@
 //     memory (6 KB per feature in float32), values converted with one
 //     multiply, 64-bit sums as two native 32-bit atomics; then the cluster
 //     sums its blocks' accumulators through distributed shared memory and
-//     writes f32 itself.  One launch: no global accumulator, memset,
-//     finalize or global atomics.
-//     The float32/bfloat16 scale comes from the caller (pass_scale, once per
-//     tree) or, when not given, from the cluster's own max |grad|, |hess|
-//     over all rows, inside the same launch;
-//   * radix_single above that (the 1M-row root pass of the default recipe):
-//     hist_common.cuh's block core with 8 private copies (one per four
-//     warps) and 4 features, so a row's leaf, grad and hess are read once
-//     for four features (96 KB at B = 256 in int8, two blocks per SM; the
-//     64-bit sums of float32 and bfloat16 take 192 KB);
-//   * radix_joint: G <= 4 leaf ids sit in registers (no slot table); 4
-//     features x G slots x 2 copies (96 KB at G = 4, B = 256).
+//     writes f32 itself;
+//   * above that (the 1M-row root pass of the default recipe): masked.cuh's
+//     cluster kernel with the PICK_ANY selector (slot 0 for every row whose
+//     leaf id is >= 0; K = 1, no slot table), planned like the masked pass.
+// The float32/bfloat16 scale comes from the caller (pass_scale, once per
+// tree) or, when not given, from the cluster's own max |grad|, |hess| over
+// all rows, inside the same launch.
 //
 // Bound on the H100: bytes.  A 1M-row pass at F = 28 reads 28 MB of bins and
 // 12 MB of grad, hess and leaf ids and writes K*F*B*16 bytes (0.46 MB per
 // slot): 40-45 MB, ~0.012-0.013 ms at 3.35 TB/s.  A strict split reads the
 // n leaf ids and, for its selected rows only, 28 bin bytes and grad/hess:
-// 0.5-2.1 MB at 90k rows, under a microsecond.  What sets the cluster
+// 0.5-2.1 MB at 90k rows, under a microsecond.  What sets the small cluster
 // kernel's pace is latency: each step waits for its leaf ids, then for the
 // selected rows' values (about half its time at 1/32 of rows selected),
 // then come two cluster barriers and the reduction through distributed
 // shared memory (a quarter).
-// The block core still re-reads a row's leaf, grad and hess once per
-// feature group (from L2) and flushes one global atomic per non-zero cell
-// per block.
 
 #include "masked.cuh"
 
 namespace {
-
-template <int MODE>
-__global__ void __launch_bounds__(kThreads)
-    radix_single_kernel(Task t, typename Val<MODE>::T* __restrict__ glob) {
-  hist_block<MODE, SEL_ROOT>(t, glob);
-}
-
-template <int MODE>
-__global__ void __launch_bounds__(kThreads)
-    radix_joint_kernel(Task t, typename Val<MODE>::T* __restrict__ glob) {
-  hist_block<MODE, SEL_FEW>(t, glob);
-}
 
 constexpr int kRadixThreads = 512;
 constexpr int kRadixMaxFpb = 4;
@@ -200,8 +180,8 @@ __global__ void __launch_bounds__(kRadixThreads, 2)
   cl.sync();  // no block leaves while another reads its shared memory
 }
 
-// The cluster path's shape for n rows, or false when n needs the block
-// core (more than kClusterRows rows per block)
+// The cluster path's shape for n rows, or false when n takes masked.cuh's
+// kernel (more than kClusterRows rows per block)
 struct ClusterPlan {
   int cs, fpb, groups;
   long rpb;
@@ -220,24 +200,18 @@ bool plan_single(long n, int num_f, ClusterPlan* p) {
 }
 
 template <int MODE>
-int run_single(Task t, void* scratch, float* out, cudaStream_t s) {
+int run_single(const ClusterPlan& p, const uint8_t* bins_t, long n,
+               int num_f, const float* grad, const float* hess,
+               const int* lor, int n_bins, const unsigned* vmax, bool vec,
+               float* out, cudaStream_t s) {
   typedef typename Val<MODE>::T T;
-  if (t.num_f <= 0) return 0;
-  ClusterPlan p;
-  if (!plan_single(t.n, t.num_f, &p))
-    return run_hist<MODE>(radix_single_kernel<MODE>, t, 4, false, 8, false,
-                          scratch, out, s);
-  const size_t smem =
-      (size_t)p.fpb * t.n_bins * 3 * sizeof(T) + 16;
-  const bool vec = t.n % 4 == 0 && aligned(t.bins_t, 4) &&
-                   aligned(t.grad, 16) && aligned(t.hess, 16) &&
-                   aligned(t.lor, 16);
-  const bool own = MODE != 0 && t.vmax == nullptr;
+  const size_t smem = (size_t)p.fpb * n_bins * 3 * sizeof(T) + 16;
+  const bool own = MODE != 0 && vmax == nullptr;
 #define LGBT_SINGLE(OWN, VEC)                                              \
   return launch_clusters(radix_single_cluster<MODE, OWN, VEC>,            \
                          dim3(p.groups, p.cs), kRadixThreads, smem, s,    \
-                         t.bins_t, t.n, t.num_f, t.grad, t.hess, t.lor,   \
-                         t.n_bins, p.fpb, p.rpb, t.vmax, out)
+                         bins_t, n, num_f, grad, hess, lor, n_bins, p.fpb, \
+                         p.rpb, vmax, out)
   if (own) {
     if (vec) LGBT_SINGLE(true, 4);
     LGBT_SINGLE(true, 1);
@@ -247,56 +221,40 @@ int run_single(Task t, void* scratch, float* out, cudaStream_t s) {
 #undef LGBT_SINGLE
 }
 
-enum { KIND_SINGLE = 0, KIND_JOINT = 1 };
-
-template <int MODE>
-int run(int kind, Task t, void* scratch, float* out, cudaStream_t s) {
-  switch (kind) {
-    case KIND_SINGLE:
-      return run_single<MODE>(t, scratch, out, s);
-    case KIND_JOINT:
-      return run_hist<MODE>(radix_joint_kernel<MODE>, t, 4, false, 2, false,
-                            scratch, out, s);
-  }
-  return (int)cudaErrorInvalidValue;
-}
-
-int dispatch(int kind, int mode, Task t, void* scratch, float* out,
-             void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (mode) {
-    case 0:
-      return run<0>(kind, t, scratch, out, s);
-    case 1:
-      return run<1>(kind, t, scratch, out, s);
-    case 2:
-      return run<2>(kind, t, scratch, out, s);
-  }
-  return (int)cudaErrorInvalidValue;
-}
-
 }  // namespace
 
-// scratch: zero-filled [K, num_f, n_bins, 3] int32 (mode 0) or int64 (1,
-// 2) plus one int64 for the modes' scale (hist_common.cuh run_hist);
-// out: f32 [K, num_f, n_bins, 4] (K = 1 for the root pass).
-// radix_single: vmax, when not null, holds the float bits of max finite
-// |grad| and |hess| (lgbt_pass_scale); scratch is read only when
-// lgbt_radix_single_scratch says so, and may be null otherwise.
-extern "C" int lgbt_radix_single_scratch(long n, int num_f) {
-  ClusterPlan p;
-  return num_f > 0 && !plan_single(n, num_f, &p);
-}
-
+// out: f32 [num_f, n_bins, 4]; mode 0 int8, 1 float32, 2 bfloat16; vmax,
+// when not null, holds the float bits of max finite |grad| and |hess|
+// (lgbt_pass_scale), else the launch finds them.
 extern "C" int lgbt_hist_radix_single(const uint8_t* bins_t, long n,
                                       int num_f, const float* grad,
                                       const float* hess, const int* lor,
                                       int n_bins, int mode,
-                                      const unsigned* vmax, void* scratch,
-                                      float* out, void* stream) {
-  Task t = {bins_t, n, num_f, grad, hess, lor, nullptr, 1, n_bins};
-  t.vmax = vmax;
-  return dispatch(KIND_SINGLE, mode, t, scratch, out, stream);
+                                      const unsigned* vmax, float* out,
+                                      void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (num_f <= 0) return 0;
+  const bool vec = n % 4 == 0 && aligned(bins_t, 4) && aligned(grad, 16) &&
+                   aligned(hess, 16) && aligned(lor, 16);
+  ClusterPlan p;
+  if (!plan_single(n, num_f, &p)) {  // masked.cuh's kernel, PICK_ANY
+    Masked t = {bins_t, nullptr, n, num_f, grad, hess, lor, nullptr, 1,
+                n_bins, 0, 0, 0, reinterpret_cast<float4*>(out)};
+    t.vmax = vmax;
+    return dispatch_masked<SRC_BYTES, PICK_ANY>(t, vec, mode, s);
+  }
+  switch (mode) {
+    case 0:
+      return run_single<0>(p, bins_t, n, num_f, grad, hess, lor, n_bins,
+                           vmax, vec, out, s);
+    case 1:
+      return run_single<1>(p, bins_t, n, num_f, grad, hess, lor, n_bins,
+                           vmax, vec, out, s);
+    case 2:
+      return run_single<2>(p, bins_t, n, num_f, grad, hess, lor, n_bins,
+                           vmax, vec, out, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // out: zero-filled u32 [2] <- the float bits of max finite |grad|, |hess|
@@ -308,18 +266,8 @@ extern "C" int lgbt_pass_scale(const float* grad, const float* hess, long n,
   return err;
 }
 
-extern "C" int lgbt_hist_radix_joint(const uint8_t* bins_t, long n,
-                                     int num_f, const float* grad,
-                                     const float* hess, const int* lor,
-                                     const int* leaves, int G, int n_bins,
-                                     int mode, void* scratch, float* out,
-                                     void* stream) {
-  if (G > kFewSlots) return (int)cudaErrorInvalidValue;
-  Task t = {bins_t, n, num_f, grad, hess, lor, leaves, G, n_bins};
-  return dispatch(KIND_JOINT, mode, t, scratch, out, stream);
-}
-
-// out: f32 [K, num_f, n_bins, 4] (masked.cuh run_masked)
+// out: f32 [K, num_f, n_bins, 4] (masked.cuh run_masked): the kernel of
+// histogram_radix_joint and histogram_leaves_radix2
 extern "C" int lgbt_hist_radix2(const uint8_t* bins_t, long n, int num_f,
                                 const float* grad, const float* hess,
                                 const int* lor, const int* leaves, int K,

@@ -7,14 +7,20 @@ kernel:
   histogram from the transposed bin matrix, replacing
   ``_histogram_leaves_impl`` (``histogram_leaves_pallas``), csrc/hist.cu
   (the one-launch cluster kernel of csrc/masked.cuh);
+* :func:`histogram_leaves_rows` — the same histogram from row-major bins,
+  replacing ``histogram_leaves_rows_pallas``, csrc/hist.cu (the cluster
+  kernel of csrc/masked.cuh with the rows as its row source);
 * :func:`histogram_payload` — the same histogram straight from the
   compacted i32 payload, replacing ``histogram_payload_pallas``,
   csrc/hist.cu (the cluster kernel of csrc/masked.cuh with the payload
   rows as its row source);
 * :func:`histogram_radix_single` — the root pass (rows with leaf < 0
-  excluded), replacing ``histogram_radix_single_pallas``, csrc/radix.cu;
+  excluded), replacing ``histogram_radix_single_pallas``, csrc/radix.cu
+  (its own cluster kernel up to 131,072 rows, the cluster kernel of
+  csrc/masked.cuh above);
 * :func:`histogram_radix_joint` — the masked pass of G <= 4 leaves,
-  replacing ``histogram_radix_joint_pallas``, csrc/radix.cu;
+  replacing ``histogram_radix_joint_pallas``, csrc/radix.cu (the same
+  function and the same cluster kernel as :func:`histogram_leaves`);
 * :func:`histogram_leaves_radix2` — the masked pass of K leaves at a bin
   count that is a multiple of 16, replacing
   ``histogram_leaves_radix2_pallas``, csrc/radix.cu (the same function
@@ -60,6 +66,7 @@ from . import cuda_lib
 
 #: CUDA launches of each kernel in this process (read by chip_smoke.py)
 leaves_launches = 0
+leaves_rows_launches = 0
 payload_launches = 0
 radix_single_launches = 0
 radix_joint_launches = 0
@@ -78,16 +85,6 @@ def _mode(hist_dtype: str) -> int:
         log.fatal(f"hist_dtype={hist_dtype!r} is not supported by the "
                   f"histogram kernels (expected one of {sorted(_MODES)})")
     return m
-
-
-def _scratch(cells: int, mode: int, dev: torch.device) -> torch.Tensor:
-    """The zeroed global accumulator of a block-core kernel: int32 sums of
-    int8 levels, or int64 fixed-point sums followed by room for the f32 bit
-    patterns of max |grad| and max |hess| (csrc/hist_common.cuh
-    run_hist)."""
-    if mode == 0:
-        return torch.zeros(cells, dtype=torch.int32, device=dev)
-    return torch.zeros(cells + 1, dtype=torch.int64, device=dev)
 
 
 def _hist_plain(bin_of: Callable[[int], torch.Tensor], num_f: int,
@@ -191,6 +188,39 @@ def histogram_leaves(bins_t: torch.Tensor, grad: torch.Tensor,
                      grad, hess, leaf_of_row, leaves, n_bins, hist_dtype)
     if out.numel():
         leaves_launches += 1
+    return out
+
+
+def histogram_leaves_rows_plain(bins_rows: torch.Tensor, grad: torch.Tensor,
+                                hess: torch.Tensor, leaf_of_row: torch.Tensor,
+                                leaves: torch.Tensor, *, n_bins: int,
+                                hist_dtype: str = "float32") -> torch.Tensor:
+    """Plain version of :func:`histogram_leaves_rows`: the flat histogram of
+    the transposed bins."""
+    return histogram_leaves_plain(bins_rows.t(), grad, hess, leaf_of_row,
+                                  leaves, n_bins=n_bins,
+                                  hist_dtype=hist_dtype)
+
+
+def histogram_leaves_rows(bins_rows: torch.Tensor, grad: torch.Tensor,
+                          hess: torch.Tensor, leaf_of_row: torch.Tensor,
+                          leaves: torch.Tensor, *, n_bins: int,
+                          hist_dtype: str = "float32") -> torch.Tensor:
+    """Masked multi-leaf histogram f32 [K, F, n_bins, 4] from row-major bins
+    u8 [S, F] (the operands of :func:`histogram_leaves` otherwise; float32
+    and bfloat16 give the bits of :func:`histogram_leaves_fixed` on the
+    transposed bins)."""
+    if not bins_rows.is_cuda:
+        return histogram_leaves_rows_plain(bins_rows, grad, hess,
+                                           leaf_of_row, leaves,
+                                           n_bins=n_bins,
+                                           hist_dtype=hist_dtype)
+    global leaves_rows_launches
+    out = _leaf_pass("hist", "lgbt_hist_leaves_rows", "histogram_leaves_rows",
+                     bins_rows, grad, hess, leaf_of_row, leaves, n_bins,
+                     hist_dtype, rows=True)
+    if out.numel():
+        leaves_rows_launches += 1
     return out
 
 
@@ -310,11 +340,6 @@ def histogram_radix_single_plain(bins_t: torch.Tensor, grad: torch.Tensor,
                                   n_bins=n_bins, hist_dtype=hist_dtype)[0]
 
 
-#: (n, num_f) -> whether the radix-single pass of that shape takes the
-#: block core's global accumulator (csrc/radix.cu plan_single)
-_radix_scratch: dict = {}
-
-
 def pass_scale_plain(grad: torch.Tensor, hess: torch.Tensor
                      ) -> torch.Tensor:
     """Plain version of :func:`pass_scale`."""
@@ -374,56 +399,46 @@ def histogram_radix_single(bins_t: torch.Tensor, grad: torch.Tensor,
                       "i32 [2] on the device")
         vmax = scale.data_ptr()
     bins_t, grad, hess, lor = _c(bins_t, grad, hess, lor)
-    lib = cuda_lib.load("radix")
     out = torch.empty(num_f, n_bins, 4, dtype=torch.float32,
                       device=bins_t.device)
-    scratch = None
-    needs = _radix_scratch.get((n, num_f))
-    if needs is None:
-        needs = _radix_scratch[n, num_f] = bool(
-            lib.lgbt_radix_single_scratch(n, num_f))
-    if needs:
-        scratch = _scratch(num_f * n_bins * 3, mode, bins_t.device)
-    code = lib.lgbt_hist_radix_single(
+    code = cuda_lib.load("radix").lgbt_hist_radix_single(
         bins_t.data_ptr(), n, num_f, grad.data_ptr(), hess.data_ptr(),
-        lor.data_ptr(), n_bins, mode, vmax,
-        None if scratch is None else scratch.data_ptr(), out.data_ptr(),
+        lor.data_ptr(), n_bins, mode, vmax, out.data_ptr(),
         cuda_lib.stream_handle(bins_t))
     cuda_lib.check(code, "histogram_radix_single")
     radix_single_launches += 1
     return out
 
 
-def _leaf_pass(lib: str, entry: str, what: str, bins_t, grad, hess, lor,
-               leaves, n_bins, hist_dtype, block_core: bool = False
+def _leaf_pass(lib: str, entry: str, what: str, bins, grad, hess, lor,
+               leaves, n_bins, hist_dtype, rows: bool = False
                ) -> torch.Tensor:
-    """Check the operands of a masked pass over bins_t u8 [F, n] and launch
-    ``entry`` of csrc/<lib>.cu into f32 [K, F, n_bins, 4] (an empty output
-    launches nothing); ``block_core``: the kernel also takes the block
-    core's zeroed global accumulator."""
+    """Check the operands of a masked pass over bins u8 [F, n] (``rows``:
+    u8 [n, F]) and launch ``entry`` of csrc/<lib>.cu into f32
+    [K, F, n_bins, 4] (an empty output launches nothing)."""
     mode = _mode(hist_dtype)
-    num_f, n = bins_t.shape
+    if bins.dim() != 2:
+        log.fatal(f"{what} takes a 2-d bin matrix")
+    n, num_f = bins.shape if rows else bins.shape[::-1]
     K = leaves.shape[0]
-    if bins_t.dtype != torch.uint8:
+    if bins.dtype != torch.uint8:
         log.fatal(f"{what} kernel takes u8 bins")
-    _check_pass(what, n, grad, hess, lor, leaves, n_bins, bins_t.device)
-    bins_t, grad, hess, lor, leaves = _c(bins_t, grad, hess, lor, leaves)
+    _check_pass(what, n, grad, hess, lor, leaves, n_bins, bins.device)
+    bins, grad, hess, lor, leaves = _c(bins, grad, hess, lor, leaves)
     out = torch.empty(K, num_f, n_bins, 4, dtype=torch.float32,
-                      device=bins_t.device)
+                      device=bins.device)
     if out.numel() == 0:
         return out
-    args = [bins_t.data_ptr(), n, num_f, grad.data_ptr(), hess.data_ptr(),
-            lor.data_ptr(), leaves.data_ptr(), K, n_bins, mode]
-    if block_core:
-        args.append(_scratch(K * num_f * n_bins * 3, mode,
-                             bins_t.device).data_ptr())
     code = getattr(cuda_lib.load(lib), entry)(
-        *args, out.data_ptr(), cuda_lib.stream_handle(bins_t))
+        bins.data_ptr(), n, num_f, grad.data_ptr(), hess.data_ptr(),
+        lor.data_ptr(), leaves.data_ptr(), K, n_bins, mode, out.data_ptr(),
+        cuda_lib.stream_handle(bins))
     cuda_lib.check(code, what)
     return out
 
 
-#: the joint kernel keeps its leaf ids in registers
+#: the most leaves histogram_radix_joint takes (the warm-up ladder's widths
+#: are 1 and 4; the JAX kernel's contract)
 RADIX_JOINT_MAX_LEAVES = 4
 
 histogram_radix_joint_plain = histogram_leaves_plain
@@ -444,10 +459,9 @@ def histogram_radix_joint(bins_t: torch.Tensor, grad: torch.Tensor,
     if not 1 <= leaves.shape[0] <= RADIX_JOINT_MAX_LEAVES:
         log.fatal(f"histogram_radix_joint takes 1 to "
                   f"{RADIX_JOINT_MAX_LEAVES} leaves, got {leaves.shape[0]}")
-    out = _leaf_pass("radix", "lgbt_hist_radix_joint",
-                     "histogram_radix_joint", bins_t, grad, hess,
-                     leaf_of_row, leaves, n_bins, hist_dtype,
-                     block_core=True)
+    out = _leaf_pass("radix", "lgbt_hist_radix2", "histogram_radix_joint",
+                     bins_t, grad, hess, leaf_of_row, leaves, n_bins,
+                     hist_dtype)
     if out.numel():
         radix_joint_launches += 1
     return out

@@ -17,6 +17,7 @@ import jax.numpy as jnp
 from lightgbm_tpu.ops import hist_pallas as JP
 from lightgbm_tpu.ops import histogram as JH
 from lightgbm_tpu.ops.hist_pallas import (_histogram_leaves_impl,
+                                          histogram_leaves_rows_pallas,
                                           histogram_payload_pallas)
 from lightgbm_tpu.ops.histogram import bins_to_words as jax_bins_to_words
 from lightgbm_tpu.ops.round_fuse import (partition_payload_pallas,
@@ -27,6 +28,7 @@ from lightgbm_tpu_torch.ops import hist_kernels as HK
 from lightgbm_tpu_torch.ops import histogram as TH
 from lightgbm_tpu_torch.ops.hist_kernels import (histogram_leaves,
                                                  histogram_leaves_packed,
+                                                 histogram_leaves_rows,
                                                  histogram_leaves_radix2,
                                                  histogram_payload,
                                                  histogram_radix_joint,
@@ -133,6 +135,31 @@ def test_histogram_leaves_matches_pallas(case):
     got = histogram_leaves(_t(np.ascontiguousarray(bins.T)), _t(grad),
                            _t(hess), _t(lor), _t(leaves), n_bins=64,
                            hist_dtype=mode).numpy()
+    assert np.isfinite(got).all()
+    if case == "empty_selection":
+        assert not got.any()
+    _assert_hist(got, want, case in ("f32_real", "f32_nan_excluded"))
+
+
+@pytest.mark.parametrize("case", ["int8", "f32_int_valued", "f32_real",
+                                  "f32_nan_excluded", "repeated_slots",
+                                  "ragged_n", "k1", "k8",
+                                  "leaf_ids_past_table", "k84",
+                                  "empty_selection"])
+def test_histogram_leaves_rows_matches_pallas(case):
+    """The masked pass from row-major bins u8 [S, F] (F = 9: no whole word
+    per row) against the Pallas kernel's rows_major layout."""
+    n = 2000 if case == "ragged_n" else 2048
+    bins, grad, hess, lor, leaves, mode = _hist_inputs(case, n, 9, 64)
+    cdt = jnp.int8 if mode == "int8" else jnp.float32
+    want = np.asarray(histogram_leaves_rows_pallas(
+        jnp.asarray(bins), jnp.asarray(grad), jnp.asarray(hess),
+        jnp.asarray(lor), jnp.asarray(leaves), n_bins=64,
+        rows_per_block=512, compute_dtype=cdt, interpret=True))
+    got = histogram_leaves_rows(_t(bins), _t(grad), _t(hess), _t(lor),
+                                _t(leaves), n_bins=64,
+                                hist_dtype=mode).numpy()
+    assert got.shape == (leaves.shape[0], 9, 64, 4)
     assert np.isfinite(got).all()
     if case == "empty_selection":
         assert not got.any()
@@ -351,9 +378,27 @@ def _pallas_kw(mode):
                 interpret=True)
 
 
-@pytest.mark.parametrize("case", sorted(_AUTO_CASES))
+#: radix_single beyond _AUTO_CASES: case -> (inputs of that case, and the
+#: map lor -> lor * mul + off of its leaf ids >= 0): the strict grower's
+#: leaf ids other than 0, ids past 2048, every row excluded, and NaN and
+#: inf in both grad and hess of the excluded rows
+_SINGLE_EXTRA = {
+    "leaf_ids_not_0": ("int8_256_bins", 37, 5),
+    "leaf_ids_past_table": ("f32_real", 1, 2999),
+    "all_excluded": ("f32_int_valued_f6", 0, -1),
+    "nan_inf_excluded": ("bf16_real_ragged_n", 1, 0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_AUTO_CASES) + sorted(_SINGLE_EXTRA))
 def test_radix_single_matches_pallas(case):
-    bins, grad, hess, lor, _, n_bins, mode, real = _auto_inputs(case)
+    base, mul, off = _SINGLE_EXTRA.get(case, (case, 1, 0))
+    bins, grad, hess, lor, _, n_bins, mode, real = _auto_inputs(base)
+    lor = np.where(lor < 0, -1, lor * mul + off).astype(np.int32)
+    out = lor < 0
+    if case == "nan_inf_excluded":
+        grad[out] = np.where(np.arange(out.sum()) % 2, np.inf, np.nan)
+        hess[out] = np.where(np.arange(out.sum()) % 3, np.nan, -np.inf)
     want = np.asarray(JP.histogram_radix_single_pallas(
         jnp.asarray(bins.T), jnp.asarray(grad), jnp.asarray(hess),
         jnp.asarray(lor), n_bins=n_bins, p=4, **_pallas_kw(mode)))
@@ -361,14 +406,27 @@ def test_radix_single_matches_pallas(case):
                                  _t(hess), _t(lor), n_bins=n_bins,
                                  hist_dtype=mode).numpy()
     assert got.shape == (bins.shape[1], n_bins, 4) and np.isfinite(got).all()
+    assert got[..., 2].sum() == (lor >= 0).sum() * bins.shape[1]
     _assert_hist(got, want, real)
 
 
-@pytest.mark.parametrize("case", sorted(_AUTO_CASES))
+#: radix_joint beyond _AUTO_CASES: case -> (inputs of that case, leaf ids):
+#: G = 1, 2 and 3, and the warm-up ladder's dummy layout of one leaf
+#: repeated in every slot
+_JOINT_EXTRA = {
+    "g1": ("f32_real", [6]),
+    "g2": ("bf16_real_ragged_n", [2, 0]),
+    "g3": ("f30", [1, 6, 3]),
+    "dummy_repeat": ("int8_256_bins", [7, 7, 7, 7]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_AUTO_CASES) + sorted(_JOINT_EXTRA))
 def test_radix_joint_matches_pallas(case):
-    lv = {"int8_256_bins": [5], "repeated_slots": [4, 2, 4, 4]}.get(case)
+    base, lv = _JOINT_EXTRA.get(case, (case, None))
+    lv = {"int8_256_bins": [5], "repeated_slots": [4, 2, 4, 4]}.get(case, lv)
     bins, grad, hess, lor, leaves, n_bins, mode, real = _auto_inputs(
-        case, seed=6, leaves=lv)
+        base, seed=6, leaves=lv)
     want = np.asarray(JP.histogram_radix_joint_pallas(
         jnp.asarray(bins.T), jnp.asarray(grad), jnp.asarray(hess),
         jnp.asarray(lor), jnp.asarray(leaves), n_bins=n_bins, p=4,
