@@ -99,8 +99,28 @@ else: no jax, no network.  Phases, each of which fails the run on error:
    deterministic); the pooled recipe at 100k x 3: tree 0 identical on the
    card and the CPU.
 
-It prints one JSON line with every kernel's numbers, the card's name and
-power limit, and as its last line ``{"ok": true, "device": {...}}``.
+5. the fused round loop (``GBDT.train_fused``, each boosting round one
+   replay of a captured CUDA graph): the default recipe, max_bin=63, the
+   pooled default, onehot and ``deterministic=true`` at phase 3's sizes,
+   each through ``train()`` with no per-round callback, twice: the model
+   text must be phase 3's classic text both times; each with its s/round,
+   peak device memory, graph replays, flag reads per boosting round and
+   kernel launches per tree (counts zeroed just before, read just after);
+   a profiled fused chunk of the default recipe (busy share, launches),
+   the device time of a round that is not live, and the chunk's host
+   reads by source line; ten alternating fused/classic training
+   pairs of the default recipe (the classic loop forced by patching
+   ``GBDT.supports_fused``): median s/round, the pairs' mean difference
+   and its standard error, the fused median no slower; early stopping on
+   100k rows with the 200k-row valid set (metric=auc, learning_rate 0.5,
+   patience 3): best_iteration, trees and the recorded evaluations as the
+   classic loop's, the device AUC within 1e-4 of ``predict``'s.
+
+It prints one JSON line with every kernel's numbers (launches: the fused
+runs' for the kernels a fused run holds, the bucketed strict run's for
+``histogram_rows_t``; the "library device ms" line adds the index_add_
+device times of rows 2, 7 and 8), the card's name and power limit, and as
+its last line ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --ab DIR`` instead compares ``take_small_table``,
 ``histogram_payload``, ``histogram_radix_single`` (the 1M root pass) and
@@ -111,6 +131,7 @@ the two packages' trainings: see ``ab_main``.
 
 import collections
 import hashlib
+import inspect
 import json
 import os
 import re
@@ -246,6 +267,11 @@ def sass_atomics(cuda_lib):
     return found
 
 
+#: device ms of the library call (one index_add_ into precomputed cells)
+#: of the masked passes phase 2 times, by kernel
+library_device = {}
+
+
 def check_kernels(torch, dev):
     """Phase 2: every kernel against its plain version, timed."""
     from lightgbm_tpu_torch.ops import hist_kernels as HK
@@ -342,6 +368,8 @@ def check_kernels(torch, dev):
             bins_t, g, h, lor, leaves, **kw), flush),
         time_ms(torch, lambda: acc.index_add_(0, cell, vals), flush),
         F * N + 12 * N + 4 * K + 16 * K * F * B, 3 * F * sel_rows, err)
+    library_device["histogram_leaves"] = device_per_call(
+        torch, lambda: acc.index_add_(0, cell, vals))[1]
     del slot, cell, vals, acc
 
     # -- 3. payload histogram over a compacted bucket (int8: bitwise)
@@ -411,9 +439,10 @@ def check_kernels(torch, dev):
 
     # -- 5-8. the radix and packed kernels of hist_kernel=auto (int8:
     # bitwise), each timed against one index_add_ of its cells
-    def yardstick(bins_long, sel, slot, nslot, nb):
+    def yardstick(bins_long, sel, slot, nslot, nb, name=None):
         """ONE index_add_ of every (row, feature) value triple into its
-        (slot, feature, bin) cell, the cell index precomputed."""
+        (slot, feature, bin) cell, the cell index precomputed; with
+        ``name``, its device ms too (``library_device``)."""
         nf = bins_long.shape[0]
         cell = torch.where(
             sel[None, :], (slot[None, :].long() * nf
@@ -421,6 +450,9 @@ def check_kernels(torch, dev):
             + bins_long, nslot * nf * nb).reshape(-1)
         vals = torch.stack([g, h, torch.ones_like(g)], 1).repeat(nf, 1)
         acc = torch.zeros(nslot * nf * nb + 1, 3, device=dev)
+        if name is not None:
+            library_device[name] = device_per_call(
+                torch, lambda: acc.index_add_(0, cell, vals))[1]
         return time_ms(torch, lambda: acc.index_add_(0, cell, vals), flush)
 
     def masked_slot(lor_, leaves_):
@@ -484,7 +516,7 @@ def check_kernels(torch, dev):
             bins_t, g, h, lor, leaves, **kw), flush),
         time_ms(torch, lambda: HK.histogram_leaves_radix2_plain(
             bins_t, g, h, lor, leaves, **kw), flush),
-        yardstick(bins_t.long(), sel, slot, K, B),
+        yardstick(bins_t.long(), sel, slot, K, B, "histogram_leaves_radix2"),
         F * N + 12 * N + 4 * K + 16 * K * F * B, 3 * F * n_sel, err)
 
     # packed: the max_bin=63 recipe's masked passes, B = 64, W = 7 words
@@ -501,7 +533,8 @@ def check_kernels(torch, dev):
             words_t, g, h, lor, leaves, **kwk), flush),
         time_ms(torch, lambda: HK.histogram_leaves_packed_plain(
             words_t, g, h, lor, leaves, **kwk), flush),
-        yardstick(bins_t64.long(), sel, slot, K, N64),
+        yardstick(bins_t64.long(), sel, slot, K, N64,
+                  "histogram_leaves_packed"),
         4 * W * N + 12 * N + 4 * K + 16 * K * F * N64, 3 * F * n_sel, err)
     del bins_t64, words_t
 
@@ -1845,10 +1878,27 @@ def check_determinism(torch, dev):
     return times
 
 
+def profiler_work(prof, what):
+    """device_work(prof), or None (printed as not measured) when the
+    profiler itself fails or saw no device time; the work it profiled
+    ran outside this, so its own errors fail the run."""
+    try:
+        work = device_work(prof)
+    except (RuntimeError, AttributeError) as e:
+        print(f"{what}: not measured (the profiler: {type(e).__name__}: "
+              f"{e})", flush=True)
+        return None
+    if sum(us for _, _, us in work) <= 0:
+        print(f"{what}: device time not measured (the profiler saw none)",
+              flush=True)
+        return None
+    return work
+
+
 def profile_round(torch, bst):
     """One more boosting round under torch.profiler: the device's busy
-    share of the round and the kernels that take the time.  Informational,
-    so a profiler that sees no device time reports 'not measured'.
+    share of the round and the kernels that take the time.  Informational:
+    a profiler that fails or sees no device time reports 'not measured'.
     Returns the round's kernel launches (None when not measured)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1858,12 +1908,11 @@ def profile_round(torch, bst):
         bst.update()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kern = [(us / 1e3, cnt, name) for name, cnt, us in device_work(prof)]
-    busy = sum(k[0] for k in kern)
-    if busy <= 0:
-        print("profile: device time not measured (the profiler saw none)",
-              flush=True)
+    work = profiler_work(prof, "profile")
+    if work is None:
         return None
+    kern = [(us / 1e3, cnt, name) for name, cnt, us in work]
+    busy = sum(k[0] for k in kern)
     kern.sort(reverse=True)
     launches = sum(k[1] for k in kern)
     print(f"profile: one round {wall_ms:.1f} ms wall (profiled), device "
@@ -1872,15 +1921,6 @@ def profile_round(torch, bst):
     for ms, cnt, name in kern[:8]:
         print(f"  {ms:8.3f} ms {cnt:5d}x {name[:90]}", flush=True)
     return launches
-
-
-def profiled(torch, bst):
-    """profile_round, informational: a profiler fault is reported."""
-    try:
-        return profile_round(torch, bst)
-    except (RuntimeError, AttributeError) as e:
-        print(f"profile: not measured ({type(e).__name__}: {e})", flush=True)
-        return None
 
 
 def auc(y, s):
@@ -1950,6 +1990,7 @@ def launch_counts(HK, RF, TB, prng):
 
 
 def zero_counts(HK, RF, TB, prng):
+    HK.zero_gate_counts()
     TB.launches = RF.launches = RF.select_launches = prng.launches = 0
     HK.leaves_launches = HK.payload_launches = HK.rows_launches = 0
     HK.leaves_rows_launches = 0
@@ -1978,6 +2019,320 @@ def leading_agreement(a, b):
             break
         k += 1
     return k
+
+
+# ---- phase 5: the fused round loop
+
+def fused_train(torch, lgbt, ds, rounds, classic=False, **extra):
+    """``train()`` of the recipe (updated by ``extra``) on the constructed
+    Dataset ``ds`` with no per-round callback: the fused loop; with
+    ``classic``, the classic loop, forced by patching
+    ``GBDT.supports_fused`` as the JAX package's tests do (a per-round
+    clock then stamps its rounds).  Returns (booster, s/round, the whole
+    train() call's wall seconds, peak device MiB).  s/round, each round's
+    host work included: the classic loop's rounds 2.. (a stamp after each
+    round's tree is built; the first round's one-time work left out), the
+    fused loop's chunk walls over their rounds (``FusedRound.walls``: from
+    before the chunk's inputs are staged to after its trees are built, the
+    warm-up round and capture left out)."""
+    from lightgbm_tpu_torch.boosting import gbdt as G
+    params = dict(RECIPE, **extra)
+    stamps, cbs = [], []
+    orig = G.GBDT.supports_fused
+    if classic:
+        G.GBDT.supports_fused = lambda self: False
+
+        def clock(env):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+        cbs = [clock]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        bst = lgbt.train(params, ds, num_boost_round=rounds, callbacks=cbs)
+    finally:
+        G.GBDT.supports_fused = orig
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    frs = list(bst._gbdt._fused_cache.values())
+    if classic:
+        if frs:
+            fail("the forced classic loop ran the fused round")
+        per = float(np.mean(np.diff([t0] + stamps)[1:]))
+    else:
+        if len(frs) != 1 or frs[0].graphs is None:
+            fail("train() with no per-round callback did not replay the "
+                 "fused round's CUDA graphs")
+        per = (sum(w for w, _ in frs[0].walls)
+               / sum(r for _, r in frs[0].walls))
+    return bst, per, wall, peak
+
+
+#: the kernel symbols (torch.profiler names) each group of wrapper counters
+#: launches: a wrapper call is one launch of its group's symbol
+SYMBOLS = (
+    (("histogram_leaves", "histogram_leaves_radix2",
+      "histogram_radix_joint"), r"masked_cluster<\d+, \d+, 0, 0>"),
+    (("histogram_radix_single",),
+     r"masked_cluster<\d+, \d+, 0, 1>|radix_single_cluster"),
+    (("histogram_leaves_packed",), r"masked_cluster<\d+, \d+, 1, "),
+    (("histogram_payload",), r"masked_cluster<\d+, \d+, 2, "),
+    (("histogram_leaves_rows",), r"masked_cluster<\d+, \d+, 3, "),
+    (("partition_payload",), r"partition_kernel<true"),
+    (("partition_select",), r"partition_kernel<false"),
+    (("take_small_table",), r"take_kernel"),
+    (("histogram_rows_t",), r"rows_channel"))
+
+
+def symbol_mismatch(work, booked):
+    """The groups of SYMBOLS whose launches in the profiler's ``work``
+    differ from the wrappers' ``booked`` counts: {group: (profiler,
+    wrappers)}."""
+    out = {}
+    for names, rx in SYMBOLS:
+        seen = sum(c for nm, c, _ in work if re.search(rx, nm))
+        want = sum(booked[k] for k in names)
+        if seen != want:
+            out["+".join(names)] = (seen, want)
+    return out
+
+
+def check_fused(torch, lgbt, classic_sha, HK, RF, TB, prng):
+    """Phase 5: the fused round loop on the card.  The five trainings of
+    phase 3 with a batched grower, each through ``train()`` with no
+    per-round callback (each boosting round one replay of a captured CUDA
+    graph) and twice: the model text must be phase 3's classic text, both
+    times; each run's kernel launches (counts zeroed just before, read just
+    after) with its graph replays, flag reads and extra one-round replays.
+    Then a profiled fused chunk of the default recipe (busy share,
+    launches, host reads by source line), ten alternating fused/classic
+    training pairs of the default recipe, and early stopping with the
+    200k-row valid set (metric=auc): best_iteration as the classic loop's,
+    device AUC within 1e-4 of predict's.  Returns the fused launches of
+    the kernels each run's path holds."""
+    from lightgbm_tpu_torch.boosting import fused_graph as FG
+    rng = np.random.default_rng(0)
+    X, y, w = synth_higgs(N, F, rng)
+    Xv, yv, _ = synth_higgs(200_000, F, rng, w)
+    data = {}
+    for mb in (255, 63):
+        data[mb] = lgbt.Dataset(X, y, params={"max_bin": mb,
+                                              "verbosity": -1}).construct()
+    X1, y1, _ = synth_higgs(100_000, F, np.random.default_rng(0))
+    data["100k"] = lgbt.Dataset(X1, y1, params={
+        "max_bin": 255, "verbosity": -1}).construct()
+    runs = (("default", 255, 10, {}), ("max_bin=63", 63, 5, {"max_bin": 63}),
+            ("pooled", 255, 10, {"histogram_pool_size": 8}),
+            ("onehot", "100k", 3, ONEHOT),
+            ("deterministic", 255, 5, {"deterministic": True}))
+    need = {"default": ("histogram_radix_single", "histogram_radix_joint",
+                        "histogram_leaves_radix2", "histogram_payload",
+                        "partition_payload", "take_small_table"),
+            "max_bin=63": ("histogram_leaves_packed", "histogram_payload",
+                           "partition_payload", "take_small_table"),
+            "pooled": ("partition_select", "histogram_leaves",
+                       "take_small_table"),
+            "onehot": ("histogram_leaves", "histogram_payload",
+                       "take_small_table"),
+            "deterministic": ("histogram_payload", "partition_payload",
+                              "take_small_table")}
+    launches = {}
+    for name, d, rounds, extra in runs:
+        shas = []
+        for rep in range(2):
+            zero_counts(HK, RF, TB, prng)
+            FG.counts.update(replays=0, reads=0, extra=0, rounds=0)
+            bst, per, wall, peak = fused_train(torch, lgbt, data[d], rounds,
+                                               **extra)
+            counts = launch_counts(HK, RF, TB, prng)
+            on = HK.gate_counts()
+            fc = dict(FG.counts)
+            shas.append(text_sha256(bst))
+            if rep == 0:
+                missing = [k for k in need[name] if counts[k] <= 0]
+                if missing:
+                    fail(f"the fused {name} run never launched {missing}")
+                if any(v > counts[k] for k, v in on.items()):
+                    fail(f"fused {name}: gate-on counts {on} above the "
+                         f"launches {counts}")
+                # one flag read per replay, a replay per round and more
+                # only for a tree still growing
+                if (fc["rounds"] != rounds
+                        or fc["reads"] != fc["replays"]
+                        or fc["replays"] < rounds + fc["extra"]):
+                    fail(f"fused {name}: rounds/replays/reads {fc}")
+                fr = next(iter(bst._gbdt._fused_cache.values()))
+                print(f"fused ({name}, {rounds} rounds, {fr.R} K-wide "
+                      f"rounds a tree after the ladder): s/round {per:.5f} "
+                      f"(the chunk's wall: staging, replays, the transfer, "
+                      f"the trees built), train() {wall:.3f} s in all, "
+                      f"warm-up round and capture "
+                      f"{fr.capture_s:.2f} s, peak device memory "
+                      f"{peak:.1f} MiB, graph replays {fc['replays']} "
+                      f"(one-round extra {fc['extra']}), flag reads "
+                      f"{fc['reads']} ({fc['reads'] / rounds:.2f} per "
+                      f"boosting round); kernel launches (the eager "
+                      f"warm-up round's and the replays') "
+                      f"{json.dumps({k: v for k, v in counts.items() if v})}"
+                      f", of them with the gate on (device count; a masked "
+                      f"pass gated off exits at once, a payload pass takes "
+                      f"no row) {json.dumps(on)}",
+                      flush=True)
+                for k in need[name]:
+                    launches.setdefault(k, counts[k])
+            del bst
+        if shas[0] != shas[1] or shas[0] != classic_sha[name]:
+            fail(f"fused {name}: model text sha256 {shas} vs the classic "
+                 f"loop's {classic_sha[name]}")
+        print(f"model text sha256 (fused {name}): {shas[0]}, twice, equal "
+              f"to the classic loop's", flush=True)
+        torch.cuda.empty_cache()
+
+    # a profiled fused chunk of the default recipe (the graph of train()'s
+    # chunk of 10 replayed again): its busy share over the window's wall,
+    # and the wrappers' launch counts held against the profiler's kernels
+    # (a window whose records disagree is measured again, up to 3 in all)
+    bst, _, _, _ = fused_train(torch, lgbt, data[255], 10)
+    g = bst._gbdt
+    from torch.profiler import ProfilerActivity, profile
+    for attempt in range(3):
+        FG.counts.update(replays=0, reads=0, extra=0, rounds=0)
+        zero_counts(HK, RF, TB, prng)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            g.train_fused(10)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        work = profiler_work(prof, "fused profile")
+        if work is None:
+            fail("fused profile: the busy share and launches were not "
+                 "measured")
+        booked = launch_counts(HK, RF, TB, prng)
+        bad = symbol_mismatch(work, booked)
+        if not bad:
+            break
+        print(f"fused profile: profiler vs wrapper launches {bad}; "
+              f"measured again", flush=True)
+    else:
+        fail(f"fused profile: the wrappers' launch counts disagree with the "
+             f"profiler's kernels: {bad}")
+    kern = sorted(((us / 1e3, cnt, nm) for nm, cnt, us in work),
+                  reverse=True)
+    busy = sum(k[0] for k in kern)
+    n_l = sum(k[1] for k in kern)
+    print(f"fused profile (default, a chunk of 10 rounds, CUDA activity "
+          f"only): {wall:.1f} ms wall, device busy {busy:.2f} ms "
+          f"({100 * busy / wall:.1f}% of the window), {n_l} kernel launches "
+          f"({n_l / 10:.0f} a round), graph replays {FG.counts['replays']}, "
+          f"flag reads {FG.counts['reads']}", flush=True)
+    for ms, cnt, nm in kern[:10]:
+        print(f"  {ms:8.3f} ms {cnt:6d}x {nm[:90]}", flush=True)
+    per_tree = {k: v / 10 for k, v in booked.items() if v}
+    on_tree = {k: v / 10 for k, v in HK.gate_counts().items()}
+    print(f"fused launches per tree (default, the chunk's replays; equal to "
+          f"the profiler's by kernel): {json.dumps(per_tree)}; with the gate "
+          f"on (device count) {json.dumps(on_tree)}", flush=True)
+    # a round that is not live: the captured tree is complete, so one more
+    # of its rounds (run eagerly here) changes nothing; its device work is
+    # what the fixed budget's spare rounds cost
+    fr = g._fused_cache[(10, 0, None, False)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fr.tree.round(fr.tree.K)
+        torch.cuda.synchronize()
+    dw = profiler_work(prof, "fused: a round that is not live")
+    if dw is not None:
+        print(f"fused: a round that is not live (K = {fr.tree.K}) costs "
+              f"{sum(us for _, _, us in dw) / 1e3:.3f} ms of device time in "
+              f"{sum(c for _, c, _ in dw)} launches", flush=True)
+    _, where = syncing(torch, lambda: g.train_fused(10))
+    by = collections.Counter(where)
+    src, first = inspect.getsourcelines(FG.FusedRound._step)
+    flag_line = first + next(i for i, ln in enumerate(src)
+                             if "flag.item()" in ln)
+    print(f"fused host reads (default, a chunk of 10 rounds): "
+          f"{sum(by.values())} in all, by source line "
+          f"{json.dumps(dict(by))}; at the flag read "
+          f"{by.get(f'fused_graph.py:{flag_line}', 0) / 10:.2f} per "
+          f"boosting round", flush=True)
+    del bst, g
+
+    # ten alternating fused/classic pairs of the default recipe
+    per = {"fused": [], "classic": []}
+    whole = {"fused": [], "classic": []}
+    texts = set()
+    for _ in range(10):
+        for loop in ("fused", "classic"):
+            bst, sr, wall, _ = fused_train(torch, lgbt, data[255], 10,
+                                           classic=loop == "classic")
+            per[loop].append(sr)
+            whole[loop].append(wall / 10)
+            texts.add(bst.model_to_string())
+            del bst
+    if len(texts) != 1:
+        fail("alternating pairs: the fused and classic model texts differ")
+    for tag, d in (("s/round (fused: chunk walls without the capture; "
+                    "classic: rounds 2-10)", per),
+                   ("train() wall / 10 (everything)", whole)):
+        diff = np.array(d["fused"]) - np.array(d["classic"])
+        pairs = [[round(f, 5), round(c, 5)]
+                 for f, c in zip(d["fused"], d["classic"])]
+        print(f"fused vs classic (default, 1M x 10, ten alternating pairs, "
+              f"{tag}): median fused {np.median(d['fused']):.5f} classic "
+              f"{np.median(d['classic']):.5f}, fused - classic "
+              f"{diff.mean():+.5f} +- "
+              f"{diff.std(ddof=1) / np.sqrt(len(diff)):.5f} (pairs fused "
+              f"won: {int((diff < 0).sum())}); model text equal; pairs "
+              f"(fused, classic) {json.dumps(pairs)}", flush=True)
+    med_f, med_c = np.median(per["fused"]), np.median(per["classic"])
+    if not med_f <= med_c:
+        fail(f"the fused loop's median s/round {med_f} is slower than the "
+             f"classic loop's {med_c}")
+
+    # early stopping with the 200k-row valid set
+    res = {}
+    for loop in ("fused", "classic"):
+        ds = lgbt.Dataset(X1, y1, params={"max_bin": 255, "verbosity": -1})
+        vs = ds.create_valid(Xv, yv)
+        from lightgbm_tpu_torch.boosting import gbdt as G
+        orig = G.GBDT.supports_fused
+        if loop == "classic":
+            G.GBDT.supports_fused = lambda self: False
+        rec = {}
+        FG.counts.update(replays=0, reads=0, extra=0, rounds=0)
+        try:
+            t0 = time.perf_counter()
+            bst = lgbt.train(dict(RECIPE, metric="auc", learning_rate=0.5),
+                             ds, num_boost_round=100, valid_sets=[vs],
+                             valid_names=["held_out"],
+                             callbacks=[lgbt.early_stopping(3, verbose=False),
+                                        lgbt.record_evaluation(rec)])
+            t_es = time.perf_counter() - t0
+        finally:
+            G.GBDT.supports_fused = orig
+        a = auc(yv, bst.predict(Xv))
+        res[loop] = (bst.best_iteration, bst.num_trees(),
+                     bst.best_score["held_out"]["auc"], a, rec, t_es,
+                     (FG.counts["rounds"], FG.counts["extra"]))
+        del bst
+    (bi_f, nt_f, dev_f, a_f, rec_f, t_f, r_f), \
+        (bi_c, nt_c, dev_c, a_c, rec_c, t_c, _) = res["fused"], \
+        res["classic"]
+    print(f"early stopping (100k x <= 100, lr 0.5, 200k valid, auc, "
+          f"patience 3): best_iteration fused {bi_f} classic {bi_c}, trees "
+          f"{nt_f} / {nt_c}, fused rounds run {r_f[0]} (one-round extra "
+          f"replays {r_f[1]}), device AUC fused "
+          f"{dev_f:.6f} classic {dev_c:.6f}, predict AUC {a_f:.6f}, "
+          f"recorded evaluations equal {rec_f == rec_c}, train s fused "
+          f"{t_f:.2f} classic {t_c:.2f}", flush=True)
+    if bi_f != bi_c or nt_f != nt_c or rec_f != rec_c:
+        fail("early stopping: the fused loop and the classic loop differ")
+    if abs(dev_f - a_f) > 1e-4:
+        fail(f"early stopping: device AUC {dev_f} vs predict's {a_f}")
+    return launches
 
 
 # ---- A/B against another checkout: python3 chip_smoke.py --ab DIR
@@ -2058,7 +2413,8 @@ def ab_main(other_root):
     """Phase A/B: this checkout's kernels against another checkout's, in one
     process, old/new/new/old: take_small_table at n = 1M, T = 255,
     histogram_payload at the four compaction buckets of 1M rows (cnt =
-    0.8 S, K = 42; int8, and float32 on real values), and
+    0.8 S, K = 42; int8, and float32 on real values; and this checkout's
+    gated call with S on the device against the other's plain call), and
     histogram_radix_single's 1M root pass (5% of rows excluded) and
     histogram_radix_joint (G = 4 and 1) at n = 1M, int8 on uniform bins and
     on bins where 3 of the 28 features take 3 values, float32 on uniform
@@ -2105,6 +2461,18 @@ def ab_main(other_root):
                            m.histogram_payload(p, leaves, cnt, num_f=F,
                                                n_bins=B, hist_dtype=mode),
                            HK, OK))
+            # the batched grower's call: gated on, S on the device (the
+            # other checkout's ungated pass computes the same function)
+            s_dev = torch.tensor([S], dtype=torch.int32, device=dev)
+            one = torch.ones(1, dtype=torch.int32, device=dev)
+            o = torch.zeros(K, F, B, 4, device=dev)
+            shapes.append((f"histogram_payload S = {S}, {mode}, gated (new)",
+                           lambda m, p=p, cnt=cnt, mode=mode, s_dev=s_dev,
+                           o=o: m.histogram_payload(
+                               p, leaves, cnt, num_f=F, n_bins=B,
+                               hist_dtype=mode,
+                               **(dict(out=o, gate=one, rows=s_dev)
+                                  if m is HK else {})), HK, OK))
     bins = torch.as_tensor(rng.integers(0, B - 1, size=(F, N),
                                         dtype=np.uint8), device=dev)
     sets = {"uniform": bins, "skewed": skewed_bins(torch, bins, rng)}
@@ -2218,6 +2586,8 @@ def main():
 
     # ---- 2. kernel checks
     rows = check_kernels(torch, torch.device("cuda"))
+    print("library device ms (one index_add_ into precomputed cells, "
+          "profiler, warm L2): " + json.dumps(library_device), flush=True)
     check_path_shapes(torch, torch.device("cuda"))
     check_masked_shapes(torch, torch.device("cuda"))
     check_packed_partition_shapes(torch, torch.device("cuda"))
@@ -2228,8 +2598,10 @@ def main():
     print(f"profiler: {len(lost_windows)} window(s) measured again after "
           f"a lost record {json.dumps(lost_windows)}", flush=True)
 
-    # ---- 3. the default recipe on the card; counts zeroed just before,
-    # read just after
+    # ---- 3. the default recipe on the card, through the classic loop (the
+    # per-round clock callback is not fused_safe); counts zeroed just
+    # before, read just after
+    classic_sha = {}
     zero_counts(HK, RF, TB, prng)
     torch.cuda.reset_peak_memory_stats()
     bst, auc_main, t_data, t_train, steps = train_slice(
@@ -2255,9 +2627,10 @@ def main():
     if not auc_main > 0.7:
         fail(f"held-out AUC {auc_main} is not that of a trained model")
     text_main = trees_text(bst)
+    classic_sha["default"] = text_sha256(bst)
     print(f"model text sha256 (default recipe, 1M x 10): {text_sha256(bst)}",
           flush=True)
-    profiled(torch, bst)
+    profile_round(torch, bst)
     launches = dict(counts)
     del bst
 
@@ -2275,6 +2648,7 @@ def main():
     if not auc63 > 0.7:
         fail(f"max_bin=63 held-out AUC {auc63} is not that of a trained "
              f"model")
+    classic_sha["max_bin=63"] = text_sha256(bst)
     print(f"model text sha256 (max_bin=63, 1M x 5): {text_sha256(bst)}",
           flush=True)
     launches["histogram_leaves_packed"] = c63["histogram_leaves_packed"]
@@ -2288,6 +2662,7 @@ def main():
           f"held-out AUC {auc1h:.6f}; kernels {json.dumps(c1h)}", flush=True)
     if c1h["histogram_leaves"] <= 0:
         fail("the onehot recipe never launched histogram_leaves")
+    classic_sha["onehot"] = text_sha256(bst)
     print(f"model text sha256 (onehot, 100k x 3): {text_sha256(bst)}",
           flush=True)
     launches["histogram_leaves"] = c1h["histogram_leaves"]
@@ -2307,10 +2682,11 @@ def main():
           f"peak device memory {peak_s / 2**20:.1f} MiB, {splits} splits "
           f"in 10 trees; kernels {json.dumps(cs)}", flush=True)
     if (int(g.config.tpu_split_batch) != 1 or g.hp.hist_dtype != "float32"
-            or g._use_batched_grower()):
+            or g._use_batched_grower() or g.supports_fused()):
         fail(f"the strict default resolved tpu_split_batch="
              f"{g.config.tpu_split_batch}, hist_dtype={g.hp.hist_dtype}, "
-             f"batched={g._use_batched_grower()}")
+             f"batched={g._use_batched_grower()}, fused loop admitted="
+             f"{g.supports_fused()}")
     if cs["histogram_radix_single"] < splits + 10:
         fail(f"the strict default launched histogram_radix_single "
              f"{cs['histogram_radix_single']} times for {splits} splits")
@@ -2328,7 +2704,7 @@ def main():
           f"{len(where)} ({in_grower} in grower.py, "
           f"{in_grower / max(sp, 1):.3f} per split); by source "
           f"{json.dumps(dict(collections.Counter(where)))}", flush=True)
-    n_launch = profiled(torch, bst)
+    n_launch = profile_round(torch, bst)
     if n_launch is not None:
         sp = g.models[-1].num_leaves - 1
         print(f"strict default: {n_launch} launches in a round of {sp} "
@@ -2379,6 +2755,7 @@ def main():
     if cp["histogram_leaves"] <= 0:
         fail("the pooled run never launched histogram_leaves (the extended "
              "pass)")
+    classic_sha["pooled"] = text_sha256(bst)
     print(f"model text sha256 (pooled default, 1M x 10): {text_sha256(bst)}",
           flush=True)
     launches["partition_select"] = cp["partition_select"]
@@ -2406,12 +2783,11 @@ def main():
     if d_again.model_to_string() != bst.model_to_string():
         fail("two card trainings with deterministic=true gave different "
              "model text")
+    classic_sha["deterministic"] = text_sha256(bst)
     print(f"model text sha256 (deterministic=true, 1M x 5): "
           f"{text_sha256(bst)}; a second card run gave the same text",
           flush=True)
     del bst, d_again
-    for r in rows:
-        r["launches"] = launches[r["name"]]
 
     # ---- 4. cross-check: card vs CPU plain versions, and card vs card
     b_gpu, auc_gpu, *_ = train_slice(torch, lgbt, 100_000, 5, seed=1,
@@ -2464,6 +2840,13 @@ def main():
         fail("pooled tree 0 differs between the card and the CPU")
     print(f"cross-check (pooled, 100k x 3): tree 0 identical "
           f"({t_g.num_leaves} leaves)", flush=True)
+    del p_gpu, p_cpu
+
+    # ---- 5. the fused round loop: a plain train() with no per-round
+    # callback, each boosting round one CUDA graph replay
+    launches.update(check_fused(torch, lgbt, classic_sha, HK, RF, TB, prng))
+    for r in rows:
+        r["launches"] = launches[r["name"]]
     print(f"chip_smoke: {time.perf_counter() - t_script:.1f} s in all, the "
           f"kernel build {build_s:.1f} s of it", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -14,8 +14,10 @@ from .utils.log import LightGBMError, register_logger
 __version__ = "0.1.0"
 
 from .basic import Booster, Dataset  # noqa: E402
-from .callback import log_evaluation  # noqa: E402
+from .callback import (EarlyStopException, early_stopping,  # noqa: E402
+                       log_evaluation, record_evaluation)
 from .engine import train  # noqa: E402
 
 __all__ = ["Config", "Dataset", "Booster", "train", "log_evaluation",
+           "record_evaluation", "early_stopping", "EarlyStopException",
            "LightGBMError", "register_logger"]

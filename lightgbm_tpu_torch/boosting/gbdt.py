@@ -22,15 +22,24 @@ levels with leaf renewal; below it a plain ``train()`` keeps
 slots exactly as in the JAX package, and an engaged pool routes even
 ``tpu_split_batch=1`` through the batched grower.
 
-Not ported yet: the fused multi-round scan, bagging/GOSS, DART/RF,
-multiclass, custom objectives, the distributed modes and the device forest
-predictor (``predict`` walks trees on the host, as the JAX package does
-below ``DEVICE_PREDICT_MIN_WORK``).
+``train_fused`` is the JAX package's fused round loop (``supports_fused``
+admits the batched grower's configurations): each boosting round runs as
+one replay of a captured CUDA graph on the card (boosting/fused_graph.py),
+valid sets scored and their metrics evaluated on the device, the
+early-stopping state kept inside the round, and the trees and metric
+values of a chunk of rounds come back in one transfer.  Valid sets are
+scored by path aggregation in both loops (models/predict.py
+``predict_bins_tree_matmul``).
+
+Not ported yet: bagging/GOSS, DART/RF, multiclass, custom objectives, the
+distributed modes and the device forest predictor (``predict`` walks trees
+on the host, as the JAX package does below ``DEVICE_PREDICT_MIN_WORK``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -39,8 +48,10 @@ import torch
 from ..config import Config
 from ..io.dataset import Dataset
 from ..learner import batch_grower, grower
+from ..callback import EarlyStopException
+from ..learner.grower import TreeArrays
 from ..metrics import Metric, create_metrics
-from ..models.predict import predict_bins_tree
+from ..models.predict import predict_bins_tree, predict_bins_tree_matmul
 from ..models.tree import Tree
 from ..objectives import ObjectiveFunction, create_objective
 from ..ops import prng
@@ -193,6 +204,9 @@ class GBDT:
         self.valid_scores: List[torch.Tensor] = []
         self.valid_metrics: List[List[Metric]] = []
         self._valid_bins: List[torch.Tensor] = []
+        self._valid_bins_t: List[torch.Tensor] = []
+        self._fused_cache = {}
+        self._last_fused_evals: List = []
 
     def _resolve_auto_params(self, config: Config) -> None:
         """Fast-by-default policy, the JAX package's verbatim: at scale, a
@@ -297,6 +311,18 @@ class GBDT:
                                                  device=self.device))
         self._valid_bins.append(torch.as_tensor(valid_set.bins,
                                                 device=self.device))
+        # the transposed valid bins the path aggregation reads, made once
+        self._valid_bins_t.append(self._valid_bins[-1].t().contiguous())
+
+    def _valid_tree_scores(self, arrays: TreeArrays, vi: int
+                           ) -> torch.Tensor:
+        """One tree's contribution to valid set ``vi`` (leaf values already
+        shrunk), with no host read: the walk's values bit for bit.  The
+        path aggregation serves every tree the port grows (numeric,
+        un-bundled, constant leaves: the JAX package's ``_matmul_valid_ok``
+        always holds)."""
+        return predict_bins_tree_matmul(arrays, self._valid_bins_t[vi],
+                                        self.nan_bin_arr)
 
     # ------------------------------------------------------------ training
     def boosting_gradients(self) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -304,18 +330,22 @@ class GBDT:
         g, h = self.objective.get_gradients(self.scores[:, 0])
         return g[:, None], h[:, None]
 
-    def _feature_mask_for_tree(self) -> Optional[torch.Tensor]:
-        frac = float(self.config.feature_fraction)
-        if frac >= 1.0:
-            return None
+    def _feature_mask_array(self, iter_: int) -> np.ndarray:
+        """The tree's feature subset (bool [F]) of iteration ``iter_``."""
         f = self.num_features
-        kf = max(1, int(np.ceil(frac * f)))
+        kf = max(1, int(np.ceil(float(self.config.feature_fraction) * f)))
         rng = np.random.default_rng(self.config.feature_fraction_seed
-                                    + self.iter_)
+                                    + iter_)
         chosen = rng.choice(f, size=kf, replace=False)
         mask = np.zeros(f, bool)
         mask[chosen] = True
-        return torch.as_tensor(mask, device=self.device)
+        return mask
+
+    def _feature_mask_for_tree(self) -> Optional[torch.Tensor]:
+        if float(self.config.feature_fraction) >= 1.0:
+            return None
+        return torch.as_tensor(self._feature_mask_array(self.iter_),
+                               device=self.device)
 
     def train_one_iter(self) -> bool:
         """One boosting iteration (reference gbdt.cpp:344 TrainOneIter).
@@ -363,8 +393,8 @@ class GBDT:
             self.scores[:, cls_idx] += take_small_table(shrunk, leaf_of_row)
             arrays_shrunk = arrays._replace(leaf_value=shrunk)
             for vi in range(len(self.valid_sets)):
-                self.valid_scores[vi][:, cls_idx] += predict_bins_tree(
-                    arrays_shrunk, self._valid_bins[vi], self.nan_bin_arr)
+                self.valid_scores[vi][:, cls_idx] += self._valid_tree_scores(
+                    arrays_shrunk, vi)
             tree = Tree.from_arrays(arrays, self.train_set)
             if tree.num_leaves > 1:
                 finished = False
@@ -374,6 +404,169 @@ class GBDT:
             self.models.append(tree)
         self.iter_ += 1
         return finished
+
+    # ------------------------------------------------- fused iterations
+    def supports_fused(self) -> bool:
+        """True when whole boosting rounds can run as the fused loop
+        (``train_fused``): the JAX package's gate reduced to what the port
+        trains.  Custom objectives, bagging and GOSS are refused by the
+        slice check; the strict learner keeps the classic loop, as in the
+        JAX package."""
+        return (type(self) is GBDT
+                and self.objective is not None
+                and not self.objective.need_renew_tree_output
+                and not bool(self.config.tpu_debug_checks)
+                and (not self.valid_sets or self.fused_valid_ok())
+                and self._sampling_is_noop()
+                and self._use_batched_grower())
+
+    def fused_valid_ok(self) -> bool:
+        """Valid sets ride the fused round when every valid metric has a
+        device evaluation (metrics.py ``eval_device_traced``) and device
+        evaluation is on."""
+        if not self._device_eval_ok() or self.num_tree_per_iteration != 1:
+            return False
+        return all(ms and all(m.has_device_eval() for m in ms)
+                   for ms in self.valid_metrics)
+
+    def _sampling_is_noop(self) -> bool:
+        """No per-iteration row sampling (bagging.hpp's is_use_subset)."""
+        c = self.config
+        if str(c.data_sample_strategy) == "goss":
+            return False
+        return (float(c.bagging_fraction) >= 1.0
+                and float(c.pos_bagging_fraction) >= 1.0
+                and float(c.neg_bagging_fraction) >= 1.0) \
+            or int(c.bagging_freq) <= 0
+
+    @staticmethod
+    def fused_chunk_for(num_rounds: int) -> int:
+        """Chunk length of ``train_fused``: the largest c <= 40 that
+        divides ``num_rounds`` (>= 8), 32 and a ragged tail otherwise."""
+        for c in range(40, 7, -1):
+            if num_rounds % c == 0:
+                return c
+        return 32
+
+    @classmethod
+    def fused_chunks(cls, num_rounds: int) -> List[int]:
+        """The chunk lengths ``train_fused`` runs, in order."""
+        c = cls.fused_chunk_for(num_rounds)
+        out, done = [], 0
+        while done < num_rounds:
+            t = min(c, num_rounds - done)
+            out.append(t)
+            done += t
+        return out
+
+    def _fused_metric_layout(self):
+        """(set name, display name, bigger) of each in-round metric value,
+        in the order the round evaluates them."""
+        rows = []
+        for vi, ms in enumerate(self.valid_metrics):
+            for m in ms:
+                for disp in m.display_names():
+                    rows.append((self.valid_names[vi], disp,
+                                 bool(m.bigger_is_better)))
+        return rows
+
+    def train_fused(self, num_rounds: int, chunk: int = 0,
+                    cb_driver=None, es_params=None) -> bool:
+        """Run ``num_rounds`` boosting iterations as the fused round loop:
+        each round's gradients, tree, score update, valid scoring, metric
+        evaluation and stop flag are one captured CUDA graph on the card
+        (boosting/fused_graph.py), with one host read a round; the trees
+        and metric values of a chunk come to the host in one transfer.
+        Returns True if growth finished early (a stump round).
+
+        ``cb_driver(iteration, evals)``: run once per round with the
+        device-evaluated metrics (engine.py feeds the real callbacks
+        through it); an ``EarlyStopException`` from it truncates the model
+        to that round (score caches rebuilt) and is re-raised.
+        ``es_params``: the early_stopping callback's (stopping_rounds,
+        first_metric_only, min_delta); at min_delta 0 the round keeps the
+        stop flag itself (strict float32 comparisons of the values the
+        callback compares) and the host stops replaying once it trips."""
+        from .fused_graph import FusedRound, chunk_rows
+
+        if not self.supports_fused():
+            log.fatal("train_fused: this configuration runs the classic "
+                      "loop (GBDT.supports_fused is false)")
+        if chunk <= 0:
+            chunk = self.fused_chunk_for(num_rounds)
+        nvalid = len(self.valid_sets)
+        mrows = self._fused_metric_layout() if nvalid else []
+        use_es = (es_params is not None and cb_driver is not None
+                  and nvalid > 0 and float(es_params[2]) == 0.0)
+        es = (int(es_params[0]), bool(es_params[1])) if use_es else None
+        key = (chunk, nvalid, es, float(self.config.feature_fraction) < 1.0)
+        fr = self._fused_cache.get(key)
+        if fr is None:
+            fr = self._fused_cache[key] = FusedRound(self, chunk, es)
+        fr.reset_es()
+        k = self.num_tree_per_iteration
+        begin_iter = self.iter_
+        finished = False
+        done = 0
+        self._last_fused_evals = []
+        while done < num_rounds and not finished:
+            T = min(chunk, num_rounds - done)
+            t0, cap0, done0 = time.perf_counter(), fr.capture_s, done
+            rows = chunk_rows(fr.run(self.iter_, T), fr)
+            for t, (arrays, mvals) in enumerate(rows):
+                tree = Tree.from_arrays(arrays, self.train_set)
+                tree.apply_shrinkage(self.shrinkage_rate)
+                if self.iter_ == 0 and abs(self.init_scores[0]) > 1e-10:
+                    tree.add_bias(self.init_scores[0])
+                self.models.append(tree)
+                self.iter_ += 1
+                done += 1
+                if nvalid:
+                    self._last_fused_evals = [
+                        (mrows[j][0], mrows[j][1], float(mvals[j]),
+                         mrows[j][2]) for j in range(len(mrows))]
+                if cb_driver is not None:
+                    try:
+                        cb_driver(self.iter_ - 1 - begin_iter,
+                                  self._last_fused_evals)
+                    except EarlyStopException:
+                        # the device ran the chunk's later rounds: rebuild
+                        # the score caches from the kept trees
+                        if t + 1 < len(rows):
+                            self.invalidate_score_cache()
+                        raise
+                if tree.num_leaves <= 1 and k == 1:
+                    finished = True
+                    if t + 1 < len(rows):
+                        self.invalidate_score_cache()
+                    break
+            fr.walls.append((time.perf_counter() - t0
+                             - (fr.capture_s - cap0), done - done0))
+        return finished
+
+    def invalidate_score_cache(self) -> None:
+        """Rebuild the train and valid scores from the model list (after a
+        fused chunk ran rounds past the kept ones), in place."""
+        k = self.num_tree_per_iteration
+
+        def rebuild(n, bins_d, init_score):
+            sc = np.zeros((n, k), np.float32) + self.init_scores[None, :]
+            if init_score is not None:
+                sc += init_score.reshape(sc.shape, order="F") \
+                    if init_score.size == sc.size else \
+                    init_score.reshape(-1, 1)
+            sc = torch.as_tensor(sc, device=self.device)
+            for i, t in enumerate(self.models):
+                arrs = _tree_to_arrays_stub(t, self.train_set, self.device)
+                sc[:, i % k] += predict_bins_tree(arrs, bins_d,
+                                                  self.nan_bin_arr)
+            return sc
+
+        self.scores.copy_(rebuild(self.train_set.num_data, self.bins,
+                                  self.train_set.metadata.init_score))
+        for vi, vs in enumerate(self.valid_sets):
+            self.valid_scores[vi].copy_(rebuild(
+                vs.num_data, self._valid_bins[vi], vs.metadata.init_score))
 
     # ------------------------------------------------------------- evaluate
     def eval_train(self) -> List[Tuple[str, str, float, bool]]:
@@ -387,14 +580,26 @@ class GBDT:
                 self.valid_names[vi], ms, self.valid_scores[vi]))
         return out
 
+    def _device_eval_ok(self) -> bool:
+        """Metrics evaluate on the device unless ``tpu_device_eval=false`` or
+        ``deterministic=true`` (host float64), as in the JAX package."""
+        return (bool(self.config.tpu_device_eval)
+                and not bool(self.config.deterministic))
+
     def _eval_metric_list(self, set_name, metrics, scores_dev):
-        """Host float64 evaluation (the JAX package's non-device eval)."""
+        """Device float32 evaluation where the metric has one (only the M
+        values cross to the host), host float64 otherwise."""
+        use_dev = self._device_eval_ok() and scores_dev.shape[1] == 1
         out = []
-        if not metrics:
-            return out
-        score_host = self._host_scores(scores_dev)
+        score_host = None
         for m in metrics:
-            for name, val in m.eval(score_host, self.objective):
+            res = m.eval_device(scores_dev[:, 0], self.objective) \
+                if use_dev else None
+            if res is None:
+                if score_host is None:
+                    score_host = self._host_scores(scores_dev)
+                res = m.eval(score_host, self.objective)
+            for name, val in res:
                 out.append((set_name, name, val, m.bigger_is_better))
         return out
 
@@ -435,3 +640,44 @@ class GBDT:
 
     def current_iteration(self) -> int:
         return self.iter_
+
+
+def _tree_to_arrays_stub(tree: Tree, dataset: Dataset,
+                         device) -> TreeArrays:
+    """A host Tree as device TreeArrays (packed feature indices, bin
+    thresholds) for the walk: its own contribution, the folded
+    boost-from-average bias taken out (the JAX package's stub)."""
+    L = max(tree.num_leaves, 2)
+    ni = L - 1
+    orig_to_packed = {o: p for p, o in enumerate(dataset.used_feature_idx)}
+    sf = np.array([orig_to_packed.get(int(f), 0)
+                   for f in tree.split_feature], np.int32)
+
+    def pad(a, fill, dtype):
+        out = np.full(ni, fill, dtype)
+        out[:len(a)] = np.asarray(a)[:ni]
+        return torch.as_tensor(out, device=device)
+
+    def zeros(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    leaf = np.zeros(L, np.float32)
+    leaf[:tree.num_leaves] = (tree.leaf_value - tree.bias).astype(np.float32)
+    return TreeArrays(
+        split_feature=pad(sf, 0, np.int32),
+        split_bin=pad(tree.threshold_bin, 0, np.int32),
+        default_left=pad((tree.decision_type & 2) > 0, False, bool),
+        split_cat=zeros(ni, torch.bool),
+        left_child=pad(tree.left_child, -1, np.int32),
+        right_child=pad(tree.right_child, -1, np.int32),
+        split_gain=zeros(ni, torch.float32),
+        cat_bitset=zeros((ni, dataset.device_n_bins()), torch.bool),
+        internal_value=zeros(ni, torch.float32),
+        internal_count=zeros(ni, torch.float32),
+        leaf_value=torch.as_tensor(leaf, device=device),
+        leaf_count=zeros(L, torch.float32),
+        leaf_weight=zeros(L, torch.float32),
+        leaf_depth=zeros(L, torch.int32),
+        leaf_path=zeros((L, dataset.num_features), torch.bool),
+        num_leaves=torch.tensor(tree.num_leaves, dtype=torch.int32,
+                                device=device))

@@ -46,12 +46,13 @@ namespace {
 int run_masked_payload(const int* payload, long S, int W, int num_f,
                               const int* leaves, int K, const int* cnt,
                               int n_bins, int mode, float* out,
-                              cudaStream_t s) {
+                              const int* rows, cudaStream_t s) {
   Masked t = {nullptr, nullptr, S, num_f, nullptr, nullptr, nullptr, leaves,
               K, n_bins, 0, 0, 0, reinterpret_cast<float4*>(out)};
   t.payload = payload;
   t.W = W;
   t.cnt = cnt;
+  t.rows = rows;
   t.tile_rows = payload_tile_rows(W);
   if (!aligned(payload, 16)) return (int)cudaErrorMisalignedAddress;
   return dispatch_masked<SRC_PAYLOAD>(t, true, mode, s);
@@ -71,14 +72,15 @@ int run_masked_rows(const uint8_t* bins_rows, long n, int num_f,
 
 }  // namespace
 
-// out: f32 [K, num_f, n_bins, 4] (masked.cuh run_masked)
+// out: f32 [K, num_f, n_bins, 4] (masked.cuh run_masked); gate: null, or
+// i32 [1] read on the device, 0 = launch nothing
 extern "C" int lgbt_hist_leaves(const uint8_t* bins_t, long n, int num_f,
                                 const float* grad, const float* hess,
                                 const int* lor, const int* leaves, int K,
                                 int n_bins, int mode, float* out,
-                                void* stream) {
+                                const int* gate, void* stream) {
   return run_masked(bins_t, n, num_f, grad, hess, lor, leaves, K, n_bins,
-                    mode, out, (cudaStream_t)stream);
+                    mode, out, gate, (cudaStream_t)stream);
 }
 
 // bins_rows: u8 [n, num_f]; out: f32 [K, num_f, n_bins, 4] (run_masked_rows)
@@ -92,12 +94,14 @@ extern "C" int lgbt_hist_leaves_rows(const uint8_t* bins_rows, long n,
 }
 
 // out: f32 [K, num_f, n_bins, 4] (run_masked_payload); mode 0 int8, 1
-// float32, 2 bfloat16
+// float32, 2 bfloat16; rows: null, or i32 [1], the pass's S (<= S, >= *cnt,
+// read on the device: the float32 and bfloat16 scale is taken over the
+// first *rows payload rows)
 extern "C" int lgbt_hist_payload(const int* payload, long S, int W, int num_f,
                                  const int* leaves, int K, const int* cnt,
                                  int n_bins, int mode, float* out,
-                                 void* stream) {
+                                 const int* rows, void* stream) {
   if (W < 1 || 4 * W < num_f) return (int)cudaErrorInvalidValue;
   return run_masked_payload(payload, S, W, num_f, leaves, K, cnt, n_bins,
-                            mode, out, (cudaStream_t)stream);
+                            mode, out, rows, (cudaStream_t)stream);
 }

@@ -111,7 +111,12 @@ struct Masked {
   int num_f;
   const float* grad;
   const float* hess;
-  const int* lor;
+  union {
+    const int* lor;   // the sources but SRC_PAYLOAD: i32 [n] leaf of row
+    const int* rows;  // SRC_PAYLOAD: null, or i32 [1]: the pass's S when
+                      // below n (the rows its float32 scale is taken
+                      // over; *cnt <= it)
+  };
   const int* leaves;
   int K;
   int n_bins;
@@ -128,9 +133,20 @@ struct Masked {
                            // (pass_scale): no scan
   };
   int W;               // SRC_PAYLOAD: bin words a row
-  const int* cnt;      // i32 [1], read on the device
+  union {
+    const int* cnt;    // SRC_PAYLOAD: i32 [1], read on the device
+    const int* gate;   // the other sources: null, or i32 [1]: 0 = the
+                       // whole launch exits at once and writes nothing
+                       // (the device bucket dispatch launches both
+                       // passes, the masked one gated)
+  };
   int tile_rows;       // SRC_PAYLOAD: rows of each row tile
 };
+// (gate and rows share the fields of cnt and lor, which their sources do
+// not read: the struct keeps its size and layout, which the payload
+// pass's speed depends on: with gate and rows as fields of their own the
+// int8 pass ran 2-9% slower at the four buckets of 1M rows, chip_smoke.py
+// --ab on an NVIDIA H100 80GB HBM3 at 700 W)
 
 // SRC_PAYLOAD's row tiles in shared memory: kStages tiles of at most
 // kTileBytes / kStages bytes each, kStages - 1 of them in flight (two of
@@ -244,6 +260,12 @@ __device__ inline void rows_to_features(unsigned m0, unsigned m1, unsigned m2,
 template <int MODE, int VEC, int SRC, int PICK>
 __global__ void __launch_bounds__(kMaskedThreads, 1)
     masked_cluster(const Masked t) {
+  // the gate's load is issued here and waited for after the accumulator's
+  // zeroing; every block of every cluster reads the same gate, so all
+  // leave together, before the first cluster barrier (the payload pass
+  // has none: the dispatch gives it a count of 0 instead)
+  const int on =
+      SRC == SRC_PAYLOAD || t.gate == nullptr ? 1 : __ldg(t.gate);
   typedef typename Val<MODE>::T T;
   constexpr int kCopies = PICK == PICK_ANY ? kAnyCopies : 1;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -273,6 +295,7 @@ __global__ void __launch_bounds__(kMaskedThreads, 1)
   const int cw = cells * Acc<MODE>::kWords + (kCopies > 1 ? 1 : 0);
   for (int i = threadIdx.x; i < kCopies * cw; i += blockDim.x) w[i] = 0;
   if (threadIdx.x < 3) hdr[1 + threadIdx.x] = 0;
+  if (on == 0) return;
   int ut = 0;
   if constexpr (PICK == PICK_TABLE) {
     build_slot_table(tab, hdr, t.leaves, t.K);  // syncs the zeroing too
@@ -299,17 +322,21 @@ __global__ void __launch_bounds__(kMaskedThreads, 1)
     sg = fixed_shift(__ldg(t.vmax), t.n);
     sh = fixed_shift(__ldg(t.vmax + 1), t.n);
   } else if (MODE != 0) {
+    // the rows the scale is taken over: the pass's n, or the payload
+    // pass's S (the buffer's rows, or the first *rows of them)
+    long s_rows = t.n;
     if constexpr (SRC == SRC_PAYLOAD) {  // all S rows, over every block
+      if (t.rows != nullptr) s_rows = min(t.n, (long)max(__ldg(t.rows), 0));
       const long nbl = (long)cl.num_blocks();
-      const long ra = (t.n + nbl - 1) / nbl;
+      const long ra = (s_rows + nbl - 1) / nbl;
       const long a0 = (long)cl.block_rank() * ra;
-      block_absmax_payload(t.payload, t.W, a0, min(t.n, a0 + ra), part);
+      block_absmax_payload(t.payload, t.W, a0, min(s_rows, a0 + ra), part);
     } else {
       block_absmax2<VEC>(t.grad, t.hess, r0, r1, part);
     }
     cl.sync();
-    sg = fixed_shift(cluster_max(cl, part, 0), t.n);
-    sh = fixed_shift(cluster_max(cl, part, 1), t.n);
+    sg = fixed_shift(cluster_max(cl, part, 0), s_rows);
+    sh = fixed_shift(cluster_max(cl, part, 1), s_rows);
   } else {
     __syncthreads();
   }
@@ -347,6 +374,7 @@ __global__ void __launch_bounds__(kMaskedThreads, 1)
     // multiple of 4, each chunk through two row tiles in shared memory,
     // the next in flight (16-byte cp.async copies) while the block adds
     // the rows of this one, a row a thread
+    // cnt <= *rows where rows is given: the buffer's bound holds either way
     const long c = min(t.n, (long)max(__ldg(t.cnt), 0));
     const long ncs = (long)cl.num_blocks();
     const long rp = ((c + ncs - 1) / ncs + 3) / 4 * 4;
@@ -675,9 +703,10 @@ int dispatch_masked(const Masked& t, bool vec, int mode, cudaStream_t s) {
 inline int run_masked(const uint8_t* bins_t, long n, int num_f,
                       const float* grad, const float* hess, const int* lor,
                       const int* leaves, int K, int n_bins, int mode,
-                      float* out, cudaStream_t s) {
-  const Masked t = {bins_t, nullptr, n, num_f, grad, hess, lor, leaves, K,
-                    n_bins, 0, 0, 0, reinterpret_cast<float4*>(out)};
+                      float* out, const int* gate, cudaStream_t s) {
+  Masked t = {bins_t, nullptr, n, num_f, grad, hess, lor, leaves, K,
+              n_bins, 0, 0, 0, reinterpret_cast<float4*>(out)};
+  t.gate = gate;
   const bool vec = n % 4 == 0 && aligned(bins_t, 4) && aligned(grad, 16) &&
                    aligned(hess, 16) && aligned(lor, 16);
   return dispatch_masked<SRC_BYTES>(t, vec, mode, s);
@@ -689,10 +718,11 @@ inline int run_masked_words(const int* words_t, long n, int num_f,
                             const float* grad, const float* hess,
                             const int* lor, const int* leaves, int K,
                             int n_bins, int mode, float* out,
-                            cudaStream_t s) {
-  const Masked t = {nullptr, reinterpret_cast<const unsigned*>(words_t), n,
-                    num_f, grad, hess, lor, leaves, K, n_bins, 0, 0, 0,
-                    reinterpret_cast<float4*>(out)};
+                            const int* gate, cudaStream_t s) {
+  Masked t = {nullptr, reinterpret_cast<const unsigned*>(words_t), n,
+              num_f, grad, hess, lor, leaves, K, n_bins, 0, 0, 0,
+              reinterpret_cast<float4*>(out)};
+  t.gate = gate;
   const bool vec = n % 4 == 0 && aligned(words_t, 16) && aligned(grad, 16) &&
                    aligned(hess, 16) && aligned(lor, 16);
   return dispatch_masked<SRC_WORDS>(t, vec, mode, s);

@@ -28,13 +28,14 @@
 
 #include "masked.cuh"
 
-// out: f32 [K, num_f, n_bins, 4]; mode 0 int8, 1 float32, 2 bfloat16
+// out: f32 [K, num_f, n_bins, 4]; mode 0 int8, 1 float32, 2 bfloat16;
+// gate: null, or i32 [1] read on the device, 0 = launch nothing
 extern "C" int lgbt_hist_packed(const int* words_t, int W, long n, int num_f,
                                 const float* grad, const float* hess,
                                 const int* lor, const int* leaves, int K,
                                 int n_bins, int mode, float* out,
-                                void* stream) {
+                                const int* gate, void* stream) {
   if (4 * W < num_f) return (int)cudaErrorInvalidValue;
   return run_masked_words(words_t, n, num_f, grad, hess, lor, leaves, K,
-                          n_bins, mode, out, (cudaStream_t)stream);
+                          n_bins, mode, out, gate, (cudaStream_t)stream);
 }

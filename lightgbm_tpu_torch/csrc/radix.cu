@@ -267,12 +267,13 @@ extern "C" int lgbt_pass_scale(const float* grad, const float* hess, long n,
 }
 
 // out: f32 [K, num_f, n_bins, 4] (masked.cuh run_masked): the kernel of
-// histogram_radix_joint and histogram_leaves_radix2
+// histogram_radix_joint and histogram_leaves_radix2; gate: null, or i32 [1]
+// read on the device, 0 = launch nothing
 extern "C" int lgbt_hist_radix2(const uint8_t* bins_t, long n, int num_f,
                                 const float* grad, const float* hess,
                                 const int* lor, const int* leaves, int K,
                                 int n_bins, int mode, float* out,
-                                void* stream) {
+                                const int* gate, void* stream) {
   return run_masked(bins_t, n, num_f, grad, hess, lor, leaves, K, n_bins,
-                    mode, out, (cudaStream_t)stream);
+                    mode, out, gate, (cudaStream_t)stream);
 }

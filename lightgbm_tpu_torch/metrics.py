@@ -1,10 +1,20 @@
-"""Evaluation metrics, on the host in float64.
+"""Evaluation metrics: on the device in float32, or on the host in float64.
 
 Counterpart of ``lightgbm_tpu/metrics.py`` for ``l2``, ``binary_logloss``
 and ``auc`` (reference regression_metric.hpp, binary_metric.hpp), with the
-JAX package's host (non-device) evaluation: the same NumPy code.  Other
-metrics are not ported yet and are skipped with a warning, as unknown
-metric names are.
+JAX package's two paths:
+
+- **device** (:meth:`Metric.eval_device_traced`): plain PyTorch reductions
+  on the scores' device returning a float32 ``[M]`` tensor with no host
+  read, so the fused round loop (boosting/fused_graph.py) evaluates its
+  valid sets inside the captured round; ``eval_device`` is the host
+  wrapper the classic loop calls (one read of the M values);
+- **host** (:meth:`Metric.eval`): float64 NumPy, the same code as the JAX
+  package's, used when ``tpu_device_eval=false`` or
+  ``deterministic=true``.
+
+Other metrics are not ported yet and are skipped with a warning, as
+unknown metric names are.
 """
 
 from __future__ import annotations
@@ -19,9 +29,66 @@ from .io.dataset import Metadata
 from .utils import log
 
 
+def _dev_pointwise(kind: str, p: torch.Tensor, y: torch.Tensor,
+                   w: Optional[torch.Tensor],
+                   sw: torch.Tensor) -> torch.Tensor:
+    """The pointwise losses' float32 device average (the JAX package's
+    ``_dev_pointwise``); ``sw``: the float32 sum of the weights."""
+    if kind == "l2":
+        loss = (p - y) ** 2
+    elif kind == "binary_logloss":
+        # float32-safe clip: 1 - 1e-15 is not representable in float32
+        # (the host path clips at 1e-15 in float64)
+        pc = torch.clamp(p, 1e-7, 1 - 1e-7)
+        loss = -(y * torch.log(pc) + (1 - y) * torch.log(1 - pc))
+    else:  # pragma: no cover
+        raise ValueError(kind)
+    return loss.mean() if w is None else (loss * w).sum() / sw
+
+
+def _segment_sums(gid: torch.Tensor, vals, n: int):
+    """Sums of each ``vals`` tensor over the sorted group ids ``gid`` (i64
+    [n], ascending from 0), [n] each, in an order fixed by the data: one
+    segment reduction (no float atomics); the lengths are an integer
+    scatter-add, exact in any order."""
+    lengths = torch.zeros(n, dtype=torch.int64, device=gid.device) \
+        .index_add_(0, gid, torch.ones_like(gid))
+    return [torch.segment_reduce(v, "sum", lengths=lengths, unsafe=True,
+                                 initial=0.0) for v in vals]
+
+
+def _dev_auc(score: torch.Tensor, y: torch.Tensor,
+             w: Optional[torch.Tensor]) -> torch.Tensor:
+    """Weighted AUC in float32 on the device (the JAX package's
+    ``_dev_auc``): a stable sort, tie groups by score value with half
+    credit inside a group."""
+    n = score.shape[0]
+    order = torch.sort(score, stable=True).indices
+    ys = y[order]
+    ws = torch.ones_like(ys) if w is None else w[order]
+    ss = score[order]
+    zero = torch.zeros((), dtype=ws.dtype, device=ws.device)
+    pos_w = torch.where(ys > 0, ws, zero)
+    neg_w = torch.where(ys > 0, zero, ws)
+    total_pos = pos_w.sum()
+    total_neg = neg_w.sum()
+    boundary = torch.ones(n, dtype=torch.int64, device=score.device)
+    boundary[1:] = (ss[1:] != ss[:-1]).to(torch.int64)
+    gid = torch.cumsum(boundary, 0) - 1
+    gpos, gneg = _segment_sums(gid, (pos_w, neg_w), n)
+    neg_before = torch.cumsum(gneg, 0) - gneg
+    auc = (gpos * (neg_before + 0.5 * gneg)).sum()
+    denom = total_pos * total_neg
+    return torch.where(denom > 0, auc / torch.clamp_min(denom, 1e-30),
+                       torch.ones_like(auc))
+
+
 class Metric:
     NAME = "none"
     bigger_is_better = False
+    #: the pointwise device loss (``_dev_pointwise``), or None: no device
+    #: path unless the class overrides ``eval_device_traced``
+    _DEV_KIND: Optional[str] = None
 
     def __init__(self, config: Config):
         self.config = config
@@ -34,9 +101,57 @@ class Metric:
             np.asarray(metadata.weight, np.float64)
         self.sum_weight = float(self.weight.sum()) if self.weight is not None \
             else float(num_data)
+        self._dev_cache = None
 
     def eval(self, score: np.ndarray, objective=None) -> List[Tuple[str, float]]:
         raise NotImplementedError
+
+    def display_names(self) -> List[str]:
+        """The names of the values ``eval`` returns, in order."""
+        return [self.NAME]
+
+    def has_device_eval(self) -> bool:
+        return (type(self).eval_device_traced
+                is not Metric.eval_device_traced
+                or self._DEV_KIND is not None)
+
+    def eval_device_traced(self, score_dev: torch.Tensor, objective=None
+                           ) -> Optional[torch.Tensor]:
+        """f32 [len(display_names())] on the scores' device with no host
+        read, or None when this metric has no device path."""
+        if self._DEV_KIND is None:
+            return None
+        y, w, sw = self._dev_arrays(score_dev.device)
+        p = self._dev_convert(score_dev, objective)
+        return _dev_pointwise(self._DEV_KIND, p, y, w, sw).reshape(1)
+
+    def eval_device(self, score_dev: torch.Tensor, objective=None
+                    ) -> Optional[List[Tuple[str, float]]]:
+        """:meth:`eval_device_traced` read back (one host read), or None."""
+        vals = self.eval_device_traced(score_dev, objective)
+        if vals is None:
+            return None
+        host = vals.cpu().numpy()
+        return [(name, float(host[i]))
+                for i, name in enumerate(self.display_names())]
+
+    def _dev_arrays(self, dev: torch.device):
+        """Label, weight and the weights' float32 sum on ``dev``, made once
+        (no host-to-device copy inside a captured round)."""
+        cached = getattr(self, "_dev_cache", None)
+        if cached is None or cached[0] != dev:
+            y = torch.as_tensor(self.label, dtype=torch.float32, device=dev)
+            w = None if self.weight is None else torch.as_tensor(
+                self.weight, dtype=torch.float32, device=dev)
+            sw = torch.tensor(self.sum_weight, dtype=torch.float32,
+                              device=dev)
+            cached = self._dev_cache = (dev, y, w, sw)
+        return cached[1:]
+
+    def _dev_convert(self, score: torch.Tensor, objective) -> torch.Tensor:
+        if objective is not None and objective.need_convert_output:
+            return objective.convert_output(score)
+        return score
 
     def _avg(self, losses: np.ndarray) -> float:
         if self.weight is not None:
@@ -52,6 +167,7 @@ class Metric:
 
 class L2Metric(Metric):
     NAME = "l2"
+    _DEV_KIND = "l2"
 
     def eval(self, score, objective=None):
         pred = self._convert(score, objective)
@@ -60,6 +176,7 @@ class L2Metric(Metric):
 
 class BinaryLoglossMetric(Metric):
     NAME = "binary_logloss"
+    _DEV_KIND = "binary_logloss"
 
     def eval(self, score, objective=None):
         p = np.clip(self._convert(score, objective), 1e-15, 1 - 1e-15)
@@ -99,6 +216,10 @@ class AUCMetric(Metric):
 
     def eval(self, score, objective=None):
         return [(self.NAME, _weighted_auc(self.label, score, self.weight))]
+
+    def eval_device_traced(self, score_dev, objective=None):
+        y, w, _ = self._dev_arrays(score_dev.device)
+        return _dev_auc(score_dev, y, w).reshape(1)
 
 
 _METRICS = {"l2": L2Metric, "binary_logloss": BinaryLoglossMetric,

@@ -121,16 +121,17 @@ class BinaryLogloss(ObjectiveFunction):
         self._cnt_pos, self._cnt_neg = cnt_pos, cnt_neg
         self._sign = torch.as_tensor(
             np.where(lbl == 1, 1.0, -1.0).astype(np.float32), device=device)
+        # each row's label weight, made once: a round copies nothing from
+        # the host (the fused loop captures it)
+        self._lw = torch.as_tensor(
+            np.where(lbl == 1, np.float32(lw_pos), np.float32(lw_neg))
+            .astype(np.float32), device=device)
 
     def get_gradients(self, score):
         s = self.config.sigmoid
         z = self._sign * s * score
         resp = -self._sign * s / (1.0 + torch.exp(z))
-        lw = torch.where(self._sign > 0,
-                         torch.tensor(self._lw_pos, dtype=torch.float32,
-                                      device=score.device),
-                         torch.tensor(self._lw_neg, dtype=torch.float32,
-                                      device=score.device))
+        lw = self._lw
         g = resp * lw
         h = resp.abs() * (s - resp.abs()) * lw
         return self._apply_weight(g, h)

@@ -42,20 +42,23 @@ _DESC = (_P,) * 8  # the partition kernels' eight [K] slot descriptors
 _SIGNATURES = {
     "take": {"lgbt_take": (_P, _L, _P, _I, _P, _P)},
     "hist": {
-        "lgbt_hist_leaves": (_P, _L, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P),
+        "lgbt_hist_leaves": (_P, _L, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P,
+                             _P),
         "lgbt_hist_leaves_rows": (_P, _L, _I, _P, _P, _P, _P, _I, _I, _I, _P,
                                   _P),
-        "lgbt_hist_payload": (_P, _L, _I, _I, _P, _I, _P, _I, _I, _P, _P),
+        "lgbt_hist_payload": (_P, _L, _I, _I, _P, _I, _P, _I, _I, _P, _P,
+                              _P),
     },
     "radix": {
         "lgbt_hist_radix_single": (_P, _L, _I, _P, _P, _P, _I, _I, _P, _P,
                                    _P),
         "lgbt_pass_scale": (_P, _P, _L, _P, _P),
-        "lgbt_hist_radix2": (_P, _L, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P),
+        "lgbt_hist_radix2": (_P, _L, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P,
+                             _P),
     },
     "packed": {
         "lgbt_hist_packed": (_P, _I, _L, _I, _P, _P, _P, _P, _I, _I, _I, _P,
-                             _P),
+                             _P, _P),
     },
     "rows": {
         "lgbt_hist_rows": (_P, _L, _I, _P, _I, _I, _I, _P, _P),

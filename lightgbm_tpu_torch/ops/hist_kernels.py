@@ -57,7 +57,7 @@ from __future__ import annotations
 
 import collections
 import math
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -75,6 +75,34 @@ packed_launches = 0
 rows_launches = 0
 #: histogram_rows_t launches by row count S
 rows_launches_by_size: collections.Counter = collections.Counter()
+#: gated launches whose gate was on (the launches that did work; a launch
+#: gated off exits at once), counted on the device: i32 [1] by pass name,
+#: made by each pass's first gated launch, never inside a capture (a
+#: captured graph adds into them on every replay, so they are zeroed in
+#: place, :func:`zero_gate_counts`, never replaced)
+gate_on: Dict[str, torch.Tensor] = {}
+
+
+def _count_gate(what: str, gate: Optional[torch.Tensor]) -> None:
+    if gate is None:
+        return
+    c = gate_on.get(what)
+    if c is None:
+        if torch.cuda.is_current_stream_capturing():
+            log.fatal(f"{what}: the first gated launch is inside a capture")
+        c = gate_on[what] = torch.zeros(1, dtype=torch.int32,
+                                        device=gate.device)
+    c.add_(gate.reshape(1))
+
+
+def zero_gate_counts() -> None:
+    for c in gate_on.values():
+        c.zero_()
+
+
+def gate_counts() -> Dict[str, int]:
+    """The :data:`gate_on` counts on the host (a read per pass)."""
+    return {k: int(v.item()) for k, v in gate_on.items()}
 
 _MODES = {"int8": 0, "float32": 1, "bfloat16": 2}
 
@@ -171,23 +199,68 @@ def histogram_leaves_fixed(bins_t: torch.Tensor, grad: torch.Tensor,
 def histogram_leaves(bins_t: torch.Tensor, grad: torch.Tensor,
                      hess: torch.Tensor, leaf_of_row: torch.Tensor,
                      leaves: torch.Tensor, *, n_bins: int,
-                     hist_dtype: str = "float32") -> torch.Tensor:
+                     hist_dtype: str = "float32",
+                     out: Optional[torch.Tensor] = None,
+                     gate: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Masked multi-leaf histogram f32 [K, F, n_bins, 4].
 
     bins_t: u8 [F, n] (transposed, the resident training layout);
     grad/hess: f32 [n]; leaf_of_row: i32 [n] (rows whose leaf is not in
     ``leaves`` are excluded, e.g. -1 for rows out of the bag); leaves: i32
-    [K] (dummy slots may repeat a leaf).
+    [K] (dummy slots may repeat a leaf).  ``out``/``gate``: see
+    :func:`gated`.
     """
     if not bins_t.is_cuda:
-        return histogram_leaves_plain(bins_t, grad, hess, leaf_of_row,
-                                      leaves, n_bins=n_bins,
-                                      hist_dtype=hist_dtype)
+        return gated(lambda: histogram_leaves_plain(
+            bins_t, grad, hess, leaf_of_row, leaves, n_bins=n_bins,
+            hist_dtype=hist_dtype), out, gate)
     global leaves_launches
     out = _leaf_pass("hist", "lgbt_hist_leaves", "histogram_leaves", bins_t,
-                     grad, hess, leaf_of_row, leaves, n_bins, hist_dtype)
+                     grad, hess, leaf_of_row, leaves, n_bins, hist_dtype,
+                     out=out, gate=gate)
     if out.numel():
         leaves_launches += 1
+    return out
+
+
+def gated(plain: Callable[[], torch.Tensor], out: Optional[torch.Tensor],
+          gate: Optional[torch.Tensor]) -> torch.Tensor:
+    """The plain side of a masked pass's ``out``/``gate`` operands.
+    ``out``: the tensor the pass writes (a new one when None); ``gate``:
+    None, or an i32 [1] read by the kernel on the device: 0 and the pass
+    writes nothing, ``out`` keeps what it held.  The device bucket
+    dispatch (ops/histogram.py) launches the compacted pass and then the
+    full pass into one ``out``, the full one gated by the bucket the
+    device chose."""
+    res = plain()
+    if gate is None:
+        return res if out is None else out.copy_(res)
+    if out is None:
+        log.fatal("a gated histogram pass needs the out it writes into")
+    return out.copy_(torch.where(gate.reshape(()) != 0, res, out))
+
+
+def _gate_ptr(gate: Optional[torch.Tensor], out: Optional[torch.Tensor],
+              dev: torch.device, what: str) -> Optional[int]:
+    """The device address of a kernel's gate (None: ungated)."""
+    if gate is None:
+        return None
+    if (out is None or gate.dtype != torch.int32 or gate.numel() != 1
+            or gate.get_device() != dev.index or not gate.is_contiguous()):
+        log.fatal(f"{what}: a gate is an i32 [1] on the pass's device and "
+                  f"needs the out it writes into")
+    return gate.data_ptr()
+
+
+def _out(out: Optional[torch.Tensor], shape, dev: torch.device,
+         what: str) -> torch.Tensor:
+    """``out``, checked, or a new f32 tensor of ``shape``."""
+    if out is None:
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+    if (tuple(out.shape) != tuple(shape) or out.dtype != torch.float32
+            or not out.is_contiguous() or out.get_device() != dev.index):
+        log.fatal(f"{what}: out must be a contiguous f32 {tuple(shape)} on "
+                  f"the pass's device")
     return out
 
 
@@ -262,16 +335,34 @@ def histogram_payload_fixed(payload: torch.Tensor, leaves: torch.Tensor,
 
 def histogram_payload(payload: torch.Tensor, leaves: torch.Tensor,
                       cnt: torch.Tensor, *, num_f: int, n_bins: int,
-                      hist_dtype: str = "float32") -> torch.Tensor:
+                      hist_dtype: str = "float32",
+                      out: Optional[torch.Tensor] = None,
+                      gate: Optional[torch.Tensor] = None,
+                      rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Masked multi-leaf histogram f32 [K, num_f, n_bins, 4] from the
     compaction payload i32 [S, W+3] (per row: W words of 4 little-endian
     bin bytes, grad bits, hess bits, leaf id).  Rows at positions >=
     ``cnt`` (i32 [1], read on the device: no host sync) are excluded.  One
     launch of the cluster kernel of csrc/masked.cuh (no scratch); float32
-    and bfloat16 give the bits of :func:`histogram_payload_fixed`."""
+    and bfloat16 give the bits of :func:`histogram_payload_fixed`.
+    ``rows`` (i32 [1] on the device, at most S, with ``cnt`` <= it): the
+    pass is the one over the first ``rows`` payload rows, the float32 and
+    bfloat16 scale taken over them (so the device bucket dispatch gathers
+    the largest bucket once and passes the chosen one); ``out``: the
+    tensor written (a new one when None); ``gate`` (i32 [1] on the device,
+    or None): 0 and the pass takes no row, so it writes zeros into
+    ``out`` (unlike the masked passes' gate, which keeps ``out``: the
+    dispatch runs this pass first)."""
+    if gate is not None:
+        cnt = cnt * gate
+        if rows is not None and hist_dtype != "int8":  # int8 has no scale
+            rows = rows * gate
     if not payload.is_cuda:
-        return histogram_payload_plain(payload, leaves, cnt, num_f=num_f,
-                                       n_bins=n_bins, hist_dtype=hist_dtype)
+        # rows past cnt add nothing to the plain sums: the first ``rows``
+        # rows give what all S give
+        return gated(lambda: histogram_payload_plain(
+            payload, leaves, cnt, num_f=num_f, n_bins=n_bins,
+            hist_dtype=hist_dtype), out, None)
     global payload_launches
     mode = _mode(hist_dtype)
     S, wp3 = payload.shape
@@ -289,18 +380,23 @@ def histogram_payload(payload: torch.Tensor, leaves: torch.Tensor,
         log.fatal("histogram_payload: all operands must be on one device")
     if not 1 <= n_bins <= 256:
         log.fatal(f"histogram_payload: n_bins={n_bins} outside [1, 256]")
+    if rows is not None and (rows.dtype != torch.int32 or rows.numel() != 1
+                             or rows.device != dev):
+        log.fatal("histogram_payload: rows is an i32 [1] on the device")
     payload, leaves, cnt = _c(payload, leaves, cnt)
     if payload.data_ptr() % 16:      # the kernel copies 16 bytes at a time
         payload = payload.clone()
-    out = torch.empty(K, num_f, n_bins, 4, dtype=torch.float32, device=dev)
+    out = _out(out, (K, num_f, n_bins, 4), dev, "histogram_payload")
     if out.numel() == 0:
         return out
     code = cuda_lib.load("hist").lgbt_hist_payload(
         payload.data_ptr(), S, W, num_f, leaves.data_ptr(), K,
         cnt.data_ptr(), n_bins, mode, out.data_ptr(),
+        None if rows is None else rows.data_ptr(),
         cuda_lib.stream_handle(payload))
     cuda_lib.check(code, "histogram_payload")
     payload_launches += 1
+    _count_gate("histogram_payload", gate)
     return out
 
 
@@ -411,11 +507,12 @@ def histogram_radix_single(bins_t: torch.Tensor, grad: torch.Tensor,
 
 
 def _leaf_pass(lib: str, entry: str, what: str, bins, grad, hess, lor,
-               leaves, n_bins, hist_dtype, rows: bool = False
-               ) -> torch.Tensor:
+               leaves, n_bins, hist_dtype, rows: bool = False, out=None,
+               gate=None) -> torch.Tensor:
     """Check the operands of a masked pass over bins u8 [F, n] (``rows``:
     u8 [n, F]) and launch ``entry`` of csrc/<lib>.cu into f32
-    [K, F, n_bins, 4] (an empty output launches nothing)."""
+    [K, F, n_bins, 4] (an empty output launches nothing); ``out``/``gate``
+    (not with ``rows``): see :func:`gated`."""
     mode = _mode(hist_dtype)
     if bins.dim() != 2:
         log.fatal(f"{what} takes a 2-d bin matrix")
@@ -425,15 +522,17 @@ def _leaf_pass(lib: str, entry: str, what: str, bins, grad, hess, lor,
         log.fatal(f"{what} kernel takes u8 bins")
     _check_pass(what, n, grad, hess, lor, leaves, n_bins, bins.device)
     bins, grad, hess, lor, leaves = _c(bins, grad, hess, lor, leaves)
-    out = torch.empty(K, num_f, n_bins, 4, dtype=torch.float32,
-                      device=bins.device)
+    gp = _gate_ptr(gate, out, bins.device, what)
+    out = _out(out, (K, num_f, n_bins, 4), bins.device, what)
     if out.numel() == 0:
         return out
+    gargs = () if rows else (gp,)
     code = getattr(cuda_lib.load(lib), entry)(
         bins.data_ptr(), n, num_f, grad.data_ptr(), hess.data_ptr(),
         lor.data_ptr(), leaves.data_ptr(), K, n_bins, mode, out.data_ptr(),
-        cuda_lib.stream_handle(bins))
+        *gargs, cuda_lib.stream_handle(bins))
     cuda_lib.check(code, what)
+    _count_gate(what, gate)
     return out
 
 
@@ -448,20 +547,23 @@ histogram_leaves_radix2_plain = histogram_leaves_plain
 def histogram_radix_joint(bins_t: torch.Tensor, grad: torch.Tensor,
                           hess: torch.Tensor, leaf_of_row: torch.Tensor,
                           leaves: torch.Tensor, *, n_bins: int,
-                          hist_dtype: str = "float32") -> torch.Tensor:
+                          hist_dtype: str = "float32",
+                          out: Optional[torch.Tensor] = None,
+                          gate: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
     """Masked histogram f32 [G, F, n_bins, 4] of G <= 4 leaves (the
     operands of :func:`histogram_leaves`)."""
     if not bins_t.is_cuda:
-        return histogram_radix_joint_plain(bins_t, grad, hess, leaf_of_row,
-                                           leaves, n_bins=n_bins,
-                                           hist_dtype=hist_dtype)
+        return gated(lambda: histogram_radix_joint_plain(
+            bins_t, grad, hess, leaf_of_row, leaves, n_bins=n_bins,
+            hist_dtype=hist_dtype), out, gate)
     global radix_joint_launches
     if not 1 <= leaves.shape[0] <= RADIX_JOINT_MAX_LEAVES:
         log.fatal(f"histogram_radix_joint takes 1 to "
                   f"{RADIX_JOINT_MAX_LEAVES} leaves, got {leaves.shape[0]}")
     out = _leaf_pass("radix", "lgbt_hist_radix2", "histogram_radix_joint",
                      bins_t, grad, hess, leaf_of_row, leaves, n_bins,
-                     hist_dtype)
+                     hist_dtype, out=out, gate=gate)
     if out.numel():
         radix_joint_launches += 1
     return out
@@ -470,17 +572,20 @@ def histogram_radix_joint(bins_t: torch.Tensor, grad: torch.Tensor,
 def histogram_leaves_radix2(bins_t: torch.Tensor, grad: torch.Tensor,
                             hess: torch.Tensor, leaf_of_row: torch.Tensor,
                             leaves: torch.Tensor, *, n_bins: int,
-                            hist_dtype: str = "float32") -> torch.Tensor:
+                            hist_dtype: str = "float32",
+                            out: Optional[torch.Tensor] = None,
+                            gate: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
     """Masked histogram f32 [K, F, n_bins, 4] of K leaves (the operands of
     :func:`histogram_leaves`)."""
     if not bins_t.is_cuda:
-        return histogram_leaves_radix2_plain(bins_t, grad, hess, leaf_of_row,
-                                             leaves, n_bins=n_bins,
-                                             hist_dtype=hist_dtype)
+        return gated(lambda: histogram_leaves_radix2_plain(
+            bins_t, grad, hess, leaf_of_row, leaves, n_bins=n_bins,
+            hist_dtype=hist_dtype), out, gate)
     global radix2_launches
     out = _leaf_pass("radix", "lgbt_hist_radix2", "histogram_leaves_radix2",
                      bins_t, grad, hess, leaf_of_row, leaves, n_bins,
-                     hist_dtype)
+                     hist_dtype, out=out, gate=gate)
     if out.numel():
         radix2_launches += 1
     return out
@@ -503,15 +608,18 @@ def histogram_leaves_packed_plain(words_t: torch.Tensor, grad: torch.Tensor,
 def histogram_leaves_packed(words_t: torch.Tensor, grad: torch.Tensor,
                             hess: torch.Tensor, leaf_of_row: torch.Tensor,
                             leaves: torch.Tensor, *, num_f: int, n_bins: int,
-                            hist_dtype: str = "float32") -> torch.Tensor:
+                            hist_dtype: str = "float32",
+                            out: Optional[torch.Tensor] = None,
+                            gate: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
     """Masked histogram f32 [K, num_f, n_bins, 4] from the transposed
     packed mirror words_t i32 [W, n] (byte j of word w, little-endian, is
-    the bin of feature 4w + j; features >= num_f are dropped)."""
+    the bin of feature 4w + j; features >= num_f are dropped);
+    ``out``/``gate``: see :func:`gated`."""
     if not words_t.is_cuda:
-        return histogram_leaves_packed_plain(words_t, grad, hess,
-                                             leaf_of_row, leaves,
-                                             num_f=num_f, n_bins=n_bins,
-                                             hist_dtype=hist_dtype)
+        return gated(lambda: histogram_leaves_packed_plain(
+            words_t, grad, hess, leaf_of_row, leaves, num_f=num_f,
+            n_bins=n_bins, hist_dtype=hist_dtype), out, gate)
     global packed_launches
     mode = _mode(hist_dtype)
     W, n = words_t.shape
@@ -527,16 +635,18 @@ def histogram_leaves_packed(words_t: torch.Tensor, grad: torch.Tensor,
         log.fatal("histogram_leaves_packed counts rows in 32 bits: n < 2^31")
     words_t, grad, hess, leaf_of_row, leaves = _c(words_t, grad, hess,
                                                   leaf_of_row, leaves)
-    out = torch.empty(K, num_f, n_bins, 4, dtype=torch.float32,
-                      device=words_t.device)
+    gp = _gate_ptr(gate, out, words_t.device, "histogram_leaves_packed")
+    out = _out(out, (K, num_f, n_bins, 4), words_t.device,
+               "histogram_leaves_packed")
     if out.numel() == 0:
         return out
     code = cuda_lib.load("packed").lgbt_hist_packed(
         words_t.data_ptr(), W, n, num_f, grad.data_ptr(), hess.data_ptr(),
         leaf_of_row.data_ptr(), leaves.data_ptr(), K, n_bins, mode,
-        out.data_ptr(), cuda_lib.stream_handle(words_t))
+        out.data_ptr(), gp, cuda_lib.stream_handle(words_t))
     cuda_lib.check(code, "histogram_leaves_packed")
     packed_launches += 1
+    _count_gate("histogram_leaves_packed", gate)
     return out
 
 

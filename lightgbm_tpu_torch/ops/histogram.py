@@ -15,9 +15,11 @@ rules below are copied, not imported):
   otherwise.
 
 All kernels compute the same histogram (bitwise in int8 mode).  A round
-whose selected rows fit a bucket compacts them (sort on the packed
-``row | 2^30`` key + one row gather of the i32 payload) and runs the
-payload kernel on the bucket instead of a masked pass.
+whose selected rows fit a bucket compacts them (the rows the sort of the
+packed ``row | 2^30`` key would put first, found by a prefix sum, + one
+row gather of the i32 payload) and runs the payload kernel on the bucket
+instead of a masked pass; the device picks the bucket
+(``histogram_for_leaves_auto``).
 
 The strict grower's single-leaf passes: ``histogram_for_leaf_masked`` (a
 full masked pass; radix-single under ``auto`` at >= 128 bins) and
@@ -146,11 +148,14 @@ def histogram_for_leaves_masked(bins_t: torch.Tensor, grad: torch.Tensor,
                                 n_bins: int = 256,
                                 hist_dtype: str = "float32",
                                 hist_kernel: str = "auto",
-                                bins_words_t: Optional[torch.Tensor] = None
+                                bins_words_t: Optional[torch.Tensor] = None,
+                                out: Optional[torch.Tensor] = None,
+                                gate: Optional[torch.Tensor] = None
                                 ) -> torch.Tensor:
     """Histograms of K leaves in ONE data pass -> f32 [K, F, B, 4].
     ``row_mask`` (bool [n]) excludes rows; ``bins_words_t`` is the
-    resident transposed packed mirror [W, n] the packed kernel reads."""
+    resident transposed packed mirror [W, n] the packed kernel reads;
+    ``out``/``gate``: the kernels' (hist_kernels.py ``gated``)."""
     hk = resolve_hist_kernel(hist_kernel)
     num_f = bins_t.shape[0]
     leaves = leaves.to(torch.int32)
@@ -159,7 +164,7 @@ def histogram_for_leaves_masked(bins_t: torch.Tensor, grad: torch.Tensor,
         lor = torch.where(row_mask, lor, torch.full_like(lor, -1))
     kern = _masked_kernel_for(hk, n_bins, leaves.shape[0], num_f,
                               bins_words_t is not None)
-    kw = dict(n_bins=n_bins, hist_dtype=hist_dtype)
+    kw = dict(n_bins=n_bins, hist_dtype=hist_dtype, out=out, gate=gate)
     if kern == "radix_joint":
         return histogram_radix_joint(bins_t, grad, hess, lor, leaves, **kw)
     if kern == "radix2":
@@ -300,22 +305,33 @@ def histogram_for_leaves_auto(bins_t: torch.Tensor, grad: torch.Tensor,
                               sort_key: Optional[torch.Tensor] = None,
                               hist_kernel: str = "auto",
                               payload: Optional[torch.Tensor] = None,
-                              bins_words_t: Optional[torch.Tensor] = None
+                              bins_words_t: Optional[torch.Tensor] = None,
+                              live: Optional[torch.Tensor] = None
                               ) -> torch.Tensor:
-    """K-leaf histograms with frontier compaction -> f32 [K, F, B, 4].
+    """K-leaf histograms with frontier compaction -> f32 [K, F, B, 4],
+    with no host read.
 
     When the rows of ``leaves`` fit a bucket of n/4, n/8, n/16 or n/64 rows
     (rounded up to ``min(rows_per_block, 2048)``), they are compacted — the
     first ``cnt`` entries of the sorted ``row | 2^30`` keys are exactly the
-    selected rows in order — and one gather of the payload feeds the
-    payload kernel; otherwise one full masked pass runs.  Exact either way.
+    selected rows in order (:func:`compact_rows`) — and one gather of the
+    payload feeds the payload kernel; otherwise one full masked pass runs.
+    Exact either way.  The bucket is chosen on the device, as the JAX
+    package's ``lax.switch``: the largest bucket's rows are always
+    compacted and gathered, and both passes are launched into one output,
+    each gated: the payload pass first (gated off it takes no row and
+    writes zeros; it reads the chosen S, its float32 scale's row count, on
+    the device), then the full masked pass (gated off it exits in its
+    first instructions and keeps the output; hist_kernels.py ``gated``).
 
     ``counts`` (f32 [K]): the caller's masked row count per slot;
     ``bins_words``: ``bins_to_words`` of the row-major bins, hoisted by the
     caller; ``sort_key``/``payload``: the keys and payload the fused
     partition kernel already emitted (ops/round_fuse.py);
     ``hist_kernel``/``bins_words_t``: the full pass's kernel choice and
-    packed mirror (``histogram_for_leaves_masked``).
+    packed mirror (``histogram_for_leaves_masked``); ``live`` (bool 0-d,
+    or None): False gates both passes off (a round that changes nothing;
+    the output is then zeros).
     """
     hist_kernel = resolve_hist_kernel(hist_kernel)
     n = grad.shape[0]
@@ -333,38 +349,69 @@ def histogram_for_leaves_auto(bins_t: torch.Tensor, grad: torch.Tensor,
     else:
         sel = (lor[None, :] == leaves[:, None]).any(0)
         cnt = sel.sum().to(torch.int32)
+    cnt = cnt.reshape(1)
+    sizes = bucket_sizes(n, rows_per_block, buckets)
+    out = torch.zeros(leaves.shape[0], num_f, n_bins, 4,
+                      dtype=torch.float32, device=dev)
+    # S: the smallest bucket that holds cnt, 0 for the full pass (sizes
+    # descend; each bucket a constant of the shapes)
+    S = torch.zeros_like(cnt)
+    for s in sizes:
+        S = torch.where(cnt <= s, s, S)
+    full, comp = S == 0, S > 0
+    if live is not None:
+        full, comp = full & live, comp & live
+    if sizes:
+        # the payload pass first, over the largest bucket's rows
+        if sort_key is None:
+            if sel is None:
+                sel = (lor[None, :] == leaves[:, None]).any(0)
+            rows = torch.arange(n, dtype=torch.int32, device=dev)
+            sort_key = torch.where(sel, rows, rows | (1 << 30))
+        if payload is None:
+            if bins_words is None:
+                bins_words = bins_to_words(bins_t.t())
+            payload = torch.cat([
+                bins_words, grad.contiguous().view(torch.int32)[:, None],
+                hess.contiguous().view(torch.int32)[:, None],
+                lor[:, None]], dim=1)
+        pc = payload[compact_rows(sort_key, sizes[0])]   # [largest S, W+3]
+        histogram_payload(pc, leaves, cnt, num_f=num_f, n_bins=n_bins,
+                          hist_dtype=hist_dtype, out=out,
+                          gate=comp.to(torch.int32), rows=S)
+    histogram_for_leaves_masked(
+        bins_t, grad, hess, lor, leaves, None, n_bins=n_bins,
+        hist_dtype=hist_dtype, hist_kernel=hist_kernel,
+        bins_words_t=bins_words_t, out=out, gate=full.to(torch.int32))
+    return out
 
+
+def compact_rows(sort_key: torch.Tensor, S: int) -> torch.Tensor:
+    """i64 [S]: the first S row indices of ``torch.sort(sort_key)`` (keys
+    ``row`` for selected rows, ``row | 2^30`` for the rest: the selected
+    rows in order, then the others in order), by a prefix sum and one
+    scatter instead of a sort: a selected row's place is the count of
+    selected rows before it, another row's the count of all selected rows
+    plus the count of other rows before it."""
+    n = sort_key.shape[0]
+    rows = torch.arange(n, dtype=torch.int64, device=sort_key.device)
+    sel = sort_key < (1 << 30)
+    before = torch.cumsum(sel.to(torch.int64), 0)          # inclusive
+    pos = torch.where(sel, before - 1, before[-1] + rows - before)
+    out = torch.empty(S + 1, dtype=torch.int64, device=sort_key.device)
+    # places at or past S go to a trash entry
+    out.index_put_((pos.clamp(max=S),), rows)
+    return out[:S]
+
+
+def bucket_sizes(n: int, rows_per_block: int,
+                 buckets: Sequence[int] = (4, 8, 16, 64)) -> list:
+    """The compaction buckets of n rows, descending: n/d for each d of
+    ``buckets``, rounded up to ``min(rows_per_block, 2048)``, below n."""
     blk = min(rows_per_block, 2048)
     sizes = []
     for d in buckets:
         s = _round_up(max(n // d, 1), blk)
         if s < n and s not in sizes:
             sizes.append(s)
-    # the JAX package picks the branch on the device (lax.switch); here it is
-    # a host branch, so this .item() is the one host sync of a round
-    c = int(cnt.item())
-    S = 0
-    for s in sizes:  # descending: the smallest bucket that fits wins
-        if c <= s:
-            S = s
-    if S == 0:
-        return histogram_for_leaves_masked(
-            bins_t, grad, hess, lor, leaves, None, n_bins=n_bins,
-            hist_dtype=hist_dtype, hist_kernel=hist_kernel,
-            bins_words_t=bins_words_t)
-    if sort_key is None:
-        if sel is None:
-            sel = (lor[None, :] == leaves[:, None]).any(0)
-        rows = torch.arange(n, dtype=torch.int32, device=dev)
-        sort_key = torch.where(sel, rows, rows | (1 << 30))
-    if payload is None:
-        if bins_words is None:
-            bins_words = bins_to_words(bins_t.t())
-        payload = torch.cat([bins_words,
-                             grad.contiguous().view(torch.int32)[:, None],
-                             hess.contiguous().view(torch.int32)[:, None],
-                             lor[:, None]], dim=1)
-    idxc = torch.sort(sort_key).values[:S] & ((1 << 30) - 1)
-    pc = payload[idxc.long()]                                   # [S, W+3]
-    return histogram_payload(pc, leaves, cnt.reshape(1), num_f=num_f,
-                             n_bins=n_bins, hist_dtype=hist_dtype)
+    return sizes

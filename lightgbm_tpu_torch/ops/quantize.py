@@ -30,21 +30,26 @@ def _pow2_ceil(x: torch.Tensor) -> torch.Tensor:
 def discretize_gradients_levels(grad: torch.Tensor, hess: torch.Tensor,
                                 key: Optional[prng.Key] = None, *,
                                 n_levels: int = 4, stochastic: bool = False,
-                                constant_hessian: bool = False
+                                constant_hessian: bool = False,
+                                split_keys: Optional[Tuple[prng.Key,
+                                                           prng.Key]] = None
                                 ) -> Tuple[torch.Tensor, torch.Tensor,
                                            torch.Tensor, torch.Tensor]:
     """(g_levels, h_levels, g_scale, h_scale) with real ~= level * scale.
 
     ``stochastic`` rounds ``floor(x / scale + u)`` with ``u`` uniform from
-    the two halves of ``split(key)`` (grad, hess), the JAX package's draw."""
+    the two halves of ``split(key)`` (grad, hess), the JAX package's draw;
+    ``split_keys`` hands those two keys in instead (the fused loop derives
+    them on the host and stages their words on the device)."""
     max_g = grad.abs().max()
     max_h = hess.abs().max()
-    tiny = torch.tensor(1e-20, dtype=torch.float32, device=grad.device)
+    # a fill, not a copy from the host: a captured round may hold it
+    tiny = torch.full((), 1e-20, dtype=torch.float32, device=grad.device)
     g_scale = _pow2_ceil(torch.maximum(max_g / (n_levels // 2), tiny))
     h_scale = _pow2_ceil(torch.maximum(
         max_h if constant_hessian else max_h / n_levels, tiny))
     if stochastic:
-        kg, kh = prng.split(key)
+        kg, kh = split_keys if split_keys is not None else prng.split(key)
         n = grad.shape[0]
         return (torch.floor(grad / g_scale + prng.uniform(kg, n, grad.device)),
                 torch.floor(hess / h_scale + prng.uniform(kh, n, hess.device)),
