@@ -6,12 +6,14 @@ CUDA device, ``nvcc`` (CUDA_HOME, PATH or /usr/local/cuda) and nothing
 else: no jax, no network.  Phases, each of which fails the run on error:
 
 1. environment and build: the card's name and power limit, the versions,
-   and every kernel of ``lightgbm_tpu_torch/csrc`` compiled at once, with
+   and every kernel of ``lightgbm_tpu_torch/csrc`` compiled at once (the
+   forest and SHAP kernels of phase 6 included), with
    the atomic opcodes the radix-single, rows and masked cluster kernels
    compiled to (the masked one, in radix.cu, packed.cu and hist.cu, every
    row source and the root pass's selector included, must add with native
    ``ATOMS.ADD``, no compare-and-swap loop and no global atomic);
-2. kernel checks: each of the eleven kernels against its plain PyTorch
+2. kernel checks: each of the eleven histogram, partition and take
+   kernels against its plain PyTorch
    version on the card, at the shapes of the HIGGS main path (n = 1M rows,
    F = 28 features, B = 256 bins, K = 42 leaves per round, T = 255 leaf
    values; B = 64 for the packed kernel; S = 45,056 compacted rows of the
@@ -115,6 +117,28 @@ else: no jax, no network.  Phases, each of which fails the run on error:
    100k rows with the 200k-row valid set (metric=auc, learning_rate 0.5,
    patience 3): best_iteration, trees and the recorded evaluations as the
    classic loop's, the device AUC within 1e-4 of ``predict``'s.
+
+6. prediction: the default recipe trained on a 1M-row synthetic set for
+   100 rounds through the fused loop, then ``Booster.predict`` on a 1M-row
+   held-out set (1e8 row-trees: the device forest predictor, the forest
+   kernel of csrc/forest.cu launched once per row block, its launch count
+   zeroed just before and read just after): the wall split into host
+   binning, the copy to the card, the kernel (device ms from the
+   profiler) and the copy back, rows per second and the held-out AUC;
+   held bit for bit against the plain path-count version on the card (its
+   time is row 12's library column), against the host float64 walk on
+   20,000 rows (rtol 2e-5 / atol 2e-6), in leaves mode against the plain
+   ``predict_forest_leaves`` (bitwise) and ``pred_leaf``'s host walk
+   (exact), the same bits twice; a seeded synthetic forest with
+   categorical nodes and both sentinel bins at 1M rows, bitwise.
+   ``pred_contrib`` on 10,000 held-out rows through the SHAP kernel of
+   csrc/shap.cu (one launch per tree and 4,096-row chunk, counted):
+   additivity against ``raw_score`` (1e-4 relative), the same bits twice,
+   the plain PyTorch version on the card over 10 trees (rtol 1e-5 / atol
+   1e-6), the host float64 path on 200 rows over 10 trees (largest
+   relative difference printed, fail above 1e-4), the wall split (host
+   ``_go_left_matrix``, copies, kernel), and a 40-slot chain tree, above
+   the kernel's register buckets, against the plain version.
 
 It prints one JSON line with every kernel's numbers (launches: the fused
 runs' for the kernels a fused run holds, the bucketed strict run's for
@@ -2337,6 +2361,458 @@ def check_fused(torch, lgbt, classic_sha, HK, RF, TB, prng):
 
 # ---- A/B against another checkout: python3 chip_smoke.py --ab DIR
 
+# ---- phase 6: prediction (the device forest predictor and TreeSHAP)
+
+#: rows of the held-out set phase 6 predicts (1M x 100 trees: 1e8
+#: row-trees, above DEVICE_PREDICT_MIN_WORK), of its host checks, and of
+#: pred_contrib through the SHAP kernel
+N_HOST_CHECK = 20_000
+N_SHAP = 10_000
+N_SHAP_HOST = 200
+
+
+def random_children(rng, L):
+    """Children (left, right: i32 [L - 1], the model text's encoding,
+    -(leaf + 1) for a leaf) of a seeded random binary tree of L leaves,
+    grown by splitting a random leaf; a node's children have larger ids."""
+    ni = L - 1
+    lc, rc = np.full(ni, -1, np.int32), np.full(ni, -1, np.int32)
+    open_ = [(0, None)]                  # (leaf, (parent node, is_left))
+    for nd in range(ni):
+        i = int(rng.integers(len(open_)))
+        open_[i], open_[-1] = open_[-1], open_[i]
+        leaf, parent = open_.pop()
+        if parent is not None:
+            (lc if parent[1] else rc)[parent[0]] = nd
+        lc[nd], rc[nd] = -(leaf + 1), -(nd + 2)
+        open_ += [(leaf, (nd, True)), (nd + 1, (nd, False))]
+    return lc, rc
+
+
+def synthetic_bitset_forest(rng, T, L, num_f, cat_feats, cat_bins, n_bins):
+    """A seeded random stacked forest with categorical nodes, as the
+    numpy fields of a BitsetForest with its children: T random binary
+    trees of L leaves over ``num_f`` features; a node on a categorical
+    feature is a bitset node (membership random, the unseen and NaN
+    sentinel bins ``cat_bins``, ``cat_bins + 1`` included at random);
+    numeric nodes a random threshold, NaN bin and default direction."""
+    from types import SimpleNamespace
+    from lightgbm_tpu_torch.boosting.gbdt import _leaf_path_masks
+    ni = L - 1
+    Bc = cat_bins + 2
+    d = dict(feat=rng.integers(0, num_f, size=(T, ni)).astype(np.int32),
+             thr=rng.integers(0, n_bins, size=(T, ni)).astype(np.int32),
+             dl=rng.random((T, ni)) < 0.5,
+             nanb=rng.integers(n_bins - 2, n_bins, size=(T, ni))
+             .astype(np.int32),
+             mpos=np.zeros((T, L, ni), np.float32),
+             mneg=np.zeros((T, L, ni), np.float32),
+             depth=np.full((T, L), -1, np.int32),
+             value=rng.normal(size=(T, L)).astype(np.float32),
+             cls=np.zeros(T, np.int32),
+             left=np.zeros((T, ni), np.int32),
+             right=np.zeros((T, ni), np.int32))
+    cat_nodes = []
+    for t in range(T):
+        lc, rc = random_children(rng, L)
+        d["left"][t], d["right"][t] = lc, rc
+        _leaf_path_masks(SimpleNamespace(num_leaves=L, left_child=lc,
+                                         right_child=rc),
+                         d["mpos"][t], d["mneg"][t], d["depth"][t])
+        cat_nodes.append([nd for nd in range(ni)
+                          if int(d["feat"][t, nd]) in cat_feats])
+    C = max(1, max(len(c) for c in cat_nodes))
+    d["catn"] = np.full((T, C), ni, np.int32)
+    d["catf"] = np.zeros((T, C), np.int32)
+    d["catb"] = np.zeros((T, C, Bc), np.float32)
+    for t, nodes in enumerate(cat_nodes):
+        for c, nd in enumerate(nodes):
+            d["catn"][t, c] = nd
+            d["catf"][t, c] = d["feat"][t, nd]
+            d["catb"][t, c] = rng.random(Bc) < 0.4
+    return d
+
+
+def synthetic_chain_tree(lgbt_tree_cls, num_slots):
+    """A tree of ``num_slots + 2`` leaves whose deepest path splits on
+    ``num_slots`` distinct features (a chain: each node's left child a
+    leaf), leaf covers halving down the chain."""
+    nl = num_slots + 2
+    ni = nl - 1
+    t = lgbt_tree_cls(nl)
+    t.split_feature = (np.arange(ni) % num_slots).astype(np.int32)
+    t.threshold = np.linspace(-0.5, 0.5, ni)
+    t.decision_type = np.zeros(ni, np.int32)
+    t.left_child = np.array([-(i + 1) for i in range(ni)], np.int32)
+    t.right_child = np.array(list(range(1, ni)) + [-nl], np.int32)
+    t.leaf_value = np.linspace(-1.0, 1.0, nl)
+    counts = np.maximum(1000 >> np.minimum(np.arange(nl), 12), 3)
+    t.leaf_count = counts.astype(np.int64)
+    t.internal_count = np.array([counts[i:].sum() for i in range(ni)],
+                                np.int64)
+    return t
+
+
+def synthetic_tree(tree_cls, rng, L, num_f):
+    """A seeded random tree of L leaves for TreeSHAP: random splits on
+    ``num_f`` features (real thresholds, NaN default directions), leaf
+    counts and internal counts that add up."""
+    ni = L - 1
+    t = tree_cls(L)
+    lc, rc = random_children(rng, L)
+    t.left_child, t.right_child = lc, rc
+    t.split_feature = rng.integers(0, num_f, size=ni).astype(np.int32)
+    t.threshold = rng.normal(size=ni)
+    t.decision_type = ((rng.random(ni) < 0.5) * 2 + (2 << 2)).astype(
+        np.int32)                          # NaN missing, either default
+    t.leaf_value = rng.normal(size=L)
+    t.leaf_count = rng.integers(1, 50, size=L).astype(np.int64)
+    cnt = np.zeros(ni, np.int64)
+    for nd in range(ni - 1, -1, -1):       # children have larger ids
+        cnt[nd] = sum(t.leaf_count[-c - 1] if c < 0 else cnt[c]
+                      for c in (lc[nd], rc[nd]))
+    t.internal_count = cnt
+    return t
+
+
+def check_predict_edges(torch, dev):
+    """Phase 6's edges: the code paths of the two kernels the main path
+    does not take, each bitwise (forest) or to float32 rounding (SHAP)
+    against its plain version on the card.  Forest: 120 features (bins
+    read from device memory, not staged), a tree of 8,192 leaves (nodes
+    read from device memory), k = 3 class routing, a ragged n, a column
+    slice of a wider bin matrix (a row stride other than n), i32 bins;
+    SHAP: a tree of 4,096 leaves (the [L, S] contributions in a global
+    scratch) and one of 17,000 (the row's decisions read from device
+    memory, ni > 16,384)."""
+    from lightgbm_tpu_torch.models import predict as MP
+    from lightgbm_tpu_torch.models import shap as MS
+    from lightgbm_tpu_torch.models.tree import Tree
+    from lightgbm_tpu_torch.ops import forest_kernels as FK
+    from lightgbm_tpu_torch.ops import shap_kernels as SK
+    rng = np.random.default_rng(12)
+    cases = []
+
+    def forest(T, L, num_f, k=1, cat=()):
+        d = synthetic_bitset_forest(rng, T, L, num_f, cat, 32, 256)
+        d["cls"] = (np.arange(T) % k).astype(np.int32)
+        if not cat:
+            d = {f: v for f, v in d.items()
+                 if f in MP.ForestArrays._fields}
+        return MP.forest_from_numpy(d, dev)
+
+    def bins(num_f, n, dtype=np.uint8):
+        return torch.as_tensor(rng.integers(0, 256, size=(num_f, n))
+                               .astype(dtype), device=dev)
+
+    wide = bins(28, 70_000)
+    cases = [("F = 120", forest(8, 64, 120), bins(120, 50_003), 1, ()),
+             ("L = 8,192", forest(2, 8192, 28), bins(28, 20_000), 1, ()),
+             ("k = 3", forest(9, 32, 28, k=3), bins(28, 3_001), 3, ()),
+             ("column slice", forest(4, 64, 28), wide[:, 1_000:41_000], 1,
+              ()),
+             ("i32 bins", forest(4, 64, 28), bins(28, 9_999, np.int32), 1,
+              ())]
+    for what, f, b, k, cat in cases:
+        got = FK.forest_values(f, b, k, cat)
+        if not torch.equal(got, MP.predict_numeric_forest(f, b, k)) or \
+                not torch.equal(FK.forest_leaves(f, b, cat),
+                                MP.predict_forest_leaves(f, b, cat)):
+            fail(f"forest kernel vs plain at its edge: {what}")
+    for L in (4096, 17_000):
+        t = synthetic_tree(Tree, rng, L, F)
+        X = rng.normal(size=(64, F))
+        X[rng.random(X.shape) < 0.05] = np.nan
+        tb = SK.tree_tables(MS._paths_of(t, F), dev)
+        gl = SK.go_left_to_device(MS._go_left_matrix(t, X), dev)
+        got, want = SK.tree_shap(tb, gl), SK.tree_shap_plain(tb, gl)
+        if not torch.allclose(got, want, rtol=1e-5, atol=1e-6):
+            fail(f"SHAP kernel vs plain at L = {L}: max abs diff "
+                 f"{(got - want).abs().max().item()}")
+    print("predict edges: forest kernel bitwise against the plain version "
+          "(values and leaves) at F = 120, L = 8,192, k = 3, n = 3,001, a "
+          "column slice, i32 bins; SHAP kernel against the plain version "
+          "at L = 4,096 and 17,000 leaves (rtol 1e-5 / atol 1e-6)",
+          flush=True)
+
+
+def check_predict(torch, lgbt):
+    """Phase 6: prediction on the card.  The default recipe trained on the
+    1M-row synthetic set for 100 rounds through the fused loop, then
+    ``Booster.predict`` on a 1M-row held-out set (1e8 row-trees: the
+    device forest predictor, one forest-kernel launch per row block), its
+    wall split into host binning, the copy to the card, the kernel and the
+    copy back, rows per second and the held-out AUC; held bit for bit
+    against the plain path-count version on the card (whose time, its
+    torch.matmul products inside, is row 12's library column), against
+    the host float64 walk on 20,000 rows (rtol 2e-5 / atol 2e-6), in
+    leaves mode against the plain version and ``pred_leaf``'s host walk,
+    the same bits twice; a seeded synthetic forest with categorical nodes
+    and both sentinel bins at 1M rows, bitwise against the plain version.
+    Then ``pred_contrib`` on 10,000 held-out rows through the SHAP kernel:
+    additivity against raw_score (1e-4 relative), the same bits twice, the
+    plain PyTorch version on the card with num_iteration=10 (rtol 1e-5 /
+    atol 1e-6), the host float64 path on 200 rows (largest relative
+    difference printed, fail above 1e-4), its wall split (host decisions,
+    copies, kernel), and a 40-slot chain tree (above the kernel's register
+    buckets) against the plain version; between the two, the kernels'
+    edges (``check_predict_edges``).  Returns rows 12 and 13 of the
+    kernels line."""
+    from lightgbm_tpu_torch.boosting.gbdt import GBDT
+    from lightgbm_tpu_torch.models import predict as MP
+    from lightgbm_tpu_torch.models import shap as MS
+    from lightgbm_tpu_torch.models.tree import Tree
+    from lightgbm_tpu_torch.ops import forest_kernels as FK
+    from lightgbm_tpu_torch.ops import shap_kernels as SK
+    dev = torch.device("cuda")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(6)
+    X, y, w = synth_higgs(N, F, rng)
+    Xv, yv, _ = synth_higgs(N, F, rng, w)
+    t0 = time.perf_counter()
+    ds = lgbt.Dataset(X, y, params={"max_bin": 255, "verbosity": -1})
+    ds.construct()
+    t_ds = time.perf_counter() - t0
+    bst, per, wall, _ = fused_train(torch, lgbt, ds, 100)
+    g = bst._gbdt
+    T_ = len(g.models)
+    print(f"predict: default recipe {N:,} x {T_} trees through the fused "
+          f"loop (dataset {t_ds:.2f} s, {per:.4f} s a round, train() "
+          f"{wall:.2f} s)", flush=True)
+    if T_ != 100 or N * T_ < GBDT.DEVICE_PREDICT_MIN_WORK:
+        fail(f"phase 6 trained {T_} trees")
+
+    # -- Booster.predict above the threshold: counts zeroed just before,
+    # read just after
+    FK.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    raw = bst.predict(Xv, raw_score=True)
+    t_pred = time.perf_counter() - t0
+    n_fk = FK.launches
+    blocks = -(-N // GBDT.PREDICT_BLOCK_ROWS)
+    if n_fk < blocks:
+        fail(f"Booster.predict over {N:,} rows x {T_} trees launched the "
+             f"forest kernel {n_fk} times for {blocks} row blocks")
+    if raw.shape != (N,) or not np.isfinite(raw).all():
+        fail(f"predict gave shape {raw.shape} / non-finite values")
+    a = auc(yv, raw)
+    if not a > 0.7:
+        fail(f"held-out AUC {a} is not that of a trained model")
+    # the same steps one at a time: binning, copy, kernel, copy back
+    t0 = time.perf_counter()
+    bins_np = g.train_set.bin_external(Xv)
+    t_bin = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bins_t = torch.as_tensor(np.ascontiguousarray(bins_np.T), device=dev)
+    torch.cuda.synchronize()
+    t_h2d = time.perf_counter() - t0
+    fa = g._forest_arrays(g.models, 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = FK.forest_values(fa, bins_t, 1)
+    torch.cuda.synchronize()
+    t_kern = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out_host = out.double().cpu().numpy()[:, 0]
+    t_d2h = time.perf_counter() - t0
+    _, dev_ms = device_per_call(torch, lambda: FK.forest_values(fa, bins_t,
+                                                                1), reps=5)
+    print(f"predict {N:,} x {T_}: Booster.predict {t_pred:.3f} s "
+          f"({N / t_pred:,.0f} rows/s), {n_fk} forest-kernel launch(es); "
+          f"split: host binning {t_bin:.3f} s, copy to the card "
+          f"{t_h2d:.4f} s, kernel {t_kern:.4f} s (device "
+          f"{dev_ms if dev_ms is None else round(dev_ms, 4)} ms, profiler), "
+          f"copy back {t_d2h:.4f} s; held-out AUC {a:.6f}", flush=True)
+    if not np.array_equal(out_host, raw):
+        fail("Booster.predict's raw scores differ from the forest kernel's")
+    plain = MP.predict_numeric_forest(fa, bins_t, 1)
+    if not torch.equal(out, plain):
+        d = (out - plain).abs().max().item()
+        fail(f"forest kernel vs the plain path-count version: max abs "
+             f"diff {d}")
+    if not torch.equal(FK.forest_values(fa, bins_t, 1), out):
+        fail("the forest kernel gave other bits on a second call")
+    host = bst.predict(Xv[:N_HOST_CHECK], raw_score=True)   # host walk
+    if not np.allclose(raw[:N_HOST_CHECK], host, rtol=2e-5, atol=2e-6):
+        fail(f"device predict vs the host float64 walk: max abs diff "
+             f"{np.abs(raw[:N_HOST_CHECK] - host).max()}")
+    leaves = FK.forest_leaves(fa, bins_t)
+    if not torch.equal(leaves, MP.predict_forest_leaves(fa, bins_t)):
+        fail("forest kernel leaves vs the plain predict_forest_leaves")
+    host_leaves = bst.predict(Xv[:N_HOST_CHECK], pred_leaf=True)
+    if not np.array_equal(leaves[:, :N_HOST_CHECK].cpu().numpy().T,
+                          host_leaves):
+        fail("forest kernel leaves vs pred_leaf's host walk")
+    ms = time_ms(torch, lambda: FK.forest_values(fa, bins_t, 1), flush)
+    plain_ms = time_ms(torch, lambda: MP.predict_numeric_forest(
+        fa, bins_t, 1), flush, reps=3)
+    leaves_ms = time_ms(torch, lambda: FK.forest_leaves(fa, bins_t), flush,
+                        reps=3)
+    # bound: the bins, the output and the forest once; the node steps this
+    # run's rows take (each row's path length in each tree)
+    depth = fa.depth.long()
+    steps = int(torch.gather(depth, 1, leaves.long()).sum().item())
+    p = FK.pack_forest(fa)
+    fbytes = sum(x.numel() * x.element_size() for x in p)
+    b12, by12 = bound_ms(N * F + 4 * N + fbytes, steps)
+    print(f"predict shape: forest kernel {N:,} x {T_} trees (L = "
+          f"{fa.depth.shape[1]}): one call {ms:.4f} ms, device "
+          f"{dev_ms} ms, leaves mode {leaves_ms:.4f} ms; plain path-count "
+          f"version {plain_ms:.4f} ms; {steps:,} node steps (mean depth "
+          f"{steps / N / T_:.2f}), bound {b12:.4f} ms ({by12}); bitwise "
+          f"against the plain version, values and leaves, twice", flush=True)
+    del plain, leaves, out
+
+    # -- categorical nodes, both sentinels: a synthetic BitsetForest
+    cat_feats = (3, 11, 19)
+    fd = synthetic_bitset_forest(np.random.default_rng(11), 20, 64, F,
+                                 cat_feats, 32, 256)
+    fb = MP.forest_from_numpy(fd, dev)
+    cb = rng.integers(0, 256, size=(F, N)).astype(np.int32)
+    for cf in cat_feats:
+        cb[cf] = rng.integers(0, 34, size=N)        # 32 bins + sentinels
+    cb_t = torch.as_tensor(cb, device=dev)
+    got = FK.forest_values(fb, cb_t, 1, cat_feats)
+    want = MP.predict_bitset_forest(fb, cb_t, 1, cat_feats)
+    gl_ = FK.forest_leaves(fb, cb_t, cat_feats)
+    wl_ = MP.predict_forest_leaves(fb, cb_t, cat_feats)
+    n_cat = int((fb.catn < 63).sum().item())
+    if not torch.equal(got, want) or not torch.equal(gl_, wl_):
+        fail("forest kernel vs plain on the categorical synthetic forest")
+    print(f"predict (categorical): 20 synthetic trees of 64 leaves, "
+          f"{n_cat} bitset nodes on 3 of 28 features, 1M rows with both "
+          f"sentinel bins: values and leaves bitwise against the plain "
+          f"version", flush=True)
+    del cb_t, got, want, gl_, wl_, bins_t
+
+    check_predict_edges(torch, dev)
+
+    # -- pred_contrib through the SHAP kernel
+    Xs = Xv[:N_SHAP]
+    SK.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    contrib = bst.predict(Xs, pred_contrib=True)
+    t_shap = time.perf_counter() - t0
+    n_sk = SK.launches
+    chunks = -(-N_SHAP // MS._DEVICE_CHUNK_ROWS)
+    if n_sk != T_ * chunks:
+        fail(f"pred_contrib launched the SHAP kernel {n_sk} times, not "
+             f"{T_ * chunks}")
+    raw_s = bst.predict(Xs, raw_score=True)
+    rel = np.abs(contrib.sum(1) - raw_s).max() / np.abs(raw_s).max()
+    if contrib.shape != (N_SHAP, F + 1) or not rel <= 1e-4:
+        fail(f"pred_contrib shape {contrib.shape}, additivity {rel}")
+    if not np.array_equal(bst.predict(Xs, pred_contrib=True), contrib):
+        fail("pred_contrib gave other bits on a second call")
+    # the wall split, step by step (the tables are cached by now)
+    tg = th2d = tk = td2h = 0.0
+    Ss = []
+    for tr in g.models:
+        tp = MS._paths_of(tr, F)
+        tb = SK.tree_tables(tp, dev)
+        Ss.append(tp.S)
+        for r0 in range(0, N_SHAP, MS._DEVICE_CHUNK_ROWS):
+            t0 = time.perf_counter()
+            gl = MS._go_left_matrix(tr, Xs[r0:r0 + MS._DEVICE_CHUNK_ROWS])
+            t1 = time.perf_counter()
+            gd = SK.go_left_to_device(gl, dev)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            o = SK.tree_shap(tb, gd)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            o.cpu().numpy()
+            t4 = time.perf_counter()
+            tg, th2d, tk, td2h = (tg + t1 - t0, th2d + t2 - t1,
+                                  tk + t3 - t2, td2h + t4 - t3)
+    print(f"pred_contrib {N_SHAP} x {T_} trees: {t_shap:.3f} s "
+          f"({N_SHAP / t_shap:,.0f} rows/s), {n_sk} SHAP-kernel launches, "
+          f"S = {min(Ss)}..{max(Ss)}; split: host _go_left_matrix "
+          f"{tg:.3f} s, copies to the card {th2d:.3f} s, kernel {tk:.3f} s, "
+          f"copies back {td2h:.3f} s; additivity {rel:.2e} relative; the "
+          f"same bits twice", flush=True)
+    # plain torch on the card, 10 trees
+    k_ = MS.predict_contrib(g.models, Xs, F, 1, 0, 10, force_device=True,
+                            device=dev)
+    kernel_shap = SK.tree_shap
+    SK.tree_shap = SK.tree_shap_plain
+    try:
+        p_ = MS.predict_contrib(g.models, Xs, F, 1, 0, 10,
+                                force_device=True, device=dev)
+    finally:
+        SK.tree_shap = kernel_shap
+    if not np.allclose(k_, p_, rtol=1e-5, atol=1e-6):
+        fail(f"SHAP kernel vs the plain version (10 trees): max abs diff "
+             f"{np.abs(k_ - p_).max()}")
+    k200 = MS.predict_contrib(g.models, Xs[:N_SHAP_HOST], F, 1, 0, 10,
+                              force_device=True, device=dev)
+    t0 = time.perf_counter()
+    h200 = MS.predict_contrib(g.models, Xs[:N_SHAP_HOST], F, 1, 0, 10)
+    t_h = time.perf_counter() - t0
+    rel_h = np.abs(k200 - h200).max() / np.abs(h200).max()
+    print(f"pred_contrib checks: kernel vs plain PyTorch on the card (10 "
+          f"trees, {N_SHAP} rows) max abs diff {np.abs(k_ - p_).max():.3e}; "
+          f"vs the host float64 path ({N_SHAP_HOST} rows, 10 trees, "
+          f"{t_h:.1f} s) largest relative difference {rel_h:.3e}",
+          flush=True)
+    if not rel_h <= 1e-4:
+        fail(f"SHAP kernel vs the host float64 path: {rel_h}")
+    # one S above the register buckets: a 40-slot chain tree
+    chain = synthetic_chain_tree(Tree, 40)
+    Xc = np.random.default_rng(3).normal(size=(N_SHAP_HOST, 44)) * 0.5
+    if MS._paths_of(chain, 44).S <= SK.REGISTER_SLOTS:
+        fail("the chain tree does not exceed the register buckets")
+    kc = MS.predict_contrib([chain], Xc, 44, force_device=True, device=dev)
+    SK.tree_shap = SK.tree_shap_plain
+    try:
+        pc = MS.predict_contrib([chain], Xc, 44, force_device=True,
+                                device=dev)
+    finally:
+        SK.tree_shap = kernel_shap
+    dc = np.abs(kc - pc).max()
+    print(f"pred_contrib (S = {MS._paths_of(chain, 44).S}, global path "
+          f"state): kernel vs plain max abs diff {dc:.3e}", flush=True)
+    if not np.allclose(kc, pc, rtol=1e-5, atol=1e-6):
+        fail(f"SHAP kernel vs plain at S = 40: max abs diff {dc}")
+    # row 13's one call: tree 0's first chunk
+    tp = MS._paths_of(g.models[0], F)
+    tb = SK.tree_tables(tp, dev)
+    gd = SK.go_left_to_device(MS._go_left_matrix(
+        g.models[0], Xs[:MS._DEVICE_CHUNK_ROWS]), dev)
+    if not torch.equal(SK.tree_shap(tb, gd), SK.tree_shap(tb, gd)):
+        fail("the SHAP kernel gave other bits on a second call")
+    ms13 = time_ms(torch, lambda: SK.tree_shap(tb, gd), flush)
+    _, dev13 = device_per_call(torch, lambda: SK.tree_shap(tb, gd), reps=5)
+    plain13 = time_ms(torch, lambda: SK.tree_shap_plain(tb, gd), flush,
+                      reps=3)
+    Lp, S = tp.feats.shape
+    n_ = MS._DEVICE_CHUNK_ROWS
+    b13, by13 = bound_ms(n_ * gd.shape[1] + 4 * n_ * (F + 1),
+                         2 * n_ * Lp * (S * S + S))
+    err13 = float(np.abs(k_ - p_).max())
+    print(f"predict shape: SHAP kernel, one chunk of {n_} rows, tree 0 "
+          f"(L = {Lp}, S = {S}): one call {ms13:.4f} ms, device {dev13} ms, "
+          f"plain {plain13:.2f} ms, bound {b13:.4f} ms ({by13})", flush=True)
+    print(f"phase 6: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    def kernel_row(name, src, replaces, launches, err, ms_, plain_, b, by,
+                   lib):
+        return dict(name=name, route="cuda", source=src, replaces=replaces,
+                    launches=launches, max_abs_err=err, ms=ms_,
+                    plain_ms=plain_, bound_ms=b, bound_by=by,
+                    library_ms=lib)
+
+    return [kernel_row("forest_values", "lightgbm_tpu_torch/csrc/forest.cu",
+                       "lightgbm_tpu/models/predict.py:355", n_fk, 0.0, ms,
+                       plain_ms, b12, by12, plain_ms),
+            kernel_row("tree_shap", "lightgbm_tpu_torch/csrc/shap.cu",
+                       "lightgbm_tpu/models/shap.py:304", n_sk, err13,
+                       ms13, plain13, b13, by13, None)]
+
+
 def load_other(root):
     """The port package of another checkout (``root``/lightgbm_tpu_torch),
     imported as ``lgbt_other`` beside this one; its kernels build into its
@@ -2847,6 +3323,9 @@ def main():
     launches.update(check_fused(torch, lgbt, classic_sha, HK, RF, TB, prng))
     for r in rows:
         r["launches"] = launches[r["name"]]
+
+    # ---- 6. prediction: the device forest predictor and TreeSHAP
+    rows += check_predict(torch, lgbt)
     print(f"chip_smoke: {time.perf_counter() - t_script:.1f} s in all, the "
           f"kernel build {build_s:.1f} s of it", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

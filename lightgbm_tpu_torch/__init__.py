@@ -2,10 +2,11 @@
 
 The same ``Dataset`` / ``train()`` / ``Booster`` surface, config keys and
 model text format as ``lightgbm_tpu``, written in PyTorch, with every
-kernel of the training path hand-written in CUDA C++ for Hopper
-(``csrc/``, built with ``nvcc`` on first use).  Training runs on the CUDA
-device unless ``device_type=cpu`` is passed; there the kernels' plain
-PyTorch versions run.  This package never imports jax or lightgbm_tpu.
+kernel of the training path, and the forest predictor and TreeSHAP of
+``Booster.predict``, hand-written in CUDA C++ for Hopper (``csrc/``,
+built with ``nvcc`` on first use).  Training runs on the CUDA device
+unless ``device_type=cpu`` is passed; there the kernels' plain PyTorch
+versions run.  This package never imports jax or lightgbm_tpu.
 """
 
 from .config import Config

@@ -8,8 +8,13 @@ train / eval / predict / save / load with the same model text format.
 Booster(model_str=...) and Booster(model_file=...) load the JAX package's
 model text as well as this package's.
 
-Not here yet: file / pandas-categorical / sparse / Sequence input, binary
-datasets, continued training, refit, SHAP contributions, dump/plot helpers.
+``Booster.predict`` has the JAX package's surface: raw or converted
+scores, ``pred_leaf``, ``pred_contrib`` (TreeSHAP, models/shap.py) and
+prediction early stopping (``pred_early_stop`` / ``_freq`` / ``_margin``).
+
+Not here yet: file / pandas-categorical / sparse / Sequence input (also at
+predict time), binary datasets, continued training, refit, dump/plot
+helpers.
 """
 
 from __future__ import annotations
@@ -25,6 +30,46 @@ from .models.model_io import (model_to_string, objective_to_string,
                               parse_model_string)
 from .models.tree import Tree
 from .utils import log
+from .utils.device import resolve_device
+
+
+def _margin_reached(out: np.ndarray, margin: float) -> np.ndarray:
+    """Per-row early-termination test (reference
+    prediction_early_stop.cpp — binary: 2*|raw|, multiclass: top-2 gap)."""
+    if out.shape[1] == 1:
+        return 2.0 * np.abs(out[:, 0]) >= margin
+    part = np.partition(out, -2, axis=1)
+    return (part[:, -1] - part[:, -2]) >= margin
+
+
+def _host_leaves(trees: List[Tree], X: np.ndarray, k: int, start: int,
+                 end: int) -> np.ndarray:
+    """i32 [n, trees]: the leaf of every row in iterations [start, end),
+    walked on the host (``pred_leaf``)."""
+    leaves = [trees[it * k + c].predict_leaf_index(X)
+              for it in range(start, end) for c in range(k)]
+    return np.stack(leaves, axis=1) if leaves else \
+        np.zeros((X.shape[0], 0), np.int32)
+
+
+def _host_raw(trees: List[Tree], X: np.ndarray, k: int, start: int,
+              end: int, early=None) -> np.ndarray:
+    """float64 [n, k] raw scores of iterations [start, end), walked on the
+    host; ``early`` = (on, freq, margin) stops a row every ``freq``
+    iterations once ``_margin_reached``."""
+    out = np.zeros((X.shape[0], k))
+    active = np.ones(X.shape[0], bool) if early is not None else None
+    for it in range(start, end):
+        for c in range(k):
+            if early is not None:
+                out[active, c] += trees[it * k + c].predict(X[active])
+            else:
+                out[:, c] += trees[it * k + c].predict(X)
+        if early is not None and (it + 1) % early[1] == 0:
+            active &= ~_margin_reached(out, early[2])
+            if not active.any():
+                break
+    return out
 
 
 def _objective_string_transform(out: np.ndarray, obj_str: str) -> np.ndarray:
@@ -179,21 +224,38 @@ class Booster:
 
     # ---------------------------------------------------------- prediction
     def predict(self, data: Any, start_iteration: int = 0,
-                num_iteration: Optional[int] = None,
-                raw_score: bool = False) -> np.ndarray:
+                num_iteration: Optional[int] = None, raw_score: bool = False,
+                pred_leaf: bool = False, pred_contrib: bool = False,
+                pred_early_stop: bool = False, pred_early_stop_freq: int = 10,
+                pred_early_stop_margin: float = 10.0,
+                **kwargs) -> np.ndarray:
+        """Scores, leaf indices (``pred_leaf``: i32 [n, trees]) or SHAP
+        contributions (``pred_contrib``: [n, F + 1], class-major for k
+        outputs) of the model's iterations [start_iteration,
+        start_iteration + num_iteration) (all, or up to ``best_iteration``,
+        when ``num_iteration`` is None).  ``pred_early_stop`` stops a row
+        every ``pred_early_stop_freq`` iterations once its margin reaches
+        ``pred_early_stop_margin`` (host walk)."""
         X = np.asarray(data, np.float64)
         if num_iteration is None:
             num_iteration = self.best_iteration if self.best_iteration > 0 \
                 else -1
+        if pred_contrib:
+            return self._predict_contrib(X, start_iteration, num_iteration)
+        early = (pred_early_stop, pred_early_stop_freq,
+                 pred_early_stop_margin) if pred_early_stop else None
         if self._gbdt is not None:
             return self._gbdt.predict(X, raw_score=raw_score,
                                       start_iteration=start_iteration,
-                                      num_iteration=num_iteration)
+                                      num_iteration=num_iteration,
+                                      pred_leaf=pred_leaf, early=early)
         return self._predict_loaded(X, start_iteration, num_iteration,
-                                    raw_score)
+                                    raw_score, pred_leaf, early)
 
-    def _predict_loaded(self, X, start_iteration, num_iteration,
-                        raw_score) -> np.ndarray:
+    def _predict_loaded(self, X, start_iteration, num_iteration, raw_score,
+                        pred_leaf=False, early=None) -> np.ndarray:
+        """A loaded model's scores or leaves: the host walk (a loaded
+        model carries no bin mappers to bin with)."""
         trees = self._loaded["trees"]
         k = self._loaded["num_tree_per_iteration"]
         total_iters = len(trees) // k if k else 0
@@ -201,13 +263,35 @@ class Booster:
             else min(total_iters, start_iteration + num_iteration)
         if X.ndim == 1:
             X = X.reshape(1, -1)
-        out = np.zeros((X.shape[0], k))
-        for it in range(start_iteration, end):
-            for c in range(k):
-                out[:, c] += trees[it * k + c].predict(X)
+        if pred_leaf:
+            return _host_leaves(trees, X, k, start_iteration, end)
+        out = _host_raw(trees, X, k, start_iteration, end, early)
         if not raw_score:
             out = _objective_string_transform(out, self._loaded["objective"])
         return out[:, 0] if k == 1 else out
+
+    def _predict_contrib(self, X, start_iteration,
+                         num_iteration) -> np.ndarray:
+        """SHAP contributions (reference PredictContrib,
+        gbdt_prediction.cpp:44; models/shap.py TreeSHAP).  The device part
+        runs on the booster's device; a loaded model's device comes from
+        ``params["device_type"]`` (the card unless ``cpu``), resolved only
+        when the device part runs."""
+        from .models.shap import DEVICE_CONTRIB_MIN_WORK, predict_contrib
+        trees = self._get_trees()
+        k = self.num_model_per_iteration()
+        nf = (self._gbdt.train_set.num_total_features if self._gbdt
+              else self._loaded["max_feature_idx"] + 1)
+        end = -1 if num_iteration is None or num_iteration <= 0 else \
+            start_iteration + num_iteration
+        n = X.reshape(-1, X.shape[-1]).shape[0]
+        device = None
+        if n * max((t.num_leaves for t in trees),
+                   default=1) > DEVICE_CONTRIB_MIN_WORK:
+            device = self._gbdt.device if self._gbdt is not None else \
+                resolve_device(self.params.get("device_type"))
+        return predict_contrib(trees, X, nf, k, start_iteration, end,
+                               device=device)
 
     def _get_trees(self) -> List[Tree]:
         return self._gbdt.models if self._gbdt is not None \

@@ -31,9 +31,16 @@ values of a chunk of rounds come back in one transfer.  Valid sets are
 scored by path aggregation in both loops (models/predict.py
 ``predict_bins_tree_matmul``).
 
-Not ported yet: bagging/GOSS, DART/RF, multiclass, custom objectives, the
-distributed modes and the device forest predictor (``predict`` walks trees
-on the host, as the JAX package does below ``DEVICE_PREDICT_MIN_WORK``).
+``predict_raw`` is the JAX package's: below ``DEVICE_PREDICT_MIN_WORK``
+row-trees (and always with prediction early stopping) it walks the trees
+on the host in float64; at or above it ``_device_predict_raw`` bins the
+rows once and runs the forest predictor: on the card one launch of the
+hand-written forest kernel per row block (ops/forest_kernels.py), under
+``device_type=cpu`` the plain path-count version, blocked and padded as
+the JAX package pads.
+
+Not ported yet: bagging/GOSS, DART/RF, multiclass, custom objectives and
+the distributed modes.
 """
 
 from __future__ import annotations
@@ -51,10 +58,12 @@ from ..learner import batch_grower, grower
 from ..callback import EarlyStopException
 from ..learner.grower import TreeArrays
 from ..metrics import Metric, create_metrics
-from ..models.predict import predict_bins_tree, predict_bins_tree_matmul
+from ..models.predict import (ForestArrays, forest_from_numpy,
+                              predict_bins_tree, predict_bins_tree_matmul,
+                              predict_bitset_forest)
 from ..models.tree import Tree
 from ..objectives import ObjectiveFunction, create_objective
-from ..ops import prng
+from ..ops import forest_kernels, prng
 from ..ops.histogram import resolve_hist_kernel, wants_packed_mirror
 from ..ops.quantize import discretize_gradients_levels, renew_leaf_values
 from ..ops.split import SplitHyper
@@ -608,8 +617,21 @@ class GBDT:
         return s[:, 0] if s.shape[1] == 1 else s
 
     # ------------------------------------------------------------- predict
+    #: rows x trees at and above which predict_raw runs the forest
+    #: predictor on the booster's device; below it the host float64 walk
+    #: (no binning pass) keeps full-double sums for small inputs, as in
+    #: the JAX package
+    DEVICE_PREDICT_MIN_WORK = 20_000_000
+
+    #: _device_predict_raw's row blocks (class attributes so tests can
+    #: shrink them): BLOCK bounds the plain version's [ni, rows] decision
+    #: bits and [L, rows] counts; QUANTUM is the tail padding grain of the
+    #: plain version (the JAX package's geometry; the kernel needs none)
+    PREDICT_BLOCK_ROWS = 1_048_576
+    PREDICT_TAIL_QUANTUM = 131_072
+
     def predict_raw(self, X: np.ndarray, start_iteration: int = 0,
-                    num_iteration: int = -1) -> np.ndarray:
+                    num_iteration: int = -1, early=None) -> np.ndarray:
         X = np.asarray(X, dtype=np.float64)
         if X.ndim == 1:
             X = X.reshape(1, -1)
@@ -617,16 +639,127 @@ class GBDT:
         total_iters = len(self.models) // k
         end = total_iters if num_iteration <= 0 else \
             min(total_iters, start_iteration + num_iteration)
-        out = np.zeros((X.shape[0], k))
-        for it in range(start_iteration, end):
-            for c in range(k):
-                out[:, c] += self.models[it * k + c].predict(X)
+        n_trees = max(0, (end - start_iteration) * k)
+        if (early is None and X.shape[0] * n_trees
+                >= self.DEVICE_PREDICT_MIN_WORK):
+            dev = self._device_predict_raw(X, start_iteration, end)
+            if dev is not None:
+                return dev
+        from ..basic import _host_raw
+        out = _host_raw(self.models, X, k, start_iteration, end, early)
         return out[:, 0] if k == 1 else out
 
+    def _device_predict_raw(self, X: np.ndarray, start_it: int,
+                            end_it: int) -> Optional[np.ndarray]:
+        """Raw scores of trees [start_it, end_it) on the booster's device:
+        X binned once with the training mappers (a raw split
+        ``value <= threshold`` is exactly ``bin <= threshold_bin`` under
+        them), then the stacked forest over the bins.  Numeric models use
+        ``bin_external`` (u8) and :class:`ForestArrays`; categorical,
+        bundled and linear models ``bin_external_pred`` (i32 logical bins
+        with the unseen / NaN sentinels) and :class:`BitsetForest`.
+
+        On the card the bins [F, n] are copied once and the forest kernel
+        runs once per row block, with no padding; a linear model raises
+        (its leaves run only in the plain version).  On the CPU the plain
+        version runs per block, the ragged tail padded up as the JAX
+        package pads it (``predict_bucketing=on``: the geometric ladder of
+        quantum multiples up to the block, ``off``: the next multiple of
+        the quantum); padded rows are cut off and every row's result is
+        exact per row, so the output is the same either way.  The JAX
+        package's ``predict_bucketed_calls`` / ``predict_bucket_pad_rows``
+        counters belong to its ``obs/`` layer and are not kept here."""
+        k = self.num_tree_per_iteration
+        models = self.models[start_it * k:end_it * k]
+        if not models:
+            return None
+        dev = self.device
+        ds = self.train_set
+        linear = any(t.is_linear for t in models)
+        general = (linear or bool(ds.categorical_array().any())
+                   or ds.bundle_plan is not None)
+        if linear and dev.type == "cuda":
+            log.fatal("linear leaves are predicted by the plain forest "
+                      "version only; the forest kernel takes no linear "
+                      "model (predict on device_type=cpu)")
+        lin = None
+        cat_feats = ()
+        if general:
+            forest, lin, cat_feats = self._forest_bitset_arrays(models, k)
+            bins_np = ds.bin_external_pred(X)
+        else:
+            forest = self._forest_arrays(models, k)
+            bins_np = ds.bin_external(X)
+        blk = int(self.PREDICT_BLOCK_ROWS)
+        n_all = bins_np.shape[0]
+        if dev.type == "cuda":
+            bins_t = torch.as_tensor(np.ascontiguousarray(bins_np.T),
+                                     device=dev)
+            outs = [forest_kernels.forest_values(
+                forest, bins_t[:, r0:r0 + blk], k, cat_feats)
+                for r0 in range(0, n_all, blk)]
+            out = torch.cat(outs).double().cpu().numpy()
+            return out[:, 0] if k == 1 else out
+        tail_q = min(int(self.PREDICT_TAIL_QUANTUM), blk)
+        bucketing = self.config.predict_bucketing == "on"
+        raw_np = np.asarray(X, np.float32) if lin is not None else None
+        outs = []
+        for r0 in range(0, n_all, blk):
+            chunk = bins_np[r0:r0 + blk]
+            rows = chunk.shape[0]
+            if bucketing:
+                target = tail_q
+                while target < rows:
+                    target *= 2
+                pad = min(target, blk) - rows
+            else:
+                pad = (-rows) % tail_q
+            bins_t = torch.as_tensor(np.ascontiguousarray(
+                np.pad(chunk, ((0, pad), (0, 0))).T), device=dev)
+            if lin is not None:
+                rchunk = np.pad(raw_np[r0:r0 + blk], ((0, pad), (0, 0)))
+                res = predict_bitset_forest(
+                    forest, bins_t, k, cat_feats, lin=lin,
+                    raw=torch.as_tensor(np.nan_to_num(rchunk), device=dev),
+                    raw_nan=torch.as_tensor(np.isnan(rchunk).T
+                                            .astype(np.float32),
+                                            device=dev))
+            else:
+                res = forest_kernels.forest_values(forest, bins_t, k,
+                                                   cat_feats)
+            outs.append(res[:rows].double().numpy())
+        out = np.concatenate(outs, axis=0)
+        return out[:, 0] if k == 1 else out
+
+    def _forest_arrays(self, models, k: int) -> ForestArrays:
+        """The numeric forest of ``models`` on the booster's device
+        (:func:`forest_arrays`)."""
+        return forest_from_numpy(forest_arrays(models, k, self.train_set),
+                                 self.device)
+
+    def _forest_bitset_arrays(self, models, k: int):
+        """(BitsetForest, LinearLeaves or None, cat_feats) of ``models`` on
+        the booster's device (:func:`forest_bitset_arrays`)."""
+        fb, lin, cat_feats = forest_bitset_arrays(models, k, self.train_set)
+        return (forest_from_numpy(fb, self.device),
+                None if lin is None else forest_from_numpy(lin, self.device),
+                cat_feats)
+
     def predict(self, X: np.ndarray, raw_score: bool = False,
-                start_iteration: int = 0,
-                num_iteration: int = -1) -> np.ndarray:
-        raw = self.predict_raw(X, start_iteration, num_iteration)
+                start_iteration: int = 0, num_iteration: int = -1,
+                pred_leaf: bool = False, early=None) -> np.ndarray:
+        if pred_leaf:
+            X = np.asarray(X, dtype=np.float64)
+            if X.ndim == 1:
+                X = X.reshape(1, -1)
+            k = self.num_tree_per_iteration
+            total_iters = len(self.models) // k
+            end = total_iters if num_iteration <= 0 else \
+                min(total_iters, start_iteration + num_iteration)
+            from ..basic import _host_leaves
+            return _host_leaves(self.models, X, k, start_iteration, end)
+        raw = self.predict_raw(X, start_iteration, num_iteration,
+                               early=early)
         if raw_score or not self.objective.need_convert_output:
             return raw
         # f32 conversion, as the JAX package converts raw scores on its
@@ -681,3 +814,116 @@ def _tree_to_arrays_stub(tree: Tree, dataset: Dataset,
         leaf_path=zeros((L, dataset.num_features), torch.bool),
         num_leaves=torch.tensor(tree.num_leaves, dtype=torch.int32,
                                 device=device))
+
+
+def _leaf_path_masks(t: Tree, mpos: np.ndarray, mneg: np.ndarray,
+                     depth: np.ndarray) -> None:
+    """Fill one tree's leaf path masks in place (the JAX package's
+    ``_leaf_path_masks``): a depth-first walk from the root records each
+    leaf's (node, direction) path; children encode leaves as
+    ``-(leaf + 1)``.  mpos / mneg [L, ni], depth [L] (-1 stays for dead
+    slots)."""
+    if t.num_leaves <= 1:
+        depth[0] = 0
+        return
+    stack = [(0, [])]
+    while stack:
+        node, path = stack.pop()
+        for child, left in ((t.left_child[node], True),
+                            (t.right_child[node], False)):
+            p2 = path + [(node, left)]
+            if child < 0:
+                leaf = -int(child) - 1
+                depth[leaf] = len(p2)
+                for nd, lft in p2:
+                    (mpos if lft else mneg)[leaf, nd] = 1.0
+            else:
+                stack.append((int(child), p2))
+
+
+def forest_arrays(models, k: int, ds: Dataset) -> dict:
+    """The JAX package's ``_forest_arrays`` as numpy: every field of
+    :class:`ForestArrays` (masks in float32, 0/1) for the trees ``models``
+    of a booster trained on ``ds``, each padded to the widest tree's
+    ni = L - 1 nodes, and the children (-1 on padded nodes)."""
+    L = max(max(t.num_leaves for t in models), 2)
+    T, ni = len(models), L - 1
+    orig_to_packed = {o: p for p, o in enumerate(ds.used_feature_idx)}
+    nan_bin = ds.nan_bin_array()
+    d = dict(feat=np.zeros((T, ni), np.int32),
+             thr=np.zeros((T, ni), np.int32),
+             dl=np.zeros((T, ni), bool),
+             nanb=np.full((T, ni), -2, np.int32),
+             mpos=np.zeros((T, L, ni), np.float32),
+             mneg=np.zeros((T, L, ni), np.float32),
+             depth=np.full((T, L), -1, np.int32),
+             value=np.zeros((T, L), np.float32),
+             cls=np.arange(T, dtype=np.int32) % k,
+             left=np.full((T, ni), -1, np.int32),
+             right=np.full((T, ni), -1, np.int32))
+    for ti, t in enumerate(models):
+        nn = max(t.num_leaves - 1, 0)
+        d["value"][ti, :t.num_leaves] = t.leaf_value[:t.num_leaves]
+        _leaf_path_masks(t, d["mpos"][ti], d["mneg"][ti], d["depth"][ti])
+        if nn:
+            pf = np.array([orig_to_packed.get(int(f), 0)
+                           for f in t.split_feature[:nn]], np.int32)
+            d["feat"][ti, :nn] = pf
+            d["thr"][ti, :nn] = t.threshold_bin[:nn]
+            d["dl"][ti, :nn] = (np.asarray(t.decision_type[:nn]) & 2) > 0
+            d["nanb"][ti, :nn] = nan_bin[pf]
+            d["left"][ti, :nn] = t.left_child[:nn]
+            d["right"][ti, :nn] = t.right_child[:nn]
+    return d
+
+
+def forest_bitset_arrays(models, k: int, ds: Dataset):
+    """The JAX package's ``_forest_bitset_arrays`` as numpy: (the fields
+    of :class:`BitsetForest`, those of :class:`LinearLeaves` or None,
+    cat_feats).  Numeric nodes (bundled or not) stay threshold compares in
+    LOGICAL bin space; true categorical nodes get bitsets over the widest
+    categorical feature's bins plus the sentinel bins of
+    ``bin_external_pred`` (unseen ``num_bin``: right; NaN ``num_bin + 1``:
+    ``cat_nan_left``)."""
+    d = forest_arrays(models, k, ds)
+    T, ni = d["feat"].shape
+    L = ni + 1
+    is_cat = ds.categorical_array()
+    cat_feats = tuple(int(p) for p in np.nonzero(is_cat)[0])
+    Bc = max((ds.mappers[ds.used_feature_idx[p]].num_bin
+              for p in cat_feats), default=1) + 2
+    cat_nodes = [[nd for nd in range(max(t.num_leaves - 1, 0))
+                  if int(t.decision_type[nd]) & 1] for t in models]
+    C = max([1] + [len(c) for c in cat_nodes])
+    catn = np.full((T, C), ni, np.int32)        # ni = dead pad slot
+    catf = np.zeros((T, C), np.int32)
+    catb = np.zeros((T, C, Bc), np.float32)
+    for ti, t in enumerate(models):
+        for ci, nd in enumerate(cat_nodes[ti]):
+            p = int(d["feat"][ti, nd])
+            catn[ti, ci] = nd
+            catf[ti, ci] = p
+            csi = int(t.cat_split_index[nd])
+            sets = set(t.cat_threshold[csi])
+            mapper = ds.mappers[ds.used_feature_idx[p]]
+            for b, c in enumerate(mapper.bin_2_categorical):
+                if c in sets:
+                    catb[ti, ci, b] = 1.0
+            if csi < len(t.cat_nan_left) and t.cat_nan_left[csi]:
+                catb[ti, ci, mapper.num_bin + 1] = 1.0
+    d.update(catn=catn, catf=catf, catb=catb)
+    lin = None
+    if any(t.is_linear for t in models):
+        Fr = ds.num_total_features
+        lin = dict(const=np.zeros((T, L), np.float32),
+                   coeff=np.zeros((T, L, Fr), np.float32),
+                   featmask=np.zeros((T, L, Fr), np.float32))
+        for ti, t in enumerate(models):
+            if not t.is_linear:
+                continue
+            for leaf in range(t.num_leaves):
+                lin["const"][ti, leaf] = t.leaf_const[leaf]
+                for fi, f in enumerate(t.leaf_features[leaf]):
+                    lin["coeff"][ti, leaf, f] = t.leaf_coeff[leaf][fi]
+                    lin["featmask"][ti, leaf, f] = 1.0
+    return d, lin, cat_feats

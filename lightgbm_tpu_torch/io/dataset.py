@@ -9,6 +9,9 @@ host with NumPy; the booster copies it to the torch device once
 the same NumPy code as ``lightgbm_tpu``, so the same input gives the same
 bytes.
 
+External matrices bin the same way for the device forest predictor
+(``bin_external``, ``bin_external_pred``).
+
 Not in this package yet: sparse (scipy) input, ``save_binary`` /
 ``load_binary``, streamed and sharded ingest, linear-tree raw columns.
 """
@@ -296,6 +299,35 @@ class Dataset:
                 .astype(np.uint8)
         return np.ascontiguousarray(bins)
 
+    def bin_external(self, arr: np.ndarray) -> np.ndarray:
+        """Bin an external raw matrix with this dataset's mappers and its
+        EFB bundle layout, as a valid set is binned at construction: u8
+        [n, columns].  A numeric split ``value <= threshold`` is exactly
+        ``bin <= threshold_bin`` under these mappers, so the device forest
+        predictor of numeric models walks these bins
+        (boosting/gbdt.py ``_device_predict_raw``)."""
+        bins = self._bin_matrix(arr)
+        if self.bundle_plan is not None:
+            bins = apply_bundles(bins, self.bundle_plan)
+        return np.ascontiguousarray(bins)
+
+    def bin_external_pred(self, arr: np.ndarray) -> np.ndarray:
+        """i32 LOGICAL (un-bundled) bins [n, used features] for the forest
+        predictor of categorical, bundled and linear models: numeric
+        columns bin as in :meth:`bin_external`; a categorical column maps
+        a category unseen at training time to the sentinel bin ``num_bin``
+        and NaN to ``num_bin + 1``, so a bitset node sends them where the
+        raw-space walk does (unseen right, NaN by ``cat_nan_left``)."""
+        if arr.shape[1] != self.num_total_features:
+            log.fatal(f"The number of features in data ({arr.shape[1]}) "
+                      f"does not match Dataset ({self.num_total_features})")
+        used = self.used_feature_idx
+        bins = np.zeros((arr.shape[0], len(used)), dtype=np.int32)
+        for col, j in enumerate(used):
+            m = self.mappers[j]
+            bins[:, col] = m.values_to_bins_pred(arr[:, j], m.num_bin,
+                                                 m.num_bin + 1)
+        return np.ascontiguousarray(bins)
 
 
 def _resolve_categorical(categorical_feature: Optional[Sequence[Union[int, str]]],

@@ -31,7 +31,8 @@ from ..utils import log
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("take", "hist", "radix", "packed", "rows", "partition")
+SOURCES = ("take", "hist", "radix", "packed", "rows", "partition", "forest",
+           "shap")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -62,6 +63,14 @@ _SIGNATURES = {
     },
     "rows": {
         "lgbt_hist_rows": (_P, _L, _I, _P, _I, _I, _I, _P, _P),
+    },
+    "forest": {
+        "lgbt_forest": (_P, _I, _L, _L, _I, _P, _P, _I, _I, _P, _I, _I, _P,
+                        _I, _P, _I, _P, _P, _P),
+    },
+    "shap": {
+        "lgbt_shap": (_P, _L, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P,
+                      _P, _P, _I, _I, _P, _P, _P, _P),
     },
     "partition": {
         "lgbt_partition_payload": (_L, _I, _P, _I, _P, _P, _P, _P) + _DESC
