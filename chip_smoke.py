@@ -138,7 +138,27 @@ else: no jax, no network.  Phases, each of which fails the run on error:
    1e-6), the host float64 path on 200 rows over 10 trees (largest
    relative difference printed, fail above 1e-4), the wall split (host
    ``_go_left_matrix``, copies, kernel), and a 40-slot chain tree, above
-   the kernel's register buckets, against the plain version.
+   the kernel's register buckets, against the plain version; the plain
+   path-count version's torch.matmul products alone (device ms, the
+   profiler's GEMM kernels).
+
+7. EFB-bundled training: 1M rows of F numeric columns plus 8 categorical
+   variables of 32 levels one-hot encoded (256 sparse columns; EFB
+   bundles the 284 features into a few dozen physical columns) and a
+   200k-row valid set.  The decision-table variant of the fused partition
+   (``partition_payload_table`` at K = 42, ``partition_select_table`` at
+   K = 42 and the pooled 84, tables from the plan's inverse table) bit
+   for bit against its plain version, and with an all-numeric (identity)
+   table against the numeric kernels, one launch a call, timed beside its
+   byte bound; the default recipe (nothing else set, EFB on) 10 rounds
+   through the fused loop twice and the classic loop once: byte-identical
+   text; the same data with ``enable_bundle=false`` (s/round, peak memory,
+   AUC side by side); the pooled recipe (1M x 3: the select variant); a
+   profiled fused chunk (the table partition's device ms and launches a
+   tree); early stopping on the valid set, fused and classic to the same
+   best_iteration; ``Booster.predict`` of the bundled model on the valid
+   rows through the forest kernel against the host walk; 100k x 5 on the
+   card against ``device_type=cpu`` (tree 0 identical, AUC within 1e-3).
 
 It prints one JSON line with every kernel's numbers (launches: the fused
 runs' for the kernels a fused run holds, the bucketed strict run's for
@@ -2005,6 +2025,8 @@ def launch_counts(HK, RF, TB, prng):
             "histogram_payload": HK.payload_launches,
             "partition_payload": RF.launches,
             "partition_select": RF.select_launches,
+            "partition_payload_table": RF.table_launches,
+            "partition_select_table": RF.select_table_launches,
             "histogram_rows_t": HK.rows_launches,
             "histogram_radix_single": HK.radix_single_launches,
             "histogram_radix_joint": HK.radix_joint_launches,
@@ -2016,6 +2038,7 @@ def launch_counts(HK, RF, TB, prng):
 def zero_counts(HK, RF, TB, prng):
     HK.zero_gate_counts()
     TB.launches = RF.launches = RF.select_launches = prng.launches = 0
+    RF.table_launches = RF.select_table_launches = 0
     HK.leaves_launches = HK.payload_launches = HK.rows_launches = 0
     HK.leaves_rows_launches = 0
     HK.radix_single_launches = HK.radix_joint_launches = 0
@@ -2104,8 +2127,10 @@ SYMBOLS = (
     (("histogram_leaves_packed",), r"masked_cluster<\d+, \d+, 1, "),
     (("histogram_payload",), r"masked_cluster<\d+, \d+, 2, "),
     (("histogram_leaves_rows",), r"masked_cluster<\d+, \d+, 3, "),
-    (("partition_payload",), r"partition_kernel<true"),
-    (("partition_select",), r"partition_kernel<false"),
+    (("partition_payload",), r"partition_kernel<true, \d+, false>"),
+    (("partition_select",), r"partition_kernel<false, \d+, false>"),
+    (("partition_payload_table",), r"partition_kernel<true, \d+, true>"),
+    (("partition_select_table",), r"partition_kernel<false, \d+, true>"),
     (("take_small_table",), r"take_kernel"),
     (("histogram_rows_t",), r"rows_channel"))
 
@@ -2650,6 +2675,17 @@ def check_predict(torch, lgbt):
         fa, bins_t, 1), flush, reps=3)
     leaves_ms = time_ms(torch, lambda: FK.forest_leaves(fa, bins_t), flush,
                         reps=3)
+    # the plain version's torch.matmul products alone (row 12's library
+    # call), device time from the profiler: its GEMM kernels in one call
+    _, plain_dev = device_per_call(torch, lambda: MP.predict_numeric_forest(
+        fa, bins_t, 1), reps=1)
+    gemm = [(c, us) for nm, c, us in last_work
+            if re.search(r"gemm|xmma|cutlass", nm, re.I)]
+    mm_ms = sum(us for _, us in gemm) / 1e3
+    print(f"predict shape: plain path-count version, one call: device "
+          f"{plain_dev} ms (profiler), of it its torch.matmul products "
+          f"{mm_ms:.4f} ms in {sum(c for c, _ in gemm)} GEMM launches",
+          flush=True)
     # bound: the bins, the output and the forest once; the node steps this
     # run's rows take (each row's path length in each tree)
     depth = fa.depth.long()
@@ -2811,6 +2847,401 @@ def check_predict(torch, lgbt):
             kernel_row("tree_shap", "lightgbm_tpu_torch/csrc/shap.cu",
                        "lightgbm_tpu/models/shap.py:304", n_sk, err13,
                        ms13, plain13, b13, by13, None)]
+
+
+# ---- phase 7: EFB-bundled training
+
+#: phase 7's data: bench.py's HIGGS-shaped numeric columns plus N_CAT
+#: categorical variables of CAT_LEVELS levels, one-hot encoded
+N_CAT, CAT_LEVELS = 8, 32
+N_BVALID = 200_000
+N_BCROSS = 100_000
+
+
+def synth_bundled(n, rng, w=None):
+    """synth_higgs's F numeric columns plus N_CAT categorical variables of
+    CAT_LEVELS levels one-hot encoded as N_CAT * CAT_LEVELS sparse columns,
+    the hot entry N(1.5, 0.2) (tests/test_efb.py's fixture): the
+    Flight-Delay / Allstate shape EFB exists for.  The label depends on
+    the numeric columns and on three of the blocks."""
+    if w is None:
+        w = (rng.normal(size=F), rng.normal(size=(3, CAT_LEVELS)))
+    num = rng.normal(size=(n, F)).astype(np.float32)
+    idx = rng.integers(0, CAT_LEVELS, size=(n, N_CAT))
+    X = np.zeros((n, F + N_CAT * CAT_LEVELS), np.float32)
+    X[:, :F] = num
+    r = np.arange(n)
+    for c in range(N_CAT):
+        X[r, F + c * CAT_LEVELS + idx[:, c]] = rng.normal(1.5, 0.2, size=n)
+    logit = num @ w[0] * 0.5 + sum(w[1][j][idx[:, j]] for j in range(3))
+    y = (logit + rng.normal(size=n) > 0).astype(np.float32)
+    return X, y, w
+
+
+def table_slots(rng, inner, k, leaves):
+    """k split descriptors over a bundle plan, as a bundled round makes
+    them: features of multi-member bundles that are not their bundle's
+    first member first, the rest at random; distinct parents among
+    ``leaves`` leaf ids, the last 3 slots invalid."""
+    plan = inner.bundle_plan
+    later = [f for m in plan.bundles if len(m) > 1 for f in m[1:]]
+    feats = np.concatenate([rng.permutation(later)[:k // 2], rng.integers(
+        0, len(plan.feat_col), size=k - min(k // 2, len(later)))])
+    feats = feats[:k].astype(np.int32)
+    nb = inner.num_bins_array()
+    par = rng.permutation(leaves)[:k].astype(np.int32)
+    new = (leaves + np.arange(k)).astype(np.int32)
+    return dict(
+        feats=feats,
+        thr=np.array([rng.integers(0, max(nb[f] - 1, 1)) for f in feats],
+                     np.int32),
+        dl=rng.integers(0, 2, size=k, dtype=np.int32),
+        nanb=inner.nan_bin_array()[feats].astype(np.int32),
+        parents=par, new_leaves=new,
+        validk=(np.arange(k) < k - 3).astype(np.int32),
+        smaller=np.where(rng.random(k) < 0.5, par, new).astype(np.int32))
+
+
+def check_table_partition(torch, RF, inner, flush):
+    """The decision-table partition on the card at phase 7's shapes (n =
+    1M, the bundle plan of the 1M set): ``partition_payload_table`` at K
+    = 42 and ``partition_select_table`` at K = 42 and the pooled 84, each
+    bit for bit against its plain version on every output, with tables
+    built by ``decision_table`` from the plan's inverse table; with an
+    all-numeric (identity) table, bit for bit the numeric
+    ``partition_payload`` / ``partition_select``; one launch a call; one
+    call and device ms beside the byte bound.  Returns the two kernel
+    rows (launches filled in later)."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(17)
+    n, Fb = inner.bins.shape
+    Bd = inner.device_n_bins()
+    plan = inner.bundle_plan
+    bins_t = torch.as_tensor(np.ascontiguousarray(inner.bins.T), device=dev)
+    words = torch.as_tensor(inner.packed_mirror(), device=dev)
+    W = words.shape[1]
+    feat_col = torch.as_tensor(plan.feat_col, device=dev)
+    inv = torch.as_tensor(plan.inv_table[:, :Bd], device=dev)
+    g = torch.as_tensor(rng.normal(size=n).astype(np.float32), device=dev)
+    h = torch.as_tensor(rng.random(n).astype(np.float32), device=dev)
+    lor = torch.as_tensor(rng.integers(0, 128, size=n, dtype=np.int32),
+                          device=dev)
+    mask = torch.as_tensor((rng.random(n) >= 0.1).astype(np.int32),
+                           device=dev)
+    ident_col = torch.arange(Fb, dtype=torch.int32, device=dev)
+    ident_inv = torch.arange(Bd, dtype=torch.int32,
+                             device=dev)[None, :].repeat(Fb, 1)
+
+    def same(a, b, what):
+        if a.shape != b.shape or not torch.equal(a, b):
+            fail(f"{what}: kernel differs from its plain version")
+
+    rows, sl = [], {}
+    for k in (K, 2 * K):
+        d = {nm: torch.as_tensor(v, device=dev)
+             for nm, v in table_slots(rng, inner, k, 128).items()}
+        cols, tab = RF.decision_table(feat_col, inv, d["feats"], d["thr"],
+                                      d["dl"], d["nanb"])
+        rest = tuple(d[nm] for nm in PART_DESC[4:])
+        sargs = (bins_t, lor, mask, cols, tab, *rest)
+        for a, b_, out in zip(RF.partition_select_table(*sargs),
+                              RF.partition_select_table_plain(*sargs),
+                              ("new leaf map", "sort key")):
+            same(a, b_, f"partition_select_table {out} (K = {k})")
+        pargs = (bins_t, words, g, h, lor, mask, cols, tab, *rest)
+        if k == K:
+            for a, b_, out in zip(RF.partition_payload_table(*pargs),
+                                  RF.partition_payload_table_plain(*pargs),
+                                  ("new leaf map", "sort key", "payload")):
+                same(a, b_, f"partition_payload_table {out} (K = {k})")
+        # an all-numeric plan: the identity table is the numeric rule
+        fp = torch.as_tensor(rng.integers(0, Fb, size=k, dtype=np.int32),
+                             device=dev)
+        num = (fp, d["thr"], d["dl"], d["nanb"])
+        cid, tid = RF.decision_table(ident_col, ident_inv, *num)
+        for a, b_, out in zip(
+                RF.partition_select_table(bins_t, lor, mask, cid, tid, *rest),
+                RF.partition_select(bins_t, lor, mask, *num, *rest),
+                ("new leaf map", "sort key")):
+            same(a, b_, f"partition_select_table (identity table) vs "
+                        f"partition_select {out} (K = {k})")
+        for a, b_, out in zip(
+                RF.partition_payload_table(bins_t, words, g, h, lor, mask,
+                                           cid, tid, *rest),
+                RF.partition_payload(bins_t, words, g, h, lor, mask, *num,
+                                     *rest),
+                ("new leaf map", "sort key", "payload")):
+            same(a, b_, f"partition_payload_table (identity table) vs "
+                        f"partition_payload {out} (K = {k})")
+        moving = int(torch.isin(lor, d["parents"][d["validk"] > 0]).sum())
+        sl[k] = (sargs, pargs, moving)
+    # shared memory of a payload block at K = 84 (the widest table) and
+    # this plan's W: leaf table, descriptors, the table, the row tile
+    head = ((2048 + 2048 // 32 + 4 + 8 * 2 * K + 3) // 4 * 4) * 4
+    tile = min(1024, (32 * 1024 // (4 * (W + 3))) // 4 * 4) * 4 * (W + 3)
+    smem = head + (2 * K * Bd + 15) // 16 * 16 + tile
+    print(f"table partition: n = {n:,}, Fb = {Fb} columns (W = {W} words), "
+          f"B = {Bd}, tables of {K} x {Bd} and {2 * K} x {Bd} bytes; "
+          f"payload block shared memory at K = {2 * K}: {smem:,} bytes of "
+          f"232,448", flush=True)
+
+    def row(name, fn, plain, nbytes, k):
+        if launches_per_call(torch, fn) != 1:
+            fail(f"{name}: {launches_per_call(torch, fn)} launches a call")
+        _, dms = device_per_call(torch, fn)
+        ms = time_ms(torch, fn, flush)
+        pms = time_ms(torch, plain, flush, reps=3)
+        b, by = bound_ms(nbytes, 2 * k * n)
+        print(f"kernel {name} (K = {k}): ms={ms:.4f} device_ms={dms} "
+              f"plain_ms={pms:.4f} bound_ms={b:.4f} ({by}); bitwise vs "
+              f"plain and (identity table) vs the numeric kernel; one "
+              f"launch a call", flush=True)
+        return dict(name=name, route="cuda",
+                    source="lightgbm_tpu_torch/csrc/partition.cu",
+                    replaces=("lightgbm_tpu/ops/round_fuse.py:164"
+                              if "payload" in name else
+                              "lightgbm_tpu/ops/round_fuse.py:76"),
+                    launches=0, max_abs_err=0.0, ms=ms, plain_ms=pms,
+                    bound_ms=b, bound_by=by, library_ms=None)
+
+    sargs, pargs, mv = sl[K]
+    tbytes = K * Bd + 20 * K
+    rows.append(row("partition_payload_table",
+                    lambda: RF.partition_payload_table(*pargs),
+                    lambda: RF.partition_payload_table_plain(*pargs),
+                    n * (4 * W + 16) + n * (4 * (W + 3) + 8) + tbytes, K))
+    sargs, _, mv = sl[2 * K]
+    rows.append(row("partition_select_table",
+                    lambda: RF.partition_select_table(*sargs),
+                    lambda: RF.partition_select_table_plain(*sargs),
+                    8 * n + mv + 8 * n + 2 * K * Bd + 40 * K, 2 * K))
+    RF.table_launches = RF.select_table_launches = 0
+    return rows
+
+
+def check_bundled(torch, lgbt, HK, RF, TB, prng):
+    """Phase 7: EFB-bundled training on the card.  1M rows of synth_bundled
+    (F numeric columns plus 256 one-hot columns; EFB bundles the 284
+    features into a few dozen physical columns) and a 200k-row valid set:
+    the decision-table partition's kernel checks (check_table_partition);
+    the default recipe, nothing else set, 10 rounds through the fused loop
+    twice (the same text byte for byte) and the classic loop once (the
+    same text), with s/round, peak memory and held-out AUC beside the same
+    data with ``enable_bundle=false``; the pooled recipe (1M x 3,
+    ``histogram_pool_size=8``: ``partition_select_table``); a profiled
+    fused chunk (the table partition's device ms and launches a tree, the
+    wrappers' counts equal to the profiler's kernels); early stopping on
+    the valid set, fused and classic to the same best_iteration;
+    ``Booster.predict`` of the bundled model on the valid rows through the
+    forest kernel, against the host walk; 100k x 5 on the card against
+    ``device_type=cpu``: tree 0 identical, AUC within 1e-3.  Returns the
+    table partition's kernel rows with the fused runs' launches."""
+    from lightgbm_tpu_torch.boosting import fused_graph as FG
+    from lightgbm_tpu_torch.boosting import gbdt as G
+    from lightgbm_tpu_torch.ops import forest_kernels as FK
+    from torch.profiler import ProfilerActivity, profile
+    t_phase = time.perf_counter()
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    rng = np.random.default_rng(7)
+    X, y, w = synth_bundled(N, rng)
+    Xv, yv, _ = synth_bundled(N_BVALID, rng, w)
+    t0 = time.perf_counter()
+    ds = lgbt.Dataset(X, y, params={"max_bin": 255}).construct()
+    t_ds = time.perf_counter() - t0
+    inner = ds.inner
+    Fv, Fb = inner.num_features, inner.bins.shape[1]
+    if inner.bundle_plan is None:
+        fail("phase 7: EFB did not bundle the one-hot columns")
+    print(f"bundled: {N:,} rows, Fv = {Fv} features in Fb = {Fb} columns "
+          f"(device bins {inner.device_n_bins()}), dataset {t_ds:.2f} s; "
+          f"unbundled u8 bins {N * Fv / 1e6:.1f} MB, bundled "
+          f"{N * Fb / 1e6:.1f} MB; the expanded [{K}, {Fv}, "
+          f"{inner.device_n_bins()}, 4] f32 round tensor "
+          f"{K * Fv * inner.device_n_bins() * 16 / 1e6:.1f} MB", flush=True)
+    rows = check_table_partition(torch, RF, inner, flush)
+
+    # the default recipe, fused twice and classic once: counts zeroed just
+    # before the first fused run, read just after
+    zero_counts(HK, RF, TB, prng)
+    FG.counts.update(replays=0, reads=0, extra=0, rounds=0)
+    bst, per_f, wall_f, peak_f = fused_train(torch, lgbt, ds, 10)
+    counts = launch_counts(HK, RF, TB, prng)
+    fc = dict(FG.counts)
+    if counts["partition_payload_table"] <= 0 or counts["partition_payload"]:
+        fail(f"bundled fused run: partition launches {counts}")
+    if fc["rounds"] != 10 or fc["reads"] != fc["replays"]:
+        fail(f"bundled fused run: rounds/replays/reads {fc}")
+    a_f = auc(yv, bst.predict(Xv))
+    text = bst.model_to_string()
+    again, *_ = fused_train(torch, lgbt, ds, 10)
+    classic, per_c, _, peak_c = fused_train(torch, lgbt, ds, 10,
+                                            classic=True)
+    if again.model_to_string() != text:
+        fail("bundled: two fused card trainings gave different model text")
+    if classic.model_to_string() != text:
+        fail("bundled: the classic loop's model text differs from the "
+             "fused loop's")
+    print(f"bundled (default recipe, 1M x 10, fused): s/round {per_f:.5f}, "
+          f"train() {wall_f:.3f} s, peak device memory {peak_f:.1f} MiB, "
+          f"held-out AUC {a_f:.6f}, replays {fc['replays']} (extra "
+          f"{fc['extra']}), flag reads {fc['reads']}; kernel launches "
+          f"{json.dumps({k: v for k, v in counts.items() if v})}; classic "
+          f"s/round {per_c:.5f}, peak {peak_c:.1f} MiB", flush=True)
+    print(f"model text sha256 (bundled, 1M x 10): {text_sha256(bst)}; "
+          f"fused twice and classic once: byte-identical", flush=True)
+    launches = {"partition_payload_table": counts["partition_payload_table"]}
+    del again, classic
+
+    # the same data with enable_bundle=false
+    t0 = time.perf_counter()
+    ds_off = lgbt.Dataset(X, y, params={"max_bin": 255, "verbosity": -1,
+                                        "enable_bundle": False}).construct()
+    t_off = time.perf_counter() - t0
+    off, per_o, wall_o, peak_o = fused_train(torch, lgbt, ds_off, 10,
+                                             enable_bundle=False)
+    if off._gbdt.bundle is not None:
+        fail("enable_bundle=false trained with a bundle")
+    a_o = auc(yv, off.predict(Xv))
+    print(f"bundled vs enable_bundle=false (1M x 10, fused; {Fb} vs "
+          f"{off._gbdt.bins.shape[1]} columns): s/round {per_f:.5f} vs "
+          f"{per_o:.5f}, train() {wall_f:.3f} vs {wall_o:.3f} s, peak "
+          f"{peak_f:.1f} vs {peak_o:.1f} MiB, held-out AUC {a_f:.6f} vs "
+          f"{a_o:.6f} (dataset {t_ds:.2f} vs {t_off:.2f} s)", flush=True)
+    del off, ds_off
+
+    # the pooled recipe: partition_select_table
+    zero_counts(HK, RF, TB, prng)
+    pooled, per_p, _, peak_p = fused_train(torch, lgbt, ds, 3,
+                                           histogram_pool_size=8)
+    tp = {"partition_payload_table": RF.table_launches,
+          "partition_select_table": RF.select_table_launches}
+    if tp["partition_select_table"] <= 0 or tp["partition_payload_table"]:
+        fail(f"bundled pooled run: table partition launches {tp}")
+    launches["partition_select_table"] = tp["partition_select_table"]
+    print(f"bundled pooled (histogram_pool_size=8, 1M x 3, fused): s/round "
+          f"{per_p:.5f}, peak {peak_p:.1f} MiB, "
+          f"{pooled._gbdt.hp.hist_pool_slots} slots; table partition "
+          f"launches {json.dumps(tp)}", flush=True)
+    del pooled
+
+    # a profiled fused chunk: the table partition's device time
+    g = bst._gbdt
+    for attempt in range(3):
+        zero_counts(HK, RF, TB, prng)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            g.train_fused(10)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        work = profiler_work(prof, "bundled profile")
+        if work is None:
+            fail("bundled profile: not measured")
+        booked = launch_counts(HK, RF, TB, prng)
+        bad = symbol_mismatch(work, booked)
+        if not bad:
+            break
+    else:
+        fail(f"bundled profile: wrapper launches vs the profiler's {bad}")
+    tab = [(cnt, us) for nm, cnt, us in work
+           if re.search(r"partition_kernel<true, \d+, true>", nm)]
+    t_cnt = sum(c for c, _ in tab)
+    t_us = sum(u for _, u in tab)
+    busy = sum(us for _, _, us in work) / 1e3
+    print(f"bundled profile (a chunk of 10 fused rounds): {wall:.1f} ms "
+          f"wall, device busy {busy:.2f} ms, {sum(c for _, c, _ in work)} "
+          f"launches; the table partition {t_cnt / 10:.1f} launches a tree, "
+          f"{t_us / 1e3 / max(t_cnt, 1):.4f} ms of device time a launch "
+          f"({t_us / 1e4:.3f} ms a tree)", flush=True)
+    for ms, cnt, nm in sorted(((us / 1e3, cnt, nm) for nm, cnt, us in work),
+                              reverse=True)[:6]:
+        print(f"  {ms:8.3f} ms {cnt:6d}x {nm[:90]}", flush=True)
+    del bst, g
+
+    # early stopping on the valid set, fused and classic, trained on the
+    # first 100k rows (the cross-check's data; 1M rows at lr 0.5 do not
+    # stop within 100 rounds)
+    dsx = lgbt.Dataset(X[:N_BCROSS], y[:N_BCROSS],
+                       params={"max_bin": 255, "verbosity": -1}).construct()
+    vs = dsx.create_valid(Xv, yv)
+    res = {}
+    for loop in ("fused", "classic"):
+        orig = G.GBDT.supports_fused
+        if loop == "classic":
+            G.GBDT.supports_fused = lambda self: False
+        try:
+            t0 = time.perf_counter()
+            b = lgbt.train(dict(RECIPE, metric="auc", learning_rate=0.5),
+                           dsx, num_boost_round=100, valid_sets=[vs],
+                           valid_names=["held_out"],
+                           callbacks=[lgbt.early_stopping(3, verbose=False)])
+            t_es = time.perf_counter() - t0
+        finally:
+            G.GBDT.supports_fused = orig
+        res[loop] = (b.best_iteration, b.num_trees(),
+                     b.best_score["held_out"]["auc"], t_es)
+        es_model = b
+    (bi_f, nt_f, dev_f, t_f), (bi_c, nt_c, dev_c, t_c) = res["fused"], \
+        res["classic"]
+    print(f"bundled early stopping ({N_BCROSS:,} x <= 100, lr 0.5, 200k "
+          f"valid, auc, "
+          f"patience 3): best_iteration fused {bi_f} classic {bi_c}, trees "
+          f"{nt_f} / {nt_c}, device AUC {dev_f:.6f} / {dev_c:.6f}, train s "
+          f"{t_f:.2f} / {t_c:.2f}", flush=True)
+    if bi_f != bi_c or nt_f != nt_c or dev_f != dev_c:
+        fail("bundled early stopping: the fused and classic loops differ")
+    if not 0 < bi_f < 100:
+        fail(f"bundled early stopping did not stop early ({bi_f})")
+
+    # Booster.predict of the bundled model through the forest kernel
+    # (N_BVALID rows x its trees is below DEVICE_PREDICT_MIN_WORK, so the
+    # threshold is lowered for this call, as the CPU tests lower it)
+    FK.launches = 0
+    orig = G.GBDT.DEVICE_PREDICT_MIN_WORK
+    G.GBDT.DEVICE_PREDICT_MIN_WORK = 0
+    try:
+        t0 = time.perf_counter()
+        raw = es_model.predict(Xv, raw_score=True)
+        t_pred = time.perf_counter() - t0
+    finally:
+        G.GBDT.DEVICE_PREDICT_MIN_WORK = orig
+    n_fk = FK.launches
+    host = es_model.predict(Xv[:N_HOST_CHECK], raw_score=True)
+    if n_fk < 1 or not np.allclose(raw[:N_HOST_CHECK], host, rtol=2e-5,
+                                   atol=2e-6):
+        fail(f"bundled predict: {n_fk} forest launches, max abs diff vs "
+             f"the host walk {np.abs(raw[:N_HOST_CHECK] - host).max()}")
+    a_p = auc(yv, raw)
+    print(f"bundled predict ({N_BVALID:,} valid rows x {nt_f} trees, the "
+          f"forest kernel: {n_fk} launch(es)): {t_pred:.3f} s, AUC "
+          f"{a_p:.6f} (device valid AUC {dev_f:.6f}); within rtol 2e-5 / "
+          f"atol 2e-6 of the host walk on {N_HOST_CHECK:,} rows",
+          flush=True)
+    del es_model, vs, raw
+
+    # cross-check: 100k x 5 on the card against the CPU
+    t0 = time.perf_counter()
+    b_gpu, _, _, _ = fused_train(torch, lgbt, dsx, 5)
+    b_cpu = lgbt.train(dict(RECIPE, device_type="cpu"), dsx,
+                       num_boost_round=5)
+    t_x = time.perf_counter() - t0
+    t_g, t_c = b_gpu._gbdt.models[0], b_cpu._gbdt.models[0]
+    a_g, a_c = auc(yv, b_gpu.predict(Xv)), auc(yv, b_cpu.predict(Xv))
+    if not (t_g.num_leaves == t_c.num_leaves
+            and np.array_equal(t_g.split_feature, t_c.split_feature)
+            and np.array_equal(t_g.threshold_bin, t_c.threshold_bin)
+            and np.array_equal(t_g.decision_type, t_c.decision_type)):
+        fail("bundled cross-check: tree 0 differs between the card and the "
+             "CPU")
+    if abs(a_g - a_c) > 1e-3:
+        fail(f"bundled cross-check: AUC card {a_g} vs cpu {a_c}")
+    print(f"bundled cross-check ({N_BCROSS:,} x 5): tree 0 identical "
+          f"({t_g.num_leaves} leaves), AUC card {a_g:.6f} cpu {a_c:.6f} "
+          f"({t_x:.1f} s)", flush=True)
+    print(f"phase 7: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    for r in rows:
+        r["launches"] = launches[r["name"]]
+    return rows
 
 
 def load_other(root):
@@ -3326,6 +3757,9 @@ def main():
 
     # ---- 6. prediction: the device forest predictor and TreeSHAP
     rows += check_predict(torch, lgbt)
+
+    # ---- 7. EFB-bundled training
+    rows += check_bundled(torch, lgbt, HK, RF, TB, prng)
     print(f"chip_smoke: {time.perf_counter() - t_script:.1f} s in all, the "
           f"kernel build {build_s:.1f} s of it", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

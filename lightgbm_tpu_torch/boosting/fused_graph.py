@@ -71,7 +71,9 @@ counts = {"replays": 0, "reads": 0, "extra": 0, "rounds": 0}
 #: instead, so a capture's counts move to its graph, which adds them on
 #: every replay (the launches the replay makes)
 _COUNTERS = ((table, "launches"), (round_fuse, "launches"),
-             (round_fuse, "select_launches"), (prng, "launches"),
+             (round_fuse, "select_launches"),
+             (round_fuse, "table_launches"),
+             (round_fuse, "select_table_launches"), (prng, "launches"),
              *((hist_kernels, a) for a in (
                  "leaves_launches", "leaves_rows_launches",
                  "payload_launches", "radix_single_launches",
@@ -240,7 +242,8 @@ class FusedRound:
             g.num_bins_arr, g.nan_bin_arr, fm, g.hp, batch=self.batch,
             hist_scale=hist_scale, bins_t=g.bins_t, bins_words=g.bins_words,
             bins_words_t=g.bins_words_t,
-            stop=self.stopped if self.es is not None else None)
+            stop=self.stopped if self.es is not None else None,
+            bundle=g.bundle)
         ladder = tree.ladder()
         self.R = full_width_rounds(self.L, self.batch, ladder)
         for width in ladder:

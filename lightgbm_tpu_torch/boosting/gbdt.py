@@ -22,6 +22,11 @@ levels with leaf renewal; below it a plain ``train()`` keeps
 slots exactly as in the JAX package, and an engaged pool routes even
 ``tpu_split_batch=1`` through the batched grower.
 
+EFB-bundled data (``enable_bundle``, on by default) trains in both growers
+and both loops: the bins hold the bundle columns, ``self.bundle``
+(learner/grower.py ``DeviceBundle``) maps them back to per-feature bins,
+and a valid set's bins are turned into logical bins once, at ``add_valid``.
+
 ``train_fused`` is the JAX package's fused round loop (``supports_fused``
 admits the batched grower's configurations): each boosting round runs as
 one replay of a captured CUDA graph on the card (boosting/fused_graph.py),
@@ -56,7 +61,7 @@ from ..config import Config
 from ..io.dataset import Dataset
 from ..learner import batch_grower, grower
 from ..callback import EarlyStopException
-from ..learner.grower import TreeArrays
+from ..learner.grower import DeviceBundle, TreeArrays
 from ..metrics import Metric, create_metrics
 from ..models.predict import (ForestArrays, forest_from_numpy,
                               predict_bins_tree, predict_bins_tree_matmul,
@@ -139,8 +144,6 @@ def _check_slice(config: Config, train_set: Dataset) -> None:
         (config.nan_policy != "none", f"nan_policy={config.nan_policy}"),
         (bool(config.tpu_debug_checks), "tpu_debug_checks"),
         (bool(train_set.categorical_array().any()), "categorical features"),
-        (train_set.bundle_plan is not None,
-         "EFB feature bundles (set enable_bundle=false)"),
     ]
     for bad, what in unported:
         if bad:
@@ -187,6 +190,10 @@ class GBDT:
         self.nan_bin_arr = torch.as_tensor(train_set.nan_bin_array(),
                                            device=dev)
         self.num_features = train_set.num_features
+        # EFB: the bins hold bundle columns; these tables map them back
+        ba = train_set.device_bundle_arrays()
+        self.bundle = None if ba is None else \
+            DeviceBundle(*(torch.as_tensor(a, device=dev) for a in ba))
 
         self._resolve_auto_params(config)
         self.hp = _hp_from_config(config, train_set.device_n_bins())
@@ -275,7 +282,8 @@ class GBDT:
         args = (self.bins, g, h, None, self.num_bins_arr, self.nan_bin_arr,
                 feature_mask, self.hp)
         kw = dict(hist_scale=hist_scale, bins_t=self.bins_t,
-                  bins_words=self.bins_words, bins_words_t=self.bins_words_t)
+                  bins_words=self.bins_words, bins_words_t=self.bins_words_t,
+                  bundle=self.bundle)
         if self._use_batched_grower():
             return batch_grower.grow_tree_batched(
                 *args, batch=int(self.config.tpu_split_batch), **kw)
@@ -320,16 +328,42 @@ class GBDT:
                                                  device=self.device))
         self._valid_bins.append(torch.as_tensor(valid_set.bins,
                                                 device=self.device))
-        # the transposed valid bins the path aggregation reads, made once
-        self._valid_bins_t.append(self._valid_bins[-1].t().contiguous())
+        # the transposed valid bins the path aggregation reads, made once:
+        # logical (per-feature) bins when the data is bundled
+        self._valid_bins_t.append(self._logical_bins_t(self._valid_bins[-1],
+                                                       name))
+
+    def _logical_bins_t(self, bins: torch.Tensor, name: str) -> torch.Tensor:
+        """u8 [F, n]: the transposed bins of ``bins`` [n, Fb], turned into
+        each feature's logical bin (``inv_table[f, bins[:, feat_col[f]]]``)
+        when the data is bundled (F / Fb times the bundled bins' bytes,
+        logged)."""
+        bins_t = bins.t().contiguous()
+        bd = self.bundle
+        if bd is None:
+            return bins_t
+        n = bins.shape[0]
+        out = torch.empty(bd.feat_col.shape[0], n, dtype=torch.uint8,
+                          device=bins.device)
+        cols = bd.feat_col.long()
+        step = 1 << 16   # bounds the i64 gather index [Fv, step]
+        for r0 in range(0, n, step):
+            phys = bins_t[cols, r0:r0 + step].long()
+            out[:, r0:r0 + step] = bd.inv_table.gather(1, phys)
+        log.info(f"valid set {name}: logical bins {out.shape[0]} x {n} "
+                 f"({out.numel() / 2**20:.1f} MiB, "
+                 f"{out.shape[0] / bins.shape[1]:.2f}x the bundled bins)")
+        return out
 
     def _valid_tree_scores(self, arrays: TreeArrays, vi: int
                            ) -> torch.Tensor:
         """One tree's contribution to valid set ``vi`` (leaf values already
         shrunk), with no host read: the walk's values bit for bit.  The
         path aggregation serves every tree the port grows (numeric,
-        un-bundled, constant leaves: the JAX package's ``_matmul_valid_ok``
-        always holds)."""
+        constant leaves); bundled data is scored on its logical bins, made
+        once at ``add_valid``, where the JAX package walks the tree through
+        the inverse table (``_matmul_valid_ok``): each row reaches the same
+        leaf."""
         return predict_bins_tree_matmul(arrays, self._valid_bins_t[vi],
                                         self.nan_bin_arr)
 
@@ -568,7 +602,8 @@ class GBDT:
             for i, t in enumerate(self.models):
                 arrs = _tree_to_arrays_stub(t, self.train_set, self.device)
                 sc[:, i % k] += predict_bins_tree(arrs, bins_d,
-                                                  self.nan_bin_arr)
+                                                  self.nan_bin_arr,
+                                                  self.bundle)
             return sc
 
         self.scores.copy_(rebuild(self.train_set.num_data, self.bins,

@@ -7,6 +7,14 @@
 //   * partition_select_pallas -> lgbt_partition_select, the same pass
 //     without the payload (the bounded histogram pool's rounds, whose
 //     extended leaf set builds its own keys).
+// Each has a decision-table variant (template flag TABLE, a non-null `tab`:
+// EFB-bundled rounds, which the JAX package partitions in XLA,
+// lightgbm_tpu/learner/batch_grower.py:866-884): feats[k] is then the
+// physical column slot k reads and the row goes left when
+// tab[k * B + col] (u8 [K, B], 0/1; a bin col >= B goes right), in place of
+// the numeric rule below; thr, dl and nanb are not read.  The caller builds
+// the table from the bundle plan's inverse table (ops/round_fuse.py
+// decision_table); a categorical bitset fills the same table.
 // Per row r, exactly the TPU kernels' function (round_fuse.py:217-225):
 //   * slot k moves r when validk[k] and parents[k] == lor[r]; the split
 //     column is the bin of feature feats[k] (0 for a feature outside
@@ -17,6 +25,11 @@
 //   * lor_m = mask[r] ? new_lor : -1, key = lor_m in smaller (any of the K
 //     entries, valid or not) ? r : r | 2^30;
 //   * payload row = [words[r, :W], bits(grad[r]), bits(hess[r]), lor_m].
+// The table variant stages its K x B bytes in shared memory beside the
+// descriptors (10.75 KB at K = 42, B = 256; 21.5 KB at the pooled K = 84),
+// with 16-byte loads where the table is aligned; with the payload tile
+// (at most kPartTileBytes) and the leaf table that is under 66 KB a block
+// at K = 84, far below the 227 KB a block may use.
 //
 // Design.  One launch of a persistent grid (a few blocks per SM), each
 // block walking the same number of tiles of up to 1,024 rows (the tile cut
@@ -43,7 +56,8 @@
 //
 // Bound on the H100: bytes.  The payload variant reads 4W + 16 B a row
 // (words, grad, hess, leaf, mask) and writes 4(W+3) + 8 B: 92 B at W = 7,
-// 0.0275 ms for 1M rows at 3.35 TB/s.  The select variant reads the leaf,
+// 0.0275 ms for 1M rows at 3.35 TB/s (the table variant: W of the bundle
+// columns, plus the K x B table once).  The select variant reads the leaf,
 // the mask and one bin byte per row of a valid parent and writes 8 B a
 // row: at most 17 B, ~0.005 ms.  The old kernel's pace was its payload
 // copy (W scalar loads and W + 3 scalar stores a thread at a 28- and
@@ -74,6 +88,8 @@ constexpr int kMoveLoop = -2;  // a table entry: the rows take the K loop
 
 struct Part {
   const uint8_t* bins_t;  // u8 [F, n] (select variant)
+  const uint8_t* tab;     // u8 [K, B] go-left bits (table variant)
+  int B;
   long n;
   int num_f;
   const int* words;  // i32 [n, W] (payload variant)
@@ -97,7 +113,13 @@ __host__ __device__ inline size_t part_head_ints(int K) {
   return ((size_t)kLeafTable + kLeafTable / 32 + 4 + 8 * K + 3) / 4 * 4;
 }
 
-template <bool PAYLOAD, int VEC>
+// ... then the decision table's K x B bytes (table variant), in whole
+// 16-byte units, then the payload tile
+__host__ __device__ inline size_t part_tab_ints(int K, int B) {
+  return ((size_t)K * B + 15) / 16 * 4;
+}
+
+template <bool PAYLOAD, int VEC, bool TABLE>
 __global__ void __launch_bounds__(kPartThreads)
     partition_kernel(const Part p) {
   extern __shared__ __align__(16) int sh[];
@@ -105,16 +127,31 @@ __global__ void __launch_bounds__(kPartThreads)
   unsigned* smb = reinterpret_cast<unsigned*>(mv + kLeafTable);
   int* hdr = reinterpret_cast<int*>(smb + kLeafTable / 32);
   int* d = hdr + 4;
-  int* tile = sh + part_head_ints(p.K);  // [rows][W + 3]
-  const int K = p.K;
+  uint8_t* tabs = reinterpret_cast<uint8_t*>(sh + part_head_ints(p.K));
+  int* tile = sh + part_head_ints(p.K) +
+              (TABLE ? part_tab_ints(p.K, p.B) : 0);  // [rows][W + 3]
+  const int K = p.K, B = p.B;
   for (int i = threadIdx.x; i < kLeafTable; i += blockDim.x) mv[i] = -1;
   for (int i = threadIdx.x; i < kLeafTable / 32; i += blockDim.x) smb[i] = 0;
   if (threadIdx.x < 4) hdr[threadIdx.x] = 0;
   // one descriptor word a thread, all in flight at once (a loop over the
-  // eight arrays in one thread waits out eight L2 round trips)
+  // eight arrays in one thread waits out eight L2 round trips); the table
+  // variant reads no thr, dl, nanb
   for (int i = threadIdx.x; i < 8 * K; i += blockDim.x) {
     const int j = i / K;
+    if (TABLE && j >= 1 && j <= 3) continue;
     d[i] = __ldg(p.desc[j] + (i - j * K));
+  }
+  if (TABLE) {
+    const int nb = K * B;
+    if ((reinterpret_cast<uintptr_t>(p.tab) & 15) == 0 && nb % 16 == 0) {
+      for (int i = threadIdx.x; i < nb / 16; i += blockDim.x)
+        reinterpret_cast<int4*>(tabs)[i] =
+            __ldg(reinterpret_cast<const int4*>(p.tab) + i);
+    } else {
+      for (int i = threadIdx.x; i < nb; i += blockDim.x)
+        tabs[i] = __ldg(p.tab + i);
+    }
   }
   __syncthreads();
   const int* feats = d;
@@ -154,6 +191,7 @@ __global__ void __launch_bounds__(kPartThreads)
     return (int)__ldg(p.bins_t + (long)f * p.n + r);
   };
   auto moved_of = [&](int k, int col) -> int {  // validk[k] * (1 - go_left)
+    if (TABLE) return vk[k] * (1 - (col < B ? (int)tabs[k * B + col] : 0));
     const int isnan = col == nanb[k];
     const int le = col <= thr[k];
     return vk[k] * (1 - (isnan * dl[k] + (1 - isnan) * le));
@@ -287,9 +325,11 @@ __global__ void __launch_bounds__(kPartThreads)
 // The launch: a persistent grid of as many blocks as fit on the SMs at
 // once, each taking the same number of tiles, the tile cut to the rows
 // that gives (so no block walks a tile more than the others)
-template <bool PAYLOAD, int VEC>
+template <bool PAYLOAD, int VEC, bool TABLE>
 int launch_part(Part p, cudaStream_t s) {
-  const size_t head = part_head_ints(p.K) * sizeof(int);
+  const size_t head =
+      (part_head_ints(p.K) + (TABLE ? part_tab_ints(p.K, p.B) : 0)) *
+      sizeof(int);
   size_t smem = head;
   long most = kPartMaxRows;
   if (PAYLOAD) {
@@ -299,7 +339,7 @@ int launch_part(Part p, cudaStream_t s) {
     smem += (size_t)most * row_bytes;
   }
   const void* fn =
-      reinterpret_cast<const void*>(partition_kernel<PAYLOAD, VEC>);
+      reinterpret_cast<const void*>(partition_kernel<PAYLOAD, VEC, TABLE>);
   int err = allow_smem(fn, smem);
   if (err) return err;
   const long slots = kSMs * std::max<long>(
@@ -310,53 +350,66 @@ int launch_part(Part p, cudaStream_t s) {
       most, ((p.n + slots * per_block - 1) / (slots * per_block) + 3) / 4 * 4);
   const long tiles = (p.n + p.rows - 1) / p.rows;
   const int blocks = (int)((tiles + per_block - 1) / per_block);
-  partition_kernel<PAYLOAD, VEC><<<blocks, kPartThreads, smem, s>>>(p);
+  partition_kernel<PAYLOAD, VEC, TABLE>
+      <<<blocks, kPartThreads, smem, s>>>(p);
   return (int)cudaGetLastError();
+}
+
+template <bool PAYLOAD, bool TABLE>
+int run_vec(const Part& p, bool vec, cudaStream_t s) {
+  return vec ? launch_part<PAYLOAD, 4, TABLE>(p, s)
+             : launch_part<PAYLOAD, 1, TABLE>(p, s);
 }
 
 template <bool PAYLOAD>
 int run_part(const Part& p, void* stream) {
   if (p.n <= 0) return 0;
-  if (p.K < 0) return (int)cudaErrorInvalidValue;
+  if (p.K < 0 || (p.tab != nullptr && (p.B < 1 || p.B > 256)))
+    return (int)cudaErrorInvalidValue;
   const bool vec = aligned(p.lor, 16) && aligned(p.mask, 16) &&
                    aligned(p.out_lor, 16) && aligned(p.out_key, 16) &&
                    (!PAYLOAD || (aligned(p.words, 16) && aligned(p.grad, 16) &&
                                  aligned(p.hess, 16) &&
                                  aligned(p.out_pay, 16)));
   cudaStream_t s = (cudaStream_t)stream;
-  return vec ? launch_part<PAYLOAD, 4>(p, s) : launch_part<PAYLOAD, 1>(p, s);
+  return p.tab != nullptr ? run_vec<PAYLOAD, true>(p, vec, s)
+                          : run_vec<PAYLOAD, false>(p, vec, s);
 }
 
 }  // namespace
 
 // The slot descriptors, i32 [K] each (read on the device): feats, thr,
-// dl, nanb, parents, new_leaves, validk, smaller
+// dl, nanb, parents, new_leaves, validk, smaller; then K and the decision
+// table u8 [K, B] (null: the numeric rule; else feats holds the physical
+// columns and thr, dl and nanb may be null)
 #define LGBT_DESC_ARGS                                                   \
   const int *feats, const int *thr, const int *dl, const int *nanb,      \
       const int *parents, const int *new_leaves, const int *validk,      \
       const int *smaller
 #define LGBT_DESC {feats, thr, dl, nanb, parents, new_leaves, validk, smaller}
+#define LGBT_TAB_ARGS int K, const uint8_t *tab, int B
 
 // The split column comes from the words: bins_words must equal
 // bins_to_words(bins_t.T) (bins_t is not read).
 extern "C" int lgbt_partition_payload(long n, int num_f, const int* words,
                                       int W, const float* grad,
                                       const float* hess, const int* lor,
-                                      const int* mask, LGBT_DESC_ARGS, int K,
-                                      int* out_lor, int* out_key,
-                                      int* out_pay, void* stream) {
+                                      const int* mask, LGBT_DESC_ARGS,
+                                      LGBT_TAB_ARGS, int* out_lor,
+                                      int* out_key, int* out_pay,
+                                      void* stream) {
   if (4 * W < num_f) return (int)cudaErrorInvalidValue;
-  const Part p = {nullptr, n, num_f, words, W, grad, hess, lor, mask,
+  const Part p = {nullptr, tab, B, n, num_f, words, W, grad, hess, lor, mask,
                   LGBT_DESC, K, 0, out_lor, out_key, out_pay};
   return run_part<true>(p, stream);
 }
 
 extern "C" int lgbt_partition_select(const uint8_t* bins_t, long n,
                                      int num_f, const int* lor,
-                                     const int* mask, LGBT_DESC_ARGS, int K,
-                                     int* out_lor, int* out_key,
-                                     void* stream) {
-  const Part p = {bins_t, n, num_f, nullptr, 0, nullptr, nullptr, lor, mask,
-                  LGBT_DESC, K, 0, out_lor, out_key, nullptr};
+                                     const int* mask, LGBT_DESC_ARGS,
+                                     LGBT_TAB_ARGS, int* out_lor,
+                                     int* out_key, void* stream) {
+  const Part p = {bins_t, tab, B, n, num_f, nullptr, 0, nullptr, nullptr,
+                  lor, mask, LGBT_DESC, K, 0, out_lor, out_key, nullptr};
   return run_part<false>(p, stream);
 }

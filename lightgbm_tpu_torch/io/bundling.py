@@ -1,9 +1,9 @@
 """Exclusive Feature Bundling (EFB).
 
 Counterpart of ``lightgbm_tpu/io/bundling.py`` (same NumPy code, so the same
-bins give the same plan).  The batched grower of this package does not take
-bundled data yet: io/dataset.py builds the plan, and learner/batch_grower.py
-raises when one exists.
+bins give the same plan).  io/dataset.py builds the plan and hands its
+tables to the growers (``device_bundle_arrays``; learner/grower.py
+``DeviceBundle``).
 
 Design of the reference's feature bundling (reference:
 src/io/dataset.cpp:107 ``FindGroups`` greedy conflict-bounded graph coloring,

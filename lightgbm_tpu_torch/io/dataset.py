@@ -164,6 +164,16 @@ class Dataset:
                 widest = max(widest, total)
         return device_bins_pow2(widest)
 
+    def device_bundle_arrays(self):
+        """EFB tables trimmed to ``device_n_bins`` width, or None
+        (learner/grower.py ``DeviceBundle`` operands)."""
+        p = self.bundle_plan
+        if p is None:
+            return None
+        B = self.device_n_bins()
+        return (p.feat_col, p.src_idx[:, :B], p.valid[:, :B],
+                p.default_bin, p.inv_table[:, :B])
+
     def packed_mirror(self) -> np.ndarray:
         """Packed-word mirror of the bin matrix: i32 [n, ceil(F/4)], 4 uint8
         bins per word (little-endian view of the row-major matrix — the

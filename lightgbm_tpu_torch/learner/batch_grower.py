@@ -34,12 +34,21 @@ this round's parent slots locked), and partitions with
 ``partition_select`` (the pass builds its own compaction keys).  At
 ``batch=1`` the pooled rounds grow the strict learner's tree.
 
-Supported here: numeric features, serial training, no bundles, row masks,
-per-tree feature masks, depth limits, max_delta_step, quantized levels
-(``hist_scale``), the histogram pool.  Not ported yet: categorical splits,
-monotone / interaction / forced splits, CEGB, linear trees, path
-smoothing, by-node sampling, extra trees, EFB bundles, the distributed
-modes.
+EFB bundles (``bundle``, learner/grower.py ``DeviceBundle``): the bins,
+their word mirror, every histogram pass and the histogram state stay over
+the Fb physical bundle columns; the children's histograms are expanded to
+virtual bins (``_expand_hist``) just before their best splits are found,
+and the round's partition takes the decision-table variant of the fused
+kernel (ops/round_fuse.py ``decision_table``): each slot's go-left bit for
+every physical bin value of its feature's column, built on the device from
+the inverse table.  The JAX package partitions bundled rounds in XLA
+instead; the moves are the same.
+
+Supported here: numeric features, serial training, EFB bundles, row
+masks, per-tree feature masks, depth limits, max_delta_step, quantized
+levels (``hist_scale``), the histogram pool.  Not ported yet: categorical
+splits, monotone / interaction / forced splits, CEGB, linear trees, path
+smoothing, by-node sampling, extra trees, the distributed modes.
 """
 
 from __future__ import annotations
@@ -51,10 +60,12 @@ import torch
 from ..ops.histogram import (bins_to_words, histogram_for_leaves_auto,
                              ladder_profitable, root_histogram,
                              wants_packed_mirror)
-from ..ops.round_fuse import partition_payload, partition_select
+from ..ops.round_fuse import (decision_table, partition_payload,
+                              partition_payload_table, partition_select,
+                              partition_select_table)
 from ..ops.split import NEG_INF, SplitHyper, find_best_split, leaf_output
 from ..utils import log
-from .grower import TreeArrays
+from .grower import DeviceBundle, TreeArrays, _expand_hist
 from .grower import check_supported as _check_learner
 
 #: rows below which the warm-up ladder is skipped, as in the JAX package
@@ -102,13 +113,15 @@ class BatchedTree:
                  bins_t: Optional[torch.Tensor] = None,
                  bins_words: Optional[torch.Tensor] = None,
                  bins_words_t: Optional[torch.Tensor] = None,
-                 stop: Optional[torch.Tensor] = None):
+                 stop: Optional[torch.Tensor] = None,
+                 bundle: Optional[DeviceBundle] = None):
         check_supported(hp, batch)
         dev = grad.device
         f32, i32 = torch.float32, torch.int32
-        n, num_f = bins.shape
+        n, n_cols = bins.shape
+        num_f = n_cols if bundle is None else bundle.feat_col.shape[0]
         L = hp.num_leaves
-        self.hp, self.stop = hp, stop
+        self.hp, self.stop, self.bundle = hp, stop, bundle
         self.n, self.L, self.K = n, L, min(batch, L - 1)
         self.grad, self.hess, self.row_mask = grad, hess, row_mask
         self.feature_mask = feature_mask
@@ -176,7 +189,7 @@ class BatchedTree:
         # with the leaf <-> slot maps (trash entries at L and P)
         self.pool = pooled(hp)
         P = self.P = hp.hist_pool_slots
-        self.hist = torch.zeros(P + 1 if self.pool else NL, num_f, hp.n_bins,
+        self.hist = torch.zeros(P + 1 if self.pool else NL, n_cols, hp.n_bins,
                                 hist0.shape[-1], dtype=f32, device=dev)
         self.hist[0] = hist0
         if self.pool:
@@ -217,7 +230,10 @@ class BatchedTree:
         return h if self.scale_vec is None else h * self.scale_vec
 
     def child_best(self, h, g_, h_, c_, depth):
+        """Best splits of M leaves from their physical histograms."""
         hp = self.hp
+        if self.bundle is not None:
+            h = _expand_hist(h, self.bundle, g_, h_, c_)
         res = find_best_split(h, g_, h_, c_, self.num_bins, self.nan_bin,
                               self.feature_mask, hp)
         depth_ok = (hp.max_depth <= 0) | (depth < hp.max_depth)
@@ -387,7 +403,22 @@ class BatchedTree:
         split = (best_thr[parents], self.best_dl[parents].to(i32),
                  self.nan_bin[feats_k.long()].to(i32), parents.to(i32),
                  new_leaves.to(i32), valid.to(i32), smaller.to(i32))
-        if self.pool:
+        if self.bundle is not None:
+            # bundled: the physical column and go-left table of each slot
+            cols_k, left_tab = decision_table(
+                self.bundle.feat_col, self.bundle.inv_table, feats_k,
+                *split[:3])
+            tsplit = split[3:]
+            if self.pool:
+                lor, sort_key = partition_select_table(
+                    self.bins_t, self.lor, self.mask_i, cols_k, left_tab,
+                    *tsplit)
+                payload = None
+            else:
+                lor, sort_key, payload = partition_payload_table(
+                    self.bins_t, self.bins_words, self.grad, self.hess,
+                    self.lor, self.mask_i, cols_k, left_tab, *tsplit)
+        elif self.pool:
             lor, sort_key = partition_select(self.bins_t, self.lor,
                                              self.mask_i, feats_k, *split)
             payload = None
@@ -490,7 +521,8 @@ def grow_tree_batched(bins: torch.Tensor, grad: torch.Tensor,
                       hist_scale: Optional[torch.Tensor] = None,
                       bins_t: Optional[torch.Tensor] = None,
                       bins_words: Optional[torch.Tensor] = None,
-                      bins_words_t: Optional[torch.Tensor] = None
+                      bins_words_t: Optional[torch.Tensor] = None,
+                      bundle: Optional[DeviceBundle] = None
                       ) -> Tuple[TreeArrays, torch.Tensor]:
     """Grow one tree with ``batch`` splits per histogram pass.
 
@@ -499,13 +531,15 @@ def grow_tree_batched(bins: torch.Tensor, grad: torch.Tensor,
     bool [n] or None; num_bins/nan_bin: i32 [F]; feature_mask: bool [F] or
     None.  ``bins_t`` (u8 [F, n]), ``bins_words`` (i32 [n, ceil(F/4)]) and,
     where the packed kernel may run, ``bins_words_t`` (its transpose) are
-    the tree-invariant layouts, derived here when not passed.
+    the tree-invariant layouts, derived here when not passed.  ``bundle``:
+    the EFB tables when ``bins`` holds bundle columns (F then counts the
+    virtual features).
     Returns (TreeArrays, leaf_of_row i32 [n]).
     """
     tree = BatchedTree(bins, grad, hess, row_mask, num_bins, nan_bin,
                        feature_mask, hp, batch=batch, hist_scale=hist_scale,
                        bins_t=bins_t, bins_words=bins_words,
-                       bins_words_t=bins_words_t)
+                       bins_words_t=bins_words_t, bundle=bundle)
     for kw in tree.ladder():
         tree.round(kw)
     # one host read a K-wide round: the progress test

@@ -22,7 +22,14 @@ the leaf and node values are computed once per tree from the same f32
 operands the JAX package uses at each split, so the arrays are bitwise
 equal wherever the histograms are.
 
-Supported: numeric features, serial training, no bundles, row masks,
+EFB bundles (``bundle``, a :class:`DeviceBundle`): the data passes and the
+histogram state cover the physical bundle columns; each leaf's histogram
+is expanded to virtual (per-feature) bins (:func:`_expand_hist`) just
+before its best split is found, and the partition reads each row's
+virtual bin through the inverse table (:func:`_feature_bin_of_rows`), as
+in the JAX package.
+
+Supported: numeric features, serial training, EFB bundles, row masks,
 per-tree feature masks, ``max_depth``, ``max_delta_step`` and quantized
 levels (``hist_scale``).  Anything else raises ``LightGBMError`` naming it.
 """
@@ -39,6 +46,67 @@ from ..ops.histogram import (bins_to_words, histogram_for_leaf_bucketed,
                              root_histogram, wants_packed_mirror)
 from ..ops.split import NEG_INF, SplitHyper, find_best_split, leaf_output
 from ..utils import log
+
+
+class DeviceBundle(NamedTuple):
+    """EFB expansion tables on the device (io/bundling.py ``BundlePlan``,
+    io/dataset.py ``device_bundle_arrays``): the physical bin matrix and
+    histograms cover bundle columns, these map them back to per-feature
+    (virtual) bins."""
+    feat_col: torch.Tensor     # i32 [Fv] physical column of each feature
+    src_idx: torch.Tensor      # i32 [Fv, B] virtual bin -> bundle bin
+    valid: torch.Tensor        # bool [Fv, B]
+    default_bin: torch.Tensor  # i32 [Fv] implicit most-frequent bin
+    inv_table: torch.Tensor    # i32 [Fv, B] bundle value -> virtual bin
+
+
+def _totals(sum_g, sum_h, count) -> torch.Tensor:
+    """[..., C]: the leaf totals in the histogram's channel order."""
+    return torch.stack([sum_g, sum_h, count, torch.zeros_like(count)], -1)
+
+
+def _expand_hist(hist_b: torch.Tensor, bundle: DeviceBundle, sum_g, sum_h,
+                 count) -> torch.Tensor:
+    """Bundle-level leaf histograms [M, Fb, B, C] -> virtual [M, Fv, B, C]
+    (``sum_g``/``sum_h``/``count``: f32 [M] leaf totals).
+
+    Each feature's stored bins are gathered from its bundle column; the
+    implicit default bin is completed from the leaf totals as total -
+    rest (the reference's most-freq-bin completion, Dataset::FixHistogram
+    dataset.h:760), the JAX package's operations in its order."""
+    B = hist_b.shape[-2]
+    hv = hist_b[:, bundle.feat_col[:, None], bundle.src_idx]   # [M, Fv, B, C]
+    hv = hv * bundle.valid[..., None]
+    rest = hv.sum(2)                                          # [M, Fv, C]
+    onehot = (torch.arange(B, device=hist_b.device)[None, :]
+              == bundle.default_bin[:, None])                 # [Fv, B]
+    total = _totals(sum_g, sum_h, count)                      # [M, C]
+    return hv + onehot[..., None] * (total[:, None, None, :]
+                                     - rest[:, :, None, :])
+
+
+def _expand_hist_col(hcol: torch.Tensor, bundle: DeviceBundle, feat: int,
+                     sum_g, sum_h, count) -> torch.Tensor:
+    """One feature's virtual histogram [B, C] from its bundle column's
+    histogram ``hcol`` [B, C] (the JAX package's one-column form)."""
+    hv = hcol[bundle.src_idx[feat]] * bundle.valid[feat][:, None]
+    rest = hv.sum(0)
+    return hv.index_add_(0, bundle.default_bin[feat:feat + 1].long(),
+                         (_totals(sum_g, sum_h, count) - rest)[None])
+
+
+def _feature_bin_of_rows(bins_t: torch.Tensor,
+                         bundle: Optional[DeviceBundle],
+                         feat: int) -> torch.Tensor:
+    """Virtual bin of every row for feature ``feat`` (the partition's
+    column): ``bins_t[feat]`` (u8) without a bundle, else
+    ``inv_table[feat, bins_t[feat_col[feat]]]`` (i32).  ``bins_t`` is the
+    transposed [F, n] matrix; the column is picked on the device
+    (``index_select``), with no host read."""
+    if bundle is None:
+        return bins_t[feat]
+    col = bins_t.index_select(0, bundle.feat_col[feat:feat + 1].long())[0]
+    return bundle.inv_table[feat][col.long()]
 
 
 class TreeArrays(NamedTuple):
@@ -121,21 +189,25 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
               hp: SplitHyper, hist_scale: Optional[torch.Tensor] = None,
               bins_t: Optional[torch.Tensor] = None,
               bins_words: Optional[torch.Tensor] = None,
-              bins_words_t: Optional[torch.Tensor] = None
+              bins_words_t: Optional[torch.Tensor] = None,
+              bundle: Optional[DeviceBundle] = None
               ) -> Tuple[TreeArrays, torch.Tensor]:
     """Grow one tree, one split per data pass.
 
     The operands of ``grow_tree_batched`` (learner/batch_grower.py):
-    bins u8 [n, F]; grad/hess f32 [n] (integer levels when ``hist_scale``,
-    f32 [2], is given); row_mask bool [n] or None; num_bins/nan_bin i32
-    [F]; feature_mask bool [F] or None; ``bins_t``, ``bins_words`` and
-    ``bins_words_t`` the tree-invariant layouts, derived when not passed.
+    bins u8 [n, Fb]; grad/hess f32 [n] (integer levels when
+    ``hist_scale``, f32 [2], is given); row_mask bool [n] or None;
+    num_bins/nan_bin i32 [F]; feature_mask bool [F] or None; ``bins_t``,
+    ``bins_words`` and ``bins_words_t`` the tree-invariant layouts, derived
+    when not passed; ``bundle`` the EFB tables when ``bins`` holds bundle
+    columns (F = Fv features over Fb columns; F = Fb without).
     Returns (TreeArrays, leaf_of_row i32 [n]).
     """
     check_supported(hp, "strict leaf-wise grower")
     dev = grad.device
     f32, i32 = torch.float32, torch.int32
-    n, num_f = bins.shape
+    n, n_cols = bins.shape
+    num_f = n_cols if bundle is None else bundle.feat_col.shape[0]
     L = hp.num_leaves
     l1, l2, mds = hp.lambda_l1, hp.lambda_l2, hp.max_delta_step
     mask_f = torch.ones_like(grad) if row_mask is None else row_mask.to(f32)
@@ -158,6 +230,13 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     def scaled(h):
         return h if scale_vec is None else h * scale_vec
 
+    def best_of(h_phys, g_, h_, c_):
+        """Best splits of M leaves from their physical histograms."""
+        hv = h_phys if bundle is None else \
+            _expand_hist(h_phys, bundle, g_, h_, c_)
+        return _best_rows(find_best_split(hv, g_, h_, c_, num_bins, nan_bin,
+                                          feature_mask, hp))
+
     hk = dict(n_bins=hp.n_bins, hist_dtype=hp.hist_dtype)
     # grad/hess stay the same all tree long: the radix-single kernel's
     # float32 scale is found once, for the root and every masked pass
@@ -175,16 +254,14 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
 
     # device state: histograms, (g, h, count) sums and the cached best
     # split of every leaf
-    hist = torch.zeros(L, num_f, hp.n_bins, hist0.shape[-1], dtype=f32,
+    hist = torch.zeros(L, n_cols, hp.n_bins, hist0.shape[-1], dtype=f32,
                        device=dev)
     hist[0] = hist0
     sums = torch.zeros(L, 3, dtype=f32, device=dev)
     sums[0] = torch.stack([g0, h0, c0])
     best = torch.zeros(L, 7, dtype=f32, device=dev)
     best[:, _GAIN] = NEG_INF
-    best[0] = _best_rows(find_best_split(
-        hist0[None], g0[None], h0[None], c0[None], num_bins, nan_bin,
-        feature_mask, hp))[0]
+    best[0] = best_of(hist0[None], g0[None], h0[None], c0[None])[0]
     lor = torch.zeros(n, dtype=i32, device=dev)
 
     # host state: the topology and the per-node f32 operands
@@ -219,7 +296,7 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         node_f32[:, i] = (gain, pg, ph, pc)
 
         # partition: the leaf's rows that go right take the new leaf id
-        col = bins_t[feat]
+        col = _feature_bin_of_rows(bins_t, bundle, feat)
         go_left = torch.where(col == nan_bin[feat], dl, col <= thr)
         lor = torch.where((lor == bl) & ~go_left, new_leaf, lor)
 
@@ -259,9 +336,8 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
             best[new_leaf, _GAIN] = NEG_INF
         else:
             kid = torch.stack([pack[5:8], pack[11:14]])           # [2, 3]
-            rows = _best_rows(find_best_split(
-                torch.stack([hist[bl], hist[new_leaf]]), kid[:, 0],
-                kid[:, 1], kid[:, 2], num_bins, nan_bin, feature_mask, hp))
+            rows = best_of(torch.stack([hist[bl], hist[new_leaf]]),
+                           kid[:, 0], kid[:, 1], kid[:, 2])
             best[bl].copy_(rows[0])
             best[new_leaf].copy_(rows[1])
         i += 1

@@ -2,9 +2,10 @@
 
 Counterpart of ``predict_bins_tree`` / ``predict_bins_leaf``,
 ``tree_path_masks`` and ``predict_bins_tree_matmul`` of
-``lightgbm_tpu/models/predict.py`` for numeric, un-bundled trees.  The walk
+``lightgbm_tpu/models/predict.py`` for numeric trees.  The walk
 (:func:`predict_bins_leaf`): every row walks from the root, going left when
-``bin == nan_bin ? default_left : bin <= split_bin``, until it reaches a
+``bin == nan_bin ? default_left : bin <= split_bin`` (the bin of an EFB
+bundle column read through the bundle's inverse table), until it reaches a
 leaf (children < 0 encode leaves as ``-(leaf + 1)``; an empty tree's -1
 children send every row to leaf 0); it reads back one flag a level.  The
 path aggregation (:func:`predict_bins_tree_matmul`), which both training
@@ -37,8 +38,10 @@ from ..learner.grower import TreeArrays
 
 
 def predict_bins_leaf(tree: TreeArrays, bins: torch.Tensor,
-                      nan_bin: torch.Tensor) -> torch.Tensor:
-    """Leaf index (i64 [n]) of every row of u8 ``bins`` [n, F]."""
+                      nan_bin: torch.Tensor, bundle=None) -> torch.Tensor:
+    """Leaf index (i64 [n]) of every row of u8 ``bins`` [n, F], or of the
+    bundle columns [n, Fb] when ``bundle`` (learner/grower.py
+    ``DeviceBundle``) is given."""
     n = bins.shape[0]
     rows = torch.arange(n, device=bins.device)
     node = torch.zeros(n, dtype=torch.int64, device=bins.device)
@@ -49,7 +52,11 @@ def predict_bins_leaf(tree: TreeArrays, bins: torch.Tensor,
         active = node >= 0
         safe = node.clamp(min=0)
         feat = sf[safe]
-        col = bins[rows, feat].long()
+        if bundle is None:
+            col = bins[rows, feat].long()
+        else:
+            phys = bins[rows, bundle.feat_col[feat].long()].long()
+            col = bundle.inv_table[feat, phys].long()
         go_left = torch.where(col == nan_bin[feat].long(),
                               tree.default_left[safe],
                               col <= tree.split_bin[safe].long())
@@ -61,9 +68,9 @@ def predict_bins_leaf(tree: TreeArrays, bins: torch.Tensor,
 
 
 def predict_bins_tree(tree: TreeArrays, bins: torch.Tensor,
-                      nan_bin: torch.Tensor) -> torch.Tensor:
+                      nan_bin: torch.Tensor, bundle=None) -> torch.Tensor:
     """Leaf VALUE (f32 [n]) of every row for one tree."""
-    return tree.leaf_value[predict_bins_leaf(tree, bins, nan_bin)]
+    return tree.leaf_value[predict_bins_leaf(tree, bins, nan_bin, bundle)]
 
 
 def tree_path_masks(tree: TreeArrays):

@@ -74,9 +74,9 @@ _SIGNATURES = {
     },
     "partition": {
         "lgbt_partition_payload": (_L, _I, _P, _I, _P, _P, _P, _P) + _DESC
-        + (_I, _P, _P, _P, _P),
+        + (_I, _P, _I, _P, _P, _P, _P),
         "lgbt_partition_select": (_P, _L, _I, _P, _P) + _DESC
-        + (_I, _P, _P, _P),
+        + (_I, _P, _I, _P, _P, _P),
     },
 }
 

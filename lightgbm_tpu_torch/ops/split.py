@@ -140,8 +140,12 @@ def find_best_split(hist: torch.Tensor, sum_g: torch.Tensor,
     gl = _cumsum_bins(torch.where(is_nan, zero, g))
     hl = _cumsum_bins(torch.where(is_nan, zero, h))
     nl = _cumsum_bins(torch.where(is_nan, zero, n))
-    gm = torch.where(is_nan, g, zero).sum(-1, keepdim=True)     # [M, F, 1]
-    hm = torch.where(is_nan, h, zero).sum(-1, keepdim=True)
+    # a NaN bin with no rows (its count channel is exact) is empty: a
+    # subtraction residual in its grad/hess would break the exact tie of
+    # the two default directions, which then goes right
+    nan_rows = is_nan & (n != 0)
+    gm = torch.where(nan_rows, g, zero).sum(-1, keepdim=True)   # [M, F, 1]
+    hm = torch.where(nan_rows, h, zero).sum(-1, keepdim=True)
     nm = torch.where(is_nan, n, zero).sum(-1, keepdim=True)
     has_missing = nanb >= 0                                     # [F, 1]
 

@@ -524,6 +524,19 @@ def test_fused_round_reads_the_host_at_most_once(monkeypatch):
                   device_type="cpu", metric="auc")
     X, y = _data()
     Xv, yv = _data(n=1500, seed=3)
+    reads, rounds, extra = fused_host_reads(monkeypatch, params, X, y, Xv,
+                                            yv, 5)
+    assert rounds == 5 and extra == 0
+    assert reads["body"] == 0
+    assert reads["step"] <= rounds
+
+
+def fused_host_reads(monkeypatch, params, X, y, Xv, yv, num_rounds):
+    """Train ``num_rounds`` fused rounds with a valid set, counting the
+    host reads (``Tensor.item``, ``__bool__``, ``__int__``, ``__float__``,
+    ``tolist``, ``numpy``) inside the round bodies ("body") and in the
+    host's step around them ("step"); returns (reads, rounds, extra
+    one-round replays)."""
     ds = lgb_torch.Dataset(X, y)
     b = lgb_torch.Booster(params=params, train_set=ds)
     b.add_valid(ds.create_valid(Xv, yv), "v")
@@ -563,12 +576,9 @@ def test_fused_round_reads_the_host_at_most_once(monkeypatch):
 
     monkeypatch.setattr(FG.FusedRound, "_step", step)
     before = dict(FG.counts)
-    gb.train_fused(5, cb_driver=lambda it, ev: None)
-    rounds = FG.counts["rounds"] - before["rounds"]
-    extra = FG.counts["extra"] - before["extra"]
-    assert rounds == 5 and extra == 0
-    assert reads["body"] == 0
-    assert reads["step"] <= rounds
+    gb.train_fused(num_rounds, cb_driver=lambda it, ev: None)
+    return (reads, FG.counts["rounds"] - before["rounds"],
+            FG.counts["extra"] - before["extra"])
 
 
 @pytest.mark.parametrize("frac", [0.0, 0.01, 0.3, 1.0])

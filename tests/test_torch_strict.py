@@ -249,6 +249,31 @@ def test_strict_slice_matches_jax(trained_strict):
                                atol=1e-5)
 
 
+def test_default_direction_of_a_node_without_missing_rows():
+    """Strict float32, 10% NaN, max_depth=4: tree 0's node 13 has no row
+    missing in its feature, but its NaN bin holds a subtraction residual
+    (count 0).  The port treats such a bin as empty, so the two default
+    directions tie exactly and the node goes right, as in the JAX package;
+    every node's decision_type equals the JAX package's."""
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(3000, 6))
+    X[rng.random((3000, 6)) < 0.1] = np.nan
+    X[:, 5] = np.where(rng.random(3000) < 0.5, 0, X[:, 5])
+    y = (np.nan_to_num(X[:, 0]) + 0.5 * np.nan_to_num(X[:, 1])
+         + 0.3 * rng.normal(size=3000) > 0).astype(np.float64)
+    params = dict(objective="binary", num_leaves=15, max_depth=4,
+                  verbosity=-1)
+    tj = lgb_jax.train(dict(params), lgb_jax.Dataset(X, y),
+                       num_boost_round=1)._gbdt.models[0]
+    tt = lgb_torch.train(dict(params, device_type="cpu"),
+                         lgb_torch.Dataset(X, y),
+                         num_boost_round=1)._gbdt.models[0]
+    assert tt.num_leaves == tj.num_leaves == 15
+    np.testing.assert_array_equal(tt.split_feature, tj.split_feature)
+    np.testing.assert_array_equal(tt.threshold_bin, tj.threshold_bin)
+    np.testing.assert_array_equal(tt.decision_type, tj.decision_type)
+
+
 def test_grow_tree_finds_the_scale_once_per_tree(monkeypatch):
     """The masked strict tree computes the radix-single kernel's float32
     scale once and hands the same tensor to the root pass and to every
