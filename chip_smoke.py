@@ -160,8 +160,28 @@ else: no jax, no network.  Phases, each of which fails the run on error:
    rows through the forest kernel against the host walk; 100k x 5 on the
    card against ``device_type=cpu`` (tree 0 identical, AUC within 1e-3).
 
+8. categorical features: 1M rows of the Data Expo 2009 airline on-time
+   shape (the 8-column form of the szilard/benchm-ml benchmark: Month,
+   DayofMonth, DayOfWeek, UniqueCarrier, Origin and Dest named in
+   ``categorical_feature``, Origin and Dest 300 Zipf-drawn airports;
+   DepTime and Distance numeric) and a 200k-row held-out set, phase 3's
+   recipe: the default 10 rounds through the fused loop twice and the
+   classic loop once (byte-identical text; s/round, peak memory, every
+   kernel's launches a tree; the table partition launched, the numeric
+   one never; a chunk of replays allocating nothing outside the graph's
+   pool); the pooled default (1M x 5, 128 slots,
+   ``partition_select_table``); the strict default at 90k x 5; ``max_cat_to_onehot=8`` at 100k x 3 and
+   100k x 5 with the held-out set as a valid set, each on the card and
+   the CPU (tree 0 identical, AUCs within 1e-3, the device valid AUC
+   within 1e-4 of ``predict``'s); ``partition_payload_table`` and
+   ``partition_select_table`` at K = 42 with categorical bitset rows bit
+   for bit against their plain twins; the same columns as numeric codes
+   (s/round and AUC beside); a profiled fused chunk (device ms a round of
+   the sorts, the histogram passes, the partition and the rest).
+
 It prints one JSON line with every kernel's numbers (launches: the fused
-runs' for the kernels a fused run holds, the bucketed strict run's for
+runs' for the kernels a fused run holds, the table partitions' those of
+phases 7 and 8 together, the bucketed strict run's for
 ``histogram_rows_t``; the "library device ms" line adds the index_add_
 device times of rows 2, 7 and 8), the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.
@@ -2940,8 +2960,9 @@ def check_table_partition(torch, RF, inner, flush):
     for k in (K, 2 * K):
         d = {nm: torch.as_tensor(v, device=dev)
              for nm, v in table_slots(rng, inner, k, 128).items()}
-        cols, tab = RF.decision_table(feat_col, inv, d["feats"], d["thr"],
-                                      d["dl"], d["nanb"])
+        cols, tab = RF.decision_table(d["feats"], d["thr"], d["dl"],
+                                      d["nanb"], feat_col=feat_col,
+                                      inv_table=inv)
         rest = tuple(d[nm] for nm in PART_DESC[4:])
         sargs = (bins_t, lor, mask, cols, tab, *rest)
         for a, b_, out in zip(RF.partition_select_table(*sargs),
@@ -2958,7 +2979,8 @@ def check_table_partition(torch, RF, inner, flush):
         fp = torch.as_tensor(rng.integers(0, Fb, size=k, dtype=np.int32),
                              device=dev)
         num = (fp, d["thr"], d["dl"], d["nanb"])
-        cid, tid = RF.decision_table(ident_col, ident_inv, *num)
+        cid, tid = RF.decision_table(*num, feat_col=ident_col,
+                                     inv_table=ident_inv)
         for a, b_, out in zip(
                 RF.partition_select_table(bins_t, lor, mask, cid, tid, *rest),
                 RF.partition_select(bins_t, lor, mask, *num, *rest),
@@ -3242,6 +3264,390 @@ def check_bundled(torch, lgbt, HK, RF, TB, prng):
     for r in rows:
         r["launches"] = launches[r["name"]]
     return rows
+
+
+# ---- phase 8: categorical features
+
+#: phase 8's data: the Data Expo 2009 airline on-time shape in the 8-column
+#: form of the szilard/benchm-ml benchmark (LightGBM's own categorical
+#: experiment): its columns, the levels of the categorical ones and their
+#: positions
+AIR_COLS = ("Month", "DayofMonth", "DayOfWeek", "DepTime", "UniqueCarrier",
+            "Origin", "Dest", "Distance")
+AIR_LEVELS = dict(Month=12, DayofMonth=31, DayOfWeek=7, UniqueCarrier=22,
+                  Origin=300, Dest=300)
+AIR_CAT = [0, 1, 2, 4, 5, 6]
+N_AVALID = 200_000
+N_ACROSS = 100_000
+
+
+def synth_airline(n, rng, eff=None):
+    """Seeded rows of the airline shape: Month, DayofMonth, DayOfWeek,
+    UniqueCarrier, Origin and Dest integer-coded (Origin and Dest drawn
+    Zipf-like from 300 airports, so the rarest fold into bin 0 past
+    max_bin), DepTime (hhmm, 0-2359) and Distance (log-normal miles); the
+    label dep_delayed_15min from per-level effects of the carrier, origin,
+    destination and month, a departure-hour term and logistic noise."""
+    if eff is None:
+        eff = {c: rng.normal(0.0, sd, AIR_LEVELS[c])
+               for c, sd in (("Month", 0.3), ("UniqueCarrier", 0.4),
+                             ("Origin", 0.5), ("Dest", 0.5))}
+    zipf = 1.0 / np.arange(1, 301) ** 1.1
+    zipf /= zipf.sum()
+    month = rng.integers(0, 12, n)
+    carrier = rng.integers(0, 22, n)
+    origin = rng.choice(300, n, p=zipf)
+    dest = rng.choice(300, n, p=zipf)
+    hour = np.clip(rng.normal(13.5, 4.5, n), 0.0, 23.99)
+    X = np.empty((n, 8), np.float32)
+    X[:, 0] = month + 1
+    X[:, 1] = rng.integers(1, 32, n)
+    X[:, 2] = rng.integers(1, 8, n)
+    X[:, 3] = np.floor(hour) * 100 + np.floor(hour % 1 * 60)
+    X[:, 4], X[:, 5], X[:, 6] = carrier, origin, dest
+    X[:, 7] = np.clip(rng.lognormal(6.4, 0.6, n), 30, 5000).round()
+    logit = (eff["Month"][month] + eff["UniqueCarrier"][carrier]
+             + eff["Origin"][origin] + eff["Dest"][dest]
+             + 0.12 * (hour - 13.5) - 1.4)
+    y = (logit + rng.logistic(size=n) > 0).astype(np.float32)
+    return X, y, eff
+
+
+def check_cat_table_partition(torch, RF, inner, flush):
+    """Phase 8 (f): ``partition_payload_table`` and
+    ``partition_select_table`` at K = 42 on the 1M airline rows, the
+    categorical slots' table rows random bitsets (``decision_table`` with
+    ``is_cat``), each bit for bit against its plain twin on every output,
+    one launch a call, timed beside its byte bound."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(18)
+    n, Fb = inner.bins.shape
+    Bd = inner.device_n_bins()
+    cat_np = inner.categorical_array()
+    nb = inner.num_bins_array()
+    bins_t = torch.as_tensor(np.ascontiguousarray(inner.bins.T), device=dev)
+    words = torch.as_tensor(inner.packed_mirror(), device=dev)
+    W = words.shape[1]
+    g = torch.as_tensor(rng.normal(size=n).astype(np.float32), device=dev)
+    h = torch.as_tensor(rng.random(n).astype(np.float32), device=dev)
+    lor = torch.as_tensor(rng.integers(0, 128, size=n, dtype=np.int32),
+                          device=dev)
+    mask = torch.as_tensor((rng.random(n) >= 0.1).astype(np.int32),
+                           device=dev)
+    feats = rng.integers(0, Fb, K).astype(np.int32)
+    par = rng.permutation(128)[:K].astype(np.int32)
+    new = (128 + np.arange(K)).astype(np.int32)
+    d = {nm: torch.as_tensor(v, device=dev) for nm, v in dict(
+        feats=feats,
+        thr=np.array([rng.integers(0, max(nb[f] - 1, 1)) for f in feats],
+                     np.int32),
+        dl=rng.integers(0, 2, size=K, dtype=np.int32),
+        nanb=inner.nan_bin_array()[feats].astype(np.int32),
+        parents=par, new_leaves=new,
+        validk=(np.arange(K) < K - 3).astype(np.int32),
+        smaller=np.where(rng.random(K) < 0.5, par, new).astype(
+            np.int32)).items()}
+    bitsets = torch.as_tensor(rng.random((K, Bd)) < 0.5, device=dev)
+    cols, tab = RF.decision_table(
+        d["feats"], d["thr"], d["dl"], d["nanb"],
+        is_cat=torch.as_tensor(cat_np, device=dev), bitsets=bitsets)
+    catk = torch.as_tensor(cat_np[feats], device=dev)
+    if not (torch.equal(tab[catk].bool(), bitsets[catk])
+            and torch.equal(cols, d["feats"])):
+        fail("decision_table: a categorical slot's row is not its bitset")
+    rest = tuple(d[nm] for nm in PART_DESC[4:])
+    sargs = (bins_t, lor, mask, cols, tab, *rest)
+    pargs = (bins_t, words, g, h, lor, mask, cols, tab, *rest)
+    for kern, plain, args, outs in (
+            (RF.partition_select_table, RF.partition_select_table_plain,
+             sargs, ("new leaf map", "sort key")),
+            (RF.partition_payload_table, RF.partition_payload_table_plain,
+             pargs, ("new leaf map", "sort key", "payload"))):
+        for a, b_, out in zip(kern(*args), plain(*args), outs):
+            if a.shape != b_.shape or not torch.equal(a, b_):
+                fail(f"{kern.__name__} {out} (categorical table, K = "
+                     f"{K}): kernel differs from its plain version")
+    moving = int(torch.isin(lor, d["parents"][d["validk"] > 0]).sum())
+    for name, fn, plain, nbytes in (
+            ("partition_payload_table",
+             lambda: RF.partition_payload_table(*pargs),
+             lambda: RF.partition_payload_table_plain(*pargs),
+             n * (4 * W + 16) + n * (4 * (W + 3) + 8) + K * Bd + 20 * K),
+            ("partition_select_table",
+             lambda: RF.partition_select_table(*sargs),
+             lambda: RF.partition_select_table_plain(*sargs),
+             8 * n + moving + 8 * n + K * Bd + 20 * K)):
+        lpc = launches_per_call(torch, fn)
+        if lpc != 1:
+            fail(f"{name} (categorical table): {lpc} launches a call")
+        _, dms = device_per_call(torch, fn)
+        ms = time_ms(torch, fn, flush)
+        pms = time_ms(torch, plain, flush, reps=3)
+        b, by = bound_ms(nbytes, 2 * K * n)
+        print(f"kernel {name} (categorical table, K = {K}, n = {n:,}, Fb "
+              f"= {Fb}, W = {W}, B = {Bd}): ms={ms:.4f} device_ms={dms} "
+              f"plain_ms={pms:.4f} bound_ms={b:.4f} ({by}); bitwise vs "
+              f"plain on every output; one launch a call", flush=True)
+    RF.table_launches = RF.select_table_launches = 0
+
+
+def split_profile(work, rounds):
+    """ms of device time a round by group: the sorts (split finding's
+    sorted-subset scans and bitsets, PyTorch's sort kernels), the
+    histogram passes, the partition and the rest (PyTorch's elementwise,
+    scan and indexing kernels: the rest of split finding and the round's
+    bookkeeping)."""
+    groups = collections.Counter()
+    for nm, cnt, us in work:
+        if re.search(r"[Ss]ort", nm):
+            key = "sorts"
+        elif re.search(r"masked_cluster|radix_single_cluster|rows_channel",
+                       nm):
+            key = "histogram passes"
+        elif "partition_kernel" in nm:
+            key = "partition"
+        else:
+            key = "rest"
+        groups[key] += us / 1e3 / rounds
+    return {k: round(v, 4) for k, v in sorted(groups.items())}
+
+
+def check_categorical(torch, lgbt, HK, RF, TB, prng):
+    """Phase 8: categorical features on the card, on the airline shape
+    (synth_airline: 1M training rows, a 200k held-out set, the six
+    categorical columns named in ``categorical_feature``, phase 3's
+    recipe).  (a) the default recipe 10 rounds through the fused loop
+    twice and the classic loop once: byte-identical text, s/round, peak
+    memory, every kernel's launches a tree (counts zeroed just before the
+    first fused run, read just after; the table partition must run, the
+    numeric one never), and a second fused chunk that allocates nothing;
+    (b) the pooled default (``histogram_pool_size=4``: 128 slots of the 8
+    columns' histograms, 1M x 5: ``partition_select_table``); (c) the strict default at 90k x 5; (d)
+    ``max_cat_to_onehot=8`` (DayOfWeek one-hot) at 100k x 3, tree 0 equal
+    on the card and the CPU; (e) 100k x 5 on the card and the CPU with the
+    held-out set as a valid set: tree 0 equal, AUCs within 1e-3, each
+    run's device valid AUC within 1e-4 of its ``predict`` AUC; (f) the two
+    table kernels at K = 42 with categorical bitset rows
+    (check_cat_table_partition); (g) the same columns trained as numeric
+    codes (s/round and AUC beside the categorical run); (h) a profiled
+    fused chunk: the device time of the sorts against the histogram
+    passes.  Returns the table kernels' launches in (a) and (b)."""
+    from lightgbm_tpu_torch.boosting import fused_graph as FG
+    from torch.profiler import ProfilerActivity, profile
+    t_phase = time.perf_counter()
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    rng = np.random.default_rng(8)
+    X, y, eff = synth_airline(N, rng)
+    Xv, yv, _ = synth_airline(N_AVALID, rng, eff)
+    t0 = time.perf_counter()
+    ds = lgbt.Dataset(X, y, params={"max_bin": 255, "verbosity": -1},
+                      feature_name=list(AIR_COLS),
+                      categorical_feature=AIR_CAT).construct()
+    t_ds = time.perf_counter() - t0
+    inner = ds.inner
+    nb = inner.num_bins_array()
+    if list(np.flatnonzero(inner.categorical_array())) != AIR_CAT:
+        fail(f"phase 8: categorical columns "
+             f"{np.flatnonzero(inner.categorical_array())}")
+    print(f"categorical (airline shape): {N:,} rows x {len(AIR_COLS)} "
+          f"columns, categorical {[AIR_COLS[c] for c in AIR_CAT]}, bins "
+          f"{dict(zip(AIR_COLS, nb.tolist()))}, dataset {t_ds:.2f} s, "
+          f"delayed share {y.mean():.4f}", flush=True)
+
+    # (a) the default recipe: fused twice, classic once
+    zero_counts(HK, RF, TB, prng)
+    FG.counts.update(replays=0, reads=0, extra=0, rounds=0)
+    bst, per_f, wall_f, peak_f = fused_train(torch, lgbt, ds, 10)
+    counts = launch_counts(HK, RF, TB, prng)
+    fc = dict(FG.counts)
+    g = bst._gbdt
+    if not g.hp.has_categorical or not g._use_batched_grower():
+        fail("phase 8: the default recipe did not take the batched grower "
+             "with categorical splits")
+    need = ("partition_payload_table", "take_small_table",
+            "histogram_radix_single", "histogram_payload")
+    if any(counts[k] <= 0 for k in need) or counts["partition_payload"]:
+        fail(f"categorical fused run: kernel launches {counts}")
+    if fc["rounds"] != 10 or fc["reads"] != fc["replays"]:
+        fail(f"categorical fused run: rounds/replays/reads {fc}")
+    n_cat = sum(len(t.cat_threshold) for t in g.models)
+    if n_cat < 10:
+        fail(f"categorical fused run: {n_cat} categorical splits in 10 "
+             f"trees")
+    a_f = auc(yv, bst.predict(Xv))
+    text = bst.model_to_string()
+    again, *_ = fused_train(torch, lgbt, ds, 10)
+    classic, per_c, _, peak_c = fused_train(torch, lgbt, ds, 10,
+                                            classic=True)
+    if again.model_to_string() != text:
+        fail("categorical: two fused card trainings gave different text")
+    if classic.model_to_string() != text:
+        fail("categorical: the classic loop's model text differs from the "
+             "fused loop's")
+    per_tree = {k: v / 10 for k, v in counts.items() if v}
+    print(f"categorical (default recipe, 1M x 10, fused): s/round "
+          f"{per_f:.5f}, train() {wall_f:.3f} s, peak device memory "
+          f"{peak_f:.1f} MiB, held-out AUC {a_f:.6f}, {n_cat} categorical "
+          f"splits in 10 trees, replays {fc['replays']} (extra "
+          f"{fc['extra']}), flag reads {fc['reads']}; kernel launches a "
+          f"tree {json.dumps(per_tree)}; classic s/round {per_c:.5f}, peak "
+          f"{peak_c:.1f} MiB", flush=True)
+    print(f"model text sha256 (categorical, 1M x 10): {text_sha256(bst)}; "
+          f"fused twice and classic once: byte-identical", flush=True)
+    launches = {"partition_payload_table": counts["partition_payload_table"],
+                "partition_select_table": 0}
+    del again, classic
+
+    # (h) a profiled fused chunk, then one that must allocate nothing
+    for attempt in range(3):
+        zero_counts(HK, RF, TB, prng)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            g.train_fused(10)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        work = profiler_work(prof, "categorical profile")
+        if work is None:
+            fail("categorical profile: not measured")
+        bad = symbol_mismatch(work, launch_counts(HK, RF, TB, prng))
+        if not bad:
+            break
+    else:
+        fail(f"categorical profile: wrapper launches vs the profiler's "
+             f"{bad}")
+    busy = sum(us for _, _, us in work) / 1e3
+    n_sort = sum(c for nm, c, _ in work if re.search(r"[Ss]ort", nm))
+    print(f"categorical profile (a chunk of 10 fused rounds): {wall:.1f} ms "
+          f"wall, device busy {busy:.2f} ms, "
+          f"{sum(c for _, c, _ in work)} launches ({n_sort / 10:.1f} sort "
+          f"launches a round); device ms a round by group "
+          f"{json.dumps(split_profile(work, 10))}", flush=True)
+    for ms, cnt, nm in sorted(((us / 1e3, cnt, nm) for nm, cnt, us in work),
+                              reverse=True)[:8]:
+        print(f"  {ms:8.3f} ms {cnt:6d}x {nm[:90]}", flush=True)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    g.train_fused(10)
+    torch.cuda.synchronize()
+    mem1 = torch.cuda.memory_allocated()
+    print(f"categorical capture: a chunk of 10 replays allocated "
+          f"{mem1 - mem0} bytes outside the graph's pool (device memory "
+          f"{mem0:,} -> {mem1:,})", flush=True)
+    if mem1 != mem0:
+        fail("categorical fused chunk allocated device memory outside the "
+             "graph's pool")
+    del bst, g
+
+    # (b) the pooled default: 4 MB hold 128 of the 8 columns' leaf
+    # histograms, as 8 MB hold 128 of phase 3's 28 columns'
+    zero_counts(HK, RF, TB, prng)
+    pooled, per_p, _, peak_p = fused_train(torch, lgbt, ds, 5,
+                                           histogram_pool_size=4)
+    if pooled._gbdt.hp.hist_pool_slots != 128:
+        fail(f"histogram_pool_size=4 gave {pooled._gbdt.hp.hist_pool_slots} "
+             f"slots, not 128")
+    tp = {"partition_payload_table": RF.table_launches,
+          "partition_select_table": RF.select_table_launches,
+          "partition_select": RF.select_launches}
+    if tp["partition_select_table"] <= 0 or tp["partition_payload_table"] \
+            or tp["partition_select"]:
+        fail(f"categorical pooled run: partition launches {tp}")
+    launches["partition_select_table"] = tp["partition_select_table"]
+    print(f"categorical pooled (histogram_pool_size=4, 1M x 5, fused): "
+          f"s/round {per_p:.5f}, peak {peak_p:.1f} MiB, "
+          f"{pooled._gbdt.hp.hist_pool_slots} slots, AUC "
+          f"{auc(yv, pooled.predict(Xv)):.6f}; partition launches "
+          f"{json.dumps(tp)}", flush=True)
+    del pooled
+
+    # (g) the same columns as numeric codes
+    ds_num = lgbt.Dataset(X, y, params={"max_bin": 255,
+                                        "verbosity": -1}).construct()
+    num, per_n, wall_n, peak_n = fused_train(torch, lgbt, ds_num, 10)
+    if num._gbdt.hp.has_categorical:
+        fail("the numeric-code run trained with categorical splits")
+    a_n = auc(yv, num.predict(Xv))
+    print(f"categorical vs numeric codes (1M x 10, fused): s/round "
+          f"{per_f:.5f} vs {per_n:.5f}, peak {peak_f:.1f} vs {peak_n:.1f} "
+          f"MiB, held-out AUC {a_f:.6f} vs {a_n:.6f}", flush=True)
+    del num, ds_num
+
+    # (c) the strict default at 90k rows
+    dss = lgbt.Dataset(X[:N_STRICT], y[:N_STRICT],
+                       params={"max_bin": 255, "verbosity": -1},
+                       categorical_feature=AIR_CAT).construct()
+    strict, per_s, wall_s, _ = fused_train(torch, lgbt, dss, 5,
+                                           classic=True)
+    gs = strict._gbdt
+    if gs._use_batched_grower() or gs.hp.hist_dtype != "float32":
+        fail("phase 8 (c): the strict default did not run the strict "
+             "float32 learner")
+    n_cs = sum(len(t.cat_threshold) for t in gs.models)
+    print(f"categorical strict default ({N_STRICT:,} x 5, classic): s/round "
+          f"{per_s:.4f}, train() {wall_s:.2f} s, {n_cs} categorical splits, "
+          f"held-out AUC {auc(yv, strict.predict(Xv)):.6f}", flush=True)
+    if n_cs < 5:
+        fail(f"phase 8 (c): {n_cs} categorical splits in the strict run")
+    del strict, dss
+
+    # (d) max_cat_to_onehot=8 (DayOfWeek one-hot), (e) the cross-check
+    dsx = lgbt.Dataset(X[:N_ACROSS], y[:N_ACROSS],
+                       params={"max_bin": 255, "verbosity": -1},
+                       categorical_feature=AIR_CAT).construct()
+
+    def tree0_equal(a, b):
+        ta, tb = a._gbdt.models[0], b._gbdt.models[0]
+        return (ta.num_leaves == tb.num_leaves
+                and np.array_equal(ta.split_feature, tb.split_feature)
+                and np.array_equal(ta.threshold_bin, tb.threshold_bin)
+                and np.array_equal(ta.decision_type, tb.decision_type)
+                and ta.cat_threshold == tb.cat_threshold)
+
+    t0 = time.perf_counter()
+    oh = dict(RECIPE, max_cat_to_onehot=8)
+    o_gpu = lgbt.train(oh, dsx, num_boost_round=3)
+    o_cpu = lgbt.train(dict(oh, device_type="cpu"), dsx, num_boost_round=3)
+    dow = AIR_COLS.index("DayOfWeek")
+    onehot_nodes = sum(int(((t.decision_type & 1) > 0)[
+        np.asarray(t.split_feature) == dow].sum())
+        for t in o_gpu._gbdt.models)
+    if not tree0_equal(o_gpu, o_cpu):
+        fail("phase 8 (d): tree 0 differs between the card and the CPU")
+    print(f"categorical max_cat_to_onehot=8 ({N_ACROSS:,} x 3): tree 0 "
+          f"identical on the card and the CPU "
+          f"({o_gpu._gbdt.models[0].num_leaves} leaves), {onehot_nodes} "
+          f"DayOfWeek nodes ({time.perf_counter() - t0:.1f} s)", flush=True)
+    del o_gpu, o_cpu
+
+    t0 = time.perf_counter()
+    vs = dsx.create_valid(Xv, yv)
+    res = {}
+    for dt in ("cuda", "cpu"):
+        b = lgbt.train(dict(RECIPE, metric="auc", device_type=dt), dsx,
+                       num_boost_round=5, valid_sets=[vs],
+                       valid_names=["held_out"])
+        a_pred = auc(yv, b.predict(Xv))
+        a_dev = b.best_score["held_out"]["auc"]
+        if abs(a_dev - a_pred) > 1e-4:
+            fail(f"phase 8 (e) {dt}: valid AUC {a_dev} vs predict's "
+                 f"{a_pred}")
+        res[dt] = (b, a_pred, a_dev)
+    (b_g, a_g, v_g), (b_c, a_c, v_c) = res["cuda"], res["cpu"]
+    if not tree0_equal(b_g, b_c):
+        fail("phase 8 (e): tree 0 differs between the card and the CPU")
+    if abs(a_g - a_c) > 1e-3:
+        fail(f"phase 8 (e): AUC card {a_g} vs cpu {a_c}")
+    print(f"categorical cross-check ({N_ACROSS:,} x 5, 200k valid): tree 0 "
+          f"identical ({b_g._gbdt.models[0].num_leaves} leaves), AUC card "
+          f"{a_g:.6f} cpu {a_c:.6f}, valid-set AUC card {v_g:.6f} cpu "
+          f"{v_c:.6f} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    del res, b_g, b_c, vs, dsx
+
+    # (f) the table kernels with categorical bitset rows
+    check_cat_table_partition(torch, RF, inner, flush)
+    print(f"phase 8: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
 
 
 def load_other(root):
@@ -3760,6 +4166,12 @@ def main():
 
     # ---- 7. EFB-bundled training
     rows += check_bundled(torch, lgbt, HK, RF, TB, prng)
+
+    # ---- 8. categorical features: the table kernels' launches are the
+    # bundled and the categorical fused runs' together
+    cat_launches = check_categorical(torch, lgbt, HK, RF, TB, prng)
+    for r in rows:
+        r["launches"] += cat_launches.get(r["name"], 0)
     print(f"chip_smoke: {time.perf_counter() - t_script:.1f} s in all, the "
           f"kernel build {build_s:.1f} s of it", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

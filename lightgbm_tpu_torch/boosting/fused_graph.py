@@ -26,6 +26,8 @@ iter), 0))``, their words derived on the host as in ``ops/prng.py``), the
 per-tree feature masks, the round's index in the chunk and its iteration.
 Every round writes its tree and metric values into row ``t`` of one
 [T, P + M] float32 buffer; the host takes it in one transfer per chunk.
+On categorical data the row also carries ``split_cat`` and ``cat_bitset``
+(one byte a bin, four to a float32 word).
 The flag's bit 1 is the in-round early stop, bit 2 a stump: either makes
 the host stop replaying.
 
@@ -50,7 +52,7 @@ from ..ops.table import take_small_table
 from ..utils import log
 
 #: the TreeArrays fields a chunk row carries, in order (split_cat and
-#: cat_bitset are all False on the numeric trees the port grows)
+#: cat_bitset follow them on categorical data only: all False otherwise)
 _PACKED = ("split_feature", "split_bin", "default_left", "left_child",
            "right_child", "split_gain", "internal_value", "internal_count",
            "leaf_value", "leaf_count", "leaf_weight", "leaf_depth",
@@ -99,20 +101,31 @@ def _field_shapes(L: int, num_f: int):
     return shapes
 
 
-def pack_tree(arrays: TreeArrays) -> torch.Tensor:
+def _cat_words(L: int, n_bins: int) -> int:
+    """float32 words of a row's categorical fields: split_cat as int32,
+    then cat_bitset's bytes, padded to whole words."""
+    return (L - 1) + -(-(L - 1) * n_bins // 4)
+
+
+def pack_tree(arrays: TreeArrays, cat: bool = False) -> torch.Tensor:
     """The tree's fields as one float32 row (integers and flags by their
-    int32 bit patterns)."""
+    int32 bit patterns; ``cat``: then split_cat and cat_bitset)."""
     parts = []
     for f in _PACKED:
         a = getattr(arrays, f).reshape(-1)
         if f not in _FLOAT:
             a = a.to(torch.int32).view(torch.float32)
         parts.append(a)
+    if cat:
+        parts.append(arrays.split_cat.to(torch.int32).view(torch.float32))
+        bits = arrays.cat_bitset.reshape(-1).to(torch.uint8)
+        bits = torch.nn.functional.pad(bits, (0, (-bits.numel()) % 4))
+        parts.append(bits.view(torch.float32))
     return torch.cat(parts)
 
 
-def unpack_tree(row: np.ndarray, L: int, num_f: int, n_bins: int
-                ) -> TreeArrays:
+def unpack_tree(row: np.ndarray, L: int, num_f: int, n_bins: int,
+                cat: bool = False) -> TreeArrays:
     """:func:`pack_tree`'s inverse on the host (numpy arrays)."""
     shapes = _field_shapes(L, num_f)
     ints = row.view(np.int32)
@@ -125,14 +138,23 @@ def unpack_tree(row: np.ndarray, L: int, num_f: int, n_bins: int
             a = a != 0
         out[f] = a
         o += size
-    out["split_cat"] = np.zeros(L - 1, bool)
-    out["cat_bitset"] = np.zeros((L - 1, n_bins), bool)
+    ni = L - 1
+    if cat:
+        out["split_cat"] = ints[o:o + ni] != 0
+        nb = ni * n_bins
+        out["cat_bitset"] = (row[o + ni:o + _cat_words(L, n_bins)]
+                             .view(np.uint8)[:nb].reshape(ni, n_bins) != 0)
+    else:
+        out["split_cat"] = np.zeros(ni, bool)
+        out["cat_bitset"] = np.zeros((ni, n_bins), bool)
     return TreeArrays(**out)
 
 
-def packed_width(L: int, num_f: int) -> int:
+def packed_width(L: int, num_f: int, n_bins: int = 0,
+                 cat: bool = False) -> int:
     return sum(int(np.prod(s, dtype=np.int64))
-               for s in _field_shapes(L, num_f).values())
+               for s in _field_shapes(L, num_f).values()) \
+        + (_cat_words(L, n_bins) if cat else 0)
 
 
 def round_keys(seed_q: int, first_iter: int, T: int) -> np.ndarray:
@@ -170,7 +192,8 @@ class FusedRound:
         self.num_f = g.num_features
         self.mrows = g._fused_metric_layout()
         M = len(self.mrows)
-        self.P = packed_width(self.L, self.num_f)
+        self.cat = hp.has_categorical
+        self.P = packed_width(self.L, self.num_f, hp.n_bins, self.cat)
         i64 = torch.int64
         self.keys = torch.zeros(chunk, 2, 2, dtype=i64, device=dev)
         self.fmasks = torch.zeros(chunk, self.num_f, dtype=torch.bool,
@@ -243,7 +266,7 @@ class FusedRound:
             hist_scale=hist_scale, bins_t=g.bins_t, bins_words=g.bins_words,
             bins_words_t=g.bins_words_t,
             stop=self.stopped if self.es is not None else None,
-            bundle=g.bundle)
+            bundle=g.bundle, is_cat=g.is_cat_arr)
         ladder = tree.ladder()
         self.R = full_width_rounds(self.L, self.batch, ladder)
         for width in ladder:
@@ -291,7 +314,7 @@ class FusedRound:
                              .to(torch.float32))
         flag = growing.to(torch.int32) \
             | ((arrays.num_leaves <= 1).to(torch.int32) * STUMP)
-        row = [pack_tree(arrays)]
+        row = [pack_tree(arrays, self.cat)]
         if parts:
             mvals = torch.cat(parts)
             row.append(mvals)
@@ -408,5 +431,5 @@ class FusedRound:
 def chunk_rows(rows: np.ndarray, fr: FusedRound) -> List:
     """Each row's (TreeArrays on the host, metric values)."""
     n_bins = fr.g.hp.n_bins
-    return [(unpack_tree(r[:fr.P], fr.L, fr.num_f, n_bins), r[fr.P:])
-            for r in rows]
+    return [(unpack_tree(r[:fr.P], fr.L, fr.num_f, n_bins, fr.cat),
+             r[fr.P:]) for r in rows]

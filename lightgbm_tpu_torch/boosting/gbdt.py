@@ -27,6 +27,12 @@ and both loops: the bins hold the bundle columns, ``self.bundle``
 (learner/grower.py ``DeviceBundle``) maps them back to per-feature bins,
 and a valid set's bins are turned into logical bins once, at ``add_valid``.
 
+Categorical data (``categorical_feature``) trains in both growers and both
+loops too: ``hp.has_categorical`` switches on split finding's categorical
+candidates, ``self.is_cat_arr`` marks the features, the batched rounds
+partition through the decision-table kernel, and the valid sets' path
+aggregation reads each categorical node's bitset.
+
 ``train_fused`` is the JAX package's fused round loop (``supports_fused``
 admits the batched grower's configurations): each boosting round runs as
 one replay of a captured CUDA graph on the card (boosting/fused_graph.py),
@@ -143,7 +149,6 @@ def _check_slice(config: Config, train_set: Dataset) -> None:
          "cegb penalties"),
         (config.nan_policy != "none", f"nan_policy={config.nan_policy}"),
         (bool(config.tpu_debug_checks), "tpu_debug_checks"),
-        (bool(train_set.categorical_array().any()), "categorical features"),
     ]
     for bad, what in unported:
         if bad:
@@ -190,6 +195,8 @@ class GBDT:
         self.nan_bin_arr = torch.as_tensor(train_set.nan_bin_array(),
                                            device=dev)
         self.num_features = train_set.num_features
+        self.is_cat_arr = torch.as_tensor(train_set.categorical_array(),
+                                          device=dev)
         # EFB: the bins hold bundle columns; these tables map them back
         ba = train_set.device_bundle_arrays()
         self.bundle = None if ba is None else \
@@ -197,6 +204,8 @@ class GBDT:
 
         self._resolve_auto_params(config)
         self.hp = _hp_from_config(config, train_set.device_n_bins())
+        if bool(train_set.categorical_array().any()):
+            self.hp = dataclasses.replace(self.hp, has_categorical=True)
         # the transposed packed mirror [W, n], resident when the masked
         # passes may take the packed kernel (the JAX booster's bins_words)
         self.bins_words_t = None
@@ -283,7 +292,7 @@ class GBDT:
                 feature_mask, self.hp)
         kw = dict(hist_scale=hist_scale, bins_t=self.bins_t,
                   bins_words=self.bins_words, bins_words_t=self.bins_words_t,
-                  bundle=self.bundle)
+                  bundle=self.bundle, is_cat=self.is_cat_arr)
         if self._use_batched_grower():
             return batch_grower.grow_tree_batched(
                 *args, batch=int(self.config.tpu_split_batch), **kw)
@@ -359,13 +368,14 @@ class GBDT:
                            ) -> torch.Tensor:
         """One tree's contribution to valid set ``vi`` (leaf values already
         shrunk), with no host read: the walk's values bit for bit.  The
-        path aggregation serves every tree the port grows (numeric,
-        constant leaves); bundled data is scored on its logical bins, made
-        once at ``add_valid``, where the JAX package walks the tree through
-        the inverse table (``_matmul_valid_ok``): each row reaches the same
-        leaf."""
-        return predict_bins_tree_matmul(arrays, self._valid_bins_t[vi],
-                                        self.nan_bin_arr)
+        path aggregation serves every tree the port grows (constant
+        leaves); bundled data is scored on its logical bins, made
+        once at ``add_valid``, and a categorical node's decision is its
+        bitset at the row's bin, where the JAX package walks such trees
+        (``_matmul_valid_ok``): each row reaches the same leaf."""
+        return predict_bins_tree_matmul(
+            arrays, self._valid_bins_t[vi], self.nan_bin_arr,
+            has_categorical=self.hp.has_categorical)
 
     # ------------------------------------------------------------ training
     def boosting_gradients(self) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -813,8 +823,9 @@ class GBDT:
 def _tree_to_arrays_stub(tree: Tree, dataset: Dataset,
                          device) -> TreeArrays:
     """A host Tree as device TreeArrays (packed feature indices, bin
-    thresholds) for the walk: its own contribution, the folded
-    boost-from-average bias taken out (the JAX package's stub)."""
+    thresholds, categorical nodes' bitsets over the training bins) for the
+    walk: its own contribution, the folded boost-from-average bias taken
+    out (the JAX package's stub)."""
     L = max(tree.num_leaves, 2)
     ni = L - 1
     orig_to_packed = {o: p for p, o in enumerate(dataset.used_feature_idx)}
@@ -829,17 +840,31 @@ def _tree_to_arrays_stub(tree: Tree, dataset: Dataset,
     def zeros(shape, dtype):
         return torch.zeros(shape, dtype=dtype, device=device)
 
+    n_bins = dataset.device_n_bins()
+    bitset = np.zeros((ni, n_bins), bool)
+    for i in range(min(len(tree.split_feature), ni)):
+        if not tree.decision_type[i] & 1:
+            continue
+        csi = int(tree.cat_split_index[i])
+        if csi < 0 or csi >= len(tree.cat_threshold):
+            continue
+        table = dataset.mappers[int(tree.split_feature[i])]._cat_2_bin or {}
+        for c in tree.cat_threshold[csi]:
+            b = table.get(int(c))
+            if b is not None and b < n_bins:
+                bitset[i, b] = True
+
     leaf = np.zeros(L, np.float32)
     leaf[:tree.num_leaves] = (tree.leaf_value - tree.bias).astype(np.float32)
     return TreeArrays(
         split_feature=pad(sf, 0, np.int32),
         split_bin=pad(tree.threshold_bin, 0, np.int32),
         default_left=pad((tree.decision_type & 2) > 0, False, bool),
-        split_cat=zeros(ni, torch.bool),
+        split_cat=pad((tree.decision_type & 1) > 0, False, bool),
         left_child=pad(tree.left_child, -1, np.int32),
         right_child=pad(tree.right_child, -1, np.int32),
         split_gain=zeros(ni, torch.float32),
-        cat_bitset=zeros((ni, dataset.device_n_bins()), torch.bool),
+        cat_bitset=torch.as_tensor(bitset, device=device),
         internal_value=zeros(ni, torch.float32),
         internal_count=zeros(ni, torch.float32),
         leaf_value=torch.as_tensor(leaf, device=device),

@@ -44,11 +44,22 @@ every physical bin value of its feature's column, built on the device from
 the inverse table.  The JAX package partitions bundled rounds in XLA
 instead; the moves are the same.
 
-Supported here: numeric features, serial training, EFB bundles, row
-masks, per-tree feature masks, depth limits, max_delta_step, quantized
-levels (``hist_scale``), the histogram pool.  Not ported yet: categorical
-splits, monotone / interaction / forced splits, CEGB, linear trees, path
-smoothing, by-node sampling, extra trees, the distributed modes.
+Categorical features (``is_cat``, ``SplitHyper.has_categorical``): each
+leaf's best split carries its variant and the bins it sends left
+(learner/grower.py ``winner_bitset``, cached when the split is found, so a
+pooled round needs no histogram of an evicted parent); a round records
+them in ``split_cat`` / ``cat_bitset``, gives sorted-subset children
+``lambda_l2 + cat_l2``, and partitions through the decision-table kernel
+(a categorical slot's row of the table is its bitset), as bundled rounds
+do.  The JAX package partitions these rounds in XLA; the moves are the
+same.
+
+Supported here: numeric and categorical features, serial training, EFB
+bundles, row masks, per-tree feature masks, depth limits,
+max_delta_step, quantized levels (``hist_scale``), the histogram pool.
+Not ported yet: monotone / interaction / forced splits, CEGB, linear
+trees, path smoothing, by-node sampling, extra trees, the distributed
+modes.
 """
 
 from __future__ import annotations
@@ -63,9 +74,10 @@ from ..ops.histogram import (bins_to_words, histogram_for_leaves_auto,
 from ..ops.round_fuse import (decision_table, partition_payload,
                               partition_payload_table, partition_select,
                               partition_select_table)
-from ..ops.split import NEG_INF, SplitHyper, find_best_split, leaf_output
+from ..ops.split import (NEG_INF, VAR_CAT_FWD, SplitHyper, find_best_split,
+                         leaf_output)
 from ..utils import log
-from .grower import DeviceBundle, TreeArrays, _expand_hist
+from .grower import DeviceBundle, TreeArrays, _expand_hist, winner_bitset
 from .grower import check_supported as _check_learner
 
 #: rows below which the warm-up ladder is skipped, as in the JAX package
@@ -103,7 +115,8 @@ class BatchedTree:
     (ops/histogram.py ``histogram_for_leaves_auto``) and every state
     tensor is updated in place, so one round can be captured and replayed
     (boosting/fused_graph.py).  ``stop``: None, or the fused loop's bool
-    0-d early-stop flag."""
+    0-d early-stop flag; ``is_cat``: bool [F], read when
+    ``hp.has_categorical``."""
 
     def __init__(self, bins: torch.Tensor, grad: torch.Tensor,
                  hess: torch.Tensor, row_mask: Optional[torch.Tensor],
@@ -114,7 +127,8 @@ class BatchedTree:
                  bins_words: Optional[torch.Tensor] = None,
                  bins_words_t: Optional[torch.Tensor] = None,
                  stop: Optional[torch.Tensor] = None,
-                 bundle: Optional[DeviceBundle] = None):
+                 bundle: Optional[DeviceBundle] = None,
+                 is_cat: Optional[torch.Tensor] = None):
         check_supported(hp, batch)
         dev = grad.device
         f32, i32 = torch.float32, torch.int32
@@ -122,6 +136,8 @@ class BatchedTree:
         num_f = n_cols if bundle is None else bundle.feat_col.shape[0]
         L = hp.num_leaves
         self.hp, self.stop, self.bundle = hp, stop, bundle
+        self.cat = hp.has_categorical
+        self.is_cat = is_cat
         self.n, self.L, self.K = n, L, min(batch, L - 1)
         self.grad, self.hess, self.row_mask = grad, hess, row_mask
         self.feature_mask = feature_mask
@@ -157,8 +173,9 @@ class BatchedTree:
             g0 = g0 * hist_scale[0]
             h0 = h0 * hist_scale[1]
         root_out = leaf_output(g0, h0, l1, l2, mds)
-        best0 = self.child_best(hist0[None], g0[None], h0[None], c0[None],
-                                torch.zeros(1, dtype=i32, device=dev))
+        best0, bits0 = self.child_best(hist0[None], g0[None], h0[None],
+                                       c0[None],
+                                       torch.zeros(1, dtype=i32, device=dev))
 
         # state arrays carry one trash entry past the end (node index L-1,
         # leaf index L) that the masked scatters of invalid slots aim at —
@@ -210,6 +227,14 @@ class BatchedTree:
         self.best_lg = full((NL,), 0.0, f32)
         self.best_lh = full((NL,), 0.0, f32)
         self.best_lc = full((NL,), 0.0, f32)
+        if self.cat:
+            # the cached best splits' variants and left bins
+            self.best_var = full((NL,), 0, i32)
+            self.best_bitset = full((NL, hp.n_bins), False, torch.bool)
+            self.best_var[0] = best0.variant[0]
+            self.best_bitset[0] = bits0[0]
+            self.split_cat = full((NI,), False, torch.bool)
+            self.cat_bitset = full((NI, hp.n_bins), False, torch.bool)
         self.best_gain[0] = best0.gain[0]
         self.best_feat[0] = best0.feature[0]
         self.best_thr[0] = best0.threshold[0]
@@ -230,15 +255,19 @@ class BatchedTree:
         return h if self.scale_vec is None else h * self.scale_vec
 
     def child_best(self, h, g_, h_, c_, depth):
-        """Best splits of M leaves from their physical histograms."""
+        """Best splits of M leaves from their physical histograms, and on
+        categorical data the bins each sends left (bool [M, B]; else
+        None)."""
         hp = self.hp
-        if self.bundle is not None:
-            h = _expand_hist(h, self.bundle, g_, h_, c_)
-        res = find_best_split(h, g_, h_, c_, self.num_bins, self.nan_bin,
-                              self.feature_mask, hp)
+        hv = h if self.bundle is None else \
+            _expand_hist(h, self.bundle, g_, h_, c_)
+        res = find_best_split(hv, g_, h_, c_, self.num_bins, self.nan_bin,
+                              self.is_cat, self.feature_mask, hp)
+        bits = winner_bitset(h, g_, h_, c_, res, self.num_bins, self.is_cat,
+                             self.bundle, hp) if self.cat else None
         depth_ok = (hp.max_depth <= 0) | (depth < hp.max_depth)
         return res._replace(gain=torch.where(
-            depth_ok, res.gain, torch.full_like(res.gain, NEG_INF)))
+            depth_ok, res.gain, torch.full_like(res.gain, NEG_INF))), bits
 
     def live(self) -> torch.Tensor:
         """bool 0-d: the next round may split."""
@@ -361,8 +390,16 @@ class BatchedTree:
         _put(self.right_child,
              torch.where(ok & (p >= 0) & (side == 1), p, ni), node_ids)
         _put(self.right_child, nid_m, -(new_leaves + 1))
-        lo = leaf_output(lg, lh, l1, l2, mds)
-        ro = leaf_output(rg, rh, l1, l2, mds)
+        l2_eff = l2
+        if self.cat:
+            # sorted-subset children take l2 + cat_l2 (the JAX package's
+            # f32 sum)
+            var = self.best_var[bl]
+            l2_eff = l2 + torch.where(var >= VAR_CAT_FWD, hp.cat_l2, 0.0)
+            _put(self.split_cat, nid_m, self.is_cat[feat.long()])
+            _put(self.cat_bitset, nid_m, self.best_bitset[bl])
+        lo = leaf_output(lg, lh, l1, l2_eff, mds)
+        ro = leaf_output(rg, rh, l1, l2_eff, mds)
         d = self.leaf_depth[bl] + 1
         idx2 = torch.cat([torch.where(ok, bl, L),
                           torch.where(ok, new_leaves, L)])
@@ -403,11 +440,16 @@ class BatchedTree:
         split = (best_thr[parents], self.best_dl[parents].to(i32),
                  self.nan_bin[feats_k.long()].to(i32), parents.to(i32),
                  new_leaves.to(i32), valid.to(i32), smaller.to(i32))
-        if self.bundle is not None:
-            # bundled: the physical column and go-left table of each slot
+        if self.bundle is not None or self.cat:
+            # bundled or categorical: the physical column and go-left
+            # table of each slot
+            bd = self.bundle
             cols_k, left_tab = decision_table(
-                self.bundle.feat_col, self.bundle.inv_table, feats_k,
-                *split[:3])
+                feats_k, *split[:3],
+                feat_col=None if bd is None else bd.feat_col,
+                inv_table=None if bd is None else bd.inv_table,
+                is_cat=self.is_cat if self.cat else None,
+                bitsets=self.best_bitset[parents] if self.cat else None)
             tsplit = split[3:]
             if self.pool:
                 lor, sort_key = partition_select_table(
@@ -452,8 +494,9 @@ class BatchedTree:
 
         # ---- best splits of the 2K children at once
         kids = torch.cat([parents, safe_nl])
-        res = self.child_best(torch.cat([h_left, h_right]), sum_g[kids],
-                              sum_h[kids], count[kids], self.leaf_depth[kids])
+        res, bits = self.child_best(torch.cat([h_left, h_right]),
+                                    sum_g[kids], sum_h[kids], count[kids],
+                                    self.leaf_depth[kids])
         tgt = torch.where(torch.cat([valid, valid]), kids, L)
         _put(best_gain, tgt, res.gain)
         _put(best_feat, tgt, res.feature)
@@ -462,6 +505,9 @@ class BatchedTree:
         _put(self.best_lg, tgt, res.left_sum_g)
         _put(self.best_lh, tgt, res.left_sum_h)
         _put(self.best_lc, tgt, res.left_count)
+        if self.cat:
+            _put(self.best_var, tgt, res.variant)
+            _put(self.best_bitset, tgt, bits)
 
     def ladder(self):
         """The warm-up ladder's widths: 1, 4, 16, ... < K where it runs
@@ -485,11 +531,13 @@ class BatchedTree:
             split_feature=self.split_feature[:L - 1],
             split_bin=self.split_bin[:L - 1],
             default_left=self.default_left[:L - 1],
-            split_cat=full((L - 1,), False, torch.bool),
+            split_cat=(self.split_cat[:L - 1] if self.cat
+                       else full((L - 1,), False, torch.bool)),
             left_child=self.left_child[:L - 1],
             right_child=self.right_child[:L - 1],
             split_gain=self.split_gain[:L - 1],
-            cat_bitset=full((L - 1, hp.n_bins), False, torch.bool),
+            cat_bitset=(self.cat_bitset[:L - 1] if self.cat
+                        else full((L - 1, hp.n_bins), False, torch.bool)),
             internal_value=self.internal_value[:L - 1],
             internal_count=self.internal_count[:L - 1],
             leaf_value=self.leaf_value[:L], leaf_count=self.leaf_count[:L],
@@ -522,7 +570,8 @@ def grow_tree_batched(bins: torch.Tensor, grad: torch.Tensor,
                       bins_t: Optional[torch.Tensor] = None,
                       bins_words: Optional[torch.Tensor] = None,
                       bins_words_t: Optional[torch.Tensor] = None,
-                      bundle: Optional[DeviceBundle] = None
+                      bundle: Optional[DeviceBundle] = None,
+                      is_cat: Optional[torch.Tensor] = None
                       ) -> Tuple[TreeArrays, torch.Tensor]:
     """Grow one tree with ``batch`` splits per histogram pass.
 
@@ -533,13 +582,15 @@ def grow_tree_batched(bins: torch.Tensor, grad: torch.Tensor,
     where the packed kernel may run, ``bins_words_t`` (its transpose) are
     the tree-invariant layouts, derived here when not passed.  ``bundle``:
     the EFB tables when ``bins`` holds bundle columns (F then counts the
-    virtual features).
+    virtual features); ``is_cat`` bool [F], read when
+    ``hp.has_categorical``.
     Returns (TreeArrays, leaf_of_row i32 [n]).
     """
     tree = BatchedTree(bins, grad, hess, row_mask, num_bins, nan_bin,
                        feature_mask, hp, batch=batch, hist_scale=hist_scale,
                        bins_t=bins_t, bins_words=bins_words,
-                       bins_words_t=bins_words_t, bundle=bundle)
+                       bins_words_t=bins_words_t, bundle=bundle,
+                       is_cat=is_cat)
     for kw in tree.ladder():
         tree.round(kw)
     # one host read a K-wide round: the progress test

@@ -29,9 +29,18 @@ before its best split is found, and the partition reads each row's
 virtual bin through the inverse table (:func:`_feature_bin_of_rows`), as
 in the JAX package.
 
-Supported: numeric features, serial training, EFB bundles, row masks,
-per-tree feature masks, ``max_depth``, ``max_delta_step`` and quantized
-levels (``hist_scale``).  Anything else raises ``LightGBMError`` naming it.
+Categorical features (``is_cat``, ``SplitHyper.has_categorical``): when a
+leaf's best split is found, the bins its split would send left are cached
+beside it (:func:`winner_bitset`, from the leaf's own histogram of the
+winning feature: the JAX package's split-time bitset, bit for bit, since
+the inputs are the same); a categorical split records the bitset in
+``cat_bitset``, partitions by ``bitset[bin]`` and gives its children
+``lambda_l2 + cat_l2`` when it is a sorted-subset split.
+
+Supported: numeric and categorical features, serial training, EFB
+bundles, row masks, per-tree feature masks, ``max_depth``,
+``max_delta_step`` and quantized levels (``hist_scale``).  Anything else
+raises ``LightGBMError`` naming it.
 """
 
 from __future__ import annotations
@@ -44,7 +53,9 @@ import torch
 from ..ops.histogram import (bins_to_words, histogram_for_leaf_bucketed,
                              histogram_for_leaf_masked, leaf_pass_scale,
                              root_histogram, wants_packed_mirror)
-from ..ops.split import NEG_INF, SplitHyper, find_best_split, leaf_output
+from ..ops.split import (NEG_INF, VAR_CAT_FWD, VAR_CAT_ONEHOT, SplitHyper,
+                         categorical_left_bitset, find_best_split,
+                         leaf_output)
 from ..utils import log
 
 
@@ -85,14 +96,46 @@ def _expand_hist(hist_b: torch.Tensor, bundle: DeviceBundle, sum_g, sum_h,
                                      - rest[:, :, None, :])
 
 
-def _expand_hist_col(hcol: torch.Tensor, bundle: DeviceBundle, feat: int,
+def _expand_hist_col(hcol: torch.Tensor, bundle: DeviceBundle, feat,
                      sum_g, sum_h, count) -> torch.Tensor:
-    """One feature's virtual histogram [B, C] from its bundle column's
-    histogram ``hcol`` [B, C] (the JAX package's one-column form)."""
-    hv = hcol[bundle.src_idx[feat]] * bundle.valid[feat][:, None]
-    rest = hv.sum(0)
-    return hv.index_add_(0, bundle.default_bin[feat:feat + 1].long(),
-                         (_totals(sum_g, sum_h, count) - rest)[None])
+    """Features' virtual histograms from their bundle columns' histograms
+    (the JAX package's one-column form, batched): ``hcol`` [M, B, C],
+    ``feat`` i64 [M] and the leaf totals [M] give [M, B, C]; a [B, C]
+    column, an int feature and 0-d totals give [B, C]."""
+    if hcol.dim() == 2:
+        f = torch.full((1,), feat, dtype=torch.int64, device=hcol.device)
+        return _expand_hist_col(hcol[None], bundle, f, sum_g.reshape(1),
+                                sum_h.reshape(1), count.reshape(1))[0]
+    src = bundle.src_idx[feat].long()                         # [M, B]
+    hv = hcol.gather(1, src[..., None].expand(-1, -1, hcol.shape[-1])) \
+        * bundle.valid[feat][..., None]
+    rest = hv.sum(1)                                          # [M, C]
+    at_default = (torch.arange(hcol.shape[1], device=hcol.device)[None, :]
+                  == bundle.default_bin[feat][:, None])       # [M, B]
+    return torch.where(at_default[..., None],
+                       hv + (_totals(sum_g, sum_h, count) - rest)[:, None],
+                       hv)
+
+
+def winner_bitset(h_phys: torch.Tensor, sum_g, sum_h, count,
+                  res, num_bins: torch.Tensor, is_cat: torch.Tensor,
+                  bundle: Optional[DeviceBundle],
+                  hp: SplitHyper) -> torch.Tensor:
+    """bool [M, B]: the bins going left under each of M leaves' best
+    splits ``res`` (a SplitResult), from the leaves' physical histograms
+    ``h_phys`` [M, Fb, B, C] and totals [M]; all False for a numeric
+    winner (the JAX package's ``winner_bitset``, batched over the leaves:
+    both growers cache it when a best split is found).  Device ops only:
+    it runs inside a captured round."""
+    feat = res.feature.long()
+    m = torch.arange(h_phys.shape[0], device=h_phys.device)
+    col_of = feat if bundle is None else bundle.feat_col[feat].long()
+    hcol = h_phys[m, col_of]                                  # [M, B, C]
+    if bundle is not None:
+        hcol = _expand_hist_col(hcol, bundle, feat, sum_g, sum_h, count)
+    bits = categorical_left_bitset(hcol, num_bins[feat], res.variant,
+                                   res.threshold, hp)
+    return bits & is_cat[feat][:, None]
 
 
 def _feature_bin_of_rows(bins_t: torch.Tensor,
@@ -159,8 +202,7 @@ def _empty_tree(num_leaves: int, n_bins: int, num_f: int,
 def check_supported(hp: SplitHyper, learner: str) -> None:
     """Raise ``LightGBMError`` naming the first configuration outside the
     growers' supported set."""
-    for bad, what in ((hp.has_categorical, "categorical features"),
-                      (hp.use_monotone, "monotone_constraints"),
+    for bad, what in ((hp.use_monotone, "monotone_constraints"),
                       (hp.path_smooth > 0.0, "path_smooth"),
                       (hp.extra_trees, "extra_trees"),
                       (hp.feature_fraction_bynode < 1.0,
@@ -171,16 +213,18 @@ def check_supported(hp: SplitHyper, learner: str) -> None:
 
 
 #: columns of the grower's per-leaf best-split table (f32; feature,
-#: threshold and the 0/1 default-left flag are small exact integers)
-_GAIN, _FEAT, _THR, _DL, _LG, _LH, _LC = range(7)
+#: threshold, the 0/1 default-left flag and the variant are small exact
+#: integers)
+_GAIN, _FEAT, _THR, _DL, _VAR, _LG, _LH, _LC = range(8)
 
 
 def _best_rows(res) -> torch.Tensor:
-    """A SplitResult of M leaves as the [M, 7] best-split table rows."""
+    """A SplitResult of M leaves as the [M, 8] best-split table rows."""
     f32 = torch.float32
     return torch.stack([res.gain, res.feature.to(f32),
                         res.threshold.to(f32), res.default_left.to(f32),
-                        res.left_sum_g, res.left_sum_h, res.left_count], 1)
+                        res.variant.to(f32), res.left_sum_g,
+                        res.left_sum_h, res.left_count], 1)
 
 
 def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
@@ -190,7 +234,8 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
               bins_t: Optional[torch.Tensor] = None,
               bins_words: Optional[torch.Tensor] = None,
               bins_words_t: Optional[torch.Tensor] = None,
-              bundle: Optional[DeviceBundle] = None
+              bundle: Optional[DeviceBundle] = None,
+              is_cat: Optional[torch.Tensor] = None
               ) -> Tuple[TreeArrays, torch.Tensor]:
     """Grow one tree, one split per data pass.
 
@@ -200,7 +245,8 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     num_bins/nan_bin i32 [F]; feature_mask bool [F] or None; ``bins_t``,
     ``bins_words`` and ``bins_words_t`` the tree-invariant layouts, derived
     when not passed; ``bundle`` the EFB tables when ``bins`` holds bundle
-    columns (F = Fv features over Fb columns; F = Fb without).
+    columns (F = Fv features over Fb columns; F = Fb without); ``is_cat``
+    bool [F], read when ``hp.has_categorical``.
     Returns (TreeArrays, leaf_of_row i32 [n]).
     """
     check_supported(hp, "strict leaf-wise grower")
@@ -230,12 +276,18 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     def scaled(h):
         return h if scale_vec is None else h * scale_vec
 
+    cat = hp.has_categorical
+
     def best_of(h_phys, g_, h_, c_):
-        """Best splits of M leaves from their physical histograms."""
+        """Best splits of M leaves from their physical histograms: the
+        table rows and, on categorical data, the winners' left bins."""
         hv = h_phys if bundle is None else \
             _expand_hist(h_phys, bundle, g_, h_, c_)
-        return _best_rows(find_best_split(hv, g_, h_, c_, num_bins, nan_bin,
-                                          feature_mask, hp))
+        res = find_best_split(hv, g_, h_, c_, num_bins, nan_bin, is_cat,
+                              feature_mask, hp)
+        bits = winner_bitset(h_phys, g_, h_, c_, res, num_bins, is_cat,
+                             bundle, hp) if cat else None
+        return _best_rows(res), bits
 
     hk = dict(n_bins=hp.n_bins, hist_dtype=hp.hist_dtype)
     # grad/hess stay the same all tree long: the radix-single kernel's
@@ -259,15 +311,26 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     hist[0] = hist0
     sums = torch.zeros(L, 3, dtype=f32, device=dev)
     sums[0] = torch.stack([g0, h0, c0])
-    best = torch.zeros(L, 7, dtype=f32, device=dev)
+    best = torch.zeros(L, 8, dtype=f32, device=dev)
     best[:, _GAIN] = NEG_INF
-    best[0] = best_of(hist0[None], g0[None], h0[None], c0[None])[0]
+    rows0, bits0 = best_of(hist0[None], g0[None], h0[None], c0[None])
+    best[0] = rows0[0]
+    # categorical: each leaf's cached left bins, and the recorded splits'
+    bits = cat_bitset = None
+    if cat:
+        bits = torch.zeros(L, hp.n_bins, dtype=torch.bool, device=dev)
+        bits[0] = bits0[0]
+        cat_bitset = torch.zeros(L - 1, hp.n_bins, dtype=torch.bool,
+                                 device=dev)
     lor = torch.zeros(n, dtype=i32, device=dev)
 
     # host state: the topology and the per-node f32 operands
     li = L - 1
     split_feature, split_bin = [-1] * li, [0] * li
     default_left, left_child, right_child = [0] * li, [-1] * li, [-1] * li
+    split_cat = [0] * li
+    # leaves whose last split was a sorted-subset one (l2 + cat_l2)
+    subset_leaf = [False] * L
     node_f32 = np.zeros((4, li), np.float32)   # gain, parent g, h, count
     parent_node, parent_side, depth = [-1] * L, [0] * L, [0] * L
     path = np.zeros((L, num_f), bool)
@@ -281,11 +344,13 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         s = sums.index_select(0, bl_t)[0]
         pack = torch.cat([bl_t.to(f32), row, s, s - row[_LG:]])
         # the split's one host read: leaf, best split, parent and child sums
-        (blf, gain, featf, thrf, dlf, lg, lh, lcn, pg, ph, pc, rg, rh,
+        (blf, gain, featf, thrf, dlf, varf, lg, lh, lcn, pg, ph, pc, rg, rh,
          rcn) = pack.tolist()
         if not gain > 0.0:
             break
         bl, feat, thr, dl = int(blf), int(featf), int(thrf), dlf != 0.0
+        var = int(varf)
+        catl = var >= VAR_CAT_ONEHOT
         new_leaf = i + 1
 
         p, side = parent_node[bl], parent_side[bl]
@@ -294,10 +359,16 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         left_child[i], right_child[i] = -(bl + 1), -(new_leaf + 1)
         split_feature[i], split_bin[i], default_left[i] = feat, thr, int(dl)
         node_f32[:, i] = (gain, pg, ph, pc)
+        split_cat[i] = int(catl)
+        subset_leaf[bl] = subset_leaf[new_leaf] = var >= VAR_CAT_FWD
 
         # partition: the leaf's rows that go right take the new leaf id
         col = _feature_bin_of_rows(bins_t, bundle, feat)
-        go_left = torch.where(col == nan_bin[feat], dl, col <= thr)
+        if catl:
+            cat_bitset[i].copy_(bits[bl])
+            go_left = bits[bl][col.long()]
+        else:
+            go_left = torch.where(col == nan_bin[feat], dl, col <= thr)
         lor = torch.where((lor == bl) & ~go_left, new_leaf, lor)
 
         # histogram: a data pass over the smaller child only
@@ -319,8 +390,8 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         else:
             hist[new_leaf].copy_(h_small)
             hist[bl].sub_(h_small)
-        sums[bl].copy_(pack[5:8])
-        sums[new_leaf].copy_(pack[11:14])
+        sums[bl].copy_(pack[6:9])
+        sums[new_leaf].copy_(pack[12:15])
 
         d = depth[bl] + 1
         depth[bl] = depth[new_leaf] = d
@@ -335,11 +406,15 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
             best[bl, _GAIN] = NEG_INF
             best[new_leaf, _GAIN] = NEG_INF
         else:
-            kid = torch.stack([pack[5:8], pack[11:14]])           # [2, 3]
-            rows = best_of(torch.stack([hist[bl], hist[new_leaf]]),
-                           kid[:, 0], kid[:, 1], kid[:, 2])
+            kid = torch.stack([pack[6:9], pack[12:15]])           # [2, 3]
+            rows, kid_bits = best_of(
+                torch.stack([hist[bl], hist[new_leaf]]), kid[:, 0],
+                kid[:, 1], kid[:, 2])
             best[bl].copy_(rows[0])
             best[new_leaf].copy_(rows[1])
+            if cat:
+                bits[bl].copy_(kid_bits[0])
+                bits[new_leaf].copy_(kid_bits[1])
         i += 1
 
     # one upload per dtype: the host-side topology and node operands
@@ -348,23 +423,29 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
             dev, non_blocking=True)
 
     ints = up([split_feature, split_bin, default_left, left_child,
-               right_child], np.int32)
+               right_child, split_cat], np.int32)
     nodes = up(node_f32, np.float32)
     live_node = torch.arange(li, device=dev) < i
     live_leaf = torch.arange(L, device=dev) < i + 1
     zero = torch.zeros((), dtype=f32, device=dev)
+    l2_leaf = l2
+    if cat:
+        # the JAX package's f32 l2 + (subset ? cat_l2 : 0) of each leaf's
+        # last split
+        l2_leaf = l2 + torch.where(up(subset_leaf, bool), hp.cat_l2, 0.0)
     tree = TreeArrays(
         split_feature=ints[0], split_bin=ints[1],
         default_left=ints[2].to(torch.bool),
-        split_cat=torch.zeros(li, dtype=torch.bool, device=dev),
+        split_cat=ints[5].to(torch.bool),
         left_child=ints[3], right_child=ints[4], split_gain=nodes[0],
-        cat_bitset=torch.zeros(li, hp.n_bins, dtype=torch.bool, device=dev),
+        cat_bitset=(cat_bitset if cat else torch.zeros(
+            li, hp.n_bins, dtype=torch.bool, device=dev)),
         internal_value=torch.where(
             live_node, leaf_output(nodes[1], nodes[2], l1, l2, mds), zero),
         internal_count=nodes[3],
         leaf_value=torch.where(
-            live_leaf, leaf_output(sums[:, 0], sums[:, 1], l1, l2, mds),
-            zero),
+            live_leaf,
+            leaf_output(sums[:, 0], sums[:, 1], l1, l2_leaf, mds), zero),
         leaf_count=sums[:, 2].clone(), leaf_weight=sums[:, 1].clone(),
         leaf_depth=up(depth, np.int32), leaf_path=up(path, bool),
         num_leaves=torch.full((), i + 1, dtype=i32, device=dev))

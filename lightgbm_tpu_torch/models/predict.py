@@ -2,9 +2,10 @@
 
 Counterpart of ``predict_bins_tree`` / ``predict_bins_leaf``,
 ``tree_path_masks`` and ``predict_bins_tree_matmul`` of
-``lightgbm_tpu/models/predict.py`` for numeric trees.  The walk
+``lightgbm_tpu/models/predict.py``.  The walk
 (:func:`predict_bins_leaf`): every row walks from the root, going left when
-``bin == nan_bin ? default_left : bin <= split_bin`` (the bin of an EFB
+``bin == nan_bin ? default_left : bin <= split_bin`` at a numeric node and
+when ``cat_bitset[node, bin]`` at a categorical one (the bin of an EFB
 bundle column read through the bundle's inverse table), until it reaches a
 leaf (children < 0 encode leaves as ``-(leaf + 1)``; an empty tree's -1
 children send every row to leaf 0); it reads back one flag a level.  The
@@ -57,9 +58,11 @@ def predict_bins_leaf(tree: TreeArrays, bins: torch.Tensor,
         else:
             phys = bins[rows, bundle.feat_col[feat].long()].long()
             col = bundle.inv_table[feat, phys].long()
+        go_num = torch.where(tree.split_cat[safe],
+                             tree.cat_bitset[safe, col],
+                             col <= tree.split_bin[safe].long())
         go_left = torch.where(col == nan_bin[feat].long(),
-                              tree.default_left[safe],
-                              col <= tree.split_bin[safe].long())
+                              tree.default_left[safe], go_num)
         nxt = torch.where(go_left, lc[safe], rc[safe])
         node = torch.where(active, nxt, node)
         if not bool((node >= 0).any()):
@@ -133,12 +136,15 @@ _MATMUL_VALID_BLOCK = 131_072
 
 
 def predict_bins_tree_matmul(tree: TreeArrays, bins_t: torch.Tensor,
-                             nan_bin: torch.Tensor) -> torch.Tensor:
+                             nan_bin: torch.Tensor,
+                             has_categorical: bool = False) -> torch.Tensor:
     """Leaf VALUE (f32 [n]) of every row for one tree, by path aggregation:
     :func:`predict_bins_tree`'s values, bit for bit, with no host read.
 
     ``bins_t``: u8 [F, n], the transposed valid bins.  A node's decision
-    bit is one gather of its feature's row; per block of rows one product
+    bit is one gather of its feature's row (``has_categorical``: at a
+    categorical node, a gather of its bitset at those bins, one [ni, B]
+    table); per block of rows one product
     (mpos - mneg) [L, ni] x bits [ni, rows] plus each leaf's count of
     right-hand conditions gives the conditions every row meets on every
     leaf's path, small integers, exact (bfloat16 up to 256 leaves, float32
@@ -161,7 +167,11 @@ def predict_bins_tree_matmul(tree: TreeArrays, bins_t: torch.Tensor,
     outs = []
     for b0 in range(0, n, _MATMUL_VALID_BLOCK):
         cols = bins_t[:, b0:b0 + _MATMUL_VALID_BLOCK][feat].to(torch.int32)
-        go = torch.where(cols == nanb, dl, cols <= thr)         # [ni, rows]
+        go = cols <= thr                                        # [ni, rows]
+        if has_categorical:
+            go = torch.where(tree.split_cat[:, None],
+                             tree.cat_bitset.gather(1, cols.long()), go)
+        go = torch.where(cols == nanb, dl, go)
         counts = torch.matmul(diff, go.to(mm)).float() + base[:, None]
         sel = counts.to(torch.int32) == want[:, None]           # [L, rows]
         outs.append(value[sel.to(torch.uint8).argmax(0)])

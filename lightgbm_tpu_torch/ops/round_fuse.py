@@ -11,13 +11,14 @@ histogram pool's rounds).  On CUDA tensors they launch ``csrc/partition.cu``
 they run their plain versions.
 
 The decision-table variants (:func:`partition_payload_table`,
-:func:`partition_select_table`; EFB-bundled rounds) take, in place of each
-slot's feature, threshold, default direction and NaN bin, the physical
-column it reads and a u8 [K, B] table of the go-left bit of every bin
-value of that column (:func:`decision_table` builds it on the device from
-the inverse table of the bundle plan).  The same kernel runs them (a
+:func:`partition_select_table`; EFB-bundled and categorical rounds) take,
+in place of each slot's feature, threshold, default direction and NaN bin,
+the physical column it reads and a u8 [K, B] table of the go-left bit of
+every bin value of that column (:func:`decision_table` builds it on the
+device, through the inverse table of the bundle plan where there is one;
+a categorical slot's row is its bitset).  The same kernel runs them (a
 template flag of ``csrc/partition.cu``); the JAX package partitions
-bundled rounds in XLA, with the same moves.
+bundled and categorical rounds in XLA, with the same moves.
 """
 
 from __future__ import annotations
@@ -130,24 +131,38 @@ def partition_select_table_plain(bins_t, lor, mask, cols, left_tab, parents,
                         new_leaves, validk, smaller)[:2]
 
 
-def decision_table(feat_col, inv_table, feats, thr, dl, nanb
+def decision_table(feats, thr, dl, nanb, *, feat_col=None, inv_table=None,
+                   is_cat=None, bitsets=None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The decision-table variants' operands for K numeric splits over
-    EFB bundle columns (learner/grower.py ``DeviceBundle``): (cols i32 [K],
-    left_tab u8 [K, B]) with cols[k] = feat_col[feats[k]] and
-    left_tab[k, v] = iv == nanb[k] ? dl[k] : iv <= thr[k] for iv =
-    inv_table[feats[k], v], the virtual bin of bundle value v.  A feature
-    outside [0, Fv) reads its table row at the clamped feature and column
+    """The decision-table variants' operands for K splits: (cols i32 [K],
+    left_tab u8 [K, B]).  Slot k reads physical column cols[k] =
+    feat_col[feats[k]] (``feats[k]`` without a bundle) and sends bin value
+    v left when left_tab[k, v], which for iv = inv_table[feats[k], v] (the
+    feature's virtual bin of bundle value v; iv = v without a bundle) is
+    ``bitsets[k, iv]`` on a categorical feature (``is_cat`` bool [F],
+    ``bitsets`` bool [K, B]) and ``iv == nanb[k] ? dl[k] : iv <= thr[k]``
+    otherwise.  B is the bitsets' or the inverse table's width.  A feature
+    outside [0, F) reads its table row at the clamped feature and column
     -1, which the kernel reads as bin 0 (the numeric kernel's rule; only
     invalid slots carry such features).  Indexing ops on device tensors
     only: it runs inside a captured round."""
-    num_f = feat_col.shape[0]
     fk = feats.long()
+    if feat_col is not None:
+        num_f, B = inv_table.shape
+    else:
+        num_f, B = is_cat.shape[0], bitsets.shape[1]
     fc = fk.clamp(0, num_f - 1)
-    iv = inv_table[fc]                                            # [K, B]
+    if inv_table is not None:
+        iv = inv_table[fc]                                        # [K, B]
+        col = feat_col[fc]
+    else:
+        iv = torch.arange(B, device=fk.device).expand(fk.shape[0], B)
+        col = fc
     left = torch.where(iv == nanb[:, None], dl[:, None] != 0,
                        iv <= thr[:, None])
-    col = feat_col[fc]
+    if is_cat is not None:
+        left = torch.where(is_cat[fc][:, None],
+                           bitsets.gather(1, iv.long()), left)
     cols = torch.where((fk >= 0) & (fk < num_f), col,
                        torch.full_like(col, -1))
     return cols.to(torch.int32), left.to(torch.uint8)

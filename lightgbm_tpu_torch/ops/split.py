@@ -2,17 +2,27 @@
 
 Counterpart of ``lightgbm_tpu/ops/split.py`` (reference
 src/treelearner/feature_histogram.hpp:832 ``FindBestThresholdSequentially``)
-for numeric features with missing values, batched over a leading leaf axis:
-cumulative sums along the bin axis give every threshold's left-side stats,
-both missing-value directions are evaluated as a variant axis, and one flat
-argmax per leaf picks the winner.  The arithmetic follows the JAX package
-operation by operation in f32, so quantized-level histograms (integer sums
-times power-of-two scales, exact in any order) give the same splits bit for
-bit.
+batched over a leading leaf axis: cumulative sums along the bin axis give
+every threshold's left-side stats, both missing-value directions are
+evaluated as a variant axis, and one flat argmax per leaf picks the winner.
+Categorical features (``SplitHyper.has_categorical``) add the JAX package's
+three candidate families to the variant axis, which is then five wide: the
+one-hot split ``{bin == t}`` up to ``max_cat_to_onehot`` bins, and the
+prefixes of the bins sorted by ``g / (h + cat_smooth)``, ascending and
+descending (:func:`categorical_left_bitset` turns a winner into the set of
+bins going left).  The arithmetic follows the JAX package operation by
+operation in f32, so quantized-level histograms (integer sums times
+power-of-two scales, exact in any order) give the same splits bit for bit.
 
-Not ported yet: categorical splits, monotone constraints, path smoothing,
-extra-trees random thresholds and CEGB penalties (the grower rejects the
-configurations that need them).
+The sorts are stable (``jnp.argsort`` is) and their keys are made
+canonical (``key + 0.0`` turns -0.0 into +0.0): a CUDA radix sort orders
+-0.0 before +0.0, where the JAX package's CPU comparison sort takes them
+as equal, so a category whose gradient sum is exactly zero would otherwise
+move between the card and the CPU.
+
+Not ported yet: monotone constraints, path smoothing, extra-trees random
+thresholds and CEGB penalties (the grower rejects the configurations that
+need them).
 """
 
 from __future__ import annotations
@@ -58,11 +68,14 @@ class SplitHyper:
     hist_pool_slots: int = 0
 
 
-#: candidate-variant indices (the JAX package's first two; the categorical
-#: variants 2-4 are never candidates on numeric data)
+#: candidate-variant indices along the last axis of the gain tensor (the
+#: JAX package's); all-numeric data stacks only the first two
 VAR_NUM_RIGHT = 0    # numerical, missing goes right
 VAR_NUM_LEFT = 1     # numerical, missing goes left
-NUM_VARIANTS = 2
+VAR_CAT_ONEHOT = 2   # categorical one-hot: {bin == t} left
+VAR_CAT_FWD = 3      # categorical sorted-subset, ascending-score prefix
+VAR_CAT_BWD = 4      # categorical sorted-subset, descending-score prefix
+NUM_VARIANTS = 5
 
 
 class SplitResult(NamedTuple):
@@ -70,8 +83,10 @@ class SplitResult(NamedTuple):
     every field has the leaf axis of the input."""
     gain: torch.Tensor          # f32 — improvement; <= 0 means "don't split"
     feature: torch.Tensor       # i32 packed feature index
-    threshold: torch.Tensor     # i32 bin threshold (left = bin <= threshold)
+    threshold: torch.Tensor     # i32 bin threshold (left = bin <= threshold);
+                                # sorted-subset variants: prefix length - 1
     default_left: torch.Tensor  # bool — missing goes left
+    is_categorical: torch.Tensor  # bool — any categorical variant
     variant: torch.Tensor       # i32 VAR_* of the winner
     left_sum_g: torch.Tensor
     left_sum_h: torch.Tensor
@@ -118,13 +133,15 @@ def gain_given_output(g: torch.Tensor, h: torch.Tensor, out: torch.Tensor,
 def find_best_split(hist: torch.Tensor, sum_g: torch.Tensor,
                     sum_h: torch.Tensor, count: torch.Tensor,
                     num_bins: torch.Tensor, nan_bin: torch.Tensor,
+                    is_cat: Optional[torch.Tensor],
                     feature_mask: Optional[torch.Tensor],
                     hp: SplitHyper) -> SplitResult:
     """Best (feature, threshold, default direction) of M leaves at once.
 
     hist: f32 [M, F, B, C>=3] (grad, hess, count); sum_g/sum_h/count: f32
-    [M] leaf totals; num_bins/nan_bin: i32 [F]; feature_mask: bool [F] or
-    None.
+    [M] leaf totals; num_bins/nan_bin: i32 [F]; is_cat: bool [F] (read only
+    when ``hp.has_categorical``; None for all-numeric data); feature_mask:
+    bool [F] or None.
     """
     M, F, B = hist.shape[0], hist.shape[1], hist.shape[2]
     dev = hist.device
@@ -161,17 +178,18 @@ def find_best_split(hist: torch.Tensor, sum_g: torch.Tensor,
     sh = sum_h[:, None, None]
     sc = count[:, None, None]
 
-    def variant_gain(gl_v, hl_v, nl_v):
+    def variant_gain(gl_v, hl_v, nl_v, l2_v):
         gr = sg - gl_v
         hr = sh - hl_v
         nr = sc - nl_v
         if not output_path:
-            gain = leaf_gain(gl_v, hl_v, l1, l2) + leaf_gain(gr, hr, l1, l2)
+            gain = (leaf_gain(gl_v, hl_v, l1, l2_v)
+                    + leaf_gain(gr, hr, l1, l2_v))
         else:
-            lo = leaf_output(gl_v, hl_v, l1, l2, hp.max_delta_step)
-            ro = leaf_output(gr, hr, l1, l2, hp.max_delta_step)
-            gain = (gain_given_output(gl_v, hl_v, lo, l1, l2)
-                    + gain_given_output(gr, hr, ro, l1, l2))
+            lo = leaf_output(gl_v, hl_v, l1, l2_v, hp.max_delta_step)
+            ro = leaf_output(gr, hr, l1, l2_v, hp.max_delta_step)
+            gain = (gain_given_output(gl_v, hl_v, lo, l1, l2_v)
+                    + gain_given_output(gr, hr, ro, l1, l2_v))
         ok = ((nl_v >= hp.min_data_in_leaf) & (nr >= hp.min_data_in_leaf)
               & (hl_v >= hp.min_sum_hessian_in_leaf)
               & (hr >= hp.min_sum_hessian_in_leaf))
@@ -180,11 +198,21 @@ def find_best_split(hist: torch.Tensor, sum_g: torch.Tensor,
     # threshold t splits {bin <= t} | {bin > t}; t == last real bin only
     # splits off the missing bin, t at the nan bin itself is invalid
     thr_ok = valid_bin & (bin_idx < nb - 1) & ~is_nan           # [F, B]
+    cat = None
+    if hp.has_categorical:
+        cat = is_cat.to(dev)
+        thr_ok = thr_ok & ~cat[:, None]
     neg = torch.full((), NEG_INF, dtype=hist.dtype, device=dev)
-    gain_right = torch.where(thr_ok, variant_gain(gl, hl, nl), neg)
+    gain_right = torch.where(thr_ok, variant_gain(gl, hl, nl, l2), neg)
     gain_left = torch.where(thr_ok & has_missing,
-                            variant_gain(gl + gm, hl + hm, nl + nm), neg)
-    cand = torch.stack([gain_right, gain_left], dim=-1)         # [M, F, B, V]
+                            variant_gain(gl + gm, hl + hm, nl + nm, l2), neg)
+    families = [gain_right, gain_left]
+    if cat is not None:
+        cat_gains, cat_left = _categorical_candidates(
+            g, h, n, valid_bin, nb[:, 0], cat, sc, variant_gain, hp)
+        families += cat_gains
+    V = len(families)
+    cand = torch.stack(families, dim=-1)                        # [M, F, B, V]
     if feature_mask is not None:
         fm = feature_mask.to(dev)
         cand = torch.where(fm[..., None, None], cand, neg)
@@ -192,23 +220,136 @@ def find_best_split(hist: torch.Tensor, sum_g: torch.Tensor,
     flat = cand.reshape(M, -1)
     best = torch.argmax(flat, dim=1)                            # first max
     best_gain_raw = flat.gather(1, best[:, None])[:, 0]
-    feat = best // (B * NUM_VARIANTS)
-    rem = best % (B * NUM_VARIANTS)
-    thr = rem // NUM_VARIANTS
-    variant = rem % NUM_VARIANTS
+    feat = best // (B * V)
+    rem = best % (B * V)
+    thr = rem // V
+    variant = rem % V
     m_idx = torch.arange(M, device=dev)
-    left_nan = variant == VAR_NUM_LEFT
-    lg = torch.where(left_nan, gl[m_idx, feat, thr] + gm[m_idx, feat, 0],
-                     gl[m_idx, feat, thr])
-    lh = torch.where(left_nan, hl[m_idx, feat, thr] + hm[m_idx, feat, 0],
-                     hl[m_idx, feat, thr])
-    ln = torch.where(left_nan, nl[m_idx, feat, thr] + nm[m_idx, feat, 0],
-                     nl[m_idx, feat, thr])
+
+    def at(x):
+        return x[m_idx, feat, thr]
+
+    # the winner's left-side stats, one row a variant family
+    lgs = [at(gl), at(gl) + gm[m_idx, feat, 0]]
+    lhs = [at(hl), at(hl) + hm[m_idx, feat, 0]]
+    lns = [at(nl), at(nl) + nm[m_idx, feat, 0]]
+    if cat is not None:
+        lgs.append(at(g))
+        lhs.append(at(h))
+        lns.append(at(n))
+        for glv, hlv, nlv in cat_left:
+            lgs.append(at(glv))
+            lhs.append(at(hlv))
+            lns.append(at(nlv))
+    sel = variant[None, :]
+
+    def pick(rows):
+        return torch.stack(rows).gather(0, sel)[0]
+
+    lg, lh, ln = pick(lgs), pick(lhs), pick(lns)
     gain = best_gain_raw - min_shift
     return SplitResult(
         gain=torch.where(best_gain_raw <= NEG_INF / 2, neg, gain),
         feature=feat.to(torch.int32), threshold=thr.to(torch.int32),
-        default_left=left_nan, variant=variant.to(torch.int32),
+        default_left=variant == VAR_NUM_LEFT,
+        is_categorical=variant >= VAR_CAT_ONEHOT,
+        variant=variant.to(torch.int32),
         left_sum_g=lg, left_sum_h=lh, left_count=ln,
         right_sum_g=sum_g - lg, right_sum_h=sum_h - lh,
         right_count=count - ln)
+
+
+#: the sort key of a bin that is no sorted-subset candidate
+_NOT_CANDIDATE = 1e30
+
+
+def _subset_key(score: torch.Tensor, cand: torch.Tensor,
+                descending) -> torch.Tensor:
+    """The sort key of the sorted-subset scans: the score (negated for
+    ``descending``, a bool or a bool tensor), 1e30 on bins that are no
+    candidate, -0.0 made +0.0 (the JAX package's CPU sort takes them as
+    equal, a CUDA radix sort does not)."""
+    if isinstance(descending, bool):
+        signed = -score if descending else score
+    else:
+        signed = torch.where(descending, -score, score)
+    return torch.where(cand, signed,
+                       torch.full_like(score, _NOT_CANDIDATE)) + 0.0
+
+
+def _categorical_candidates(g, h, n, valid_bin, nb, cat, sc, variant_gain,
+                            hp: SplitHyper):
+    """The JAX package's categorical candidate families (ops/split.py
+    :289-333) over [M, F, B]: ([one-hot, ascending, descending] gains,
+    [(left g, h, count) cumulatives of the two sorted scans]).
+
+    One-hot (reference feature_histogram.cpp:179): ``{bin == t}`` goes
+    left on features of at most ``max_cat_to_onehot`` bins, plain
+    ``lambda_l2``.  Sorted-subset (feature_histogram.cpp:241-340): the
+    bins of count >= ``cat_smooth``, sorted by g / (h + cat_smooth);
+    prefixes of either order, capped at min(max_cat_threshold, (used +
+    1) // 2), are the left sets, scored with l2 + cat_l2 and gated by
+    ``min_data_per_group`` (the left count crosses a multiple of it and
+    the right keeps at least as many)."""
+    dev = g.device
+    bin_idx = torch.arange(g.shape[-1], device=dev)[None, :]
+    neg = torch.full((), NEG_INF, dtype=g.dtype, device=dev)
+    onehot_ok = cat[:, None] & (nb[:, None] <= hp.max_cat_to_onehot)
+    gain_cat = torch.where(valid_bin & onehot_ok,
+                           variant_gain(g, h, n, hp.lambda_l2), neg)
+
+    l2c = hp.lambda_l2 + hp.cat_l2
+    subset_feat = cat & (nb > hp.max_cat_to_onehot)             # [F]
+    cand = valid_bin & subset_feat[:, None] & (n >= hp.cat_smooth)
+    used = cand.sum(-1, keepdim=True)                           # [M, F, 1]
+    max_num_cat = torch.clamp((used + 1) // 2, max=hp.max_cat_threshold)
+    k_limit = torch.minimum(used, max_num_cat)
+    score = g / (h + hp.cat_smooth)
+    gains, lefts = [gain_cat], []
+    for descending in (False, True):
+        order = torch.argsort(_subset_key(score, cand, descending), dim=-1,
+                              stable=True)
+        gs = torch.take_along_dim(g * cand, order, dim=-1)
+        hs = torch.take_along_dim(h * cand, order, dim=-1)
+        ns = torch.take_along_dim(n * cand, order, dim=-1)
+        glv, hlv, nlv = _cumsum_bins(gs), _cumsum_bins(hs), _cumsum_bins(ns)
+        ok = bin_idx < k_limit
+        if hp.min_data_per_group > 1:
+            mdpg = float(hp.min_data_per_group)
+            crossed = (torch.floor(nlv / mdpg)
+                       > torch.floor((nlv - ns) / mdpg))
+            ok = ok & crossed & ((sc - nlv) >= mdpg)
+        gains.append(torch.where(ok, variant_gain(glv, hlv, nlv, l2c), neg))
+        lefts.append((glv, hlv, nlv))
+    return gains, lefts
+
+
+def categorical_left_bitset(hist_f: torch.Tensor, num_bins_f: torch.Tensor,
+                            variant: torch.Tensor, threshold: torch.Tensor,
+                            hp: SplitHyper) -> torch.Tensor:
+    """The bins going LEFT of M categorical splits (the JAX package's
+    ``categorical_left_bitset``, batched): bool [M, B].
+
+    hist_f: f32 [M, B, C], each leaf's histogram of its split feature;
+    num_bins_f, variant, threshold: [M], the winners' fields.  One-hot:
+    {threshold}; sorted-subset: the first ``threshold + 1`` bins of the
+    winning direction's order, re-derived from the same histogram as the
+    scan (reference feature_histogram.cpp:354-377 writes
+    ``cat_threshold``).  Meaningless for a numeric variant (the growers
+    mask it with ``is_cat``)."""
+    B = hist_f.shape[-2]
+    dev = hist_f.device
+    g, h, n = hist_f[..., 0], hist_f[..., 1], hist_f[..., 2]
+    bin_idx = torch.arange(B, device=dev)[None, :]
+    var = variant.to(dev)[:, None]
+    thr = threshold.to(dev)[:, None]
+    cand = (bin_idx < num_bins_f.to(dev)[:, None]) & (n >= hp.cat_smooth)
+    score = g / (h + hp.cat_smooth)
+    # one sort a leaf: the argsort of the winner's direction's key
+    order = torch.argsort(_subset_key(score, cand, var == VAR_CAT_BWD),
+                          dim=-1, stable=True)
+    rank = torch.empty_like(order).scatter_(
+        1, order, bin_idx.expand_as(order).contiguous())
+    subset_bits = (rank <= thr) & cand
+    onehot_bits = bin_idx == thr
+    return torch.where(var == VAR_CAT_ONEHOT, onehot_bits, subset_bits)

@@ -263,8 +263,9 @@ def test_table_partition_matches_jax_xla_partition(name):
     want_key = np.where(np.isin(lor_m, smaller), row, row | (1 << 30))
 
     t = torch.as_tensor
-    cols, tab = TRF.decision_table(bt.feat_col, bt.inv_table, t(feats),
-                                   t(thr), t(dl), t(nanb))
+    cols, tab = TRF.decision_table(t(feats), t(thr), t(dl), t(nanb),
+                                   feat_col=bt.feat_col,
+                                   inv_table=bt.inv_table)
     assert (cols.numpy() == dt.bundle_plan.feat_col[feats]).all()
     rest = (t(parents), t(new_leaves), t(valid), t(smaller))
     got_lor, got_key = TRF.partition_select_table(
@@ -312,7 +313,8 @@ def test_table_partition_with_identity_table_is_the_numeric_one():
     g = t(rng.normal(size=n).astype(np.float32))
     h = t(rng.random(n).astype(np.float32))
     rest = (parents, new_leaves, valid, smaller)
-    cols, tab = TRF.decision_table(feat_col, inv_table, feats, thr, dl, nanb)
+    cols, tab = TRF.decision_table(feats, thr, dl, nanb, feat_col=feat_col,
+                                   inv_table=inv_table)
     want = TRF.partition_payload_plain(bins_t, words, g, h, lor, mask, feats,
                                        thr, dl, nanb, *rest)
     got = TRF.partition_payload_table_plain(bins_t, words, g, h, lor, mask,

@@ -367,8 +367,9 @@ def test_find_best_split_matches_jax():
                           torch.as_tensor(sums[:, 1]),
                           torch.as_tensor(sums[:, 2]),
                           torch.as_tensor(num_bins),
-                          torch.as_tensor(nan_bin), torch.as_tensor(fm),
-                          SplitHyper(**fields))
+                          torch.as_tensor(nan_bin),
+                          torch.zeros(f, dtype=torch.bool),
+                          torch.as_tensor(fm), SplitHyper(**fields))
     hp_j = JSplitHyper(**fields)
     for m in range(M):
         w = jax_find_best_split(
