@@ -179,6 +179,26 @@ else: no jax, no network.  Phases, each of which fails the run on error:
    (s/round and AUC beside); a profiled fused chunk (device ms a round of
    the sorts, the histogram passes, the partition and the rest).
 
+9. row sampling and the other boosting modes, on phase 3's data and
+   recipe: the bagged default (1M x 10, ``bagging_fraction=0.8,
+   bagging_freq=5``) and the GOSS default (1M x 10,
+   ``data_sample_strategy=goss``: five warm-up rounds, then five GOSS
+   rounds in one chunk), each through the fused loop twice and the classic
+   loop once to byte-identical text, with s/round beside the unbagged
+   default's, kernel launches a tree (the path's kernels must run under
+   the mask), the draw's launches and device ms alone, a profiled chunk
+   (the masked passes' and the payload passes' device ms a round beside
+   the unbagged chunk's) and a chunk of replays that allocates nothing;
+   ``partition_payload`` and ``histogram_leaves_radix2`` at K = 42 on 1M
+   rows with the bag as the mask, bit for bit against their plain
+   versions, timed with and without it; the strict default bagged (90k x
+   5, classic); pos/neg bagging (100k x 3), RF (100k x 5) and DART (100k
+   x 5, its s/round beside the plain classic loop's, its train scores
+   against ``predict``; one tree's contribution walked over 1M rows);
+   bagged EFB and categorical cells at 100k x 5 (fused and classic to the
+   same text); the bagged (100k x 3) and GOSS (100k x 1, no warm-up)
+   cells on the card and the CPU, tree 0 identical.
+
 It prints one JSON line with every kernel's numbers (launches: the fused
 runs' for the kernels a fused run holds, the table partitions' those of
 phases 7 and 8 together, the bucketed strict run's for
@@ -3650,6 +3670,404 @@ def check_categorical(torch, lgbt, HK, RF, TB, prng):
     return launches
 
 
+# ---- phase 9: row sampling and the boosting modes
+
+#: LightGBM's Parameters-Tuning values for bagging
+BAG = dict(bagging_fraction=0.8, bagging_freq=5)
+#: GOSS at its defaults (top_rate 0.2, other_rate 0.1): with the recipe's
+#: learning_rate 0.1 and 10 rounds, rounds 0-4 are the warm-up
+GOSS = dict(data_sample_strategy="goss")
+N_SCROSS = 100_000
+
+
+def pass_groups(work, rounds):
+    """ms of device time a round of the masked passes on the bins
+    (``masked_cluster`` with row source 0, the root pass included), the
+    compacted payload passes (row source 2), the fused partition and the
+    rest."""
+    groups = collections.Counter()
+    for nm, cnt, us in work:
+        if re.search(r"masked_cluster<\d+, \d+, 0, |radix_single_cluster",
+                     nm):
+            key = "masked passes"
+        elif re.search(r"masked_cluster<\d+, \d+, 2, ", nm):
+            key = "payload passes"
+        elif "partition_kernel" in nm:
+            key = "partition"
+        else:
+            key = "rest"
+        groups[key] += us / 1e3 / rounds
+    return {k: round(v, 4) for k, v in sorted(groups.items())}
+
+
+def profiled_chunk(torch, g, what, HK, RF, TB, prng, rounds=10):
+    """A fused chunk of ``rounds`` rounds of booster ``g`` under the
+    profiler (its device work grouped by :func:`pass_groups`, the wrappers'
+    launches held against the profiler's kernels), then a chunk that must
+    allocate nothing outside the graph's pool.  Returns the groups."""
+    from torch.profiler import ProfilerActivity, profile
+    for attempt in range(3):
+        zero_counts(HK, RF, TB, prng)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            g.train_fused(rounds)
+            torch.cuda.synchronize()
+        work = profiler_work(prof, f"{what} profile")
+        if work is None:
+            fail(f"{what} profile: not measured")
+        bad = symbol_mismatch(work, launch_counts(HK, RF, TB, prng))
+        if not bad:
+            break
+    else:
+        fail(f"{what} profile: wrapper launches vs the profiler's {bad}")
+    groups = pass_groups(work, rounds)
+    on = {k: v / rounds for k, v in HK.gate_counts().items()}
+    busy = sum(us for _, _, us in work) / 1e3 / rounds
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    g.train_fused(rounds)
+    torch.cuda.synchronize()
+    mem1 = torch.cuda.memory_allocated()
+    print(f"{what} profile (a chunk of {rounds} fused rounds): device ms a "
+          f"round {busy:.3f}, by group {json.dumps(groups)}, "
+          f"{sum(c for _, c, _ in work) / rounds:.1f} launches a round, "
+          f"gated passes that did work a round {json.dumps(on)}; a chunk "
+          f"of {rounds} replays allocated {mem1 - mem0} bytes outside the "
+          f"graph's pool", flush=True)
+    if mem1 != mem0:
+        fail(f"{what}: a fused chunk allocated device memory outside the "
+             f"graph's pool")
+    return groups
+
+
+def sample_draw_cost(torch, g, it, flush):
+    """(one-call ms, launches, device ms) of booster ``g``'s captured draw
+    (sample_strategy.py ``device_sample_fn``) alone, at iteration ``it``,
+    on its current gradients."""
+    fn = g._device_sample_fn()
+    k0, k1, act = g.sample_strategy.round_words(it)
+    dev = g.device
+    w0, w1 = (torch.tensor(v, dtype=torch.int64, device=dev)
+              for v in (k0, k1))
+    active = torch.tensor(bool(act), device=dev)
+    grad, hess = g.objective.get_gradients(g.scores[:, 0])
+    gg, hh = grad[:, None], hess[:, None]
+
+    def call():
+        return fn(w0, w1, active, gg, hh)
+    ms = time_ms(torch, call, flush)
+    launches, dev_ms = device_per_call(torch, call)
+    return ms, launches, dev_ms
+
+
+def check_bag_kernels(torch, HK, RF, flush):
+    """The fused partition and the masked K-leaf pass at K = 42 on 1M rows
+    with the bagged default's bag of iteration 0 as the mask, each bit for
+    bit against its plain version on the card (the pass in int8, the
+    path's dtype, and in float32 against the fixed-point reference), timed
+    with and without the bag: the masked pass reads every row either way."""
+    from lightgbm_tpu_torch.boosting.sample_strategy import \
+        create_sample_strategy
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.io.dataset import Metadata
+    dev = torch.device("cuda")
+    strat = create_sample_strategy(Config(dict(BAG)), N)
+    fn = strat.device_sample_fn(Metadata(N), dev)
+    k0, k1, act = strat.round_words(0)
+    z = torch.zeros(N, 1, device=dev)
+    bag = fn(k0, k1, bool(act), z, z)[0]
+    share = float(bag.float().mean().item())
+    rng = np.random.default_rng(19)
+    p = partition_inputs(torch, dev, rng)
+    mask = bag.to(torch.int32)
+    args = (p["bins"], p["words"], p["g"], p["h"], p["lor"], mask, *p["desc"])
+    got = RF.partition_payload(*args)
+    want = RF.partition_payload_plain(*args)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        fail("partition_payload with the bag differs from its plain version")
+    outside = (mask == 0) & (got[2][:, -1] != -1)
+    if bool(outside.any()):
+        fail("partition_payload: an out-of-bag row kept its leaf in the "
+             "payload")
+    def part(m):
+        return lambda: RF.partition_payload(
+            p["bins"], p["words"], p["g"], p["h"], p["lor"], m, *p["desc"])
+    ms_bag = time_ms(torch, part(mask), flush)
+    dev_bag = device_per_call(torch, part(mask))[1]
+    lv = rng.permutation(64)[:K].astype(np.int32)
+    leaves = torch.as_tensor(lv, device=dev)
+    lor_b = torch.where(bag, p["lor"], -1)
+    gi = torch.as_tensor(rng.integers(-2, 3, N).astype(np.float32),
+                         device=dev)
+    hi = torch.as_tensor(rng.integers(0, 5, N).astype(np.float32),
+                         device=dev)
+    kw = dict(n_bins=B)
+    h8 = HK.histogram_leaves_radix2(p["bins"], gi, hi, lor_b, leaves,
+                                    hist_dtype="int8", **kw)
+    if not torch.equal(h8, HK.histogram_leaves_plain(
+            p["bins"], gi, hi, lor_b, leaves, hist_dtype="int8", **kw)):
+        fail("histogram_leaves_radix2 (int8) with the bag differs from its "
+             "plain version")
+    hf = HK.histogram_leaves_radix2(p["bins"], p["g"], p["h"], lor_b,
+                                    leaves, hist_dtype="float32", **kw)
+    if not torch.equal(hf, HK.histogram_leaves_fixed(
+            p["bins"], p["g"], p["h"], lor_b, leaves, hist_dtype="float32",
+            **kw)):
+        fail("histogram_leaves_radix2 (float32) with the bag differs from "
+             "the fixed-point reference")
+    sel_bag = int(torch.isin(lor_b, leaves).sum().item())
+    sel_all = int(torch.isin(p["lor"], leaves).sum().item())
+    def hist(lor):
+        return lambda: HK.histogram_leaves_radix2(
+            p["bins"], gi, hi, lor, leaves, hist_dtype="int8", **kw)
+    pass_bag, pass_all = (time_ms(torch, hist(lor), flush)
+                          for lor in (lor_b, p["lor"]))
+    pdev_bag, pdev_all = (device_per_call(torch, hist(lor))[1]
+                          for lor in (lor_b, p["lor"]))
+    ones = torch.ones_like(mask)
+    ms_all = time_ms(torch, part(ones), flush)
+    dev_all = device_per_call(torch, part(ones))[1]
+    print(f"bag kernels (1M rows, K = 42, the bag of iteration 0: "
+          f"{share:.4f} of the rows): partition_payload and "
+          f"histogram_leaves_radix2 (int8 vs plain, float32 vs fixed-point) "
+          f"bit for bit; with the bag / every row, one-call ms (device "
+          f"ms): partition {ms_bag:.4f} ({dev_bag:.4f}) / {ms_all:.4f} "
+          f"({dev_all:.4f}), masked pass {pass_bag:.4f} ({pdev_bag:.4f}) / "
+          f"{pass_all:.4f} ({pdev_all:.4f}) ({sel_bag:,} / {sel_all:,} rows "
+          f"selected)", flush=True)
+
+
+def check_sampling(torch, lgbt, HK, RF, TB, prng):
+    """Phase 9: row sampling and the other boosting modes on the card,
+    on phase 3's data and recipe.  (a) the bagged default (1M x 10,
+    bagging_fraction 0.8, bagging_freq 5): the unbagged default first
+    (s/round beside), then fused twice and classic once to the same text,
+    kernel launches a tree (counts zeroed just before the first bagged
+    run, read just after), the draw's launches and device ms, a profiled
+    chunk against the unbagged one's (masked passes, payload passes) and a
+    chunk of replays that allocates nothing; (b) the GOSS default (1M x 10:
+    five warm-up rounds, then five GOSS rounds in one chunk) the same way;
+    (c) the bag's kernels against their plain versions
+    (check_bag_kernels); (d) the strict default bagged (90k x 5, classic);
+    (e) pos/neg bagging (100k x 3), RF (100k x 5) and DART (100k x 5,
+    s/round beside the plain classic loop, and one tree's contribution
+    walked over 1M rows, what each drop costs); (f) bagged EFB and
+    categorical cells at phase 7's and 8's 100k cross-check sizes; (g)
+    the bagged (100k x 3) and GOSS (100k x 1: no warm-up) cells on the
+    card and the CPU, tree 0 identical.  Returns the bagged run's
+    launches."""
+    from lightgbm_tpu_torch.boosting import fused_graph as FG
+    from lightgbm_tpu_torch.boosting.dart import DART
+    from lightgbm_tpu_torch.boosting.gbdt import _tree_to_arrays_stub
+    from lightgbm_tpu_torch.boosting.rf import RF as RandomForest
+    from lightgbm_tpu_torch.models.predict import predict_bins_tree
+    t_phase = time.perf_counter()
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    rng = np.random.default_rng(0)
+    X, y, w = synth_higgs(N, F, rng)
+    Xv, yv, _ = synth_higgs(200_000, F, rng, w)
+    ds = lgbt.Dataset(X, y, params={"max_bin": 255,
+                                    "verbosity": -1}).construct()
+
+    plain, per_0, _, peak_0 = fused_train(torch, lgbt, ds, 10)
+    per_0c = fused_train(torch, lgbt, ds, 10, classic=True)[1]
+    groups_0 = profiled_chunk(torch, plain._gbdt, "unbagged", HK, RF, TB,
+                              prng)
+    # the threefry ops a captured round launches (stochastic rounding's
+    # two draws; the bag's or GOSS's one more)
+    i_prng = list(FG._COUNTERS).index((prng, "launches"))
+    prng_0 = list(plain._gbdt._fused_cache.values())[0] \
+        .graph_launches["main"][i_prng]
+    del plain
+
+    out = {}
+    for name, extra in (("bagged", BAG), ("GOSS", GOSS)):
+        zero_counts(HK, RF, TB, prng)
+        FG.counts.update(replays=0, reads=0, extra=0, rounds=0)
+        bst, per_f, wall_f, peak_f = fused_train(torch, lgbt, ds, 10,
+                                                 **extra)
+        counts = launch_counts(HK, RF, TB, prng)
+        fc = dict(FG.counts)
+        g = bst._gbdt
+        fr = list(g._fused_cache.values())[0]
+        if fr.sample_fn is None:
+            fail(f"{name} default: the fused round holds no draw")
+        need = ("take_small_table", "histogram_radix_single",
+                "histogram_radix_joint", "histogram_leaves_radix2",
+                "histogram_payload", "partition_payload", "threefry_ops")
+        if any(counts[k] <= 0 for k in need):
+            fail(f"{name} fused run: kernel launches {counts}")
+        if fc["rounds"] != 10 or fc["reads"] != fc["replays"]:
+            fail(f"{name} fused run: rounds/replays/reads {fc}")
+        text = bst.model_to_string()
+        again, *_ = fused_train(torch, lgbt, ds, 10, **extra)
+        classic, per_c, _, _ = fused_train(torch, lgbt, ds, 10,
+                                           classic=True, **extra)
+        if again.model_to_string() != text:
+            fail(f"{name}: two fused card trainings gave different text")
+        if classic.model_to_string() != text:
+            fail(f"{name}: the classic loop's text differs from the fused "
+                 f"loop's")
+        del again, classic
+        # in-bag rows only in the counts: a tree's leaves count the bag
+        n_in = [int(sum(t.leaf_count)) for t in g.models]
+        a = auc(yv, bst.predict(Xv))
+        it = 0 if name == "bagged" else 7
+        d_ms, d_launch, d_dev = sample_draw_cost(torch, g, it, flush)
+        prng_round = fr.graph_launches["main"][i_prng]
+        per_tree = {k: v / 10 for k, v in counts.items() if v}
+        print(f"{name} default (1M x 10, fused): s/round {per_f:.5f} "
+              f"(unbagged {per_0:.5f}), train() {wall_f:.3f} s, peak "
+              f"{peak_f:.1f} MiB (unbagged {peak_0:.1f}), held-out AUC "
+              f"{a:.6f}, rows counted by each tree {n_in}; classic s/round "
+              f"{per_c:.5f} (unbagged {per_0c:.5f}); fused twice and classic "
+              f"once: byte-identical; "
+              f"replays {fc['replays']} (extra {fc['extra']}), flag reads "
+              f"{fc['reads']}; kernel launches a tree {json.dumps(per_tree)}",
+              flush=True)
+        print(f"{name} draw (iteration {it}, 1M rows, alone): one call "
+              f"{d_ms:.4f} ms, {d_launch} launches, device {d_dev:.4f} ms; "
+              f"threefry ops a captured round {prng_round} (unbagged "
+              f"{prng_0})", flush=True)
+        print(f"model text sha256 ({name} default, 1M x 10): "
+              f"{text_sha256(bst)}", flush=True)
+        groups = profiled_chunk(torch, g, name, HK, RF, TB, prng)
+        print(f"{name} vs unbagged, device ms a round by group: "
+              f"{json.dumps(groups)} vs {json.dumps(groups_0)}", flush=True)
+        out[name] = counts
+        if name == "bagged":
+            # one tree's contribution walked over 1M rows (DART walks each
+            # dropped tree twice a round and its new tree once more)
+            arrs = _tree_to_arrays_stub(g.models[0], g.train_set, g.device)
+            walk = time_ms(torch, lambda: predict_bins_tree(
+                arrs, g.bins, g.nan_bin_arr, g.bundle), flush, reps=5)
+            del arrs
+        del bst, g, fr
+
+    # (c) the bag's kernels
+    check_bag_kernels(torch, HK, RF, flush)
+
+    # (d) the strict default, bagged: 90k rows, classic
+    dss = lgbt.Dataset(X[:N_STRICT], y[:N_STRICT],
+                       params={"max_bin": 255, "verbosity": -1}).construct()
+    zero_counts(HK, RF, TB, prng)
+    strict, per_s, wall_s, _ = fused_train(torch, lgbt, dss, 5,
+                                           classic=True, **BAG)
+    gs = strict._gbdt
+    if gs._use_batched_grower() or gs.supports_fused():
+        fail("phase 9 (d): the strict bagged run did not take the strict "
+             "learner in the classic loop")
+    if HK.radix_single_launches <= 0:
+        fail("phase 9 (d): the strict bagged run never launched "
+             "histogram_radix_single")
+    print(f"strict bagged ({N_STRICT:,} x 5, classic): s/round {per_s:.4f}, "
+          f"train() {wall_s:.2f} s, held-out AUC "
+          f"{auc(yv, strict.predict(Xv)):.6f}, radix-single launches "
+          f"{HK.radix_single_launches}", flush=True)
+    del strict, dss
+
+    # (e) pos/neg bagging, RF and DART at 100k rows
+    dsx = lgbt.Dataset(X[:N_SCROSS], y[:N_SCROSS],
+                       params={"max_bin": 255, "verbosity": -1}).construct()
+    pn, per_pn, _, _ = fused_train(
+        torch, lgbt, dsx, 3, pos_bagging_fraction=0.5,
+        neg_bagging_fraction=0.3, bagging_freq=1)
+    print(f"pos/neg bagging ({N_SCROSS:,} x 3, fused, 0.5 / 0.3): s/round "
+          f"{per_pn:.5f}, held-out AUC {auc(yv, pn.predict(Xv)):.6f}, rows "
+          f"counted by tree 0 {int(sum(pn._gbdt.models[0].leaf_count))}",
+          flush=True)
+    del pn
+    rf, per_rf, _, _ = fused_train(torch, lgbt, dsx, 5, classic=True,
+                                   boosting="rf", bagging_fraction=0.8,
+                                   bagging_freq=1)
+    if not isinstance(rf._gbdt, RandomForest):
+        fail("boosting=rf did not build the RF booster")
+    a_rf = auc(yv, rf.predict(Xv))
+    print(f"RF ({N_SCROSS:,} x 5, classic): s/round {per_rf:.5f}, held-out "
+          f"AUC {a_rf:.6f}, tree shrinkage "
+          f"{rf._gbdt.models[1].shrinkage:.3f}", flush=True)
+    if not a_rf > 0.7:
+        fail(f"RF held-out AUC {a_rf}")
+    del rf
+    base, per_b, _, _ = fused_train(torch, lgbt, dsx, 5, classic=True)
+    dart, per_d, _, _ = fused_train(torch, lgbt, dsx, 5, classic=True,
+                                    boosting="dart", drop_rate=0.1,
+                                    skip_drop=0.5)
+    gd = dart._gbdt
+    if not isinstance(gd, DART):
+        fail("boosting=dart did not build the DART booster")
+    pd = dart.predict(X[:N_SCROSS], raw_score=True)
+    drift = float(np.abs(pd - gd._host_scores(gd.scores)).max())
+    if drift > 1e-3:
+        fail(f"DART: train scores drift {drift} from predict")
+    scaled = sum(abs(t.shrinkage - 0.1) > 1e-12 for t in gd.models)
+    del base
+    print(f"DART ({N_SCROSS:,} x 5, classic, drop_rate 0.1, skip_drop 0.5): "
+          f"s/round {per_d:.5f} (the plain classic loop {per_b:.5f}), "
+          f"{scaled} trees rescaled, train scores within {drift:.2e} of "
+          f"predict; one tree's contribution over 1M rows {walk:.3f} ms "
+          f"(a drop walks it twice a round, a new tree once more)",
+          flush=True)
+    del dart, gd
+
+    # (f) bagged EFB and categorical cells, 100k rows, fused and classic
+    rng7 = np.random.default_rng(7)
+    Xb, yb, _ = synth_bundled(N_BCROSS, rng7)
+    dsb = lgbt.Dataset(Xb, yb, params={"max_bin": 255,
+                                       "verbosity": -1}).construct()
+    rng8 = np.random.default_rng(8)
+    Xa, ya, _ = synth_airline(N_ACROSS, rng8)
+    dsa = lgbt.Dataset(Xa, ya, params={"max_bin": 255, "verbosity": -1},
+                       feature_name=list(AIR_COLS),
+                       categorical_feature=AIR_CAT).construct()
+    for what, d in (("EFB", dsb), ("categorical", dsa)):
+        zero_counts(HK, RF, TB, prng)
+        fb, per_x, _, _ = fused_train(torch, lgbt, d, 5, **BAG)
+        if RF.table_launches <= 0:
+            fail(f"bagged {what}: the table partition never ran")
+        cb, *_ = fused_train(torch, lgbt, d, 5, classic=True, **BAG)
+        if fb.model_to_string() != cb.model_to_string():
+            fail(f"bagged {what}: fused and classic text differ")
+        gx = fb._gbdt
+        if what == "EFB" and gx.bundle is None:
+            fail("bagged EFB: the data was not bundled")
+        if what == "categorical" and not gx.hp.has_categorical:
+            fail("bagged categorical: no categorical splits")
+        print(f"bagged {what} ({d.inner.num_data:,} x 5, fused): s/round "
+              f"{per_x:.5f}, table partition launches {RF.table_launches}; "
+              f"fused and classic byte-identical", flush=True)
+        del fb, cb
+    del dsb, dsa
+
+    # (g) card vs CPU: tree 0 of the bagged and GOSS cells
+    def tree0_equal(a, b):
+        ta, tb = a._gbdt.models[0], b._gbdt.models[0]
+        return (ta.num_leaves == tb.num_leaves
+                and np.array_equal(ta.split_feature, tb.split_feature)
+                and np.array_equal(ta.threshold_bin, tb.threshold_bin)
+                and np.array_equal(ta.leaf_count, tb.leaf_count))
+
+    for what, rounds, extra in (("bagged", 3, BAG), ("GOSS", 1, GOSS)):
+        t0 = time.perf_counter()
+        b_g = lgbt.train(dict(RECIPE, **extra), dsx, num_boost_round=rounds)
+        b_c = lgbt.train(dict(RECIPE, device_type="cpu", **extra), dsx,
+                         num_boost_round=rounds)
+        a_g, a_c = auc(yv, b_g.predict(Xv)), auc(yv, b_c.predict(Xv))
+        if not tree0_equal(b_g, b_c):
+            fail(f"{what} cross-check: tree 0 differs between the card and "
+                 f"the CPU")
+        if abs(a_g - a_c) > 1e-3:
+            fail(f"{what} cross-check: AUC card {a_g} vs cpu {a_c}")
+        print(f"{what} cross-check ({N_SCROSS:,} x {rounds}): tree 0 "
+              f"identical ({b_g._gbdt.models[0].num_leaves} leaves, "
+              f"{int(sum(b_g._gbdt.models[0].leaf_count)):,} rows counted), "
+              f"AUC card {a_g:.6f} cpu {a_c:.6f} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        del b_g, b_c
+    print(f"phase 9: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out["bagged"]
+
+
 def load_other(root):
     """The port package of another checkout (``root``/lightgbm_tpu_torch),
     imported as ``lgbt_other`` beside this one; its kernels build into its
@@ -4172,6 +4590,12 @@ def main():
     cat_launches = check_categorical(torch, lgbt, HK, RF, TB, prng)
     for r in rows:
         r["launches"] += cat_launches.get(r["name"], 0)
+
+    # ---- 9. row sampling and the boosting modes: the bagged default's
+    # launches (zeroed just before, read just after) are checked there
+    bag_launches = check_sampling(torch, lgbt, HK, RF, TB, prng)
+    print("phase 9 kernels (the bagged default, 1M x 10, fused): "
+          + json.dumps(bag_launches), flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_script:.1f} s in all, the "
           f"kernel build {build_s:.1f} s of it", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

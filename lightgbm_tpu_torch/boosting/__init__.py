@@ -7,8 +7,15 @@ from .gbdt import GBDT
 
 
 def create_boosting(config: Config, train_set: Dataset) -> GBDT:
-    """reference Boosting::CreateBoosting; only gbdt is ported."""
-    if config.boosting != "gbdt":
-        log.fatal(f"boosting={config.boosting} is not supported by "
-                  "lightgbm_tpu_torch yet")
-    return GBDT(config, train_set)
+    """reference Boosting::CreateBoosting: gbdt, dart or rf (``boosting=
+    goss`` is gbdt with ``data_sample_strategy=goss``, config.py)."""
+    from .dart import DART
+    from .rf import RF
+    kind = config.boosting
+    if kind == "gbdt":
+        return GBDT(config, train_set)
+    if kind == "dart":
+        return DART(config, train_set)
+    if kind == "rf":
+        return RF(config, train_set)
+    log.fatal(f"Unknown boosting type: {kind}")

@@ -1,8 +1,9 @@
 """The fused round loop's boosting round, captured as CUDA graphs.
 
 Counterpart of the scan body of ``GBDT.train_fused`` in
-``lightgbm_tpu/boosting/gbdt.py`` (``round_real``): gradients -> integer
-levels -> the batched tree (the warm-up ladder, then a fixed budget of
+``lightgbm_tpu/boosting/gbdt.py`` (``round_real``): gradients -> the row
+sampling's draw (bagging or GOSS, where configured) -> integer levels ->
+the batched tree (the warm-up ladder, then a fixed budget of
 K-wide rounds, learner/batch_grower.py ``BatchedTree`` with no host read)
 -> leaf renewal -> shrinkage -> the score update (``take_small_table``) ->
 valid-set scores (path aggregation, models/predict.py) -> device metrics ->
@@ -23,7 +24,12 @@ Round inputs that change every round sit in device buffers staged once
 per chunk, never in the captured kernels' arguments: the stochastic
 rounding keys (the two threefry keys of ``split(fold_in(key(seed * 7919 +
 iter), 0))``, their words derived on the host as in ``ops/prng.py``), the
-per-tree feature masks, the round's index in the chunk and its iteration.
+per-tree feature masks, the row sampling's key words and warm-up flag
+(boosting/sample_strategy.py ``round_words``: bagging's
+``fold_in(key(bagging_seed), iter // freq)``, GOSS's ``fold_in(key(
+bagging_seed), iter)`` and ``iter >= warm-up``), the round's index in the
+chunk and its iteration.  The sampled row mask goes to the tree and to
+leaf renewal, as in the classic loop.
 Every round writes its tree and metric values into row ``t`` of one
 [T, P + M] float32 buffer; the host takes it in one transfer per chunk.
 On categorical data the row also carries ``split_cat`` and ``cat_bitset``
@@ -187,6 +193,10 @@ class FusedRound:
         self.n_levels = int(c.num_grad_quant_bins)
         self.batch = int(c.tpu_split_batch)
         self.has_fm = float(c.feature_fraction) < 1.0
+        # the row sampling's captured draw (its per-round words: the key
+        # words of the bag or of GOSS's draw, the warm-up flag)
+        self.sample_fn = None if g._sampling_is_noop() \
+            else g._device_sample_fn()
         hp = g.hp
         self.L = hp.num_leaves
         self.num_f = g.num_features
@@ -198,6 +208,9 @@ class FusedRound:
         self.keys = torch.zeros(chunk, 2, 2, dtype=i64, device=dev)
         self.fmasks = torch.zeros(chunk, self.num_f, dtype=torch.bool,
                                   device=dev) if self.has_fm else None
+        self.swords = torch.zeros(chunk, 3, dtype=i64, device=dev) \
+            if self.sample_fn is not None else None
+        self.row_mask: Optional[torch.Tensor] = None
         self.t = torch.zeros((), dtype=i64, device=dev)
         self.it = torch.zeros((), dtype=i64, device=dev)
         self.out = torch.zeros(chunk, self.P + M, dtype=torch.float32,
@@ -250,6 +263,14 @@ class FusedRound:
         # index_select, not [t]: indexing by a 0-d tensor reads it back
         t = self.t.reshape(1)
         grad, hess = g.objective.get_gradients(g.scores[:, 0])
+        self.row_mask = None
+        if self.sample_fn is not None:
+            # the bag or GOSS's rows, drawn after the gradients and before
+            # the levels, as the classic loop draws them
+            w = self.swords.index_select(0, t)[0]
+            self.row_mask, g2, h2 = self.sample_fn(
+                w[0], w[1], w[2] != 0, grad[:, None], hess[:, None])
+            grad, hess = g2[:, 0], h2[:, 0]
         self.g_true, self.h_true = grad, hess
         hist_scale = None
         if self.quant:
@@ -261,7 +282,7 @@ class FusedRound:
             hist_scale = torch.stack([gs, hs])
         fm = self.fmasks.index_select(0, t)[0] if self.has_fm else None
         tree = BatchedTree(
-            g.bins, grad.contiguous(), hess.contiguous(), None,
+            g.bins, grad.contiguous(), hess.contiguous(), self.row_mask,
             g.num_bins_arr, g.nan_bin_arr, fm, g.hp, batch=self.batch,
             hist_scale=hist_scale, bins_t=g.bins_t, bins_words=g.bins_words,
             bins_words_t=g.bins_words_t,
@@ -292,7 +313,7 @@ class FusedRound:
         if self.renew:
             hp = g.hp
             renewed = renew_leaf_values(
-                tree.lor, self.g_true, self.h_true, None,
+                tree.lor, self.g_true, self.h_true, self.row_mask,
                 num_leaves=hp.num_leaves, lambda_l1=hp.lambda_l1,
                 lambda_l2=hp.lambda_l2)
             # stump (no split found): keep the original leaf value
@@ -409,6 +430,11 @@ class FusedRound:
         if self.has_fm:
             self.fmasks[:T].copy_(torch.from_numpy(np.stack([
                 g._feature_mask_array(first_iter + t) for t in range(T)])))
+        if self.sample_fn is not None:
+            self.swords[:T].copy_(torch.tensor(
+                [g.sample_strategy.round_words(first_iter + t)
+                 for t in range(T)],
+                dtype=torch.int64))
         self.t.zero_()
         self.it.fill_(first_iter)
         if self.dev.type == "cuda" and self.graphs is None:

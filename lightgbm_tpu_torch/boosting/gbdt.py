@@ -50,8 +50,14 @@ hand-written forest kernel per row block (ops/forest_kernels.py), under
 ``device_type=cpu`` the plain path-count version, blocked and padded as
 the JAX package pads.
 
-Not ported yet: bagging/GOSS, DART/RF, multiclass, custom objectives and
-the distributed modes.
+Row sampling (boosting/sample_strategy.py: bagging, pos/neg and by-query
+bagging, GOSS) draws after the gradients and before quantization in both
+loops (in the fused round, inside the captured graph); its bool row mask
+goes to the grower and to leaf renewal.  ``RF`` (boosting/rf.py) and
+``DART`` (boosting/dart.py) subclass this class and keep the classic
+loop.
+
+Not ported yet: multiclass, custom objectives and the distributed modes.
 """
 
 from __future__ import annotations
@@ -81,6 +87,7 @@ from ..ops.split import SplitHyper
 from ..ops.table import take_small_table
 from ..utils import log
 from ..utils.device import resolve_device
+from .sample_strategy import create_sample_strategy
 
 
 def _resolve_hist_dtype(cfg: Config) -> str:
@@ -130,12 +137,8 @@ def _hp_from_config(cfg: Config, n_bins: int) -> SplitHyper:
 def _check_slice(config: Config, train_set: Dataset) -> None:
     """Reject configurations whose code paths are not ported yet."""
     unported = [
-        (config.boosting != "gbdt", f"boosting={config.boosting}"),
-        (str(config.data_sample_strategy) == "goss", "GOSS sampling"),
-        (int(config.bagging_freq) > 0 and (
-            float(config.bagging_fraction) < 1.0
-            or float(config.pos_bagging_fraction) < 1.0
-            or float(config.neg_bagging_fraction) < 1.0), "bagging"),
+        (config.boosting not in ("gbdt", "rf", "dart"),
+         f"boosting={config.boosting}"),
         (str(config.tree_learner) not in ("serial",),
          f"tree_learner={config.tree_learner}"),
         (bool(config.linear_tree), "linear_tree"),
@@ -223,6 +226,7 @@ class GBDT:
         self.scores = torch.zeros(n, k, dtype=torch.float32, device=dev)
         self.init_scores = np.zeros(k)
         self._init_base_score()
+        self.sample_strategy = create_sample_strategy(config, n)
 
         self.valid_sets: List[Dataset] = []
         self.valid_names: List[str] = []
@@ -285,11 +289,12 @@ class GBDT:
         return (int(self.config.tpu_split_batch) > 1
                 or batch_grower.pooled(self.hp))
 
-    def _grow(self, g: torch.Tensor, h: torch.Tensor, feature_mask,
-              hist_scale=None):
-        """One tree through the strict or the batched learner."""
-        args = (self.bins, g, h, None, self.num_bins_arr, self.nan_bin_arr,
-                feature_mask, self.hp)
+    def _grow(self, g: torch.Tensor, h: torch.Tensor, row_mask,
+              feature_mask, hist_scale=None):
+        """One tree through the strict or the batched learner; ``row_mask``
+        bool [n] (the bag) or None."""
+        args = (self.bins, g, h, row_mask, self.num_bins_arr,
+                self.nan_bin_arr, feature_mask, self.hp)
         kw = dict(hist_scale=hist_scale, bins_t=self.bins_t,
                   bins_words=self.bins_words, bins_words_t=self.bins_words_t,
                   bundle=self.bundle, is_cat=self.is_cat_arr)
@@ -405,6 +410,8 @@ class GBDT:
         Returns True when no tree could be grown (early finish)."""
         k = self.num_tree_per_iteration
         g, h = self.boosting_gradients()
+        row_mask, g, h = self.sample_strategy.sample(
+            self.iter_, g, h, self.train_set.metadata)
         feature_mask = self._feature_mask_for_tree()
         g_true, h_true = g, h
         hist_scales = [None] * k
@@ -430,11 +437,11 @@ class GBDT:
         for cls_idx in range(k):
             arrays, leaf_of_row = self._grow(
                 g[:, cls_idx].contiguous(), h[:, cls_idx].contiguous(),
-                feature_mask, hist_scale=hist_scales[cls_idx])
+                row_mask, feature_mask, hist_scale=hist_scales[cls_idx])
             if quant and bool(self.config.quant_train_renew_leaf):
                 renewed = renew_leaf_values(
                     leaf_of_row, g_true[:, cls_idx], h_true[:, cls_idx],
-                    None, num_leaves=self.hp.num_leaves,
+                    row_mask, num_leaves=self.hp.num_leaves,
                     lambda_l1=self.hp.lambda_l1, lambda_l2=self.hp.lambda_l2)
                 # stump (no split found): keep the original leaf value
                 arrays = arrays._replace(leaf_value=torch.where(
@@ -462,16 +469,23 @@ class GBDT:
     def supports_fused(self) -> bool:
         """True when whole boosting rounds can run as the fused loop
         (``train_fused``): the JAX package's gate reduced to what the port
-        trains.  Custom objectives, bagging and GOSS are refused by the
-        slice check; the strict learner keeps the classic loop, as in the
-        JAX package."""
+        trains.  Plain and pos/neg bagging and GOSS draw inside the round
+        (``device_sample_fn``); by-query bagging, RF, DART and the strict
+        learner keep the classic loop, as in the JAX package."""
         return (type(self) is GBDT
                 and self.objective is not None
                 and not self.objective.need_renew_tree_output
                 and not bool(self.config.tpu_debug_checks)
                 and (not self.valid_sets or self.fused_valid_ok())
-                and self._sampling_is_noop()
+                and (self._sampling_is_noop()
+                     or self._device_sample_fn() is not None)
                 and self._use_batched_grower())
+
+    def _device_sample_fn(self):
+        """The sampling strategy's captured draw, or None
+        (sample_strategy.py ``device_sample_fn``)."""
+        return self.sample_strategy.device_sample_fn(
+            self.train_set.metadata, self.device)
 
     def fused_valid_ok(self) -> bool:
         """Valid sets ride the fused round when every valid metric has a

@@ -187,6 +187,19 @@ class Tree:
         if self.is_linear:
             self.leaf_const += val
 
+    def scale_contribution(self, factor: float) -> None:
+        """Scale this tree's own contribution (leaf values minus the folded
+        bias) by ``factor``, the bias kept: DART's normalization."""
+        self.leaf_value = (self.leaf_value - self.bias) * factor + self.bias
+        self.internal_value = (self.internal_value - self.bias) * factor + \
+            self.bias
+        self.shrinkage *= factor
+        if self.is_linear:
+            self.leaf_const = (self.leaf_const - self.bias) * factor + \
+                self.bias
+            self.leaf_coeff = [[c * factor for c in cs]
+                               for cs in self.leaf_coeff]
+
     # ---------------------------------------------------------- prediction
     def predict(self, X: np.ndarray) -> np.ndarray:
         """Vectorized traversal over rows (reference tree.h:137 Predict /

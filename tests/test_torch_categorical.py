@@ -62,7 +62,8 @@ from lightgbm_tpu_torch.models import predict as TP
 from lightgbm_tpu_torch.ops import round_fuse as TRF
 from lightgbm_tpu_torch.ops import split as TS
 
-from test_torch_fused import _train_port, fused_host_reads
+from test_torch_fused import (  # noqa: F401
+    _train_port, fused_host_reads, one_torch_thread)
 
 CAT_COLS = [3, 4, 5]
 

@@ -14,6 +14,8 @@ from lightgbm_tpu.ops.histogram import bins_to_words as jax_bins_to_words
 from lightgbm_tpu_torch.io.dataset import Dataset as TDataset
 from lightgbm_tpu_torch.ops.histogram import bins_to_words
 
+from test_torch_fused import one_torch_thread  # noqa: F401
+
 
 def _dense(n=3000, f=9, seed=0):
     rng = np.random.default_rng(seed)

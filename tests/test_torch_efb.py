@@ -56,7 +56,8 @@ from lightgbm_tpu_torch.learner import grower as TGR
 from lightgbm_tpu_torch.models import predict as TP
 from lightgbm_tpu_torch.ops import round_fuse as TRF
 
-from test_torch_fused import _train_port, fused_host_reads
+from test_torch_fused import (  # noqa: F401
+    _train_port, fused_host_reads, one_torch_thread)
 
 
 def _onehot_data(n=2000, groups=4, levels=8, seed=0, nan=0.0):

@@ -100,6 +100,19 @@ def _ladder_on_small_data(monkeypatch):
     monkeypatch.setattr(TBG, "_WARMUP_MIN_ROWS", 1024)
 
 
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One torch intra-op thread for the test.  The port's CPU paths run
+    many small ops; when several pytest processes share the cores, each
+    process's full-width thread pool oversubscribes them and every op waits
+    on its pool (30-50x slower).  Other port test files import this
+    fixture."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 class _Loop:
     """Count the loops a ``train()`` takes, or force the classic one."""
 

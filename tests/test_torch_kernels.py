@@ -38,6 +38,8 @@ from lightgbm_tpu_torch.ops.round_fuse import (partition_payload,
                                                partition_select)
 from lightgbm_tpu_torch.ops.table import take_small_table
 
+from test_torch_fused import one_torch_thread  # noqa: F401
+
 
 def _t(a):
     return torch.as_tensor(np.array(a))

@@ -43,6 +43,8 @@ from lightgbm_tpu_torch.ops import forest_kernels as FK
 from lightgbm_tpu_torch.ops import shap_kernels as SK
 from lightgbm_tpu_torch.utils.log import LightGBMError
 
+from test_torch_fused import one_torch_thread  # noqa: F401
+
 #: the port's regression slice (tests/test_torch_train.py): both packages
 #: write the same model text
 SLICE = dict(objective="regression", num_leaves=15, max_bin=63,

@@ -20,6 +20,8 @@ from lightgbm_tpu.ops.quantize import (
 from lightgbm_tpu_torch.ops import prng
 from lightgbm_tpu_torch.ops.quantize import discretize_gradients_levels
 
+from test_torch_fused import one_torch_thread  # noqa: F401
+
 SEEDS = [0, 7919 * 3, 2 ** 31 + 5, 2 ** 35]
 
 

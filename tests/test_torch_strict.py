@@ -39,6 +39,8 @@ from lightgbm_tpu_torch.learner.grower import grow_tree
 from lightgbm_tpu_torch.ops import histogram as TH
 from lightgbm_tpu_torch.ops.split import SplitHyper
 
+from test_torch_fused import one_torch_thread  # noqa: F401
+
 
 def _inputs(n_bins, seed=0, n=6000, f=7):
     """Bins with a signal on features 0 and 1 (deep trees), NaN bins on

@@ -61,6 +61,8 @@ from lightgbm_tpu_torch.ops.quantize import (discretize_gradients_levels,
                                              renew_leaf_values)
 from lightgbm_tpu_torch.ops.split import SplitHyper, find_best_split
 
+from test_torch_fused import one_torch_thread  # noqa: F401
+
 SLICE = dict(num_leaves=15, max_bin=63, tpu_split_batch=4,
              use_quantized_grad=True, tpu_hist_dtype="int8",
              quant_train_renew_leaf=True, stochastic_rounding=False,
@@ -415,7 +417,7 @@ def test_unported_configurations_raise():
     for extra in ({"tpu_split_batch": 1,
                    "monotone_constraints": [1] + [0] * (X.shape[1] - 1)},
                   {"objective": "huber"},
-                  {"bagging_fraction": 0.5, "bagging_freq": 1}):
+                  {"linear_tree": True}):
         params = dict(SLICE, objective="regression", device_type="cpu")
         params.update(extra)
         with pytest.raises(lgb_torch.LightGBMError):
