@@ -198,6 +198,22 @@ else: no jax, no network.  Phases, each of which fails the run on error:
    bagged EFB and categorical cells at 100k x 5 (fused and classic to the
    same text); the bagged (100k x 3) and GOSS (100k x 1, no warm-up)
    cells on the card and the CPU, tree 0 identical.
+10. the other objectives and their metrics: multiclass (k = 7 trees a
+   round, one class body replayed per class) on 581,012 Covertype-shaped
+   rows (10 numeric, 4 + 40 one-hot columns that EFB bundles, Covertype's
+   class counts) at the HIGGS recipe, 10 rounds fused twice and classic
+   once to byte-identical text, with s/round beside 7 x phase 5's binary
+   round, replays and flag reads a round, capture seconds, peak memory,
+   the path's launches a tree and a profiled chunk; a 100k valid set with
+   multi_logloss / multi_error on the device inside the round and early
+   stopping (against the host's float64 values); ``Booster.predict`` of
+   1M held-out rows through the forest kernel (k = 7) against the host
+   walk, rows/s; multiclassova 100k x 3 (fused = classic); the
+   regression family and the cross-entropies on phase 3's 1M x 28 rows,
+   5 rounds each (fused twice and classic once to the same text; l1,
+   quantile and MAPE classic with their host renewal's seconds a tree);
+   multiclass, huber and quantile on the card against the CPU, tree 0
+   identical.
 
 It prints one JSON line with every kernel's numbers (launches: the fused
 runs' for the kernels a fused run holds, the table partitions' those of
@@ -2240,6 +2256,7 @@ def check_fused(torch, lgbt, classic_sha, HK, RF, TB, prng):
             fc = dict(FG.counts)
             shas.append(text_sha256(bst))
             if rep == 0:
+                FUSED_S_ROUND[name] = per
                 missing = [k for k in need[name] if counts[k] <= 0]
                 if missing:
                     fail(f"the fused {name} run never launched {missing}")
@@ -4068,6 +4085,350 @@ def check_sampling(torch, lgbt, HK, RF, TB, prng):
     return out["bagged"]
 
 
+# ---- phase 10: the other objectives and their metrics
+
+#: UCI Covertype's shape: 581,012 rows, 10 numeric columns, 4 wilderness
+#: and 40 soil-type one-hot columns, 7 classes with its class counts
+COVTYPE_COUNTS = (211_840, 283_301, 35_754, 2_747, 9_493, 17_367, 20_510)
+N_COV, N_COV_VALID, N_COV_CROSS = 581_012, 100_000, 100_000
+#: the regression family on phase 3's data: a label for each objective
+FAMILY = ("huber", "fair", "poisson", "gamma", "tweedie", "cross_entropy",
+          "cross_entropy_lambda", "regression_l1", "quantile", "mape")
+#: the objectives that renew their leaves on the host (classic loop)
+RENEW = ("regression_l1", "quantile", "mape")
+#: the multiclass runs' kernels: rows 1, 3, 8-10 and 14
+MC_KERNELS = ("take_small_table", "histogram_payload",
+              "histogram_leaves_radix2", "histogram_radix_single",
+              "histogram_radix_joint", "partition_payload_table")
+#: the fused default's s/round of phase 5 (check_fused), for phase 10
+FUSED_S_ROUND = {}
+
+
+def synth_covertype(n, rng, w=None):
+    """Covertype-shaped synthetic data: class c's rows draw the 10 numeric
+    columns from N(mu_c, 1) and the wilderness area (4) and soil type (40)
+    from class-dependent Dirichlet draws, one-hot encoded (0/1, one hot
+    column in each block: EFB bundles each block); the classes in
+    Covertype's proportions (exactly its counts at n = 581,012)."""
+    k = len(COVTYPE_COUNTS)
+    if w is None:
+        w = (rng.normal(scale=0.6, size=(k, 10)),
+             rng.dirichlet(np.full(4, 0.7), size=k),
+             rng.dirichlet(np.full(40, 0.3), size=k))
+    counts = np.floor(np.array(COVTYPE_COUNTS) * n / N_COV).astype(int)
+    counts[1] += n - counts.sum()
+    y = np.repeat(np.arange(k), counts)
+    rng.shuffle(y)
+    X = np.zeros((n, 54), np.float32)
+    X[:, :10] = w[0][y] + rng.normal(size=(n, 10))
+    r = np.arange(n)
+    for off, probs in ((10, w[1]), (14, w[2])):
+        cum = np.cumsum(probs, axis=1)[y]
+        cat = np.minimum((rng.random(n)[:, None] > cum).sum(1),
+                         probs.shape[1] - 1)
+        X[r, off + cat] = 1.0
+    return X, y.astype(np.float32), w
+
+
+def family_label(objective, X, w, rng):
+    """A label of ``objective``'s family on phase 3's features: Student-t
+    noise (3 dof) around the logit for the regression losses, Poisson
+    counts, Gamma draws, zero-inflated Gamma (Tweedie) draws, probabilities
+    for the cross-entropies."""
+    n = X.shape[0]
+    z = X @ w * 0.5
+    if objective == "poisson":
+        return rng.poisson(np.exp(0.3 * z)).astype(np.float32)
+    if objective == "gamma":
+        return rng.gamma(2.0, np.exp(0.3 * z) / 2.0).astype(np.float32)
+    if objective == "tweedie":
+        return np.where(rng.random(n) < 0.4, 0.0, rng.gamma(
+            2.0, np.exp(0.3 * z) / 2.0)).astype(np.float32)
+    if objective.startswith("cross_entropy"):
+        return (1.0 / (1.0 + np.exp(-(z + rng.normal(size=n))))) \
+            .astype(np.float32)
+    return (z + rng.standard_t(3, size=n)).astype(np.float32)
+
+
+def trees_equal(a, b):
+    return (a.num_leaves == b.num_leaves
+            and np.array_equal(a.split_feature, b.split_feature)
+            and np.array_equal(a.threshold_bin, b.threshold_bin)
+            and np.array_equal(a.leaf_count, b.leaf_count))
+
+
+def check_objectives(torch, lgbt, HK, RF, TB, prng):
+    """Phase 10: the other objectives on the card.  (a) multiclass (k = 7)
+    on 581,012 Covertype-shaped rows at the HIGGS recipe, 10 rounds (70
+    trees) fused twice and classic once to the same text: s/round beside
+    7 x phase 5's binary fused round, graph replays and flag reads a
+    round, the capture's seconds, peak memory, the path's kernel launches
+    a tree (rows 1, 3, 8-10, 14; counts zeroed just before, read just
+    after), a profiled chunk of 3 rounds; (b) a 100k-row valid set with
+    multi_logloss and multi_error evaluated inside the round and early
+    stopping (fused; the last round's values against the host's float64
+    evaluation of the valid scores); (c)
+    ``Booster.predict`` of 1M held-out rows through the forest kernel (k
+    = 7) against the host walk on 20,000 rows (rtol 2e-5 / atol 2e-6),
+    rows/s; (d) multiclassova 100k x 3, fused and classic to the same
+    text; (e) the regression family on phase 3's 1M x 28 rows, 5 rounds
+    each: the fused objectives fused twice and classic once to the same
+    text, l1 / quantile / MAPE classic with their host renewal's seconds
+    a tree; (f) card against CPU: multiclass 100k (round 0's 7 trees; the
+    CPU trains one round), huber and quantile 100k (tree 0, quantile's
+    host-renewed leaf values too; the CPU trains one round)."""
+    from lightgbm_tpu_torch.basic import _host_raw
+    from lightgbm_tpu_torch.boosting import fused_graph as FG
+    from lightgbm_tpu_torch.boosting import gbdt as G
+    from lightgbm_tpu_torch.ops import forest_kernels as FK
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(10)
+    X, y, w = synth_covertype(N_COV, rng)
+    if not np.array_equal(np.bincount(y.astype(int)), COVTYPE_COUNTS):
+        fail("phase 10: the class counts are not Covertype's")
+    Xv, yv, _ = synth_covertype(N_COV_VALID, rng, w)
+    Xh, yh, _ = synth_covertype(N, rng, w)
+    t0 = time.perf_counter()
+    ds = lgbt.Dataset(X, y, params={"max_bin": 255,
+                                    "verbosity": -1}).construct()
+    t_ds = time.perf_counter() - t0
+    if ds.inner.bundle_plan is None:
+        fail("phase 10: EFB did not bundle the one-hot columns")
+    MC = dict(objective="multiclass", num_class=7)
+
+    # (a) multiclass, fused twice and classic once
+    zero_counts(HK, RF, TB, prng)
+    FG.counts.update(replays=0, reads=0, extra=0, rounds=0)
+    bst, per_f, wall_f, peak_f = fused_train(torch, lgbt, ds, 10, **MC)
+    counts = launch_counts(HK, RF, TB, prng)
+    fc = dict(FG.counts)
+    g = bst._gbdt
+    fr = next(iter(g._fused_cache.values()))
+    if len(g.models) != 70 or fr.k != 7:
+        fail(f"multiclass: {len(g.models)} trees, k = {fr.k}")
+    missing = [k for k in MC_KERNELS if counts[k] <= 0]
+    if missing or counts["partition_payload"]:
+        fail(f"multiclass fused run: kernel launches {counts}")
+    # a round: the gradients' graph, then one class body and its flag
+    # read a class (more only for a tree still growing)
+    if (fc["rounds"] != 10 or fc["replays"] != fc["reads"] + 10
+            or fc["reads"] < 70 + fc["extra"]):
+        fail(f"multiclass fused run: rounds/replays/reads {fc}")
+    text = bst.model_to_string()
+    again, *_ = fused_train(torch, lgbt, ds, 10, **MC)
+    classic, per_c, _, peak_c = fused_train(torch, lgbt, ds, 10,
+                                            classic=True, **MC)
+    if again.model_to_string() != text:
+        fail("multiclass: two fused card trainings gave different text")
+    if classic.model_to_string() != text:
+        fail("multiclass: the classic loop's text differs from the fused "
+             "loop's")
+    del again, classic
+    per_tree = {k: round(v / 70, 2) for k, v in counts.items() if v}
+    binary = FUSED_S_ROUND.get("default")
+    acc = float((bst.predict(Xv).argmax(1) == yv).mean())
+    print(f"multiclass (Covertype shape {N_COV:,} x 54 in "
+          f"{ds.inner.bins.shape[1]} columns, k = 7, 10 rounds = 70 trees; "
+          f"dataset {t_ds:.2f} s): fused s/round {per_f:.5f} (7 x phase 5's "
+          f"binary fused round at 1M x 28: "
+          f"{'not measured' if binary is None else f'{7 * binary:.5f}'}), "
+          f"classic {per_c:.5f}; train() {wall_f:.3f} s, warm-up round and "
+          f"capture {fr.capture_s:.3f} s, peak {peak_f:.1f} MiB (classic "
+          f"{peak_c:.1f}); replays {fc['replays']} (extra {fc['extra']}) "
+          f"and flag reads {fc['reads']} in 10 rounds; launches a replay "
+          f"{json.dumps({k: sum(v) for k, v in fr.graph_launches.items()})}"
+          f"; valid accuracy {acc:.4f}; fused twice and classic once: "
+          f"byte-identical", flush=True)
+    print("multiclass kernel launches a tree: " + json.dumps(per_tree),
+          flush=True)
+    print(f"model text sha256 (multiclass, Covertype shape, 10 rounds): "
+          f"{text_sha256(bst)}", flush=True)
+    profiled_chunk(torch, g, "multiclass", HK, RF, TB, prng, rounds=3)
+    del bst, g, fr
+
+    # (b) a valid set evaluated inside the round, early stopping: the
+    # round's float32 device values against the host's float64 evaluation
+    # of the valid scores the fused loop leaves
+    rec = {}
+    t0 = time.perf_counter()
+    vs = ds.create_valid(Xv, yv)
+    bf = lgbt.train(dict(RECIPE, **MC, learning_rate=0.5,
+                         metric=["multi_logloss", "multi_error"]),
+                    ds, num_boost_round=30, valid_sets=[vs],
+                    valid_names=["v"],
+                    callbacks=[lgbt.early_stopping(3, verbose=False),
+                               lgbt.record_evaluation(rec)])
+    torch.cuda.synchronize()
+    t_es = time.perf_counter() - t0
+    gf = bf._gbdt
+    ev = rec["v"]
+    rounds_es = len(ev["multi_logloss"])
+    if not gf._fused_cache:
+        fail("multiclass early stopping: the fused loop did not run")
+    if gf.iter_ != rounds_es or not 0 < bf.best_iteration <= rounds_es:
+        fail(f"multiclass early stopping: {gf.iter_} rounds trained, "
+             f"{rounds_es} evaluated, best {bf.best_iteration}")
+    host_scores = gf._host_scores(gf.valid_scores[0])
+    host = {m.NAME: m.eval(host_scores, gf.objective)[0][1]
+            for m in gf.valid_metrics[0]}
+    for name, val in host.items():
+        if not np.isclose(ev[name][-1], val, rtol=1e-5, atol=1e-7):
+            fail(f"multiclass early stopping: {name} in the round "
+                 f"{ev[name][-1]} vs the host's {val}")
+    print(f"multiclass early stopping (lr 0.5, <= 30 rounds, {N_COV_VALID:,}"
+          f" valid rows, multi_logloss and multi_error on the device inside "
+          f"the round, fused): best iteration {bf.best_iteration} of "
+          f"{rounds_es} rounds, {t_es:.2f} s; the last round's values "
+          f"{ev['multi_logloss'][-1]:.6f} / {ev['multi_error'][-1]:.6f} vs "
+          f"the host's float64 {host['multi_logloss']:.6f} / "
+          f"{host['multi_error']:.6f}", flush=True)
+    del bf, gf
+
+    # (c) Booster.predict of 1M held-out rows through the forest kernel
+    bst, *_ = fused_train(torch, lgbt, ds, 10, **MC)
+    g = bst._gbdt
+    FK.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    raw = bst.predict(Xh, raw_score=True)
+    t_pred = time.perf_counter() - t0
+    n_fk = FK.launches
+    prob = bst.predict(Xh[:20_000])
+    host = _host_raw(g.models, Xh[:20_000].astype(np.float64), 7, 0, 10)
+    err = float(np.abs(raw[:20_000] - host).max())
+    if (n_fk < 1 or raw.shape != (N, 7)
+            or not np.allclose(raw[:20_000], host, rtol=2e-5, atol=2e-6)):
+        fail(f"multiclass predict: {n_fk} forest launches, shape "
+             f"{raw.shape}, max |device - host| {err}")
+    if not np.allclose(prob.sum(1), 1.0, atol=1e-5):
+        fail("multiclass predict: probabilities do not sum to 1")
+    acc_h = float((raw.argmax(1) == yh).mean())
+    print(f"multiclass predict ({N:,} held-out rows x 70 trees, k = 7): "
+          f"{t_pred:.3f} s, {N / t_pred:,.0f} rows/s, {n_fk} forest-kernel "
+          f"launch(es), max |device - host walk| {err:.2e} on 20,000 rows, "
+          f"accuracy {acc_h:.4f}", flush=True)
+    del bst, g, raw
+
+    # (d) one-vs-all at 100k x 3
+    dsc = lgbt.Dataset(X[:N_COV_CROSS], y[:N_COV_CROSS],
+                       params={"max_bin": 255, "verbosity": -1}).construct()
+    OVA = dict(objective="multiclassova", num_class=7)
+    ova, per_o, _, _ = fused_train(torch, lgbt, dsc, 3, **OVA)
+    ova_c, per_oc, _, _ = fused_train(torch, lgbt, dsc, 3, classic=True,
+                                      **OVA)
+    if ova.model_to_string() != ova_c.model_to_string():
+        fail("multiclassova: fused and classic text differ")
+    print(f"multiclassova ({N_COV_CROSS:,} x 3, k = 7): fused s/round "
+          f"{per_o:.5f}, classic {per_oc:.5f}; fused and classic "
+          f"byte-identical", flush=True)
+    del ova, ova_c
+
+    # (f) card vs CPU, multiclass: round 0's seven trees (the CPU trains
+    # one round: seven 255-leaf trees take it ~50 s; at 100k rows both
+    # take the batched int8 learner, exact on both)
+    t0 = time.perf_counter()
+    b_g = lgbt.train(dict(RECIPE, **MC), dsc, num_boost_round=3)
+    b_c = lgbt.train(dict(RECIPE, **MC, device_type="cpu"), dsc,
+                     num_boost_round=1)
+    same = [trees_equal(a, b) for a, b in zip(b_g._gbdt.models[:7],
+                                              b_c._gbdt.models)]
+    if len(same) != 7 or not all(same):
+        fail(f"multiclass cross-check: round 0's trees card vs CPU {same}")
+    print(f"multiclass cross-check ({N_COV_CROSS:,} rows; card 3 rounds, "
+          f"CPU 1): round 0's 7 trees identical "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    del b_g, b_c, dsc, ds
+
+    # (e) the regression family on phase 3's data
+    rng = np.random.default_rng(0)
+    Xr, yr, wr = synth_higgs(N, F, rng)
+    dsr = lgbt.Dataset(Xr, yr, params={"max_bin": 255,
+                                       "verbosity": -1}).construct()
+    renew_s = []
+    real_renew = G.GBDT._renew_leaves
+
+    def timed_renew(self, *a):
+        t0 = time.perf_counter()
+        try:
+            return real_renew(self, *a)
+        finally:
+            if self.objective.need_renew_tree_output:
+                renew_s.append(time.perf_counter() - t0)
+
+    labels = {}
+    for objective in FAMILY:
+        labels[objective] = family_label(objective, Xr, wr,
+                                         np.random.default_rng(11))
+        dsr.inner.metadata.set_label(labels[objective])
+        extra = dict(objective=objective)
+        if objective in RENEW:
+            renew_s.clear()
+            G.GBDT._renew_leaves = timed_renew
+            try:
+                b, per, wall, _ = fused_train(torch, lgbt, dsr, 5,
+                                              classic=True, **extra)
+            finally:
+                G.GBDT._renew_leaves = real_renew
+            if len(renew_s) != 5 or b._gbdt.supports_fused():
+                fail(f"{objective}: {len(renew_s)} host renewals in 5 "
+                     f"rounds, fused admitted {b._gbdt.supports_fused()}")
+            print(f"{objective} (1M x 28, 5 rounds, classic): s/round "
+                  f"{per:.5f}, host renewal {np.mean(renew_s):.4f} s a tree "
+                  f"({100 * np.mean(renew_s) / per:.1f}% of the round), "
+                  f"train() {wall:.2f} s; sha256 {text_sha256(b)}",
+                  flush=True)
+            del b
+            continue
+        zero_counts(HK, RF, TB, prng)
+        b, per, wall, _ = fused_train(torch, lgbt, dsr, 5, **extra)
+        c1 = launch_counts(HK, RF, TB, prng)
+        t1 = b.model_to_string()
+        again, *_ = fused_train(torch, lgbt, dsr, 5, **extra)
+        classic, per_c, _, _ = fused_train(torch, lgbt, dsr, 5,
+                                           classic=True, **extra)
+        if again.model_to_string() != t1 or classic.model_to_string() != t1:
+            fail(f"{objective}: fused twice and classic once gave different "
+                 f"text")
+        if any(c1[k] <= 0 for k in ("take_small_table", "partition_payload",
+                                    "histogram_radix_single")):
+            fail(f"{objective} fused run: kernel launches {c1}")
+        p = b.predict(Xr[:10_000])
+        if p.shape != (10_000,) or not np.isfinite(p).all():
+            fail(f"{objective}: predict gave {p.shape} / non-finite values")
+        print(f"{objective} (1M x 28, 5 rounds): fused s/round {per:.5f}, "
+              f"classic {per_c:.5f}, train() {wall:.2f} s; fused twice and "
+              f"classic once byte-identical; sha256 {text_sha256(b)}",
+              flush=True)
+        del b, again, classic
+
+    # (f) card vs CPU, huber and quantile: tree 0 (the CPU trains one
+    # round)
+    for objective in ("huber", "quantile"):
+        dsx = lgbt.Dataset(Xr[:N_SCROSS], labels[objective][:N_SCROSS],
+                           params={"max_bin": 255,
+                                   "verbosity": -1}).construct()
+        t0 = time.perf_counter()
+        b_g = lgbt.train(dict(RECIPE, objective=objective), dsx,
+                         num_boost_round=3)
+        b_c = lgbt.train(dict(RECIPE, objective=objective,
+                              device_type="cpu"), dsx, num_boost_round=1)
+        t_g, t_c = b_g._gbdt.models[0], b_c._gbdt.models[0]
+        # quantile's leaves are the host's float64 percentiles: equal too
+        renewed = objective in RENEW
+        if not (trees_equal(t_g, t_c) and (
+                not renewed or np.array_equal(t_g.leaf_value,
+                                              t_c.leaf_value))):
+            fail(f"{objective} cross-check: tree 0 differs between the card "
+                 f"and the CPU")
+        print(f"{objective} cross-check ({N_SCROSS:,}; card 3 rounds, CPU "
+              f"1): tree 0 identical{', leaf values too' if renewed else ''}"
+              f" ({t_g.num_leaves} leaves), "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        del b_g, b_c, dsx
+    print(f"phase 10: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return counts
+
+
 def load_other(root):
     """The port package of another checkout (``root``/lightgbm_tpu_torch),
     imported as ``lgbt_other`` beside this one; its kernels build into its
@@ -4596,6 +4957,12 @@ def main():
     bag_launches = check_sampling(torch, lgbt, HK, RF, TB, prng)
     print("phase 9 kernels (the bagged default, 1M x 10, fused): "
           + json.dumps(bag_launches), flush=True)
+
+    # ---- 10. the other objectives: multiclass's launches (zeroed just
+    # before its first fused run, read just after) are checked there
+    mc_launches = check_objectives(torch, lgbt, HK, RF, TB, prng)
+    print("phase 10 kernels (multiclass, Covertype shape, 70 trees, "
+          "fused): " + json.dumps(mc_launches), flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_script:.1f} s in all, the "
           f"kernel build {build_s:.1f} s of it", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -73,8 +73,9 @@ def _host_raw(trees: List[Tree], X: np.ndarray, k: int, start: int,
 
 
 def _objective_string_transform(out: np.ndarray, obj_str: str) -> np.ndarray:
-    """Raw scores [n, k] -> output space from a model-text objective string
-    like ``"binary sigmoid:1"`` (the ported objectives)."""
+    """Raw scores [n, k] -> output space, from a model-text objective string
+    like ``"binary sigmoid:1"`` (reference ConvertOutput dispatch for
+    text-loaded models, objective_function.h; the JAX package's)."""
     obj_tokens = obj_str.split(" ")
     obj = obj_tokens[0]
     if obj == "binary":
@@ -83,6 +84,15 @@ def _objective_string_transform(out: np.ndarray, obj_str: str) -> np.ndarray:
             if tok.startswith("sigmoid:"):
                 sig = float(tok.split(":")[1])
         return 1.0 / (1.0 + np.exp(-sig * out))
+    if obj == "multiclass":
+        ex = np.exp(out - out.max(axis=1, keepdims=True))
+        return ex / ex.sum(axis=1, keepdims=True)
+    if obj in ("multiclassova", "cross_entropy"):
+        return 1.0 / (1.0 + np.exp(-out))
+    if obj in ("poisson", "gamma", "tweedie"):
+        return np.exp(out)
+    if obj == "cross_entropy_lambda":
+        return np.log1p(np.exp(out))
     if obj == "regression" and "sqrt" in obj_tokens[1:]:
         return np.sign(out) * out * out
     return out

@@ -18,7 +18,18 @@ into one scan, this module runs one round over static buffers:
   round's tail (``tail``: renewal to the stop flag) again.  ``main``
   commits the round's scores, stop state and outputs only when the tree
   is complete, so the tail's replay after the extra rounds redoes it;
-* on the CPU the same three bodies run eagerly (the tests' path).
+* on the CPU the same bodies run eagerly (the tests' path).
+
+A k-class objective (multiclass) grows k trees a round.  One class body is
+captured and replayed k times: a fourth graph (``grads``) evaluates the
+[n, k] gradients and draws the round's rows once, then ``main`` grows the
+tree of class ``c``, a device scalar that ``tail`` moves on when the tree
+is complete (its column of the gradients, its stochastic rounding key
+``fold_in(key, c)``, its column of the train and valid scores and its
+part of the chunk row), so a round reads one flag a class.  The metrics
+and the stop state are kept after the last class.  (Unrolling k class
+bodies into one graph would multiply the graph's nodes, its capture time
+and the trees' state in the pool by k.)
 
 Round inputs that change every round sit in device buffers staged once
 per chunk, never in the captured kernels' arguments: the stochastic
@@ -30,8 +41,8 @@ per-tree feature masks, the row sampling's key words and warm-up flag
 bagging_seed), iter)`` and ``iter >= warm-up``), the round's index in the
 chunk and its iteration.  The sampled row mask goes to the tree and to
 leaf renewal, as in the classic loop.
-Every round writes its tree and metric values into row ``t`` of one
-[T, P + M] float32 buffer; the host takes it in one transfer per chunk.
+Every round writes its trees and metric values into row ``t`` of one
+[T, k P + M] float32 buffer; the host takes it in one transfer per chunk.
 On categorical data the row also carries ``split_cat`` and ``cat_bitset``
 (one byte a bin, four to a float32 word).
 The flag's bit 1 is the in-round early stop, bit 2 a stump: either makes
@@ -163,15 +174,16 @@ def packed_width(L: int, num_f: int, n_bins: int = 0,
         + (_cat_words(L, n_bins) if cat else 0)
 
 
-def round_keys(seed_q: int, first_iter: int, T: int) -> np.ndarray:
-    """int64 [T, 2, 2]: each round's (grad, hess) threefry key words, the
-    classic loop's ``split(fold_in(key(seed_q + iter), 0))``, derived on
-    the host (Python ints, no device work)."""
-    out = np.zeros((T, 2, 2), np.int64)
+def round_keys(seed_q: int, first_iter: int, T: int, k: int = 1
+               ) -> np.ndarray:
+    """int64 [T, k, 2, 2]: each round's and class's (grad, hess) threefry
+    key words, the classic loop's ``split(fold_in(key(seed_q + iter),
+    cls))``, derived on the host (Python ints, no device work)."""
+    out = np.zeros((T, k, 2, 2), np.int64)
     for t in range(T):
-        kg, kh = prng.split(prng.fold_in(prng.key(seed_q + first_iter + t),
-                                         0))
-        out[t] = (kg, kh)
+        qkey = prng.key(seed_q + first_iter + t)
+        for c in range(k):
+            out[t, c] = prng.split(prng.fold_in(qkey, c))
     return out
 
 
@@ -204,17 +216,26 @@ class FusedRound:
         M = len(self.mrows)
         self.cat = hp.has_categorical
         self.P = packed_width(self.L, self.num_f, hp.n_bins, self.cat)
+        #: trees a round; the class body works on class ``c`` and moves it
+        #: on when its tree is complete (after the last, to the next round)
+        self.k = k = g.num_tree_per_iteration
         i64 = torch.int64
-        self.keys = torch.zeros(chunk, 2, 2, dtype=i64, device=dev)
+        self.keys = torch.zeros(chunk, k, 2, 2, dtype=i64, device=dev)
         self.fmasks = torch.zeros(chunk, self.num_f, dtype=torch.bool,
                                   device=dev) if self.has_fm else None
         self.swords = torch.zeros(chunk, 3, dtype=i64, device=dev) \
             if self.sample_fn is not None else None
         self.row_mask: Optional[torch.Tensor] = None
         self.t = torch.zeros((), dtype=i64, device=dev)
+        self.c = torch.zeros((), dtype=i64, device=dev)
         self.it = torch.zeros((), dtype=i64, device=dev)
-        self.out = torch.zeros(chunk, self.P + M, dtype=torch.float32,
+        #: a round's row: its k trees, P words each, then the M metrics
+        self.W = k * self.P + M
+        self.out = torch.zeros(chunk, self.W, dtype=torch.float32,
                                device=dev)
+        self._cols_tree = torch.arange(self.P, dtype=i64, device=dev)
+        self._cols_metric = torch.arange(k * self.P, self.W, dtype=i64,
+                                         device=dev)
         self.flag = torch.zeros((), dtype=torch.int32, device=dev)
         self.es = es
         if es is not None:
@@ -257,24 +278,58 @@ class FusedRound:
         self.seen.zero_()
         self.stopped.zero_()
 
-    def main(self) -> None:
-        """The whole round: grow with the fixed budget, then the tail."""
+    def grads(self) -> None:
+        """The round's gradients [n, k] (one objective evaluation for all
+        classes) and the row sampling's draw, shared by the k trees.  With
+        k = 1 it runs inside ``main``; with k > 1 it is a graph of its own,
+        replayed before the first class."""
         g = self.g
         # index_select, not [t]: indexing by a 0-d tensor reads it back
         t = self.t.reshape(1)
-        grad, hess = g.objective.get_gradients(g.scores[:, 0])
+        if self.k == 1:
+            grad, hess = g.objective.get_gradients(g.scores[:, 0])
+            grad, hess = grad[:, None], hess[:, None]
+        else:
+            grad, hess = g.objective.get_gradients(g.scores)
         self.row_mask = None
         if self.sample_fn is not None:
             # the bag or GOSS's rows, drawn after the gradients and before
             # the levels, as the classic loop draws them
             w = self.swords.index_select(0, t)[0]
-            self.row_mask, g2, h2 = self.sample_fn(
-                w[0], w[1], w[2] != 0, grad[:, None], hess[:, None])
-            grad, hess = g2[:, 0], h2[:, 0]
+            self.row_mask, grad, hess = self.sample_fn(
+                w[0], w[1], w[2] != 0, grad, hess)
+        self.grad_all, self.hess_all = grad, hess
+
+    def _column(self, x: torch.Tensor) -> torch.Tensor:
+        """Column ``c`` of an [n, k] tensor, as [n]."""
+        if self.k == 1:
+            return x[:, 0]
+        return x.index_select(1, self.c.reshape(1))[:, 0]
+
+    def _update_column(self, x: torch.Tensor, add: torch.Tensor,
+                       commit: torch.Tensor) -> None:
+        """Column ``c`` of ``x`` [n, k] += ``add`` [n] where ``commit``."""
+        col = self._column(x)
+        new = torch.where(commit, col + add, col)
+        if self.k == 1:
+            col.copy_(new)
+        else:
+            x.index_copy_(1, self.c.reshape(1), new[:, None])
+
+    def main(self) -> None:
+        """Class ``c``'s tree: grow with the fixed budget, then the tail."""
+        g = self.g
+        t = self.t.reshape(1)
+        if self.k == 1:
+            self.grads()
+        grad = self._column(self.grad_all)
+        hess = self._column(self.hess_all)
         self.g_true, self.h_true = grad, hess
         hist_scale = None
         if self.quant:
             kw = self.keys.index_select(0, t)[0]
+            kw = kw[0] if self.k == 1 else \
+                kw.index_select(0, self.c.reshape(1))[0]
             grad, hess, gs, hs = discretize_gradients_levels(
                 grad, hess, n_levels=self.n_levels, stochastic=self.stoch,
                 constant_hessian=g.objective.is_constant_hessian,
@@ -303,12 +358,13 @@ class FusedRound:
         self.flag.copy_(self.tree.growing().to(torch.int32))
 
     def tail(self) -> None:
-        """Renewal, shrinkage, the score updates, the metrics, the stop
-        state and the chunk row; committed only when the tree is
-        complete."""
+        """Renewal, shrinkage, the score updates of column ``c``, the tree's
+        part of the chunk row; after the last class the metrics and the
+        stop state; committed only when the tree is complete."""
         g, tree = self.g, self.tree
         growing = tree.growing()
         commit = ~growing
+        last = commit if self.k == 1 else commit & (self.c == self.k - 1)
         arrays = tree.arrays()
         if self.renew:
             hp = g.hp
@@ -321,30 +377,37 @@ class FusedRound:
                 arrays.num_leaves > 1, renewed, arrays.leaf_value))
         # shrink BEFORE the gather, the classic loop's order
         shrunk = arrays.leaf_value * g.shrinkage_rate
-        sc = g.scores[:, 0]
-        sc.copy_(torch.where(commit, sc + take_small_table(shrunk, tree.lor),
-                             sc))
+        self._update_column(g.scores, take_small_table(shrunk, tree.lor),
+                            commit)
         arrays_s = arrays._replace(leaf_value=shrunk)
         parts = []
         for vi, ms in enumerate(g.valid_metrics):
-            v = g.valid_scores[vi][:, 0]
-            v.copy_(torch.where(commit, v + g._valid_tree_scores(arrays_s,
-                                                                 vi), v))
+            v = g.valid_scores[vi]
+            self._update_column(v, g._valid_tree_scores(arrays_s, vi),
+                                commit)
+            # a k-class booster's metrics take the [n, k] matrix; they are
+            # evaluated after every class and kept after the last
+            v = v[:, 0] if self.k == 1 else v
             for m in ms:
                 parts.append(m.eval_device_traced(v, g.objective)
                              .to(torch.float32))
         flag = growing.to(torch.int32) \
             | ((arrays.num_leaves <= 1).to(torch.int32) * STUMP)
-        row = [pack_tree(arrays, self.cat)]
+        base = self.t * self.W
+        flat = self.out.view(-1)
+        flat.index_copy_(0, base + self.P * self.c + self._cols_tree,
+                         pack_tree(arrays, self.cat))
         if parts:
             mvals = torch.cat(parts)
-            row.append(mvals)
+            flat.index_copy_(0, base + self._cols_metric, mvals)
             if self.es is not None:
-                self._es_update(mvals, commit)
+                self._es_update(mvals, last)
                 flag = flag | (self.stopped.to(torch.int32) * STOPPED)
-        self.out.index_copy_(0, self.t.reshape(1), torch.cat(row)[None])
         self.flag.copy_(flag)
-        step = commit.to(torch.int64)
+        if self.k > 1:
+            self.c.copy_(torch.where(last, torch.zeros_like(self.c),
+                                     self.c + commit.to(torch.int64)))
+        step = last.to(torch.int64)
         self.t.add_(step)
         self.it.add_(step)
 
@@ -373,8 +436,8 @@ class FusedRound:
         ``extra`` and ``tail`` into one memory pool."""
         g = self.g
         t0 = time.perf_counter()
-        state = [g.scores, *g.valid_scores, self.t, self.it, self.out,
-                 self.flag]
+        state = [g.scores, *g.valid_scores, self.t, self.c, self.it,
+                 self.out, self.flag]
         if self.es is not None:
             state += [self.best, self.best_it, self.seen, self.stopped]
         saved = [s.clone() for s in state]
@@ -382,6 +445,8 @@ class FusedRound:
         side = torch.cuda.Stream(self.dev)
         side.wait_stream(torch.cuda.current_stream(self.dev))
         with torch.cuda.stream(side):
+            if self.k > 1:
+                self.grads()
             self.main()
         torch.cuda.current_stream(self.dev).wait_stream(side)
         for s, v in zip(state, saved):
@@ -390,7 +455,7 @@ class FusedRound:
         pool = torch.cuda.graph_pool_handle()
         graphs = {}
         try:
-            for name in ("main", "extra", "tail"):
+            for name in self._bodies():
                 gr = torch.cuda.CUDAGraph()
                 before = _read_counters()
                 with torch.cuda.graph(gr, pool=pool):
@@ -406,15 +471,23 @@ class FusedRound:
         self.graphs = graphs
         self.capture_s = time.perf_counter() - t0
 
-    def _step(self, name: str) -> int:
-        """Run one body (replay its graph on the card) and read the flag
-        word back: the round's one host read."""
+    def _bodies(self):
+        return ("grads", "main", "extra", "tail") if self.k > 1 else \
+            ("main", "extra", "tail")
+
+    def _replay(self, name: str) -> None:
+        """Run one body: replay its graph on the card."""
         if self.graphs is not None:
             self.graphs[name].replay()
             _add_counters(self.graph_launches[name])
             counts["replays"] += 1
         else:
             getattr(self, name)()
+
+    def _step(self, name: str) -> int:
+        """Run one body and read the flag word back: a class's one host
+        read."""
+        self._replay(name)
         counts["reads"] += 1
         return int(self.flag.item())
 
@@ -426,7 +499,7 @@ class FusedRound:
         seed_q = (g.config.seed or 0) * 7919
         if self.quant and self.stoch:
             self.keys[:T].copy_(torch.from_numpy(
-                round_keys(seed_q, first_iter, T)))
+                round_keys(seed_q, first_iter, T, self.k)))
         if self.has_fm:
             self.fmasks[:T].copy_(torch.from_numpy(np.stack([
                 g._feature_mask_array(first_iter + t) for t in range(T)])))
@@ -436,26 +509,34 @@ class FusedRound:
                  for t in range(T)],
                 dtype=torch.int64))
         self.t.zero_()
+        self.c.zero_()
         self.it.fill_(first_iter)
         if self.dev.type == "cuda" and self.graphs is None:
             self._capture()
         done = 0
         while done < T:
-            f = self._step("main")
-            if f & GROWING:
-                while f & GROWING:
-                    counts["extra"] += 1
-                    f = self._step("extra")
-                f = self._step("tail")
+            if self.k > 1:
+                self._replay("grads")
+            stumps = 0
+            for _ in range(self.k):
+                f = self._step("main")
+                if f & GROWING:
+                    while f & GROWING:
+                        counts["extra"] += 1
+                        f = self._step("extra")
+                    f = self._step("tail")
+                stumps += bool(f & STUMP)
             done += 1
             counts["rounds"] += 1
-            if f & (STOPPED | STUMP):
+            if f & STOPPED or stumps == self.k:
                 break
         return self.out[:done].cpu().numpy()
 
 
 def chunk_rows(rows: np.ndarray, fr: FusedRound) -> List:
-    """Each row's (TreeArrays on the host, metric values)."""
+    """Each row's (its k TreeArrays on the host, metric values)."""
     n_bins = fr.g.hp.n_bins
-    return [(unpack_tree(r[:fr.P], fr.L, fr.num_f, n_bins, fr.cat),
-             r[fr.P:]) for r in rows]
+    P = fr.P
+    return [([unpack_tree(r[c * P:(c + 1) * P], fr.L, fr.num_f, n_bins,
+                          fr.cat) for c in range(fr.k)], r[fr.k * P:])
+            for r in rows]

@@ -22,6 +22,10 @@ from .gbdt import GBDT
 
 
 class RF(GBDT):
+    #: k > 1 metrics on the host, with ``_host_scores``' running average,
+    #: as the JAX package's classic loop evaluates them (RF never fuses)
+    _DEVICE_EVAL_MULTI = False
+
     def __init__(self, config, train_set, objective=None, metrics=None):
         super().__init__(config, train_set, objective, metrics)
         self.shrinkage_rate = 1.0 / max(1, int(config.num_iterations))
@@ -30,8 +34,10 @@ class RF(GBDT):
         self._grad_scores = self.scores.clone()
 
     def boosting_gradients(self):
-        g, h = self.objective.get_gradients(self._grad_scores[:, 0])
-        return g[:, None], h[:, None]
+        if self.num_tree_per_iteration == 1:
+            g, h = self.objective.get_gradients(self._grad_scores[:, 0])
+            return g[:, None], h[:, None]
+        return self.objective.get_gradients(self._grad_scores)
 
     def _host_scores(self, scores: torch.Tensor) -> np.ndarray:
         """The running average over the t trees so far: init + (s - init)

@@ -1,8 +1,9 @@
 """Evaluation metrics: on the device in float32, or on the host in float64.
 
-Counterpart of ``lightgbm_tpu/metrics.py`` for ``l2``, ``binary_logloss``
-and ``auc`` (reference regression_metric.hpp, binary_metric.hpp), with the
-JAX package's two paths:
+Counterpart of ``lightgbm_tpu/metrics.py`` for every metric but the ranking
+ones (reference regression_metric.hpp, binary_metric.hpp,
+multiclass_metric.hpp, xentropy_metric.hpp), with the JAX package's two
+paths:
 
 - **device** (:meth:`Metric.eval_device_traced`): plain PyTorch reductions
   on the scores' device returning a float32 ``[M]`` tensor with no host
@@ -34,16 +35,21 @@ def _dev_pointwise(kind: str, p: torch.Tensor, y: torch.Tensor,
                    sw: torch.Tensor) -> torch.Tensor:
     """The pointwise losses' float32 device average (the JAX package's
     ``_dev_pointwise``); ``sw``: the float32 sum of the weights."""
-    if kind == "l2":
+    if kind in ("l2", "rmse"):
         loss = (p - y) ** 2
+    elif kind == "l1":
+        loss = (p - y).abs()
     elif kind == "binary_logloss":
         # float32-safe clip: 1 - 1e-15 is not representable in float32
         # (the host path clips at 1e-15 in float64)
         pc = torch.clamp(p, 1e-7, 1 - 1e-7)
         loss = -(y * torch.log(pc) + (1 - y) * torch.log(1 - pc))
+    elif kind == "binary_error":
+        loss = ((p > 0.5) != (y > 0)).to(torch.float32)
     else:  # pragma: no cover
         raise ValueError(kind)
-    return loss.mean() if w is None else (loss * w).sum() / sw
+    avg = loss.mean() if w is None else (loss * w).sum() / sw
+    return avg.sqrt() if kind == "rmse" else avg
 
 
 def _segment_sums(gid: torch.Tensor, vals, n: int):
@@ -89,6 +95,10 @@ class Metric:
     #: the pointwise device loss (``_dev_pointwise``), or None: no device
     #: path unless the class overrides ``eval_device_traced``
     _DEV_KIND: Optional[str] = None
+    #: True when ``eval_device_traced`` takes the whole [n, k] score matrix
+    #: (the multiclass metrics); the others take a [n] column, so a k > 1
+    #: booster evaluates only these on the device
+    _DEV_MULTI: bool = False
 
     def __init__(self, config: Config):
         self.config = config
@@ -165,13 +175,112 @@ class Metric:
         return score
 
 
-class L2Metric(Metric):
+# ------------------------------------------------------------- regression
+class _PointwiseRegression(Metric):
+    def eval(self, score, objective=None):
+        pred = self._convert(score, objective)
+        return [(self.NAME, self._avg(self._loss(pred, self.label)))]
+
+
+class L2Metric(_PointwiseRegression):
     NAME = "l2"
     _DEV_KIND = "l2"
 
+    def _loss(self, p, y):
+        return (p - y) ** 2
+
+
+class RMSEMetric(_PointwiseRegression):
+    NAME = "rmse"
+    _DEV_KIND = "rmse"
+
     def eval(self, score, objective=None):
         pred = self._convert(score, objective)
-        return [(self.NAME, self._avg((pred - self.label) ** 2))]
+        return [(self.NAME,
+                 float(np.sqrt(self._avg((pred - self.label) ** 2))))]
+
+
+class L1Metric(_PointwiseRegression):
+    NAME = "l1"
+    _DEV_KIND = "l1"
+
+    def _loss(self, p, y):
+        return np.abs(p - y)
+
+
+class QuantileMetric(_PointwiseRegression):
+    NAME = "quantile"
+
+    def _loss(self, p, y):
+        a = self.config.alpha
+        d = y - p
+        return np.where(d >= 0, a * d, (a - 1.0) * d)
+
+
+class HuberMetric(_PointwiseRegression):
+    NAME = "huber"
+
+    def _loss(self, p, y):
+        a = self.config.alpha
+        d = np.abs(p - y)
+        return np.where(d <= a, 0.5 * d * d, a * (d - 0.5 * a))
+
+
+class FairMetric(_PointwiseRegression):
+    NAME = "fair"
+
+    def _loss(self, p, y):
+        c = self.config.fair_c
+        x = np.abs(p - y)
+        return c * x - c * c * np.log1p(x / c)
+
+
+class PoissonMetric(_PointwiseRegression):
+    NAME = "poisson"
+
+    def _loss(self, p, y):
+        eps = 1e-10
+        return p - y * np.log(np.maximum(p, eps))
+
+
+class MAPEMetric(_PointwiseRegression):
+    NAME = "mape"
+
+    def _loss(self, p, y):
+        return np.abs((y - p) / np.maximum(1.0, np.abs(y)))
+
+
+class GammaMetric(_PointwiseRegression):
+    NAME = "gamma"
+
+    def _loss(self, p, y):
+        eps = 1e-10
+        psafe = np.maximum(p, eps)
+        return y / psafe + np.log(psafe) - 1.0 - np.log(np.maximum(y, eps))
+
+
+class GammaDevianceMetric(_PointwiseRegression):
+    NAME = "gamma_deviance"
+
+    def _loss(self, p, y):
+        eps = 1e-10
+        r = y / np.maximum(p, eps)
+        return 2.0 * (np.log(np.maximum(1.0 / np.maximum(r, eps), eps))
+                      + r - 1.0)
+
+
+class TweedieMetric(_PointwiseRegression):
+    NAME = "tweedie"
+
+    def _loss(self, p, y):
+        rho = self.config.tweedie_variance_power
+        eps = 1e-10
+        psafe = np.maximum(p, eps)
+        return -y * np.power(psafe, 1 - rho) / (1 - rho) + \
+            np.power(psafe, 2 - rho) / (2 - rho)
+
+
+# ----------------------------------------------------------------- binary
 
 
 class BinaryLoglossMetric(Metric):
@@ -183,6 +292,16 @@ class BinaryLoglossMetric(Metric):
         y = self.label
         loss = -(y * np.log(p) + (1 - y) * np.log(1 - p))
         return [(self.NAME, self._avg(loss))]
+
+
+class BinaryErrorMetric(Metric):
+    NAME = "binary_error"
+    _DEV_KIND = "binary_error"
+
+    def eval(self, score, objective=None):
+        p = self._convert(score, objective)
+        err = (p > 0.5) != (self.label > 0)
+        return [(self.NAME, self._avg(err.astype(np.float64)))]
 
 
 def _weighted_auc(label: np.ndarray, score: np.ndarray,
@@ -222,10 +341,174 @@ class AUCMetric(Metric):
         return _dev_auc(score_dev, y, w).reshape(1)
 
 
-_METRICS = {"l2": L2Metric, "binary_logloss": BinaryLoglossMetric,
-            "auc": AUCMetric}
-_DEFAULT_METRIC_FOR_OBJECTIVE = {"regression": "l2",
-                                 "binary": "binary_logloss"}
+class AveragePrecisionMetric(Metric):
+    NAME = "average_precision"
+    bigger_is_better = True
+
+    def eval(self, score, objective=None):
+        w = self.weight if self.weight is not None else \
+            np.ones_like(self.label)
+        order = np.argsort(-score, kind="mergesort")
+        y, ww = self.label[order] > 0, w[order]
+        tp = np.cumsum(np.where(y, ww, 0.0))
+        fp = np.cumsum(np.where(y, 0.0, ww))
+        prec = tp / np.maximum(tp + fp, 1e-20)
+        total_pos = tp[-1] if len(tp) else 0.0
+        if total_pos <= 0:
+            return [(self.NAME, 1.0)]
+        rec_delta = np.diff(np.r_[0.0, tp]) / total_pos
+        return [(self.NAME, float(np.sum(prec * rec_delta)))]
+
+
+# ------------------------------------------------------------- multiclass
+class MultiLoglossMetric(Metric):
+    NAME = "multi_logloss"
+    _DEV_MULTI = True
+
+    def eval(self, score, objective=None):
+        # score: [n, k] raw, converted by the objective (softmax / sigmoid)
+        p = self._convert(score, objective)
+        if objective is None or not objective.need_convert_output:
+            ex = np.exp(score - score.max(axis=1, keepdims=True))
+            p = ex / ex.sum(axis=1, keepdims=True)
+        idx = self.label.astype(int)
+        p_true = np.clip(p[np.arange(len(idx)), idx], 1e-15, None)
+        if getattr(objective, "NAME", "") == "multiclassova":
+            p_true = np.clip(p_true / np.maximum(p.sum(axis=1), 1e-15),
+                             1e-15, None)
+        return [(self.NAME, self._avg(-np.log(p_true)))]
+
+    def eval_device_traced(self, score_dev, objective=None):
+        """The host formulation in float32 over the [n, k] scores."""
+        y, w, sw = self._dev_arrays(score_dev.device)
+        idx = y.to(torch.int64)[:, None]
+        p = self._dev_convert(score_dev, objective)
+        if objective is None or not objective.need_convert_output:
+            ex = torch.exp(score_dev - score_dev.max(dim=1,
+                                                     keepdim=True).values)
+            p = ex / ex.sum(dim=1, keepdim=True)
+        p_true = torch.clamp_min(p.gather(1, idx)[:, 0], 1e-15)
+        if getattr(objective, "NAME", "") == "multiclassova":
+            p_true = torch.clamp_min(
+                p_true / torch.clamp_min(p.sum(dim=1), 1e-15), 1e-15)
+        losses = -torch.log(p_true)
+        val = losses.mean() if w is None else (losses * w).sum() / sw
+        return val.reshape(1)
+
+
+class MultiErrorMetric(Metric):
+    NAME = "multi_error"
+    _DEV_MULTI = True
+
+    def eval(self, score, objective=None):
+        k = self.config.multi_error_top_k
+        idx = self.label.astype(int)
+        true_score = score[np.arange(len(idx)), idx]
+        # an error when the true class is not within the top k (reference
+        # multiclass_metric.hpp MultiErrorMetric)
+        rank = (score > true_score[:, None]).sum(axis=1)
+        err = rank >= k
+        return [(self.NAME, self._avg(err.astype(np.float64)))]
+
+    def eval_device_traced(self, score_dev, objective=None):
+        """Rank counting over the [n, k] scores (integer-exact)."""
+        y, w, sw = self._dev_arrays(score_dev.device)
+        idx = y.to(torch.int64)[:, None]
+        true_score = score_dev.gather(1, idx)
+        rank = (score_dev > true_score).sum(dim=1)
+        err = (rank >= int(self.config.multi_error_top_k)).to(torch.float32)
+        val = err.mean() if w is None else (err * w).sum() / sw
+        return val.reshape(1)
+
+
+class AucMuMetric(Metric):
+    """Multiclass AUC-mu (reference multiclass_metric.hpp:368 AucMuMetric,
+    Kleiman & Page 2019)."""
+    NAME = "auc_mu"
+    bigger_is_better = True
+
+    def eval(self, score, objective=None):
+        y = self.label.astype(int)
+        k = self.config.num_class
+        wmat = None
+        if self.config.auc_mu_weights:
+            wmat = np.asarray(self.config.auc_mu_weights,
+                              np.float64).reshape(k, k)
+        aucs = []
+        for a in range(k):
+            for b in range(a + 1, k):
+                m = (y == a) | (y == b)
+                if m.sum() == 0 or (y[m] == a).all() or (y[m] == b).all():
+                    continue
+                # the decision value: the difference of the class scores,
+                # weighted by the partition weights when given
+                if wmat is not None:
+                    d = -(score[m] @ (wmat[a] - wmat[b]))
+                else:
+                    d = score[m, a] - score[m, b]
+                aucs.append(_weighted_auc((y[m] == a).astype(np.float64), d,
+                                          None if self.weight is None
+                                          else self.weight[m]))
+        return [(self.NAME, float(np.mean(aucs)) if aucs else 1.0)]
+
+
+# --------------------------------------------------------------- xentropy
+class CrossEntropyMetric(Metric):
+    NAME = "cross_entropy"
+
+    def eval(self, score, objective=None):
+        p = np.clip(self._convert(score, objective), 1e-15, 1 - 1e-15)
+        y = self.label
+        loss = -(y * np.log(p) + (1 - y) * np.log(1 - p))
+        return [(self.NAME, self._avg(loss))]
+
+
+class CrossEntropyLambdaMetric(Metric):
+    NAME = "cross_entropy_lambda"
+
+    def eval(self, score, objective=None):
+        # p through the lambda link (objectives.CrossEntropyLambda)
+        w = self.weight if self.weight is not None else 1.0
+        sp = np.logaddexp(0.0, score)
+        p = np.clip(1.0 - np.exp(-w * sp), 1e-15, 1 - 1e-15)
+        y = self.label
+        loss = -(y * np.log(p) + (1 - y) * np.log(1 - p))
+        return [(self.NAME, float(np.mean(loss)))]
+
+
+class KLDivergenceMetric(Metric):
+    NAME = "kullback_leibler"
+
+    def eval(self, score, objective=None):
+        p = np.clip(self._convert(score, objective), 1e-15, 1 - 1e-15)
+        y = np.clip(self.label, 1e-15, 1 - 1e-15)
+        kl = y * np.log(y / p) + (1 - y) * np.log((1 - y) / (1 - p))
+        return [(self.NAME, self._avg(kl))]
+
+
+_METRICS = {
+    "l1": L1Metric, "l2": L2Metric, "rmse": RMSEMetric,
+    "quantile": QuantileMetric, "huber": HuberMetric, "fair": FairMetric,
+    "poisson": PoissonMetric, "mape": MAPEMetric, "gamma": GammaMetric,
+    "gamma_deviance": GammaDevianceMetric, "tweedie": TweedieMetric,
+    "binary_logloss": BinaryLoglossMetric, "binary_error": BinaryErrorMetric,
+    "auc": AUCMetric, "average_precision": AveragePrecisionMetric,
+    "multi_logloss": MultiLoglossMetric, "multi_error": MultiErrorMetric,
+    "auc_mu": AucMuMetric,
+    "cross_entropy": CrossEntropyMetric,
+    "cross_entropy_lambda": CrossEntropyLambdaMetric,
+    "kullback_leibler": KLDivergenceMetric,
+}
+
+_DEFAULT_METRIC_FOR_OBJECTIVE = {
+    "regression": "l2", "regression_l1": "l1", "huber": "huber",
+    "fair": "fair", "poisson": "poisson", "quantile": "quantile",
+    "mape": "mape", "gamma": "gamma", "tweedie": "tweedie",
+    "binary": "binary_logloss",
+    "multiclass": "multi_logloss", "multiclassova": "multi_logloss",
+    "cross_entropy": "cross_entropy",
+    "cross_entropy_lambda": "cross_entropy_lambda",
+}
 
 
 def create_metrics(config: Config) -> List[Metric]:

@@ -1,11 +1,16 @@
 """Objective functions (gradient/hessian providers).
 
-Counterpart of ``lightgbm_tpu/objectives.py`` for ``regression`` (L2) and
-``binary`` (reference regression_objective.hpp RegressionL2loss,
-binary_objective.hpp BinaryLogloss).  Gradients are torch ops on the score
-tensor's device, with the JAX package's f32 operation order; init scores
-come from the same float64 NumPy code.  Other objectives are not ported
-yet and are rejected by name.
+Counterpart of ``lightgbm_tpu/objectives.py`` for every objective but the
+ranking ones (reference regression_objective.hpp, binary_objective.hpp,
+multiclass_objective.hpp, xentropy_objective.hpp).  Gradients are float32
+torch ops on the score tensor's device, in the JAX package's operation
+order (``sigmoid`` and ``softplus`` as XLA evaluates ``jax.nn.sigmoid`` and
+``jax.nn.softplus``, softmax as ``jax.nn.softmax``); a quotient with a
+scalar numerator is a tensor division (PyTorch's ``scalar / tensor`` is a
+reciprocal and a product, two roundings).  Init scores and the l1 /
+quantile / MAPE leaf renewal are the same float64 NumPy code.  Multiclass
+objectives take and return [n, k].  ``lambdarank`` and ``rank_xendcg`` are
+not ported yet and are rejected by name.
 """
 
 from __future__ import annotations
@@ -18,6 +23,58 @@ import torch
 from .config import Config
 from .io.dataset import Metadata
 from .utils import log
+
+
+def _weighted_percentile(values: np.ndarray, weights: Optional[np.ndarray],
+                         alpha: float) -> float:
+    """Weighted alpha-quantile (reference regression_objective.hpp
+    PercentileFun/WeightedPercentileFun); the JAX package's code."""
+    if len(values) == 0:
+        return 0.0
+    order = np.argsort(values)
+    v = values[order]
+    if weights is None:
+        pos = alpha * (len(v) - 1)
+        lo = int(np.floor(pos))
+        hi = min(lo + 1, len(v) - 1)
+        frac = pos - lo
+        return float(v[lo] * (1 - frac) + v[hi] * frac)
+    w = weights[order]
+    cw = np.cumsum(w)
+    target = alpha * cw[-1]
+    idx = int(np.searchsorted(cw, target))
+    return float(v[min(idx, len(v) - 1)])
+
+
+def _host(t: Optional[torch.Tensor]) -> Optional[np.ndarray]:
+    """A float32 device tensor as float64 numpy (None stays None)."""
+    return None if t is None else t.cpu().numpy().astype(np.float64)
+
+
+def _rdiv(num: float, den: torch.Tensor) -> torch.Tensor:
+    """``num / den`` rounded once, as XLA divides."""
+    return torch.div(torch.full_like(den, num), den)
+
+
+def _sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` as XLA lowers it: 1 / (1 + exp(-x))."""
+    return _rdiv(1.0, 1.0 + torch.exp(-x))
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus`` (``logaddexp(x, 0)``): max(x, 0) +
+    log1p(exp(-|x|))."""
+    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def _softmax(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softmax(x, axis=1)`` of [n, k]: exp of the row minus its
+    max, over the row's sum, added column by column in order."""
+    e = torch.exp(x - x.max(dim=1, keepdim=True).values)
+    s = e[:, 0]
+    for c in range(1, e.shape[1]):
+        s = s + e[:, c]
+    return e / s[:, None]
 
 
 class ObjectiveFunction:
@@ -54,6 +111,13 @@ class ObjectiveFunction:
     def convert_output(self, raw: torch.Tensor) -> torch.Tensor:
         return raw
 
+    def renew_tree_output(self, score: np.ndarray, residual_fn,
+                          leaf_of_row: np.ndarray,
+                          num_leaves: int) -> Optional[np.ndarray]:
+        """float64 [num_leaves] leaf outputs from the host scores before
+        the tree (l1 / quantile / MAPE), or None."""
+        return None
+
     def _apply_weight(self, g, h):
         if self._weight is not None:
             return g * self._weight, h * self._weight
@@ -84,15 +148,185 @@ class RegressionL2Loss(ObjectiveFunction):
         return self._apply_weight(g, h)
 
     def boost_from_score(self, class_id=0):
-        lbl = self._label.cpu().numpy().astype(np.float64)
-        w = None if self._weight is None else \
-            self._weight.cpu().numpy().astype(np.float64)
-        return float(np.average(lbl, weights=w))
+        return float(np.average(_host(self._label),
+                                weights=_host(self._weight)))
 
     def convert_output(self, raw):
         if self.config.reg_sqrt:
             return torch.sign(raw) * raw * raw
         return raw
+
+
+
+class RegressionL1Loss(ObjectiveFunction):
+    """reference regression_objective.hpp RegressionL1loss: leaf values
+    renewed to the weighted median of the residuals."""
+    NAME = "regression_l1"
+    is_constant_hessian = True
+    need_renew_tree_output = True
+    _alpha = 0.5
+
+    def get_gradients(self, score):
+        g = torch.sign(score - self._label)
+        h = torch.ones_like(score)
+        return self._apply_weight(g, h)
+
+    def boost_from_score(self, class_id=0):
+        return _weighted_percentile(_host(self._label), _host(self._weight),
+                                    0.5)
+
+    def renew_tree_output(self, score, residual_fn, leaf_of_row, num_leaves):
+        resid = _host(self._label) - score
+        w = _host(self._weight)
+        out = np.zeros(num_leaves)
+        for leaf in range(num_leaves):
+            m = leaf_of_row == leaf
+            out[leaf] = _weighted_percentile(resid[m],
+                                             None if w is None else w[m],
+                                             self._alpha)
+        return out
+
+
+class RegressionHuberLoss(ObjectiveFunction):
+    """reference regression_objective.hpp RegressionHuberLoss."""
+    NAME = "huber"
+
+    def get_gradients(self, score):
+        a = self.config.alpha
+        r = score - self._label
+        g = torch.where(r.abs() <= a, r, a * torch.sign(r))
+        h = torch.ones_like(score)
+        return self._apply_weight(g, h)
+
+    boost_from_score = RegressionL2Loss.boost_from_score
+
+
+class RegressionFairLoss(ObjectiveFunction):
+    """reference regression_objective.hpp RegressionFairLoss."""
+    NAME = "fair"
+
+    def get_gradients(self, score):
+        c = self.config.fair_c
+        r = score - self._label
+        g = c * r / (r.abs() + c)
+        d = r.abs() + c
+        h = _rdiv(c * c, d * d)
+        return self._apply_weight(g, h)
+
+
+class RegressionPoissonLoss(ObjectiveFunction):
+    """reference regression_objective.hpp RegressionPoissonLoss: log
+    link."""
+    NAME = "poisson"
+    need_convert_output = True
+
+    def init(self, metadata, num_data, device=torch.device("cpu")):
+        super().init(metadata, num_data, device)
+        if (np.asarray(metadata.label) < 0).any():
+            log.fatal("[poisson]: at least one target label is negative")
+
+    def get_gradients(self, score):
+        g = torch.exp(score) - self._label
+        h = torch.exp(score + self.config.poisson_max_delta_step)
+        return self._apply_weight(g, h)
+
+    def boost_from_score(self, class_id=0):
+        avg = np.average(_host(self._label), weights=_host(self._weight))
+        return float(np.log(max(avg, 1e-20)))
+
+    def convert_output(self, raw):
+        return torch.exp(raw)
+
+
+class RegressionQuantileLoss(ObjectiveFunction):
+    """reference regression_objective.hpp RegressionQuantileloss."""
+    NAME = "quantile"
+    is_constant_hessian = True
+    need_renew_tree_output = True
+
+    def get_gradients(self, score):
+        a = self.config.alpha
+        g = torch.where(score >= self._label, torch.full_like(score, 1.0 - a),
+                        torch.full_like(score, -a))
+        h = torch.ones_like(score)
+        return self._apply_weight(g, h)
+
+    def boost_from_score(self, class_id=0):
+        return _weighted_percentile(_host(self._label), _host(self._weight),
+                                    self.config.alpha)
+
+    def renew_tree_output(self, score, residual_fn, leaf_of_row, num_leaves):
+        self._alpha = self.config.alpha
+        return RegressionL1Loss.renew_tree_output(self, score, residual_fn,
+                                                  leaf_of_row, num_leaves)
+
+
+class RegressionMAPELoss(ObjectiveFunction):
+    """reference regression_objective.hpp RegressionMAPELOSS: L1 with
+    1/|label| weights and a weighted-median renewal."""
+    NAME = "mape"
+    is_constant_hessian = True
+    need_renew_tree_output = True
+
+    def init(self, metadata, num_data, device=torch.device("cpu")):
+        super().init(metadata, num_data, device)
+        lbl = np.abs(np.asarray(metadata.label, np.float64))
+        self._label_weight = torch.as_tensor(
+            (1.0 / np.maximum(1.0, lbl)).astype(np.float32), device=device)
+
+    def get_gradients(self, score):
+        g = torch.sign(score - self._label) * self._label_weight
+        h = self._label_weight
+        return self._apply_weight(g, h)
+
+    def _renew_weight(self) -> np.ndarray:
+        lw = _host(self._label_weight)
+        return lw if self._weight is None else lw * _host(self._weight)
+
+    def boost_from_score(self, class_id=0):
+        return _weighted_percentile(_host(self._label), self._renew_weight(),
+                                    0.5)
+
+    def renew_tree_output(self, score, residual_fn, leaf_of_row, num_leaves):
+        resid = _host(self._label) - score
+        lw = self._renew_weight()
+        out = np.zeros(num_leaves)
+        for leaf in range(num_leaves):
+            m = leaf_of_row == leaf
+            out[leaf] = _weighted_percentile(resid[m], lw[m], 0.5)
+        return out
+
+
+class RegressionGammaLoss(ObjectiveFunction):
+    """reference regression_objective.hpp RegressionGammaLoss: log link."""
+    NAME = "gamma"
+    need_convert_output = True
+
+    def get_gradients(self, score):
+        g = 1.0 - self._label * torch.exp(-score)
+        h = self._label * torch.exp(-score)
+        return self._apply_weight(g, h)
+
+    boost_from_score = RegressionPoissonLoss.boost_from_score
+    convert_output = RegressionPoissonLoss.convert_output
+
+
+class RegressionTweedieLoss(ObjectiveFunction):
+    """reference regression_objective.hpp RegressionTweedieLoss: log
+    link."""
+    NAME = "tweedie"
+    need_convert_output = True
+
+    def get_gradients(self, score):
+        rho = self.config.tweedie_variance_power
+        e1 = torch.exp((1.0 - rho) * score)
+        e2 = torch.exp((2.0 - rho) * score)
+        g = -self._label * e1 + e2
+        h = -self._label * (1.0 - rho) * e1 + (2.0 - rho) * e2
+        return self._apply_weight(g, h)
+
+    boost_from_score = RegressionPoissonLoss.boost_from_score
+    convert_output = RegressionPoissonLoss.convert_output
 
 
 class BinaryLogloss(ObjectiveFunction):
@@ -151,9 +385,146 @@ class BinaryLogloss(ObjectiveFunction):
         return 1.0 / (1.0 + torch.exp(-self.config.sigmoid * raw))
 
 
+class MulticlassSoftmax(ObjectiveFunction):
+    """reference multiclass_objective.hpp MulticlassSoftmax: one tree per
+    class per iteration; grad = p - y, hess = 2 p (1 - p)."""
+    NAME = "multiclass"
+    need_convert_output = True
+
+    def __init__(self, config):
+        super().__init__(config)
+        self.num_model_per_iteration = config.num_class
+
+    def init(self, metadata, num_data, device=torch.device("cpu")):
+        super().init(metadata, num_data, device)
+        lbl = np.asarray(metadata.label).astype(np.int32)
+        k = self.config.num_class
+        if lbl.min() < 0 or lbl.max() >= k:
+            log.fatal(f"Label must be in [0, {k}) for multiclass")
+        self._onehot = torch.as_tensor(np.eye(k, dtype=np.float32)[lbl],
+                                       device=device)          # [n, k]
+
+    def get_gradients(self, score):
+        p = _softmax(score)
+        g = p - self._onehot
+        h = 2.0 * p * (1.0 - p)
+        if self._weight is not None:
+            g = g * self._weight[:, None]
+            h = h * self._weight[:, None]
+        return g, h
+
+    def convert_output(self, raw):
+        return _softmax(raw.reshape(-1, raw.shape[-1])).reshape(raw.shape)
+
+
+class MulticlassOVA(ObjectiveFunction):
+    """reference multiclass_objective.hpp MulticlassOVA: k independent
+    binary-logloss problems."""
+    NAME = "multiclassova"
+    need_convert_output = True
+
+    def __init__(self, config):
+        super().__init__(config)
+        self.num_model_per_iteration = config.num_class
+
+    def init(self, metadata, num_data, device=torch.device("cpu")):
+        super().init(metadata, num_data, device)
+        lbl = np.asarray(metadata.label).astype(np.int32)
+        k = self.config.num_class
+        self._sign = torch.as_tensor(
+            np.where(np.eye(k)[lbl] > 0, 1.0, -1.0).astype(np.float32),
+            device=device)                                      # [n, k]
+
+    def get_gradients(self, score):
+        s = self.config.sigmoid
+        z = self._sign * s * score
+        resp = -self._sign * s / (1.0 + torch.exp(z))
+        g = resp
+        h = resp.abs() * (s - resp.abs())
+        if self._weight is not None:
+            g = g * self._weight[:, None]
+            h = h * self._weight[:, None]
+        return g, h
+
+    def convert_output(self, raw):
+        return _rdiv(1.0, 1.0 + torch.exp(-self.config.sigmoid * raw))
+
+
+class CrossEntropy(ObjectiveFunction):
+    """reference xentropy_objective.hpp CrossEntropy: probabilistic labels
+    in [0, 1], logistic link."""
+    NAME = "cross_entropy"
+    need_convert_output = True
+
+    def init(self, metadata, num_data, device=torch.device("cpu")):
+        super().init(metadata, num_data, device)
+        lbl = np.asarray(metadata.label)
+        if lbl.min() < 0 or lbl.max() > 1:
+            log.fatal("[cross_entropy]: labels must be in [0, 1]")
+
+    def get_gradients(self, score):
+        p = _sigmoid(score)
+        g = p - self._label
+        h = p * (1.0 - p)
+        return self._apply_weight(g, h)
+
+    def boost_from_score(self, class_id=0):
+        avg = np.average(_host(self._label), weights=_host(self._weight))
+        p = np.clip(avg, 1e-15, 1 - 1e-15)
+        return float(np.log(p / (1.0 - p)))
+
+    def convert_output(self, raw):
+        return _sigmoid(raw)
+
+
+class CrossEntropyLambda(ObjectiveFunction):
+    """reference xentropy_objective.hpp CrossEntropyLambda: the weights
+    enter the link, p = 1 - exp(-w softplus(f))."""
+    NAME = "cross_entropy_lambda"
+    need_convert_output = True
+
+    def get_gradients(self, score):
+        # L = -y log p + (1 - y) w softplus(f);
+        # dL/df = w sig(f) (1 - y/p);
+        # d2L/df2 = w sig(f) (1 - sig(f)) (1 - y/p)
+        #           + w^2 sig(f)^2 y (1 - p) / p^2
+        y = self._label
+        w = torch.ones_like(score) if self._weight is None else self._weight
+        sig = _sigmoid(score)
+        sp = _softplus(score)
+        one_m_p = torch.exp(-w * sp)
+        p = torch.clamp(1.0 - one_m_p, 1e-15, 1.0)
+        ws = w * sig
+        g = ws * (1.0 - y / p)
+        h = ws * (1.0 - sig) * (1.0 - y / p) + \
+            ws * ws * y * one_m_p / (p * p)
+        h = torch.clamp_min(h, 1e-15)
+        return g, h
+
+    def boost_from_score(self, class_id=0):
+        p = max(np.average(_host(self._label)), 1e-15)
+        return float(np.log(np.expm1(-np.log1p(-min(p, 1 - 1e-15)))
+                            + 1e-300))
+
+    def convert_output(self, raw):
+        return torch.log1p(torch.exp(raw))
+
+
 _OBJECTIVES = {
     "regression": RegressionL2Loss,
+    "regression_l1": RegressionL1Loss,
+    "huber": RegressionHuberLoss,
+    "fair": RegressionFairLoss,
+    "poisson": RegressionPoissonLoss,
+    "quantile": RegressionQuantileLoss,
+    "mape": RegressionMAPELoss,
+    "gamma": RegressionGammaLoss,
+    "tweedie": RegressionTweedieLoss,
     "binary": BinaryLogloss,
+    "multiclass": MulticlassSoftmax,
+    "multiclassova": MulticlassOVA,
+    "cross_entropy": CrossEntropy,
+    "cross_entropy_lambda": CrossEntropyLambda,
 }
 
 

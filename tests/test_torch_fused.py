@@ -570,7 +570,7 @@ def fused_host_reads(monkeypatch, params, X, y, Xv, yv, num_rounds):
     for name in ("item", "__bool__", "__int__", "__float__", "tolist",
                  "numpy"):
         monkeypatch.setattr(torch.Tensor, name, counting(name))
-    for body in ("main", "extra", "tail"):
+    for body in ("grads", "main", "extra", "tail"):
         def wrapped(self, _real=getattr(FG.FusedRound, body)):
             state["where"] = "body"
             try:
