@@ -7,7 +7,8 @@ else: no jax, no network.  Phases, each of which fails the run on error:
 
 1. environment and build: the card's name and power limit, the versions,
    and every kernel of ``lightgbm_tpu_torch/csrc`` compiled at once (the
-   forest and SHAP kernels of phase 6 included), with
+   forest and SHAP kernels of phase 6 and the rank kernel of phase 11
+   included), with
    the atomic opcodes the radix-single, rows and masked cluster kernels
    compiled to (the masked one, in radix.cu, packed.cu and hist.cu, every
    row source and the root pass's selector included, must add with native
@@ -214,6 +215,17 @@ else: no jax, no network.  Phases, each of which fails the run on error:
    quantile and MAPE classic with their host renewal's seconds a tree);
    multiclass, huber and quantile on the card against the CPU, tree 0
    identical.
+11. learning to rank on 2,270,296 synthetic documents of MSLR-WEB30K Fold
+   1's shape (18,919 lognormal-length queries, 136 features, labels 0-4,
+   a valid set of 6,306 queries): lambdarank at its defaults with 255
+   leaves, 10 rounds through the fused loop with valid ndcg@1,3,5,10 in
+   the round, twice to byte-identical text, with s/round, capture
+   seconds, peak memory, launches a tree and a profiled chunk (the rank
+   kernel against the passes); the rank kernel (``csrc/rank.cu``) against
+   its plain version on the booster's scores (timed beside its bound) and
+   on a skewed fixture (a query of one document, one of equal labels, one
+   past the kernel's shared-memory staging, weights, norm on and off);
+   rank_xendcg and position-debiased lambdarank through the classic loop.
 
 It prints one JSON line with every kernel's numbers (launches: the fused
 runs' for the kernels a fused run holds, the table partitions' those of
@@ -950,7 +962,8 @@ def device_per_call(torch, fn, reps=10, tries=5):
     device record.  Beside time_ms, which also holds the host's time to
     reach the launch, this is the kernel's own time.  CUPTI now and then
     loses a kernel's device record, so a window whose device records
-    disagree with the launch calls the host made in it is measured again,
+    disagree with the launch calls the host made in it, or that holds no
+    record at all, is measured again,
     up to ``tries`` windows in all; if the last still disagrees, the
     host's launch calls count the launches and the records seen give
     their mean time (the "profiler:" line lists such windows as kept)."""
@@ -965,7 +978,9 @@ def device_per_call(torch, fn, reps=10, tries=5):
         work = device_work(prof)
         n = sum(w[1] for w in work)
         launched = host_launches(prof)
-        if n == launched:
+        # a window with no record at all (CUPTI lost the whole window, the
+        # host's calls too) is measured again like one that disagrees
+        if n == launched and n:
             break
         lost_windows.append(dict(device=n, host=launched,
                                  kept=attempt == tries - 1))
@@ -2033,14 +2048,40 @@ def auc(y, s):
                  / (pos.sum() * (~pos).sum()))
 
 
+#: the binned HIGGS-shaped sets by (rows, seed, max_bin): the same seed
+#: gives the same rows, so the trainings of phases 3-5 and 9 that share
+#: them bin once
+SLICE_DATA = {}
+
+
+def slice_data(lgbt, n_train, seed=0, max_bin=255, fresh=False):
+    """(Dataset, X, y, Xv, yv, dataset seconds) of ``n_train`` seeded
+    HIGGS-shaped rows and their 200,000-row held-out set, binned at
+    ``max_bin`` once (the seconds are those of that construction); with
+    ``fresh`` binned anew into a Dataset of its own, kept nowhere."""
+    key = (n_train, seed, max_bin)
+    if fresh or key not in SLICE_DATA:
+        rng = np.random.default_rng(seed)
+        X, y, w = synth_higgs(n_train, F, rng)
+        Xv, yv, _ = synth_higgs(200_000, F, rng, w)
+        t0 = time.perf_counter()
+        ds = lgbt.Dataset(X, y, params={"max_bin": max_bin,
+                                        "verbosity": -1})
+        ds.construct()
+        got = (ds, X, y, Xv, yv, time.perf_counter() - t0)
+        if fresh:
+            return got
+        SLICE_DATA[key] = got
+    return SLICE_DATA[key]
+
+
 def train_slice(torch, lgbt, n_train, rounds, device_type=None, seed=0,
-                valid=False, **extra):
+                valid=False, fresh=False, **extra):
     """Train the recipe (updated by ``extra``) on a seeded synthetic set;
     with ``valid`` the held-out set is also a valid set scored on the
-    device each round."""
-    rng = np.random.default_rng(seed)
-    X, y, w = synth_higgs(n_train, F, rng)
-    Xv, yv, _ = synth_higgs(200_000, F, rng, w)
+    device each round.  The set is :func:`slice_data`'s (``fresh``: binned
+    anew for this training); the dataset seconds returned are those of its
+    construction."""
     params = dict(RECIPE, **extra)
     if device_type is not None:
         params["device_type"] = device_type
@@ -2051,11 +2092,8 @@ def train_slice(torch, lgbt, n_train, rounds, device_type=None, seed=0,
             torch.cuda.synchronize()
         stamps.append(time.perf_counter())
 
-    t0 = time.perf_counter()
-    ds = lgbt.Dataset(X, y, params={"max_bin": params["max_bin"],
-                                    "verbosity": -1})
-    ds.construct()
-    t_data = time.perf_counter() - t0
+    ds, _, _, Xv, yv, t_data = slice_data(lgbt, n_train, seed,
+                                          params["max_bin"], fresh)
     t1 = time.perf_counter()
     vs = [ds.create_valid(Xv, yv)] if valid else []
     if valid:
@@ -2075,6 +2113,7 @@ def train_slice(torch, lgbt, n_train, rounds, device_type=None, seed=0,
 
 
 def launch_counts(HK, RF, TB, prng):
+    from lightgbm_tpu_torch.ops import rank as RK
     return {"take_small_table": TB.launches,
             "histogram_leaves": HK.leaves_launches,
             "histogram_leaves_rows": HK.leaves_rows_launches,
@@ -2088,10 +2127,13 @@ def launch_counts(HK, RF, TB, prng):
             "histogram_radix_joint": HK.radix_joint_launches,
             "histogram_leaves_radix2": HK.radix2_launches,
             "histogram_leaves_packed": HK.packed_launches,
+            "lambdarank_grad": RK.launches,
             "threefry_ops": prng.launches}
 
 
 def zero_counts(HK, RF, TB, prng):
+    from lightgbm_tpu_torch.ops import rank as RK
+    RK.launches = 0
     HK.zero_gate_counts()
     TB.launches = RF.launches = RF.select_launches = prng.launches = 0
     RF.table_launches = RF.select_table_launches = 0
@@ -2188,7 +2230,8 @@ SYMBOLS = (
     (("partition_payload_table",), r"partition_kernel<true, \d+, true>"),
     (("partition_select_table",), r"partition_kernel<false, \d+, true>"),
     (("take_small_table",), r"take_kernel"),
-    (("histogram_rows_t",), r"rows_channel"))
+    (("histogram_rows_t",), r"rows_channel"),
+    (("lambdarank_grad",), r"lambdarank_kernel"))
 
 
 def symbol_mismatch(work, booked):
@@ -2218,16 +2261,9 @@ def check_fused(torch, lgbt, classic_sha, HK, RF, TB, prng):
     device AUC within 1e-4 of predict's.  Returns the fused launches of
     the kernels each run's path holds."""
     from lightgbm_tpu_torch.boosting import fused_graph as FG
-    rng = np.random.default_rng(0)
-    X, y, w = synth_higgs(N, F, rng)
-    Xv, yv, _ = synth_higgs(200_000, F, rng, w)
-    data = {}
-    for mb in (255, 63):
-        data[mb] = lgbt.Dataset(X, y, params={"max_bin": mb,
-                                              "verbosity": -1}).construct()
-    X1, y1, _ = synth_higgs(100_000, F, np.random.default_rng(0))
-    data["100k"] = lgbt.Dataset(X1, y1, params={
-        "max_bin": 255, "verbosity": -1}).construct()
+    data = {mb: slice_data(lgbt, N, 0, mb)[0] for mb in (255, 63)}
+    _, _, _, Xv, yv, _ = slice_data(lgbt, N)
+    data["100k"] = slice_data(lgbt, 100_000)[0]
     runs = (("default", 255, 10, {}), ("max_bin=63", 63, 5, {"max_bin": 63}),
             ("pooled", 255, 10, {"histogram_pool_size": 8}),
             ("onehot", "100k", 3, ONEHOT),
@@ -2401,7 +2437,7 @@ def check_fused(torch, lgbt, classic_sha, HK, RF, TB, prng):
     # early stopping with the 200k-row valid set
     res = {}
     for loop in ("fused", "classic"):
-        ds = lgbt.Dataset(X1, y1, params={"max_bin": 255, "verbosity": -1})
+        ds = slice_data(lgbt, 100_000, fresh=True)[0]
         vs = ds.create_valid(Xv, yv)
         from lightgbm_tpu_torch.boosting import gbdt as G
         orig = G.GBDT.supports_fused
@@ -3700,12 +3736,14 @@ N_SCROSS = 100_000
 def pass_groups(work, rounds):
     """ms of device time a round of the masked passes on the bins
     (``masked_cluster`` with row source 0, the root pass included), the
-    compacted payload passes (row source 2), the fused partition and the
-    rest."""
+    compacted payload passes (row source 2), the fused partition, the
+    lambdarank gradients and the rest."""
     groups = collections.Counter()
     for nm, cnt, us in work:
-        if re.search(r"masked_cluster<\d+, \d+, 0, |radix_single_cluster",
-                     nm):
+        if "lambdarank_kernel" in nm:
+            key = "rank gradients"
+        elif re.search(r"masked_cluster<\d+, \d+, 0, |radix_single_cluster",
+                       nm):
             key = "masked passes"
         elif re.search(r"masked_cluster<\d+, \d+, 2, ", nm):
             key = "payload passes"
@@ -3717,24 +3755,41 @@ def pass_groups(work, rounds):
     return {k: round(v, 4) for k, v in sorted(groups.items())}
 
 
+#: spin kernels that open profiled_chunk's window (~50 us each)
+PREROLL_SPINS = 500
+
+
 def profiled_chunk(torch, g, what, HK, RF, TB, prng, rounds=10):
     """A fused chunk of ``rounds`` rounds of booster ``g`` under the
     profiler (its device work grouped by :func:`pass_groups`, the wrappers'
-    launches held against the profiler's kernels), then a chunk that must
-    allocate nothing outside the graph's pool.  Returns the groups."""
+    launches held against the profiler's kernels; the window opens with
+    PREROLL_SPINS spin kernels, and a chunk whose kernel records disagree
+    with the wrappers is measured again, up to 3 chunks, as CUPTI now and
+    then loses records: the disagreeing chunks are printed), then a chunk
+    that must allocate nothing outside the graph's pool.  Returns the
+    groups."""
     from torch.profiler import ProfilerActivity, profile
+    lost = []
     for attempt in range(3):
         zero_counts(HK, RF, TB, prng)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            # CUPTI has been seen to drop the first records of a window
+            # (143 of them, ~3 ms, in a phase-11 chunk): the window opens
+            # with 25 ms of spin kernels, left out of the work below
+            for _ in range(PREROLL_SPINS):
+                torch.cuda._sleep(100_000)
+            torch.cuda.synchronize()
             g.train_fused(rounds)
             torch.cuda.synchronize()
         work = profiler_work(prof, f"{what} profile")
         if work is None:
             fail(f"{what} profile: not measured")
+        work = [w for w in work if "spin_kernel" not in w[0]]
         bad = symbol_mismatch(work, launch_counts(HK, RF, TB, prng))
         if not bad:
             break
+        lost.append(bad)
     else:
         fail(f"{what} profile: wrapper launches vs the profiler's {bad}")
     groups = pass_groups(work, rounds)
@@ -3750,7 +3805,8 @@ def profiled_chunk(torch, g, what, HK, RF, TB, prng, rounds=10):
           f"{sum(c for _, c, _ in work) / rounds:.1f} launches a round, "
           f"gated passes that did work a round {json.dumps(on)}; a chunk "
           f"of {rounds} replays allocated {mem1 - mem0} bytes outside the "
-          f"graph's pool", flush=True)
+          f"graph's pool; chunks measured again after a lost record "
+          f"(profiler, wrappers): {lost}", flush=True)
     if mem1 != mem0:
         fail(f"{what}: a fused chunk allocated device memory outside the "
              f"graph's pool")
@@ -3880,11 +3936,7 @@ def check_sampling(torch, lgbt, HK, RF, TB, prng):
     from lightgbm_tpu_torch.models.predict import predict_bins_tree
     t_phase = time.perf_counter()
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-    rng = np.random.default_rng(0)
-    X, y, w = synth_higgs(N, F, rng)
-    Xv, yv, _ = synth_higgs(200_000, F, rng, w)
-    ds = lgbt.Dataset(X, y, params={"max_bin": 255,
-                                    "verbosity": -1}).construct()
+    ds, X, y, Xv, yv, _ = slice_data(lgbt, N)
 
     plain, per_0, _, peak_0 = fused_train(torch, lgbt, ds, 10)
     per_0c = fused_train(torch, lgbt, ds, 10, classic=True)[1]
@@ -4429,6 +4481,350 @@ def check_objectives(torch, lgbt, HK, RF, TB, prng):
     return counts
 
 
+# ---- phase 11: learning to rank
+
+#: MSLR-WEB30K Fold 1's shape: 2,270,296 training documents in 18,919
+#: queries, 136 features, relevance labels 0-4; its validation fold has
+#: 6,306 queries
+N_MSLR, Q_MSLR, F_MSLR, Q_MSLR_VALID = 2_270_296, 18_919, 136, 6_306
+#: the longest MSLR-WEB30K query and the mean length
+Q_MSLR_MAX, Q_MSLR_MEAN = 1251, 120
+#: shares of the labels 0-4 (about MSLR-WEB30K's)
+MSLR_LABELS = (0.514, 0.325, 0.134, 0.019, 0.008)
+#: the phase's lambdarank: the objective's defaults (truncation 30,
+#: lambdarank_norm), 255 leaves, learning rate 0.1, NDCG at 1, 3, 5, 10
+RANK = dict(objective="lambdarank", num_leaves=255, max_bin=255,
+            learning_rate=0.1, metric="ndcg", eval_at=[1, 3, 5, 10],
+            verbosity=-1)
+#: the rank kernel against its plain version: max |kernel - plain| over
+#: the largest |plain| value, for grad and hess (float32 sums of up to
+#: ~Q terms in another order, and the card's exp / log2 where PyTorch's
+#: own kernels use theirs)
+RANK_TOL = 1e-5
+
+
+def mslr_sizes(nq, total, rng):
+    """``nq`` lognormal query lengths (mean ~120), clipped to [1, 1251],
+    summing to ``total`` (documents added to or taken from queries drawn
+    at random)."""
+    mu = np.log(Q_MSLR_MEAN) - 0.18
+    sizes = np.clip(np.round(rng.lognormal(mu, 0.6, nq)), 1,
+                    Q_MSLR_MAX).astype(np.int64)
+    while sizes.sum() != total:
+        d = total - int(sizes.sum())
+        idx = rng.integers(0, nq, abs(d))
+        np.add.at(sizes, idx, np.sign(d))
+        sizes = np.clip(sizes, 1, Q_MSLR_MAX)
+    return sizes
+
+
+def synth_mslr(sizes, rng, w=None):
+    """MSLR-WEB30K-shaped data: 136 features from standard-normal latent
+    values, the even columns as integer counts (floor(exp(1.5 + v)), as
+    MSLR's term counts and stream lengths) and the odd ones as scores
+    rounded to two decimals (MSLR's features have a few significant
+    digits; both keep the host's binning to seconds), a relevance signal
+    on 40 latent values plus a query effect and noise, cut into the labels
+    0-4 at MSLR's shares; positions are each document's displayed slot
+    (its index in the query), clipped at 29."""
+    n = int(sizes.sum())
+    if w is None:
+        w = np.zeros(F_MSLR, np.float32)
+        w[rng.permutation(F_MSLR)[:40]] = rng.normal(size=40)
+    V = rng.standard_normal((n, F_MSLR), dtype=np.float32)
+    z = V @ w * 0.3 + np.repeat(rng.normal(size=len(sizes)), sizes) * 0.5 \
+        + rng.normal(size=n)
+    y = np.digitize(z, np.quantile(z, np.cumsum(MSLR_LABELS)[:-1])) \
+        .astype(np.float32)
+    X = np.round(V, 2)
+    X[:, 0::2] = np.floor(np.exp(1.5 + V[:, 0::2]))
+    starts = np.repeat(np.cumsum(sizes) - sizes, sizes)
+    pos = np.minimum(np.arange(n) - starts, 29).astype(np.int32)
+    return X, y, pos, w
+
+
+def rank_pair_work(score, label, bounds, trunc):
+    """(pairs, sort compares) of a lambdarank call on these scores: the
+    pairs of sorted positions a < b, a < min(trunc, Q), whose labels
+    differ (the kernel's arithmetic runs on those only), and sum Q log2 Q
+    over the queries."""
+    pairs, sort_ops = 0, 0.0
+    for q in range(len(bounds) - 1):
+        s, e = int(bounds[q]), int(bounds[q + 1])
+        Q = e - s
+        if Q < 2:
+            continue
+        lab = label[s:e][np.argsort(-score[s:e], kind="stable")]
+        T = min(trunc, Q)
+        pairs += int(np.triu(lab[:T, None] != lab[None, :], 1).sum())
+        sort_ops += Q * np.log2(Q)
+    return pairs, sort_ops
+
+
+def rank_kernel_vs_plain(torch, RK, score, obj, what, flush=None):
+    """The rank kernel against its plain version on ``obj``'s tables and
+    ``score``: max |difference| over the largest |plain value| of grad and
+    hess (must stay under RANK_TOL), the same bits on a second call, one
+    launch a call; with ``flush``, also its one-call ms, device ms and the
+    plain version's ms.  Returns (max |difference|, relative error,
+    timings or None)."""
+    cfg = obj.config
+    kw = dict(sigmoid=float(cfg.sigmoid),
+              trunc=int(cfg.lambdarank_truncation_level),
+              norm=bool(cfg.lambdarank_norm))
+    args = (score, obj._label, obj._gain_of_doc, obj._plan, obj._weight)
+    before = RK.launches
+    g, h = RK.lambdarank_gradients(*args, **kw)
+    g2, h2 = RK.lambdarank_gradients(*args, **kw)
+    if RK.launches - before != 2:
+        fail(f"{what}: {RK.launches - before} kernel launches in 2 calls")
+    gp, hp = RK.lambdarank_gradients_plain(*args, **kw)
+    torch.cuda.synchronize()
+    if not (torch.equal(g, g2) and torch.equal(h, h2)):
+        fail(f"{what}: two kernel calls gave different bits")
+    errs, abs_err = [], 0.0
+    for got, want in ((g, gp), (h, hp)):
+        top = float(want.abs().max())
+        err = float((got - want).abs().max())
+        abs_err = max(abs_err, err)
+        errs.append(err / top if top > 0 else err)
+        if not bool(torch.isfinite(got).all()):
+            fail(f"{what}: non-finite kernel values")
+    rel = max(errs)
+    if rel > RANK_TOL:
+        fail(f"{what}: kernel vs plain {errs} of the largest |value| "
+             f"(tolerance {RANK_TOL})")
+    if flush is None:
+        return abs_err, rel, None
+    fn = lambda: RK.lambdarank_gradients(*args, **kw)  # noqa: E731
+    nl, dms = device_per_call(torch, fn)
+    if nl != 1:
+        fail(f"{what}: {nl} launches a call")
+    ms = time_ms(torch, fn, flush)
+    pms = time_ms(torch, lambda: RK.lambdarank_gradients_plain(*args, **kw),
+                  flush, reps=3)
+    return abs_err, rel, (ms, dms, pms)
+
+
+def rank_fixture(torch, rng, weighted, norm, dev="cuda"):
+    """The skewed fixture's lambdarank objective on the card: 300
+    lognormal query lengths, a query of length 1, one whose labels are
+    all equal (inverse max DCG 0), one of 3,000 documents (longer than
+    the kernel's shared-memory staging); random labels 0-4, weights or
+    none, ``lambdarank_norm`` on or off.  Returns (objective, scores)."""
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.io.dataset import Metadata
+    from lightgbm_tpu_torch.objectives import create_objective
+    from lightgbm_tpu_torch.ops.rank import KERNEL_STAGE_DOCS
+    sizes = np.concatenate([np.clip(np.round(rng.lognormal(3.5, 1.0, 300)),
+                                    2, 900).astype(np.int64),
+                            [1, 40, KERNEL_STAGE_DOCS + 952]])
+    n = int(sizes.sum())
+    y = rng.integers(0, 5, n).astype(np.float32)
+    s = int(sizes[:-2].sum())
+    y[s:s + 40] = 2.0
+    md = Metadata(n)
+    md.set_label(y)
+    md.set_group(sizes)
+    if weighted:
+        md.set_weight(rng.uniform(0.5, 1.5, n).astype(np.float32))
+    obj = create_objective(Config(dict(objective="lambdarank",
+                                       lambdarank_norm=norm)))
+    obj.init(md, n, torch.device(dev))
+    # rounded scores: ties inside queries
+    score = torch.as_tensor(np.round(rng.normal(size=n), 1)
+                            .astype(np.float32), device=dev)
+    return obj, score
+
+
+def rank_train(torch, lgbt, ds, vs, rounds, fused=True, **extra):
+    """``train()`` of RANK (updated by ``extra``) on ``ds`` with the valid
+    set ``vs`` and record_evaluation, through the fused loop (``fused``)
+    or the classic loop, which the configuration must take by itself:
+    (booster, recorded valid metrics, s/round, train() wall s, peak MiB).
+    s/round: the fused loop's chunk walls over their rounds (capture left
+    out), the classic loop's rounds 2.. (a clock after each round)."""
+    rec, stamps = {}, []
+    cbs = [lgbt.record_evaluation(rec)]
+    params = dict(RANK, **extra)
+
+    def clock(env):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+    if not fused:
+        cbs.append(clock)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    bst = lgbt.train(params, ds, num_boost_round=rounds, valid_sets=[vs],
+                     valid_names=["v"], callbacks=cbs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    frs = list(bst._gbdt._fused_cache.values())
+    if fused != bool(frs):
+        fail(f"ranking ({params['objective']}): the fused loop ran "
+             f"{bool(frs)}, expected {fused}")
+    if fused:
+        per = (sum(w for w, _ in frs[0].walls)
+               / sum(r for _, r in frs[0].walls))
+    else:
+        per = float(np.mean(np.diff([t0] + stamps)[1:]))
+    return bst, rec["v"], per, wall, peak
+
+
+def check_ranking(torch, lgbt, HK, RF, TB, prng):
+    """Phase 11: learning to rank on 2,270,296 synthetic documents of
+    MSLR-WEB30K Fold 1's shape (18,919 queries, 136 features, labels 0-4)
+    with a valid set of 6,306 queries.  (a) lambdarank at its defaults,
+    255 leaves, 10 rounds through the fused loop with ndcg@1,3,5,10 of
+    the valid set inside the round, twice to the same text: s/round,
+    capture seconds, peak memory, the kernels' launches a tree (counts
+    zeroed just before, read just after), the round's device values
+    against the host's float64 NDCG of the valid scores; a profiled chunk
+    of 10 rounds (the rank kernel against the passes); (b) the rank kernel
+    against its plain version on the booster's real scores (timed) and
+    on the skewed fixture (a query of length 1, one of equal labels, one
+    past the shared-memory staging; weights; norm on and off); (c)
+    rank_xendcg and position-debiased lambdarank (displayed slots 0-29),
+    3 rounds each through the classic loop.  Returns (the kernels-line
+    row of the rank kernel, the fused run's launch counts)."""
+    from lightgbm_tpu_torch.ops import rank as RK
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(15)
+    sizes = mslr_sizes(Q_MSLR, N_MSLR, rng)
+    X, y, pos, w = synth_mslr(sizes, rng)
+    vsizes = mslr_sizes(Q_MSLR_VALID, int(Q_MSLR_VALID * Q_MSLR_MEAN), rng)
+    Xv, yv, _, _ = synth_mslr(vsizes, rng, w)
+    t0 = time.perf_counter()
+    ds = lgbt.Dataset(X, y, group=sizes, params={"max_bin": 255,
+                                                 "verbosity": -1})
+    vs = ds.create_valid(Xv, yv, group=vsizes)
+    ds.construct()
+    vs.construct()
+    t_ds = time.perf_counter() - t0
+    n, nv = len(y), len(yv)
+    print(f"ranking data (MSLR-WEB30K Fold 1 shape): {n:,} documents in "
+          f"{len(sizes):,} queries (length mean {sizes.mean():.1f}, max "
+          f"{sizes.max()}), {F_MSLR} features, labels "
+          f"{np.bincount(y.astype(int)).tolist()}; valid {nv:,} in "
+          f"{len(vsizes):,} queries; datasets {t_ds:.2f} s", flush=True)
+
+    # (a) lambdarank through the fused loop, twice
+    zero_counts(HK, RF, TB, prng)
+    bst, ev, per, wall, peak = rank_train(torch, lgbt, ds, vs, 10)
+    counts = launch_counts(HK, RF, TB, prng)
+    g = bst._gbdt
+    fr = next(iter(g._fused_cache.values()))
+    if len(g.models) != 10 or counts["lambdarank_grad"] < 10:
+        fail(f"lambdarank fused run: {len(g.models)} trees, launches "
+             f"{counts}")
+    text = bst.model_to_string()
+    again, ev2, *_ = rank_train(torch, lgbt, ds, vs, 10)
+    if again.model_to_string() != text or ev2 != ev:
+        fail("lambdarank: two fused card trainings gave different text or "
+             "evaluations")
+    del again
+    host = g.valid_metrics[0][0].eval(g._host_scores(g.valid_scores[0]))
+    for name, val in host:
+        if not np.isclose(ev[name][-1], val, rtol=1e-5, atol=1e-6):
+            fail(f"lambdarank: {name} in the round {ev[name][-1]} vs the "
+                 f"host's float64 {val}")
+    per_tree = {k: round(v / 10, 2) for k, v in counts.items() if v}
+    last = " / ".join(f"{ev['ndcg@%d' % k][-1]:.6f}" for k in (1, 3, 5, 10))
+    print(f"lambdarank ({n:,} x {F_MSLR}, 255 leaves, 10 rounds, fused, "
+          f"valid NDCG in the round): s/round {per:.5f}, train() "
+          f"{wall:.3f} s, warm-up round and capture {fr.capture_s:.3f} s, "
+          f"peak {peak:.1f} MiB; launches a replay "
+          f"{json.dumps({k: sum(v) for k, v in fr.graph_launches.items()})}"
+          f"; valid ndcg@1/3/5/10 {last}"
+          f" (round 1: {ev['ndcg@10'][0]:.6f} at 10); the last round's "
+          f"values within 1e-5 of the host's float64; two runs "
+          f"byte-identical", flush=True)
+    print("lambdarank kernel launches a tree: " + json.dumps(per_tree),
+          flush=True)
+    print(f"model text sha256 (lambdarank, MSLR shape, 10 rounds): "
+          f"{text_sha256(bst)}", flush=True)
+    # 10 rounds: the chunk length of the run above, so the window replays
+    # its graphs (no warm-up round or capture inside it)
+    profiled_chunk(torch, g, "lambdarank", HK, RF, TB, prng, rounds=10)
+
+    # (b) the kernel against its plain version: the booster's scores
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    score = g.scores[:, 0].contiguous()
+    abs_err, rel, (ms, dms, pms) = rank_kernel_vs_plain(
+        torch, RK, score, g.objective, "rank kernel (MSLR shape)", flush)
+    sc_h = score.cpu().numpy()
+    bounds = np.asarray(ds.inner.metadata.query_boundaries)
+    pairs, sort_ops = rank_pair_work(sc_h, y, bounds, 30)
+    nbytes = 20 * n + 8 * len(sizes) + 4
+    bnd, by = bound_ms(nbytes, 25 * pairs + float(sort_ops))
+    print(f"kernel lambdarank_grad ({n:,} documents, {len(sizes):,} "
+          f"queries, truncation 30, norm, the booster's scores after "
+          f"{g.iter_} rounds): ms={ms:.4f} device_ms={dms} plain_ms={pms:.4f} "
+          f"bound_ms={bnd:.4f} ({by}: {pairs:,} pairs with different "
+          f"labels x 25 operations + {sort_ops:,.0f} sort compares, "
+          f"{nbytes:,} bytes); max |kernel - plain| {abs_err:.3e}, "
+          f"{rel:.2e} of the largest |value|; the same bits twice; one "
+          f"launch a call",
+          flush=True)
+    frng = np.random.default_rng(16)
+    errs = {}
+    for weighted in (False, True):
+        for norm in (True, False):
+            obj, sc = rank_fixture(torch, frng, weighted, norm)
+            errs[f"weights={weighted},norm={norm}"] = rank_kernel_vs_plain(
+                torch, RK, sc, obj, f"rank kernel (skewed fixture, "
+                f"weights={weighted}, norm={norm})")[1]
+    print(f"rank kernel, skewed fixture ({obj._plan.bounds.shape[0] - 1} "
+          f"queries: length 1, equal labels, {obj._plan.qmax} documents "
+          f"past the {RK.KERNEL_STAGE_DOCS}-document staging): max "
+          f"|kernel - plain| of the largest |value| "
+          f"{json.dumps({k: float(f'{v:.3g}') for k, v in errs.items()})}",
+          flush=True)
+    del bst, g, fr
+    RK.launches = 0
+
+    # (c) rank_xendcg and position-debiased lambdarank, classic loop
+    md = ds.inner.metadata
+    for what, position, extra in (
+            ("rank_xendcg", None, dict(objective="rank_xendcg")),
+            ("lambdarank, position-debiased", pos, {})):
+        # the binned set takes the positions (Dataset(position=...) sets
+        # the same metadata; binning 2.27M x 136 again would cost a minute)
+        md.set_position(position)
+        b, ev, per, wall, _ = rank_train(torch, lgbt, ds, vs, 3,
+                                         fused=False, **extra)
+        md.set_position(None)
+        gb = b._gbdt
+        if gb.supports_fused() or len(gb.models) != 3:
+            fail(f"{what}: fused admitted {gb.supports_fused()}, "
+                 f"{len(gb.models)} trees")
+        p = b.predict(Xv[:10_000])
+        if p.shape != (min(nv, 10_000),) or not np.isfinite(p).all():
+            fail(f"{what}: predict gave {p.shape} / non-finite values")
+        bias = ""
+        if position is not None:
+            bv = gb.objective._pos_biases.cpu().numpy()
+            if not np.isfinite(bv).all() or not np.abs(bv).max() > 0:
+                fail(f"{what}: position biases {bv}")
+            bias = (f"; position biases (slots 0, 1, 29) "
+                    f"{bv[0]:.5f} / {bv[1]:.5f} / {bv[-1]:.5f}")
+        print(f"{what} ({n:,} x {F_MSLR}, 3 rounds, classic): s/round "
+              f"{per:.5f}, train() {wall:.2f} s; valid ndcg@10 "
+              f"{ev['ndcg@10'][-1]:.6f}{bias}", flush=True)
+        del b, gb
+    del ds, vs
+    print(f"phase 11: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    row = dict(name="lambdarank_grad", route="cuda",
+               source="lightgbm_tpu_torch/csrc/rank.cu",
+               replaces="lightgbm_tpu/objectives.py:585",
+               launches=counts["lambdarank_grad"], max_abs_err=abs_err,
+               ms=ms,
+               plain_ms=pms, bound_ms=bnd, bound_by=by, library_ms=None)
+    return row, counts
+
+
 def load_other(root):
     """The port package of another checkout (``root``/lightgbm_tpu_torch),
     imported as ``lgbt_other`` beside this one; its kernels build into its
@@ -4871,7 +5267,8 @@ def main():
     if not auc_d > 0.7:
         fail(f"deterministic held-out AUC {auc_d} is not that of a trained "
              f"model")
-    d_again, *_ = train_slice(torch, lgbt, N, 5, deterministic=True)
+    d_again, *_ = train_slice(torch, lgbt, N, 5, deterministic=True,
+                              fresh=True)
     if d_again.model_to_string() != bst.model_to_string():
         fail("two card trainings with deterministic=true gave different "
              "model text")
@@ -4883,9 +5280,9 @@ def main():
 
     # ---- 4. cross-check: card vs CPU plain versions, and card vs card
     b_gpu, auc_gpu, *_ = train_slice(torch, lgbt, 100_000, 5, seed=1,
-                                     valid=True)
+                                     valid=True, fresh=True)
     b_cpu, auc_cpu, *_ = train_slice(torch, lgbt, 100_000, 5, "cpu", seed=1,
-                                     valid=True)
+                                     valid=True, fresh=True)
     t_g, t_c = b_gpu._gbdt.models[0], b_cpu._gbdt.models[0]
     if not (t_g.num_leaves == t_c.num_leaves
             and np.array_equal(t_g.split_feature, t_c.split_feature)
@@ -4895,7 +5292,8 @@ def main():
           f"AUC card {auc_gpu:.6f} cpu {auc_cpu:.6f}", flush=True)
     if abs(auc_gpu - auc_cpu) > 1e-3:
         fail(f"AUC card {auc_gpu} vs cpu {auc_cpu} differ by more than 1e-3")
-    b_again, *_ = train_slice(torch, lgbt, 100_000, 5, seed=1, valid=True)
+    b_again, *_ = train_slice(torch, lgbt, 100_000, 5, seed=1, valid=True,
+                              fresh=True)
     if b_again.model_to_string() != b_gpu.model_to_string():
         fail("two card trainings gave different model text")
     print("cross-check: two card trainings gave byte-identical model text",
@@ -4912,7 +5310,7 @@ def main():
           f"{t_c.num_leaves - 1}", flush=True)
     if abs(a_gpu - a_cpu) > 1e-3:
         fail(f"strict AUC card {a_gpu} vs cpu {a_cpu}: more than 1e-3")
-    s_again, *_ = train_slice(torch, lgbt, 50_000, 3, seed=1)
+    s_again, *_ = train_slice(torch, lgbt, 50_000, 3, seed=1, fresh=True)
     if s_again.model_to_string() != s_gpu.model_to_string():
         fail("two card trainings of the strict default (float32) gave "
              "different model text")
@@ -4963,6 +5361,14 @@ def main():
     mc_launches = check_objectives(torch, lgbt, HK, RF, TB, prng)
     print("phase 10 kernels (multiclass, Covertype shape, 70 trees, "
           "fused): " + json.dumps(mc_launches), flush=True)
+
+    # ---- 11. learning to rank: the rank kernel's launches are the fused
+    # lambdarank run's (zeroed just before, read just after); the other
+    # kernels' rows keep their earlier phases' counts
+    rank_row, rank_launches = check_ranking(torch, lgbt, HK, RF, TB, prng)
+    rows.append(rank_row)
+    print("phase 11 kernels (lambdarank, MSLR shape, 10 trees, fused): "
+          + json.dumps(rank_launches), flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_script:.1f} s in all, the "
           f"kernel build {build_s:.1f} s of it", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -109,7 +109,7 @@ class Dataset:
                  feature_name: Union[str, List[str], None] = "auto",
                  categorical_feature: Union[str, List, None] = "auto",
                  params: Optional[Dict[str, Any]] = None,
-                 free_raw_data: bool = True):
+                 free_raw_data: bool = True, position=None):
         self.data = data
         self.label = label
         self.reference = reference
@@ -120,6 +120,7 @@ class Dataset:
         self.categorical_feature = categorical_feature
         self.params = dict(params or {})
         self.free_raw_data = free_raw_data
+        self.position = position
         self._inner: Optional[_InnerDataset] = None
 
     def construct(self) -> "Dataset":
@@ -144,6 +145,8 @@ class Dataset:
             self.data, label=self.label, config=cfg, weight=self.weight,
             group=self.group, init_score=self.init_score, feature_names=fn,
             categorical_feature=cat, reference=ref_inner)
+        if self.position is not None:
+            self._inner.metadata.set_position(self.position)
         if self.free_raw_data:
             self.data = None
         return self

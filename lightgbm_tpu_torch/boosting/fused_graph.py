@@ -63,7 +63,7 @@ import torch
 
 from ..learner.batch_grower import BatchedTree, full_width_rounds
 from ..learner.grower import TreeArrays
-from ..ops import hist_kernels, prng, round_fuse, table
+from ..ops import hist_kernels, prng, rank, round_fuse, table
 from ..ops.quantize import discretize_gradients_levels, renew_leaf_values
 from ..ops.table import take_small_table
 from ..utils import log
@@ -93,6 +93,7 @@ _COUNTERS = ((table, "launches"), (round_fuse, "launches"),
              (round_fuse, "select_launches"),
              (round_fuse, "table_launches"),
              (round_fuse, "select_table_launches"), (prng, "launches"),
+             (rank, "launches"),
              *((hist_kernels, a) for a in (
                  "leaves_launches", "leaves_rows_launches",
                  "payload_launches", "radix_single_launches",

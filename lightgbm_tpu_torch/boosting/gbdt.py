@@ -500,10 +500,13 @@ class GBDT:
         (``train_fused``): the JAX package's gate reduced to what the port
         trains.  Plain and pos/neg bagging and GOSS draw inside the round
         (``device_sample_fn``); by-query bagging, RF, DART and the strict
-        learner keep the classic loop, as in the JAX package."""
+        learner keep the classic loop, as in the JAX package; so do the
+        objectives whose calls change their state (``jit_safe``:
+        rank_xendcg, position-debiased lambdarank)."""
         return (type(self) is GBDT
                 and self.objective is not None
                 and not self.objective.need_renew_tree_output
+                and self.objective.jit_safe
                 and not bool(self.config.tpu_debug_checks)
                 and (not self.valid_sets or self.fused_valid_ok())
                 and (self._sampling_is_noop()

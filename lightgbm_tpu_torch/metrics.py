@@ -1,9 +1,8 @@
 """Evaluation metrics: on the device in float32, or on the host in float64.
 
-Counterpart of ``lightgbm_tpu/metrics.py`` for every metric but the ranking
-ones (reference regression_metric.hpp, binary_metric.hpp,
-multiclass_metric.hpp, xentropy_metric.hpp), with the JAX package's two
-paths:
+Counterpart of ``lightgbm_tpu/metrics.py`` (reference regression_metric.hpp,
+binary_metric.hpp, multiclass_metric.hpp, rank_metric.hpp, map_metric.hpp,
+xentropy_metric.hpp), with the JAX package's two paths:
 
 - **device** (:meth:`Metric.eval_device_traced`): plain PyTorch reductions
   on the scores' device returning a float32 ``[M]`` tensor with no host
@@ -14,8 +13,12 @@ paths:
   package's, used when ``tpu_device_eval=false`` or
   ``deterministic=true``.
 
-Other metrics are not ported yet and are skipped with a warning, as
-unknown metric names are.
+``ndcg`` evaluates on the device over the query buckets of ops/rank.py (a
+stable sort a bucket, made canonical with ``+ 0.0``; every table made at
+the first call, the fused loop's warm-up round, so nothing is copied
+inside a captured round); ``map`` has no device path, as in the JAX
+package, so a ``map`` valid set keeps the classic loop.  Unknown metric
+names are skipped with a warning.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch
 
 from .config import Config
 from .io.dataset import Metadata
+from .ops.rank import rank_plan
 from .utils import log
 
 
@@ -452,6 +456,151 @@ class AucMuMetric(Metric):
         return [(self.NAME, float(np.mean(aucs)) if aucs else 1.0)]
 
 
+# ---------------------------------------------------------------- ranking
+def _dcg_at_k(labels: np.ndarray, order: np.ndarray, k: int,
+              label_gain: np.ndarray) -> float:
+    top = order[:k]
+    gains = label_gain[labels[top].astype(int)]
+    return float(np.sum(gains / np.log2(np.arange(2, len(top) + 2))))
+
+
+def _dev_ndcg_sums(ks: Sequence[int], score: torch.Tensor,
+                   safe: torch.Tensor, valid: torch.Tensor,
+                   gain_doc: torch.Tensor, idcgs: torch.Tensor,
+                   disc: torch.Tensor) -> torch.Tensor:
+    """Per-k NDCG sums over one query-length bucket's queries, f32
+    [len(ks)] (the JAX package's ``_dev_ndcg_sums``): ``safe`` i64 [nq_b,
+    Q] doc indices (pads 0) and ``valid`` bool [nq_b, Q], ``idcgs`` f32
+    [len(ks), nq_b], ``disc`` f32 [Q]."""
+    ninf = torch.full((), -np.inf, dtype=score.dtype, device=score.device)
+    zero = torch.zeros((), dtype=score.dtype, device=score.device)
+    sc = torch.where(valid, score[safe], ninf)
+    order = torch.argsort(-sc + 0.0, dim=1, stable=True)
+    g = torch.where(valid, gain_doc[safe], zero)
+    g_srt = g.gather(1, order)
+    out = []
+    for i, k in enumerate(ks):
+        kk = min(k, sc.shape[1])
+        dcg = (g_srt[:, :kk] * disc[None, :kk]).sum(dim=1)
+        idcg = idcgs[i]
+        out.append(torch.where(idcg > 0,
+                               dcg / torch.clamp_min(idcg, 1e-30),
+                               torch.ones_like(dcg)).sum())
+    return torch.stack(out)
+
+
+class NDCGMetric(Metric):
+    """reference rank_metric.hpp NDCGMetric + dcg_calculator.cpp."""
+    NAME = "ndcg"
+    bigger_is_better = True
+
+    def init(self, metadata, num_data):
+        super().init(metadata, num_data)
+        if metadata.query_boundaries is None:
+            log.fatal("NDCG metric requires query information")
+        self.bounds = metadata.query_boundaries
+        mx = int(self.label.max()) + 1 if len(self.label) else 1
+        gains = self.config.label_gain or [float((1 << i) - 1)
+                                           for i in range(max(mx, 31))]
+        self.label_gain = np.asarray(gains, np.float64)
+        self.ks = list(self.config.eval_at)
+        self._rank_dev = None
+
+    def eval(self, score, objective=None):
+        res = {k: [] for k in self.ks}
+        qw = []
+        for qi in range(len(self.bounds) - 1):
+            s, e = self.bounds[qi], self.bounds[qi + 1]
+            lbl = self.label[s:e]
+            sc = score[s:e]
+            order = np.argsort(-sc, kind="mergesort")
+            ideal = np.argsort(-lbl, kind="mergesort")
+            qw.append(1.0)
+            for k in self.ks:
+                idcg = _dcg_at_k(lbl, ideal, k, self.label_gain)
+                if idcg <= 0:
+                    res[k].append(1.0)
+                else:
+                    res[k].append(_dcg_at_k(lbl, order, k, self.label_gain)
+                                  / idcg)
+        return [(f"ndcg@{k}", float(np.average(res[k], weights=qw)))
+                for k in self.ks]
+
+    def display_names(self):
+        return [f"ndcg@{k}" for k in self.ks]
+
+    def _rank_tables(self, dev: torch.device):
+        """Each bucket's (safe, valid, idcgs, disc) and the documents'
+        gains on ``dev``, made once."""
+        if self._rank_dev is not None and self._rank_dev[0] == dev:
+            return self._rank_dev[1:]
+        plan = rank_plan(np.asarray(self.bounds),
+                         self.config.rank_query_buckets, dev)
+        gain_dev = torch.as_tensor(
+            self.label_gain[self.label.astype(int)].astype(np.float32),
+            device=dev)
+        nq = len(self.bounds) - 1
+        idcgs = np.zeros((len(self.ks), nq), np.float32)
+        for qi in range(nq):
+            s, e = self.bounds[qi], self.bounds[qi + 1]
+            lbl = self.label[s:e]
+            ideal = np.argsort(-lbl, kind="mergesort")
+            for i, k in enumerate(self.ks):
+                idcgs[i, qi] = _dcg_at_k(lbl, ideal, k, self.label_gain)
+        tabs = [(b.safe, b.valid,
+                 torch.as_tensor(idcgs[:, b.qids], device=dev),
+                 torch.as_tensor((1.0 / np.log2(np.arange(max(b.cap, 1))
+                                                + 2.0)).astype(np.float32),
+                                 device=dev))
+                for b in plan.buckets]
+        self._rank_dev = (dev, tabs, gain_dev)
+        return tabs, gain_dev
+
+    def eval_device_traced(self, score_dev, objective=None):
+        """The bucket sums of :func:`_dev_ndcg_sums` over the number of
+        queries."""
+        tabs, gain_dev = self._rank_tables(score_dev.device)
+        total = None
+        for safe, valid, idcgs, disc in tabs:
+            part = _dev_ndcg_sums(self.ks, score_dev, safe, valid, gain_dev,
+                                  idcgs, disc)
+            total = part if total is None else total + part
+        return total / (len(self.bounds) - 1)
+
+
+class MapMetric(Metric):
+    """reference map_metric.hpp MapMetric (host only, as in the JAX
+    package)."""
+    NAME = "map"
+    bigger_is_better = True
+
+    def init(self, metadata, num_data):
+        super().init(metadata, num_data)
+        if metadata.query_boundaries is None:
+            log.fatal("MAP metric requires query information")
+        self.bounds = metadata.query_boundaries
+        self.ks = list(self.config.eval_at)
+
+    def eval(self, score, objective=None):
+        res = {k: [] for k in self.ks}
+        for qi in range(len(self.bounds) - 1):
+            s, e = self.bounds[qi], self.bounds[qi + 1]
+            rel = (self.label[s:e] > 0).astype(np.float64)
+            order = np.argsort(-score[s:e], kind="mergesort")
+            rel_sorted = rel[order]
+            hits = np.cumsum(rel_sorted)
+            prec = hits / np.arange(1, len(rel_sorted) + 1)
+            for k in self.ks:
+                topk = slice(0, k)
+                denom = min(k, int(rel.sum())) or 1
+                ap = np.sum(prec[topk] * rel_sorted[topk]) / denom
+                res[k].append(ap if rel.sum() > 0 else 1.0)
+        return [(f"map@{k}", float(np.mean(res[k]))) for k in self.ks]
+
+    def display_names(self):
+        return [f"map@{k}" for k in self.ks]
+
+
 # --------------------------------------------------------------- xentropy
 class CrossEntropyMetric(Metric):
     NAME = "cross_entropy"
@@ -495,6 +644,7 @@ _METRICS = {
     "auc": AUCMetric, "average_precision": AveragePrecisionMetric,
     "multi_logloss": MultiLoglossMetric, "multi_error": MultiErrorMetric,
     "auc_mu": AucMuMetric,
+    "ndcg": NDCGMetric, "map": MapMetric,
     "cross_entropy": CrossEntropyMetric,
     "cross_entropy_lambda": CrossEntropyLambdaMetric,
     "kullback_leibler": KLDivergenceMetric,
@@ -508,6 +658,7 @@ _DEFAULT_METRIC_FOR_OBJECTIVE = {
     "multiclass": "multi_logloss", "multiclassova": "multi_logloss",
     "cross_entropy": "cross_entropy",
     "cross_entropy_lambda": "cross_entropy_lambda",
+    "lambdarank": "ndcg", "rank_xendcg": "ndcg",
 }
 
 
@@ -524,8 +675,7 @@ def create_metrics(config: Config) -> List[Metric]:
             continue
         cls = _METRICS.get(nm)
         if cls is None:
-            log.warning(f"metric {nm} is not supported by lightgbm_tpu_torch "
-                        "yet; skipped")
+            log.warning(f"Unknown metric: {nm}")
             continue
         out.append(cls(config))
     return out

@@ -9,8 +9,18 @@ order (``sigmoid`` and ``softplus`` as XLA evaluates ``jax.nn.sigmoid`` and
 scalar numerator is a tensor division (PyTorch's ``scalar / tensor`` is a
 reciprocal and a product, two roundings).  Init scores and the l1 /
 quantile / MAPE leaf renewal are the same float64 NumPy code.  Multiclass
-objectives take and return [n, k].  ``lambdarank`` and ``rank_xendcg`` are
-not ported yet and are rejected by name.
+objectives take and return [n, k].
+
+The ranking objectives (reference rank_objective.hpp) group the queries
+into the JAX package's length buckets (``rank_query_buckets``, ops/rank.py)
+at ``init``, where every device table is made: ``lambdarank``'s gradients
+are one launch of ``csrc/rank.cu`` on the card (the bucketed pair
+arithmetic on the CPU), ``rank_xendcg``'s listwise softmax is plain
+PyTorch on its Gumbel draw (``ops/prng.py gumbel``, the bits of
+``jax.random.gumbel``).  ``jit_safe`` is the JAX package's flag: False
+where a call changes the objective's state (rank_xendcg's key split,
+position-debiased lambdarank's bias factors), which keeps the classic
+loop.
 """
 
 from __future__ import annotations
@@ -22,6 +32,9 @@ import torch
 
 from .config import Config
 from .io.dataset import Metadata
+from .ops import prng
+from .ops.rank import (lambdarank_gradients, pos_bias_newton, rank_plan,
+                       xendcg_accum)
 from .utils import log
 
 
@@ -84,6 +97,11 @@ class ObjectiveFunction:
     need_renew_tree_output: bool = False
     is_constant_hessian: bool = False
     need_convert_output: bool = False
+    #: ``get_gradients`` is a pure function of the score, so the fused loop
+    #: may capture it; False where a call changes the objective's state
+    #: (rank_xendcg's key split, position-debiased lambdarank's bias
+    #: factors): those keep the classic loop, as in the JAX package
+    jit_safe: bool = True
 
     def __init__(self, config: Config):
         self.config = config
@@ -510,6 +528,101 @@ class CrossEntropyLambda(ObjectiveFunction):
         return torch.log1p(torch.exp(raw))
 
 
+class LambdarankNDCG(ObjectiveFunction):
+    """reference rank_objective.hpp:138 LambdarankNDCG: pairwise lambda
+    gradients weighted by |dNDCG|, truncated at
+    ``lambdarank_truncation_level``, optionally normalised per query
+    (``lambdarank_norm``); with ``position`` metadata, per-position
+    additive bias factors on the score, Newton-updated each call
+    (rank_objective.hpp:43-56, 295)."""
+    NAME = "lambdarank"
+
+    def init(self, metadata, num_data, device=torch.device("cpu")):
+        super().init(metadata, num_data, device)
+        if metadata.query_boundaries is None:
+            log.fatal("Lambdarank tasks require query information")
+        lbl = np.asarray(metadata.label)
+        gains = self.config.label_gain or [float((1 << i) - 1) for i in
+                                           range(max(int(lbl.max()) + 1, 31))]
+        self._label_gain = np.asarray(gains, np.float64)
+        if int(lbl.max()) >= len(self._label_gain):
+            log.fatal("label_gain shorter than max label")
+        # inverse max DCG per query (rank_objective.hpp:165-177)
+        bounds = np.asarray(metadata.query_boundaries)
+        nq = len(bounds) - 1
+        inv = np.zeros(nq, np.float64)
+        trunc = self.config.lambdarank_truncation_level
+        for i in range(nq):
+            docs = np.arange(int(bounds[i]), int(bounds[i + 1]))
+            g = np.sort(self._label_gain[lbl[docs].astype(int)])[::-1][:trunc]
+            dcg = np.sum(g / np.log2(np.arange(2, len(g) + 2)))
+            inv[i] = 1.0 / dcg if dcg > 0 else 0.0
+        self._plan = rank_plan(bounds, self.config.rank_query_buckets,
+                               device, inv)
+        self._gain_of_doc = torch.as_tensor(
+            self._label_gain[lbl.astype(int)].astype(np.float32),
+            device=device)
+        self.jit_safe = True
+        self._positions = None
+        if metadata.position is not None:
+            ids, inv_idx = np.unique(np.asarray(metadata.position),
+                                     return_inverse=True)
+            self._positions = torch.as_tensor(inv_idx.astype(np.int64),
+                                              device=device)
+            # the documents in position order and the counts: the bias
+            # step's sums as segment reductions
+            self._pos_order = torch.as_tensor(
+                np.argsort(inv_idx, kind="stable"), device=device)
+            self._pos_counts = torch.as_tensor(
+                np.bincount(inv_idx, minlength=len(ids)), device=device)
+            self._pos_biases = torch.zeros(len(ids), dtype=torch.float32,
+                                           device=device)
+            self._pos_reg = float(
+                self.config.lambdarank_position_bias_regularization)
+            # the bias carry changes every call: the classic loop
+            self.jit_safe = False
+
+    def get_gradients(self, score):
+        if self._positions is not None:
+            score = score + self._pos_biases[self._positions]
+        g, h = lambdarank_gradients(
+            score, self._label, self._gain_of_doc, self._plan, self._weight,
+            sigmoid=float(self.config.sigmoid),
+            trunc=int(self.config.lambdarank_truncation_level),
+            norm=bool(self.config.lambdarank_norm))
+        if self._positions is not None:
+            self._pos_biases = pos_bias_newton(
+                g, h, self._pos_biases, self._pos_order, self._pos_counts,
+                lr=float(self.config.learning_rate), reg=self._pos_reg)
+        return g, h
+
+
+class RankXENDCG(ObjectiveFunction):
+    """reference rank_objective.hpp:378 RankXENDCG (XE-NDCG-MART, Bruch et
+    al.): listwise cross-entropy against Gumbel-perturbed relevance
+    targets over the same query buckets; each call splits the objective's
+    key (``objective_seed``) and draws one Gumbel value a document."""
+    NAME = "rank_xendcg"
+    jit_safe = False
+
+    def init(self, metadata, num_data, device=torch.device("cpu")):
+        super().init(metadata, num_data, device)
+        if metadata.query_boundaries is None:
+            log.fatal("Ranking tasks require query information")
+        self._plan = rank_plan(metadata.query_boundaries,
+                               self.config.rank_query_buckets, device)
+        self._rng = prng.key(int(self.config.objective_seed))
+
+    def get_gradients(self, score):
+        self._rng, key = prng.split(self._rng)
+        gumbel = prng.gumbel(key, score.shape[0], score.device)
+        g = torch.zeros_like(score)
+        h = torch.zeros_like(score)
+        for b in self._plan.buckets:
+            g, h = xendcg_accum(score, self._label, gumbel, b, g, h)
+        return self._apply_weight(g, h)
+
+
 _OBJECTIVES = {
     "regression": RegressionL2Loss,
     "regression_l1": RegressionL1Loss,
@@ -525,6 +638,8 @@ _OBJECTIVES = {
     "multiclassova": MulticlassOVA,
     "cross_entropy": CrossEntropy,
     "cross_entropy_lambda": CrossEntropyLambda,
+    "lambdarank": LambdarankNDCG,
+    "rank_xendcg": RankXENDCG,
 }
 
 

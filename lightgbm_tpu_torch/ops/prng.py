@@ -88,3 +88,24 @@ def uniform(k: Key, n: int, device=None) -> torch.Tensor:
     # then xor, shift, or, cast, subtract, clamp
     launches += 1 + 2 + 20 * 7 + 5 * 4 + 6
     return f
+
+
+#: the smallest normal float32, the lower end of ``jax.random.gumbel``'s
+#: uniform draw
+_TINY = 1.1754943508222875e-38
+
+
+def gumbel_uniform(k: Key, n: int, device=None) -> torch.Tensor:
+    """The uniforms under ``jax.random.gumbel(k, (n,))`` (its default
+    mode): ``jax.random.uniform(k, (n,), minval=tiny, maxval=1)``, the [0, 1)
+    draw of :func:`uniform` scaled by ``1 - tiny`` (1.0 in float32), plus
+    ``tiny``, at least ``tiny``."""
+    f = uniform(k, n, device)
+    return torch.clamp_min(f * (1.0 - _TINY) + _TINY, _TINY)
+
+
+def gumbel(k: Key, n: int, device=None) -> torch.Tensor:
+    """``jax.random.gumbel(k, (n,))`` in float32: ``-log(-log(u))`` of
+    :func:`gumbel_uniform` (the uniforms bit for bit; the logs as PyTorch
+    rounds them)."""
+    return -torch.log(-torch.log(gumbel_uniform(k, n, device)))

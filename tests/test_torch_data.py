@@ -11,6 +11,7 @@ import jax.numpy as jnp
 from lightgbm_tpu.io.dataset import Dataset as JDataset
 from lightgbm_tpu.ops.histogram import bins_to_words as jax_bins_to_words
 
+from lightgbm_tpu_torch.io import dataset as TD
 from lightgbm_tpu_torch.io.dataset import Dataset as TDataset
 from lightgbm_tpu_torch.ops.histogram import bins_to_words
 
@@ -38,8 +39,13 @@ def _sparse_onehot(n=4000, seed=1):
 
 
 @pytest.mark.parametrize("case", ["dense_255", "dense_63", "bundled",
-                                  "valid_set"])
-def test_dataset_matches_jax(case):
+                                  "valid_set", "threaded_dense_255",
+                                  "threaded_bundled", "threaded_valid_set"])
+def test_dataset_matches_jax(case, monkeypatch):
+    if case.startswith("threaded_"):
+        # a column per thread, as from PARALLEL_BIN_VALUES values on
+        monkeypatch.setattr(TD, "PARALLEL_BIN_VALUES", 1)
+        case = case[len("threaded_"):]
     X, y = _sparse_onehot() if case == "bundled" else _dense()
     params = {"max_bin": 63 if case == "dense_63" else 255,
               "min_data_in_bin": 3}

@@ -544,15 +544,17 @@ def test_fused_round_reads_the_host_at_most_once(monkeypatch):
     assert reads["step"] <= rounds
 
 
-def fused_host_reads(monkeypatch, params, X, y, Xv, yv, num_rounds):
+def fused_host_reads(monkeypatch, params, X, y, Xv, yv, num_rounds,
+                     group=None, valid_group=None):
     """Train ``num_rounds`` fused rounds with a valid set, counting the
     host reads (``Tensor.item``, ``__bool__``, ``__int__``, ``__float__``,
     ``tolist``, ``numpy``) inside the round bodies ("body") and in the
     host's step around them ("step"); returns (reads, rounds, extra
-    one-round replays)."""
-    ds = lgb_torch.Dataset(X, y)
+    one-round replays).  ``group`` / ``valid_group``: the query sizes of
+    ranking data."""
+    ds = lgb_torch.Dataset(X, y, group=group)
     b = lgb_torch.Booster(params=params, train_set=ds)
-    b.add_valid(ds.create_valid(Xv, yv), "v")
+    b.add_valid(ds.create_valid(Xv, yv, group=valid_group), "v")
     gb = b._gbdt
     assert gb.supports_fused()
     reads = {"body": 0, "step": 0}

@@ -29,7 +29,9 @@ The same seeded numpy inputs go through both packages.
   host read a class;
 * multiclass model text both ways between the packages;
 * the k > 1 repairs of ``GBDT.boosting_gradients`` and
-  ``RF.boosting_gradients``, and the ranking objectives' refusal.
+  ``RF.boosting_gradients``.
+
+The ranking objectives and metrics are held in tests/test_torch_rank.py.
 """
 
 import types
@@ -175,17 +177,6 @@ def test_renew_tree_output_matches_jax(objective, weighted):
     want = jo.renew_tree_output(score, None, lor, L)
     np.testing.assert_array_equal(got, want)
     assert got[L - 1] == 0.0
-
-
-def test_ranking_objectives_still_raise():
-    X, y = _data("regression", n=400)
-    for objective in ("lambdarank", "rank_xendcg"):
-        with pytest.raises(lgb_torch.LightGBMError, match="not supported"):
-            lgb_torch.train(dict(STRICT, objective=objective,
-                                 device_type="cpu"),
-                            lgb_torch.Dataset(X, np.abs(np.round(y)),
-                                              group=[200, 200]),
-                            num_boost_round=1)
 
 
 # ---------------------------------------------------------------- metrics

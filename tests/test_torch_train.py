@@ -416,7 +416,6 @@ def test_unported_configurations_raise():
     X, y = _data("regression", n=2000)
     for extra in ({"tpu_split_batch": 1,
                    "monotone_constraints": [1] + [0] * (X.shape[1] - 1)},
-                  {"objective": "lambdarank"},
                   {"linear_tree": True}):
         params = dict(SLICE, objective="regression", device_type="cpu")
         params.update(extra)
