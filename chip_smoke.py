@@ -226,11 +226,31 @@ else: no jax, no network.  Phases, each of which fails the run on error:
    on a skewed fixture (a query of one document, one of equal labels, one
    past the kernel's shared-memory staging, weights, norm on and off);
    rank_xendcg and position-debiased lambdarank through the classic loop.
+12. split constraints on phase 3's 1M x 28 set and recipe: monotone
+   constraints (on the six features of the largest logit weights, in
+   their weights' directions; leaf renewal off, whose unclipped leaves
+   break the order, as printed) fused with the basic method (10 rounds),
+   intermediate, advanced and basic with ``monotone_penalty=2`` (5
+   rounds each), each with s/round, launches a
+   round, capture seconds, peak memory and the device time's share in
+   split finding and the sequential record, and every model swept over
+   each constrained feature's bin bounds on 1,000 held-out rows with no
+   violation of the predictions' order; extra trees +
+   ``feature_fraction_bynode=0.5`` + ``path_smooth=10`` + interaction
+   sets {0..13}, {14..27}, fused twice and classic once to the same text,
+   every root-to-leaf path inside one set; the strict learner at 90k rows
+   (intermediate monotone, extra trees, by-node sampling, classic, 3
+   rounds) with its launches a split; the basic and the extra-trees
+   configurations on the card against the CPU (100k x 5, tree 0
+   identical, AUC within 1e-3); and the threefry kernel
+   (``csrc/prng.cu``) against its plain version bit for bit at the
+   round's shapes (84 keys x 28 for each draw family), the strict
+   learner's 4-way split and a 1M draw, twice, timed beside its bound.
 
 It prints one JSON line with every kernel's numbers (launches: the fused
 runs' for the kernels a fused run holds, the table partitions' those of
 phases 7 and 8 together, the bucketed strict run's for
-``histogram_rows_t``; the "library device ms" line adds the index_add_
+``histogram_rows_t``, phase 12 (a)-(c)'s for the threefry kernel; the "library device ms" line adds the index_add_
 device times of rows 2, 7 and 8), the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.
 
@@ -4825,6 +4845,392 @@ def check_ranking(torch, lgbt, HK, RF, TB, prng):
     return row, counts
 
 
+# ---- phase 12: split constraints
+
+def monotone_directions(seed=0, k=6):
+    """Phase 12's monotone constraints on :func:`slice_data`'s set of
+    ``seed``: the ``k`` features of the largest |weight| of its logit,
+    each in its weight's direction (synth_higgs draws the weights first),
+    0 elsewhere.  Features the trees seldom split on would leave the
+    methods nothing to constrain."""
+    w = np.random.default_rng(seed).normal(size=F)
+    mono = [0] * F
+    for f in np.argsort(-np.abs(w))[:k]:
+        mono[int(f)] = 1 if w[f] > 0 else -1
+    return mono
+
+
+#: phase 12 (b)'s configuration: extra trees, by-node sampling, path
+#: smoothing and two interaction sets
+EXTRA_12 = dict(extra_trees=True, feature_fraction_bynode=0.5,
+                path_smooth=10.0,
+                interaction_constraints="[%s],[%s]" % (
+                    ",".join(map(str, range(14))),
+                    ",".join(map(str, range(14, F)))))
+#: the 32-bit operations of one threefry2x32 cipher (key schedule 2, the
+#: two initial adds, 20 rounds of add, rotate (3) and xor, 5 injections of
+#: 3) and of turning its words into a uniform (xor, shift, or, subtract,
+#: max)
+CIPHER_OPS, UNIFORM_OPS = 119, 5
+
+
+def path_sets(tree):
+    """The feature sets of every root-to-leaf path of ``tree``."""
+    out = []
+
+    def walk(node, acc):
+        if node < 0:
+            out.append(acc)
+            return
+        acc = acc | {int(tree.split_feature[node])}
+        walk(int(tree.left_child[node]), acc)
+        walk(int(tree.right_child[node]), acc)
+
+    if tree.num_leaves > 1:
+        walk(0, set())
+    return out
+
+
+def monotone_violations(torch, bst, ds, Xv, mono):
+    """Violations of the predictions' order when each constrained feature
+    of 1,000 held-out rows sweeps over its bins (every bin bound), the
+    other features fixed: the rows binned once, a bin column swept, the
+    raw scores from the forest kernel."""
+    from lightgbm_tpu_torch.ops import forest_kernels
+    g = bst._gbdt
+    forest = g._forest_arrays(g.models, 1)
+    base = ds.inner.bin_external(Xv[:1000])
+    nb = ds.inner.num_bins_array()
+    nanb = ds.inner.nan_bin_array()
+    bad = 0
+    for f, d in enumerate(mono):
+        if d == 0:
+            continue
+        m = int(nb[f]) - int(nanb[f] >= 0)
+        bins = np.repeat(base, m, axis=0)
+        bins[:, f] = np.tile(np.arange(m, dtype=bins.dtype), len(base))
+        out = forest_kernels.forest_values(
+            forest, torch.as_tensor(np.ascontiguousarray(bins.T),
+                                    device="cuda"), 1, ())
+        p = out[:, 0].double().cpu().numpy().reshape(len(base), m)
+        bad += int((np.diff(p, axis=1) * d < 0).sum())
+    return bad
+
+
+def constraint_shares(torch, bst):
+    """One more tree of ``bst`` through the classic loop, its second
+    full-width grow round (K slots) under the profiler: that round's
+    device ms and the shares of it in split finding (the children's best
+    splits with their draws and masks, the advanced method's
+    per-threshold bounds) and in the box methods' sequential record."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from lightgbm_tpu_torch.learner import batch_grower as BG
+    wrapped = {"split finding": [(BG.BatchedTree, "child_best"),
+                                 (BG, "advanced_split_bounds")],
+               "sequential record": [(BG.BatchedTree, "_record_boxes")]}
+    saved = [(BG.BatchedTree, "round", BG.BatchedTree.round)]
+    for part, places in wrapped.items():
+        for obj, name in places:
+            real = getattr(obj, name)
+
+            def wrap(*a, _real=real, _part=part, **k):
+                with record_function(_part):
+                    return _real(*a, **k)
+            saved.append((obj, name, real))
+            setattr(obj, name, wrap)
+    full, box = [0], {}
+    real_round = saved[0][2]
+
+    def one_round(tree, Kr):
+        if Kr == tree.K and full[0] == 1:
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                real_round(tree, Kr)
+                torch.cuda.synchronize()
+            box["prof"] = prof
+        else:
+            real_round(tree, Kr)
+        full[0] += Kr == tree.K
+    BG.BatchedTree.round = one_round
+    try:
+        bst._gbdt.train_one_iter()
+        torch.cuda.synchronize()
+    finally:
+        for obj, name, real in saved:
+            setattr(obj, name, real)
+    prof = box.get("prof")
+    work = None if prof is None else profiler_work(prof, "grow round")
+    if work is None:
+        return None, {}
+    total = sum(us for _, _, us in work)
+    shares = {}
+    for e in prof.key_averages():
+        if e.key in wrapped:
+            us = getattr(e, "device_time_total", None)
+            if us is None:
+                us = getattr(e, "cuda_time_total", 0)
+            shares[e.key] = round(us / total, 4)
+    return total / 1e3, shares
+
+
+def fused_chunk_cost(torch, g, rounds):
+    """(device ms, kernel launches) a round of a fused chunk of ``rounds``
+    rounds of booster ``g`` (its graphs already captured), from the
+    profiler; (None, None) when it saw nothing."""
+    from torch.profiler import ProfilerActivity, profile
+    g.train_fused(rounds)   # captures a chunk of this length, if new
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(PREROLL_SPINS):
+            torch.cuda._sleep(100_000)
+        torch.cuda.synchronize()
+        g.train_fused(rounds)
+        torch.cuda.synchronize()
+    work = profiler_work(prof, "fused chunk")
+    if work is None:
+        return None, None
+    work = [w for w in work if "spin_kernel" not in w[0]]
+    return (sum(us for _, _, us in work) / 1e3 / rounds,
+            sum(c for _, c, _ in work) / rounds)
+
+
+def check_draw_kernel(torch, prng, flush):
+    """The threefry kernel against its plain version, bit for bit and the
+    same bits twice, one launch a call: a batched round's draws (84 node
+    keys x 28 features: the by-node key and each extra-trees family), the
+    strict learner's split(fold_in(key, i), 4) keys and a 1M draw; timed
+    at the round's shape.  Returns the kernels-line row (launches set by
+    the caller)."""
+    rng = np.random.default_rng(12)
+    dev = "cuda"
+    key = torch.tensor([[int(v) for v in rng.integers(0, 2 ** 32, 2)]],
+                       dtype=torch.int64, device=dev)
+    node = torch.as_tensor(rng.integers(0, 2 * T, size=2 * K),
+                           dtype=torch.int64, device=dev)
+    cases = [("node keys", key.expand(2 * K, 2), F, [node])]
+    cases += [(f"extra-trees family {j}", key.expand(2 * K, 2), F,
+               [node, (j, 0)]) for j in range(3)]
+    cases += [("strict split(fold_in(key, 13), 4)", key.expand(4, 2), F,
+               [(13, 0), (0, 1)]),
+              ("strict extra-trees keys", key.expand(2, 2), F,
+               [(13, 0), (2, 1), (0, 0)]),
+              ("1M keys x 1", key.expand(1 << 20, 2), 1,
+               [(0, 1)]),
+              ("1 key x 1M", key, 1 << 20, [])]
+    for what, keys, n, path in cases:
+        before = prng.draw_launches
+        a = prng.draw(keys, n, path)
+        b = prng.draw(keys, n, path)
+        if prng.draw_launches - before != 2:
+            fail(f"threefry {what}: {prng.draw_launches - before} launches "
+                 f"in 2 calls")
+        want = prng.draw_plain(keys, n, path)
+        torch.cuda.synchronize()
+        if not (torch.equal(a, b) and torch.equal(a, want)):
+            fail(f"threefry {what}: kernel vs plain bits differ "
+                 f"({int((a != want).sum())} of {a.numel()})")
+    print(f"threefry kernel: bitwise equal to its plain version and to "
+          f"itself twice at {', '.join(c[0] for c in cases)}", flush=True)
+    keys, path = key.expand(2 * K, 2), [node, (0, 0)]
+    fn = lambda: prng.draw(keys, F, path)  # noqa: E731
+    nl, dms = device_per_call(torch, fn)
+    if nl != 1:
+        fail(f"threefry: {nl} launches a call")
+    ms = time_ms(torch, fn, flush)
+    pms = time_ms(torch, lambda: prng.draw_plain(keys, F, path), flush,
+                  reps=3)
+    N_, S_ = 2 * K, len(path)
+    nbytes = 4 * N_ * F + 8 * (2 + N_)
+    ops = N_ * S_ * CIPHER_OPS + N_ * F * (CIPHER_OPS + UNIFORM_OPS)
+    bnd, by = bound_ms(nbytes, ops)
+    big = key.expand(1 << 20, 2)
+    bms = time_ms(torch, lambda: prng.draw(big, 1, [(0, 1)]), flush)
+    bbnd, bby = bound_ms(4 << 20, (1 << 20) * (2 * CIPHER_OPS + UNIFORM_OPS))
+    print(f"kernel threefry_draw ({N_} keys x {F}, a fold-in and a split "
+          f"a key, one extra-trees family of a round): ms={ms:.4f} "
+          f"device_ms={dms} plain_ms={pms:.4f} bound_ms={bnd:.6f} ({by}: "
+          f"{ops:,} integer operations, {nbytes:,} bytes); 1M keys x 1: "
+          f"ms={bms:.4f} bound_ms={bbnd:.4f} ({bby})", flush=True)
+    return dict(name="threefry_draw", route="cuda",
+                source="lightgbm_tpu_torch/csrc/prng.cu",
+                replaces="lightgbm_tpu/ops/split.py:347",
+                launches=0, max_abs_err=0.0, ms=ms, plain_ms=pms,
+                bound_ms=bnd, bound_by=by, library_ms=None,
+                device_ms=dms)
+
+
+def check_constraints(torch, lgbt, HK, RF, TB, prng):
+    """Phase 12: split constraints on phase 3's binned 1M x 28 set and
+    recipe.  (a) monotone constraints fused (basic 10 rounds;
+    intermediate, advanced and basic with monotone_penalty=2 5 rounds
+    each), each model swept for violations; (b) extra trees + by-node
+    sampling + path smoothing + interaction sets, fused twice and classic
+    once; (c) the strict learner at 90k rows, classic; (d) card vs CPU;
+    (e) the threefry kernel against its plain version.  Counts are zeroed
+    before (a) and read after (c).  Returns the threefry kernel's row."""
+    from lightgbm_tpu_torch.boosting import fused_graph as FG
+    t_phase = time.perf_counter()
+    ds, _, _, Xv, yv, _ = slice_data(lgbt, N, 0, 255)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    mono = monotone_directions()
+    print(f"phase 12 monotone constraints: {mono}", flush=True)
+
+    def mark(what):
+        print(f"phase 12 {what}: {time.perf_counter() - t_phase:.1f} s",
+              flush=True)
+    zero_counts(HK, RF, TB, prng)
+    prng.draw_launches = 0
+    trees = 0
+    base_per = None
+
+    # (a) monotone constraints through the fused loop.  Leaf renewal (on by
+    # default with int8 levels) replaces the clipped outputs by the true
+    # gradients' unconstrained ones, in the JAX package too, so the
+    # monotone runs turn it off; the default's violations are printed
+    bst, *_ = fused_train(torch, lgbt, ds, 5, monotone_constraints=mono)
+    trees += 5
+    print(f"monotone basic with the default leaf renewal (1M x 28, 5 "
+          f"rounds, fused): violations of the predictions' order "
+          f"{monotone_violations(torch, bst, ds, Xv, mono)} (the renewed "
+          f"leaves are not clipped, as in the JAX package)", flush=True)
+    del bst
+    for what, rounds, extra in (
+            ("basic", 10, {}),
+            ("intermediate", 5,
+             dict(monotone_constraints_method="intermediate")),
+            ("advanced", 5, dict(monotone_constraints_method="advanced")),
+            ("basic, monotone_penalty=2", 5, dict(monotone_penalty=2.0))):
+        replays0 = FG.counts["replays"]
+        bst, per, wall, peak = fused_train(
+            torch, lgbt, ds, rounds, monotone_constraints=mono,
+            quant_train_renew_leaf=False, **extra)
+        g = bst._gbdt
+        fr = next(iter(g._fused_cache.values()))
+        trees += len(g.models)
+        if len(g.models) != rounds or not g.hp.use_monotone:
+            fail(f"monotone {what}: {len(g.models)} trees, "
+                 f"use_monotone={g.hp.use_monotone}")
+        replays = FG.counts["replays"] - replays0
+        t0 = time.perf_counter()
+        bad = monotone_violations(torch, bst, ds, Xv, mono)
+        a = auc(yv, bst.predict(Xv))
+        t1 = time.perf_counter()
+        # a fused round and a classic grow round, profiled, after the
+        # counted run
+        dms, nl = fused_chunk_cost(torch, g, 1)
+        t2 = time.perf_counter()
+        rms, shares = constraint_shares(torch, bst)
+        t3 = time.perf_counter()
+        mark(f"(a) {what}: checks {t1 - t0:.1f} s, fused profile "
+             f"{t2 - t1:.1f} s, classic profile {t3 - t2:.1f} s")
+        print(f"monotone {what} (1M x 28, {rounds} rounds, fused, no leaf "
+              f"renewal): s/round "
+              f"{per:.5f}, train() {wall:.2f} s, warm-up round and capture "
+              f"{fr.capture_s:.2f} s, peak {peak:.1f} MiB, graph replays "
+              f"{replays}, held-out AUC {a:.6f}; violations of the "
+              f"predictions' order over 1,000 rows x each constrained "
+              f"feature's bin bounds: {bad}; a fused round profiled: "
+              f"device ms {dms}, launches {nl}; a full-width classic grow "
+              f"round profiled: device ms {rms}, shares "
+              f"{json.dumps(shares)}", flush=True)
+        if bad:
+            fail(f"monotone {what}: {bad} violations of the monotone order")
+        if not a > 0.7:
+            fail(f"monotone {what}: held-out AUC {a}")
+        if what == "basic":
+            base_per = per
+        del bst, g, fr
+
+    mark("(a)")
+
+    # (b) extra trees, by-node sampling, path smoothing, interaction sets
+    bst, per, wall, peak = fused_train(torch, lgbt, ds, 5, **EXTRA_12)
+    again, *_ = fused_train(torch, lgbt, ds, 5, **EXTRA_12)
+    classic, per_c, *_ = fused_train(torch, lgbt, ds, 5, classic=True,
+                                     **EXTRA_12)
+    trees += 15
+    text = bst.model_to_string()
+    if again.model_to_string() != text:
+        fail("extra trees: two fused card trainings gave different text")
+    if classic.model_to_string() != text:
+        fail("extra trees: fused and classic text differ")
+    sets = [set(range(14)), set(range(14, F))]
+    paths = [p for t in bst._gbdt.models for p in path_sets(t)]
+    if not paths or not all(any(p <= st for st in sets) for p in paths):
+        fail("extra trees: a root-to-leaf path leaves its interaction set")
+    a = auc(yv, bst.predict(Xv))
+    print(f"extra trees + by-node 0.5 + path_smooth 10 + interaction sets "
+          f"(1M x 28, 5 rounds): fused s/round {per:.5f} (classic "
+          f"{per_c:.5f}; the basic monotone fused {base_per:.5f}), peak "
+          f"{peak:.1f} MiB, held-out AUC {a:.6f}; {len(paths)} paths, each "
+          f"inside one set; two fused runs and the classic run "
+          f"byte-identical; sha256 {text_sha256(bst)}", flush=True)
+    del bst, again, classic
+    mark("(b)")
+
+    # (c) the strict learner, classic: intermediate monotone, extra trees,
+    # by-node sampling
+    sbst, a_s, _, t_s, steps = train_slice(
+        torch, lgbt, N_STRICT, 3, monotone_constraints=mono,
+        monotone_constraints_method="intermediate", extra_trees=True,
+        feature_fraction_bynode=0.5)
+    sg = sbst._gbdt
+    if sg._use_batched_grower() or sg.hp.hist_dtype != "float32":
+        fail("phase 12 (c) did not take the strict learner")
+    trees += 3
+    counts = launch_counts(HK, RF, TB, prng)
+    counts["threefry_draw"] = prng.draw_launches
+    if counts["threefry_draw"] <= 0:
+        fail("phase 12 never launched the threefry kernel")
+    sds, _, _, sXv, _, _ = slice_data(lgbt, N_STRICT)
+    bad = monotone_violations(torch, sbst, sds, sXv, mono)
+    if bad:
+        fail(f"strict monotone: {bad} violations of the monotone order")
+    n_launch = profile_round(torch, sbst)
+    sp = sg.models[-1].num_leaves - 1
+    print(f"strict (90k x 28, intermediate monotone + extra trees + by-node "
+          f"0.5, 3 rounds, classic): s/round (2-3) "
+          f"{float(np.mean(steps[1:])):.4f}, held-out AUC {a_s:.6f}, "
+          f"{n_launch} launches in a round of {sp} splits "
+          f"({(n_launch or 0) / max(sp, 1):.1f} a split); violations "
+          f"{bad}", flush=True)
+    print(f"phase 12 kernel launches ({trees} trees of (a)-(c)): "
+          f"{json.dumps(counts)}; threefry a tree "
+          f"{counts['threefry_draw'] / trees:.2f}", flush=True)
+    del sbst, sg
+    mark("(c)")
+
+    # (d) the card against the CPU at phase 4's cross-check size
+    for what, extra in (("basic monotone", dict(
+            monotone_constraints=mono, quant_train_renew_leaf=False)),
+            ("extra trees", EXTRA_12)):
+        b_g, a_g, *_ = train_slice(torch, lgbt, 100_000, 5, seed=1,
+                                   **extra)
+        b_c, a_c, *_ = train_slice(torch, lgbt, 100_000, 5, "cpu", seed=1,
+                                   **extra)
+        t_g, t_c = b_g._gbdt.models[0], b_c._gbdt.models[0]
+        if not (t_g.num_leaves == t_c.num_leaves
+                and np.array_equal(t_g.split_feature, t_c.split_feature)
+                and np.array_equal(t_g.threshold_bin, t_c.threshold_bin)):
+            fail(f"phase 12 (d) {what}: tree 0 differs between the card "
+                 f"and the CPU")
+        if abs(a_g - a_c) > 1e-3:
+            fail(f"phase 12 (d) {what}: AUC card {a_g} vs cpu {a_c}")
+        print(f"cross-check ({what}, 100k x 5): tree 0 identical "
+              f"({t_g.num_leaves} leaves), AUC card {a_g:.6f} cpu "
+              f"{a_c:.6f}, the trees' text (parameters aside) equal: "
+              f"{trees_text(b_g) == trees_text(b_c)}", flush=True)
+        del b_g, b_c
+    mark("(d)")
+
+    # (e) the kernel against its plain version
+    row = check_draw_kernel(torch, prng, flush)
+    row["launches"] = counts["threefry_draw"]
+    print(f"phase 12: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return row
+
+
 def load_other(root):
     """The port package of another checkout (``root``/lightgbm_tpu_torch),
     imported as ``lgbt_other`` beside this one; its kernels build into its
@@ -5369,6 +5775,9 @@ def main():
     rows.append(rank_row)
     print("phase 11 kernels (lambdarank, MSLR shape, 10 trees, fused): "
           + json.dumps(rank_launches), flush=True)
+    # ---- 12. split constraints: the threefry kernel's launches are those
+    # of (a)-(c) (zeroed just before, read just after)
+    rows.append(check_constraints(torch, lgbt, HK, RF, TB, prng))
     print(f"chip_smoke: {time.perf_counter() - t_script:.1f} s in all, the "
           f"kernel build {build_s:.1f} s of it", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -38,8 +38,12 @@ iter), 0))``, their words derived on the host as in ``ops/prng.py``), the
 per-tree feature masks, the row sampling's key words and warm-up flag
 (boosting/sample_strategy.py ``round_words``: bagging's
 ``fold_in(key(bagging_seed), iter // freq)``, GOSS's ``fold_in(key(
-bagging_seed), iter)`` and ``iter >= warm-up``), the round's index in the
-chunk and its iteration.  The sampled row mask goes to the tree and to
+bagging_seed), iter)`` and ``iter >= warm-up``), the node-key words of
+each round and class where trees draw per node (extra trees, by-node
+sampling: ``key(extra_seed * 1000003 + iter * k + cls)``, the classic
+loop's, derived on the host and read inside the round as a device
+tensor, so every replay draws its own round's thresholds and subsets),
+the round's index in the chunk and its iteration.  The sampled row mask goes to the tree and to
 leaf renewal, as in the classic loop.
 Every round writes its trees and metric values into row ``t`` of one
 [T, k P + M] float32 buffer; the host takes it in one transfer per chunk.
@@ -93,6 +97,7 @@ _COUNTERS = ((table, "launches"), (round_fuse, "launches"),
              (round_fuse, "select_launches"),
              (round_fuse, "table_launches"),
              (round_fuse, "select_table_launches"), (prng, "launches"),
+             (prng, "draw_launches"),
              (rank, "launches"),
              *((hist_kernels, a) for a in (
                  "leaves_launches", "leaves_rows_launches",
@@ -226,6 +231,8 @@ class FusedRound:
                                   device=dev) if self.has_fm else None
         self.swords = torch.zeros(chunk, 3, dtype=i64, device=dev) \
             if self.sample_fn is not None else None
+        self.nkeys = torch.zeros(chunk, k, 2, dtype=i64, device=dev) \
+            if g._needs_node_rng else None
         self.row_mask: Optional[torch.Tensor] = None
         self.t = torch.zeros((), dtype=i64, device=dev)
         self.c = torch.zeros((), dtype=i64, device=dev)
@@ -337,13 +344,19 @@ class FusedRound:
                 split_keys=((kw[0, 0], kw[0, 1]), (kw[1, 0], kw[1, 1])))
             hist_scale = torch.stack([gs, hs])
         fm = self.fmasks.index_select(0, t)[0] if self.has_fm else None
+        nkey = None
+        if self.nkeys is not None:
+            nkey = self.nkeys.index_select(0, t)[0]
+            nkey = nkey[0] if self.k == 1 else \
+                nkey.index_select(0, self.c.reshape(1))[0]
         tree = BatchedTree(
             g.bins, grad.contiguous(), hess.contiguous(), self.row_mask,
             g.num_bins_arr, g.nan_bin_arr, fm, g.hp, batch=self.batch,
             hist_scale=hist_scale, bins_t=g.bins_t, bins_words=g.bins_words,
             bins_words_t=g.bins_words_t,
             stop=self.stopped if self.es is not None else None,
-            bundle=g.bundle, is_cat=g.is_cat_arr)
+            bundle=g.bundle, is_cat=g.is_cat_arr, monotone=g.monotone_arr,
+            rng_key=nkey, interaction_sets=g.interaction_sets)
         ladder = tree.ladder()
         self.R = full_width_rounds(self.L, self.batch, ladder)
         for width in ladder:
@@ -504,6 +517,10 @@ class FusedRound:
         if self.has_fm:
             self.fmasks[:T].copy_(torch.from_numpy(np.stack([
                 g._feature_mask_array(first_iter + t) for t in range(T)])))
+        if self.nkeys is not None:
+            self.nkeys[:T].copy_(torch.tensor(
+                [[g.node_key(first_iter + t, c) for c in range(self.k)]
+                 for t in range(T)], dtype=torch.int64))
         if self.sample_fn is not None:
             self.swords[:T].copy_(torch.tensor(
                 [g.sample_strategy.round_words(first_iter + t)

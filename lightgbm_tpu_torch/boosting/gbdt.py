@@ -62,7 +62,14 @@ round from one [n, k] gradient evaluation, in both loops; l1 / quantile /
 MAPE renew their leaves on the host after each tree (``_renew_leaves``) and
 keep the classic loop.
 
-Not ported yet: custom objectives and the distributed modes.
+Split constraints (monotone constraints, interaction sets, and the node
+keys of extra trees and by-node sampling, ``key(extra_seed * 1000003 +
+iter * k + cls)``) are set up as in the JAX package
+(``_split_constraints``) and reach both growers in both loops; the
+fused round stages each round's node keys on the device.
+
+Not ported yet: custom objectives, forced splits, CEGB, linear trees and
+the distributed modes.
 """
 
 from __future__ import annotations
@@ -147,9 +154,6 @@ def _check_slice(config: Config, train_set: Dataset) -> None:
         (str(config.tree_learner) not in ("serial",),
          f"tree_learner={config.tree_learner}"),
         (bool(config.linear_tree), "linear_tree"),
-        (any(int(m) != 0 for m in (config.monotone_constraints or [])),
-         "monotone_constraints"),
-        (bool(config.interaction_constraints), "interaction_constraints"),
         (bool(config.forcedsplits_filename), "forcedsplits_filename"),
         (float(config.cegb_penalty_split) > 0.0
          or bool(list(config.cegb_penalty_feature_lazy or []))
@@ -161,6 +165,30 @@ def _check_slice(config: Config, train_set: Dataset) -> None:
     for bad, what in unported:
         if bad:
             log.fatal(f"{what} is not supported by lightgbm_tpu_torch yet")
+
+
+def _parse_interaction_sets(spec, used_feature_idx) -> Optional[np.ndarray]:
+    """``interaction_constraints`` ("[0,1,2],[2,3]" or a list of lists of
+    original feature indices) -> bool [S, F_packed] (the JAX package's
+    ``_parse_interaction_sets``; reference config
+    interaction_constraints_vector, col_sampler.hpp)."""
+    if not spec:
+        return None
+    if isinstance(spec, str):
+        import json
+        sets = json.loads("[" + spec + "]")
+    else:
+        sets = [list(s) for s in spec]
+    if not sets:
+        return None
+    orig_to_packed = {int(o): p for p, o in enumerate(used_feature_idx)}
+    out = np.zeros((len(sets), len(used_feature_idx)), bool)
+    for si, st in enumerate(sets):
+        for f in st:
+            p = orig_to_packed.get(int(f))
+            if p is not None:
+                out[si, p] = True
+    return out
 
 
 class GBDT:
@@ -220,11 +248,10 @@ class GBDT:
         if wants_packed_mirror(self.hp.hist_kernel, self.hp.n_bins):
             self.bins_words_t = self.bins_words.t().contiguous()
         self._check_pool(config)
+        self._split_constraints(config)
         if self._use_batched_grower():
             batch_grower.check_supported(self.hp,
                                          int(config.tpu_split_batch))
-        else:
-            grower.check_supported(self.hp, "strict leaf-wise grower")
 
         n = train_set.num_data
         k = self.num_tree_per_iteration
@@ -241,6 +268,42 @@ class GBDT:
         self._valid_bins_t: List[torch.Tensor] = []
         self._fused_cache = {}
         self._last_fused_evals: List = []
+
+    def _split_constraints(self, config: Config) -> None:
+        """The JAX package's set-up of the split constraints
+        (boosting/gbdt.py:530-562): monotone directions per original
+        feature mapped to the packed features (categorical ones 0) and
+        the method and penalty in ``hp``; the interaction sets; whether
+        trees need node keys (extra trees, by-node sampling)."""
+        ts = self.train_set
+        self.monotone_arr = None
+        mono_cfg = list(config.monotone_constraints or [])
+        if any(int(m) != 0 for m in mono_cfg):
+            full = np.zeros(ts.num_total_features, np.int32)
+            full[:len(mono_cfg)] = np.asarray(mono_cfg, np.int32)[
+                :ts.num_total_features]
+            packed = full[np.asarray(ts.used_feature_idx)]
+            packed[np.asarray(ts.categorical_array())] = 0
+            self.monotone_arr = torch.as_tensor(packed, device=self.device)
+            method = str(config.monotone_constraints_method)
+            if method not in ("basic", "intermediate", "advanced"):
+                log.fatal("unknown monotone_constraints_method=%r (expected "
+                          "basic/intermediate/advanced)" % method)
+            self.hp = dataclasses.replace(
+                self.hp, use_monotone=True, monotone_method=method,
+                monotone_penalty=float(config.monotone_penalty))
+        isets = _parse_interaction_sets(config.interaction_constraints,
+                                        ts.used_feature_idx)
+        self.interaction_sets = None if isets is None else \
+            torch.as_tensor(isets, device=self.device)
+        self._needs_node_rng = (self.hp.extra_trees
+                                or self.hp.feature_fraction_bynode < 1.0)
+
+    def node_key(self, iter_: int, cls: int) -> prng.Key:
+        """The key words of a tree's node draws: ``key(extra_seed *
+        1000003 + iter * k + cls)``, the JAX package's."""
+        return prng.key(int(self.config.extra_seed) * 1000003
+                        + iter_ * self.num_tree_per_iteration + cls)
 
     def _resolve_auto_params(self, config: Config) -> None:
         """Fast-by-default policy, the JAX package's verbatim: at scale, a
@@ -295,18 +358,24 @@ class GBDT:
                 or batch_grower.pooled(self.hp))
 
     def _grow(self, g: torch.Tensor, h: torch.Tensor, row_mask,
-              feature_mask, hist_scale=None):
+              feature_mask, hist_scale=None, node_key=None):
         """One tree through the strict or the batched learner; ``row_mask``
-        bool [n] (the bag) or None."""
+        bool [n] (the bag) or None; ``node_key`` the tree's node key words
+        (:meth:`node_key`) when trees need them."""
         args = (self.bins, g, h, row_mask, self.num_bins_arr,
                 self.nan_bin_arr, feature_mask, self.hp)
         kw = dict(hist_scale=hist_scale, bins_t=self.bins_t,
                   bins_words=self.bins_words, bins_words_t=self.bins_words_t,
-                  bundle=self.bundle, is_cat=self.is_cat_arr)
+                  bundle=self.bundle, is_cat=self.is_cat_arr,
+                  monotone=self.monotone_arr,
+                  interaction_sets=self.interaction_sets)
         if self._use_batched_grower():
+            key = None if node_key is None else torch.tensor(
+                node_key, dtype=torch.int64, device=self.device)
             return batch_grower.grow_tree_batched(
-                *args, batch=int(self.config.tpu_split_batch), **kw)
-        return grower.grow_tree(*args, **kw)
+                *args, batch=int(self.config.tpu_split_batch), rng_key=key,
+                **kw)
+        return grower.grow_tree(*args, rng_key=node_key, **kw)
 
     def _init_base_score(self) -> None:
         md = self.train_set.metadata
@@ -445,7 +514,9 @@ class GBDT:
         for cls_idx in range(k):
             arrays, leaf_of_row = self._grow(
                 g[:, cls_idx].contiguous(), h[:, cls_idx].contiguous(),
-                row_mask, feature_mask, hist_scale=hist_scales[cls_idx])
+                row_mask, feature_mask, hist_scale=hist_scales[cls_idx],
+                node_key=(self.node_key(self.iter_, cls_idx)
+                          if self._needs_node_rng else None))
             if quant and bool(self.config.quant_train_renew_leaf):
                 renewed = renew_leaf_values(
                     leaf_of_row, g_true[:, cls_idx], h_true[:, cls_idx],

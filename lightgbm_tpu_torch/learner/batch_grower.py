@@ -54,12 +54,28 @@ them in ``split_cat`` / ``cat_bitset``, gives sorted-subset children
 do.  The JAX package partitions these rounds in XLA; the moves are the
 same.
 
+Split constraints (the JAX package's batch_grower.py:114-136, 174-227,
+500-800, 993-1075): a round records its K splits in one vectorized pass
+with path smoothing and the basic monotone method's clipping and midpoint
+bounds.  Under the intermediate and advanced methods each slot's children
+are then clipped, written and their boxes split in slot order, every
+leaf's bounds refreshed from the boxes after each slot
+(learner/monotone.py ``box_bounds``): a later slot sees the outputs of the
+earlier ones, so this part stays sequential (K small steps, all device
+operations, captured with the round).  The 2K children's best splits get
+their outputs, bounds, depths (the monotone penalty), interaction and
+by-node masks, the advanced method's per-threshold bounds and the
+extra-trees draws; a node's key is ``fold_in(key, node * 2 + side + 1)``
+(the root's ``fold_in(key, 0)``), the tree's key words a device tensor,
+so a captured round draws fresh keys every replay, one launch a draw
+family (ops/prng.py ``draw``).
+
 Supported here: numeric and categorical features, serial training, EFB
 bundles, row masks, per-tree feature masks, depth limits,
-max_delta_step, quantized levels (``hist_scale``), the histogram pool.
-Not ported yet: monotone / interaction / forced splits, CEGB, linear
-trees, path smoothing, by-node sampling, extra trees, the distributed
-modes.
+max_delta_step, quantized levels (``hist_scale``), the histogram pool,
+monotone constraints (every method and the penalty), path smoothing,
+extra trees, by-node sampling and interaction constraints.  Not ported
+yet: forced splits, CEGB, linear trees, the distributed modes.
 """
 
 from __future__ import annotations
@@ -74,11 +90,13 @@ from ..ops.histogram import (bins_to_words, histogram_for_leaves_auto,
 from ..ops.round_fuse import (decision_table, partition_payload,
                               partition_payload_table, partition_select,
                               partition_select_table)
+from ..ops import prng
 from ..ops.split import (NEG_INF, VAR_CAT_FWD, SplitHyper, find_best_split,
-                         leaf_output)
+                         leaf_output, smoothed_output)
 from ..utils import log
-from .grower import DeviceBundle, TreeArrays, _expand_hist, winner_bitset
-from .grower import check_supported as _check_learner
+from .grower import (INF_BOUND, DeviceBundle, TreeArrays, _expand_hist,
+                     extra_tree_draws, node_feature_mask, winner_bitset)
+from .monotone import advanced_split_bounds, box_bounds, split_boxes
 
 #: rows below which the warm-up ladder is skipped, as in the JAX package
 #: (tests patch it on both sides to run the ladder on small data)
@@ -100,7 +118,6 @@ def check_supported(hp: SplitHyper, batch: int) -> None:
     if pooled(hp) and hp.hist_pool_slots < 3 * K + 2:
         log.fatal("hist_pool_slots=%d must be >= 3*batch+2 = %d"
                   % (hp.hist_pool_slots, 3 * K + 2))
-    _check_learner(hp, "batched grower")
 
 
 def _put(arr: torch.Tensor, idx: torch.Tensor, val: torch.Tensor) -> None:
@@ -116,7 +133,9 @@ class BatchedTree:
     tensor is updated in place, so one round can be captured and replayed
     (boosting/fused_graph.py).  ``stop``: None, or the fused loop's bool
     0-d early-stop flag; ``is_cat``: bool [F], read when
-    ``hp.has_categorical``."""
+    ``hp.has_categorical``; ``monotone`` int [F] (``hp.use_monotone``);
+    ``rng_key`` int64 [2], the tree's node key words on the device (extra
+    trees, by-node sampling); ``interaction_sets`` bool [S, F]."""
 
     def __init__(self, bins: torch.Tensor, grad: torch.Tensor,
                  hess: torch.Tensor, row_mask: Optional[torch.Tensor],
@@ -128,7 +147,10 @@ class BatchedTree:
                  bins_words_t: Optional[torch.Tensor] = None,
                  stop: Optional[torch.Tensor] = None,
                  bundle: Optional[DeviceBundle] = None,
-                 is_cat: Optional[torch.Tensor] = None):
+                 is_cat: Optional[torch.Tensor] = None,
+                 monotone: Optional[torch.Tensor] = None,
+                 rng_key: Optional[torch.Tensor] = None,
+                 interaction_sets: Optional[torch.Tensor] = None):
         check_supported(hp, batch)
         dev = grad.device
         f32, i32 = torch.float32, torch.int32
@@ -141,6 +163,18 @@ class BatchedTree:
         self.n, self.L, self.K = n, L, min(batch, L - 1)
         self.grad, self.hess, self.row_mask = grad, hess, row_mask
         self.feature_mask = feature_mask
+        self.mono = hp.use_monotone
+        self.boxes = self.mono and hp.monotone_method in ("intermediate",
+                                                          "advanced")
+        self.adv = self.mono and hp.monotone_method == "advanced"
+        self.monotone = None if monotone is None else monotone.to(dev)
+        self.isets = interaction_sets
+        self.use_bynode = (hp.feature_fraction_bynode < 1.0
+                           and rng_key is not None)
+        self.use_rng = rng_key is not None and (hp.extra_trees
+                                                or self.use_bynode)
+        self.rng_key = rng_key.reshape(1, 2) if self.use_rng else None
+        self.num_f = num_f
         self.mask_f = torch.ones_like(grad) if row_mask is None \
             else row_mask.to(f32)
         self.mask_i = self.mask_f.to(i32)
@@ -173,9 +207,15 @@ class BatchedTree:
             g0 = g0 * hist_scale[0]
             h0 = h0 * hist_scale[1]
         root_out = leaf_output(g0, h0, l1, l2, mds)
-        best0, bits0 = self.child_best(hist0[None], g0[None], h0[None],
-                                       c0[None],
-                                       torch.zeros(1, dtype=i32, device=dev))
+        one = torch.ones(1, dtype=f32, device=dev)
+        # the root's key: fold_in(key, 0)
+        zero_i = torch.zeros(1, dtype=torch.int64, device=dev)
+        best0, bits0 = self.child_best(
+            hist0[None], g0[None], h0[None], c0[None],
+            torch.zeros(1, dtype=i32, device=dev),
+            torch.zeros(1, num_f, dtype=torch.bool, device=dev), zero_i,
+            parent_output=root_out.reshape(1), leaf_min=-INF_BOUND * one,
+            leaf_max=INF_BOUND * one)
 
         # state arrays carry one trash entry past the end (node index L-1,
         # leaf index L) that the masked scatters of invalid slots aim at —
@@ -245,6 +285,15 @@ class BatchedTree:
         self.parent_node = full((NL,), -1, i32)
         self.parent_side = full((NL,), 0, i32)
         self.path_f = full((NL, num_f), False, torch.bool)
+        if self.mono:
+            self.leaf_min = full((NL,), -INF_BOUND, f32)
+            self.leaf_max = full((NL,), INF_BOUND, f32)
+        if self.boxes:
+            # bin-space boxes: the root spans every bin (hi exclusive),
+            # unused slots and the trash row hold empty boxes
+            self.leaf_lo = full((NL, num_f), 0, i32)
+            self.leaf_hi = full((NL, num_f), 0, i32)
+            self.leaf_hi[0] = self.num_bins.to(i32)
 
         self.iota_f = torch.arange(num_f, device=dev)
         self.lor = torch.zeros(n, dtype=i32, device=dev)
@@ -254,15 +303,29 @@ class BatchedTree:
     def scaled(self, h):
         return h if self.scale_vec is None else h * self.scale_vec
 
-    def child_best(self, h, g_, h_, c_, depth):
+    def child_best(self, h, g_, h_, c_, depth, paths, node_data, **con):
         """Best splits of M leaves from their physical histograms, and on
         categorical data the bins each sends left (bool [M, B]; else
-        None)."""
+        None).  ``paths`` bool [M, F]: the leaves' path features;
+        ``node_data`` int64 [M]: the fold-in data of their node keys;
+        ``con``: find_best_split's outputs and bounds."""
         hp = self.hp
+        fm, rand = self.feature_mask, None
+        if self.use_rng:
+            keys = self.rng_key.expand(node_data.shape[0], 2)
+            ub = prng.draw(keys, self.num_f, [node_data]) \
+                if self.use_bynode else None
+            if ub is not None or self.isets is not None:
+                fm = node_feature_mask(fm, paths, self.isets, ub,
+                                       hp.feature_fraction_bynode)
+            rand = extra_tree_draws(keys, [node_data], self.num_f, hp)
+        elif self.isets is not None:
+            fm = node_feature_mask(fm, paths, self.isets, None, 1.0)
         hv = h if self.bundle is None else \
             _expand_hist(h, self.bundle, g_, h_, c_)
         res = find_best_split(hv, g_, h_, c_, self.num_bins, self.nan_bin,
-                              self.is_cat, self.feature_mask, hp)
+                              self.is_cat, fm, hp, monotone=self.monotone,
+                              depth=depth, rand=rand, **con)
         bits = winner_bitset(h, g_, h_, c_, res, self.num_bins, self.is_cat,
                              self.bundle, hp) if self.cat else None
         depth_ok = (hp.max_depth <= 0) | (depth < hp.max_depth)
@@ -398,8 +461,28 @@ class BatchedTree:
             l2_eff = l2 + torch.where(var >= VAR_CAT_FWD, hp.cat_l2, 0.0)
             _put(self.split_cat, nid_m, self.is_cat[feat.long()])
             _put(self.cat_bitset, nid_m, self.best_bitset[bl])
-        lo = leaf_output(lg, lh, l1, l2_eff, mds)
-        ro = leaf_output(rg, rh, l1, l2_eff, mds)
+        # children's outputs: smoothed toward the parent's (read before
+        # this round's writes), clipped into its bounds
+        pout = self.leaf_value[bl] if hp.path_smooth > 0.0 else None
+        lo = smoothed_output(lg, lh, lcn, pout, l1, l2_eff, hp)
+        ro = smoothed_output(rg, rh, rcn, pout, l1, l2_eff, hp)
+        if self.mono:
+            catl = self.is_cat[feat.long()] if self.cat else \
+                torch.zeros_like(ok)
+            mono_f = self.monotone[feat.long()]
+        if self.mono and not self.boxes:
+            # basic: clip into the parent's bounds, tighten each child's
+            # at the midpoint (the box methods clip slot by slot below)
+            lmin_p, lmax_p = self.leaf_min[bl], self.leaf_max[bl]
+            lo = torch.clamp(lo, lmin_p, lmax_p)
+            ro = torch.clamp(ro, lmin_p, lmax_p)
+            inc = ~catl & (mono_f > 0)
+            dec = ~catl & (mono_f < 0)
+            mid = (lo + ro) * 0.5
+            lmax_l = torch.where(inc, torch.minimum(lmax_p, mid), lmax_p)
+            lmin_l = torch.where(dec, torch.maximum(lmin_p, mid), lmin_p)
+            lmin_r = torch.where(inc, torch.maximum(lmin_p, mid), lmin_p)
+            lmax_r = torch.where(dec, torch.minimum(lmax_p, mid), lmax_p)
         d = self.leaf_depth[bl] + 1
         idx2 = torch.cat([torch.where(ok, bl, L),
                           torch.where(ok, new_leaves, L)])
@@ -416,7 +499,11 @@ class BatchedTree:
         _put(self.internal_value, nid_m, leaf_output(pg, ph, l1, l2, mds))
         _put(self.internal_count, nid_m, pc)
         w2(self.leaf_depth, d, d)
-        w2(self.leaf_value, lo, ro)
+        if not self.boxes:
+            w2(self.leaf_value, lo, ro)
+        if self.mono and not self.boxes:
+            w2(self.leaf_min, lmin_l, lmin_r)
+            w2(self.leaf_max, lmax_l, lmax_r)
         w2(self.leaf_count, lcn, rcn)
         w2(self.leaf_weight, lh, rh)
         w2(sum_g, lg, rg)
@@ -427,6 +514,9 @@ class BatchedTree:
            torch.ones_like(node_ids))
         _put(best_gain, torch.where(ok, bl, L),
              torch.full_like(lg, NEG_INF))
+        if self.boxes:
+            self._record_boxes(ok, bl, new_leaves, feat, thr, catl, lo, ro,
+                               mono_f)
 
         # ---- smaller children first: the partition pass emits the next
         # histogram pass's compaction keys and payload for exactly them
@@ -492,11 +582,27 @@ class BatchedTree:
                 parents, safe_nl, valid, smaller, l_cnt, r_cnt, small_cnt,
                 left_small, live)
 
-        # ---- best splits of the 2K children at once
+        # ---- best splits of the 2K children at once; node keys folded
+        # on (split node, side): unique per evaluation
         kids = torch.cat([parents, safe_nl])
-        res, bits = self.child_best(torch.cat([h_left, h_right]),
-                                    sum_g[kids], sum_h[kids], count[kids],
-                                    self.leaf_depth[kids])
+        node2 = torch.cat([node_ids, node_ids]) * 2 + torch.cat(
+            [torch.ones_like(node_ids), torch.full_like(node_ids, 2)]) \
+            if self.use_rng else None
+        con = {}
+        if hp.path_smooth > 0.0:
+            con["parent_output"] = self.leaf_value[kids]
+        if self.mono:
+            con.update(leaf_min=self.leaf_min[kids],
+                       leaf_max=self.leaf_max[kids])
+        if self.adv:
+            con["adv_bounds"] = advanced_split_bounds(
+                self.leaf_lo[:L], self.leaf_hi[:L], self.leaf_value[:L],
+                self.monotone, 1 + self.n_splits, kids, hp.n_bins)
+        res, bits = self.child_best(
+            torch.cat([h_left, h_right]), sum_g[kids], sum_h[kids],
+            count[kids], self.leaf_depth[kids],
+            self.path_f[kids] if self.isets is not None else None, node2,
+            **con)
         tgt = torch.where(torch.cat([valid, valid]), kids, L)
         _put(best_gain, tgt, res.gain)
         _put(best_feat, tgt, res.feature)
@@ -508,6 +614,39 @@ class BatchedTree:
         if self.cat:
             _put(self.best_var, tgt, res.variant)
             _put(self.best_bitset, tgt, bits)
+
+    def _record_boxes(self, ok, bl, new_leaves, feat, thr, catl, lo, ro,
+                      mono_f):
+        """The intermediate and advanced methods' record, slot by slot:
+        each slot's children clipped into its parent's current bounds
+        (siblings against the split feature's direction collapsed to
+        their midpoint), written, their boxes split, and every leaf's
+        bounds refreshed from the boxes, which the next slot reads (the
+        JAX package's sequential branch, batch_grower.py:636-783).
+        Invalid slots write the trash row and keep the bounds."""
+        L = self.L
+        lo_all, hi_all = self.leaf_lo, self.leaf_hi
+        for j in range(ok.shape[0]):
+            s = slice(j, j + 1)
+            ok_j = ok[s]
+            tb = torch.where(ok_j, bl[s], L)
+            tn = torch.where(ok_j, new_leaves[s], L)
+            lmin_p, lmax_p = self.leaf_min[bl[s]], self.leaf_max[bl[s]]
+            lo_j = torch.clamp(lo[s], lmin_p, lmax_p)
+            ro_j = torch.clamp(ro[s], lmin_p, lmax_p)
+            inv = ~catl[s] & (((mono_f[s] > 0) & (lo_j > ro_j))
+                              | ((mono_f[s] < 0) & (lo_j < ro_j)))
+            mid = torch.clamp((lo_j + ro_j) * 0.5, lmin_p, lmax_p)
+            _put(self.leaf_value, tb, torch.where(inv, mid, lo_j))
+            _put(self.leaf_value, tn, torch.where(inv, mid, ro_j))
+            split_boxes(lo_all, hi_all, tb, tn, feat[s], thr[s], ~catl[s])
+            lower, upper = box_bounds(lo_all[:L], hi_all[:L],
+                                      self.leaf_value[:L], self.monotone,
+                                      new_leaves[s] + 1)
+            self.leaf_min[:L].copy_(torch.where(ok_j, lower,
+                                                self.leaf_min[:L]))
+            self.leaf_max[:L].copy_(torch.where(ok_j, upper,
+                                                self.leaf_max[:L]))
 
     def ladder(self):
         """The warm-up ladder's widths: 1, 4, 16, ... < K where it runs
@@ -571,7 +710,10 @@ def grow_tree_batched(bins: torch.Tensor, grad: torch.Tensor,
                       bins_words: Optional[torch.Tensor] = None,
                       bins_words_t: Optional[torch.Tensor] = None,
                       bundle: Optional[DeviceBundle] = None,
-                      is_cat: Optional[torch.Tensor] = None
+                      is_cat: Optional[torch.Tensor] = None,
+                      monotone: Optional[torch.Tensor] = None,
+                      rng_key: Optional[torch.Tensor] = None,
+                      interaction_sets: Optional[torch.Tensor] = None
                       ) -> Tuple[TreeArrays, torch.Tensor]:
     """Grow one tree with ``batch`` splits per histogram pass.
 
@@ -583,14 +725,17 @@ def grow_tree_batched(bins: torch.Tensor, grad: torch.Tensor,
     the tree-invariant layouts, derived here when not passed.  ``bundle``:
     the EFB tables when ``bins`` holds bundle columns (F then counts the
     virtual features); ``is_cat`` bool [F], read when
-    ``hp.has_categorical``.
+    ``hp.has_categorical``; ``monotone``, ``rng_key`` and
+    ``interaction_sets`` the split constraints' operands
+    (:class:`BatchedTree`).
     Returns (TreeArrays, leaf_of_row i32 [n]).
     """
     tree = BatchedTree(bins, grad, hess, row_mask, num_bins, nan_bin,
                        feature_mask, hp, batch=batch, hist_scale=hist_scale,
                        bins_t=bins_t, bins_words=bins_words,
                        bins_words_t=bins_words_t, bundle=bundle,
-                       is_cat=is_cat)
+                       is_cat=is_cat, monotone=monotone, rng_key=rng_key,
+                       interaction_sets=interaction_sets)
     for kw in tree.ladder():
         tree.round(kw)
     # one host read a K-wide round: the progress test

@@ -37,10 +37,26 @@ the inputs are the same); a categorical split records the bitset in
 ``cat_bitset``, partitions by ``bitset[bin]`` and gives its children
 ``lambda_l2 + cat_l2`` when it is a sorted-subset split.
 
+Split constraints (the JAX package's grower.py:371-385, 442-500,
+693-840): each leaf carries its output bounds (``leaf_min`` /
+``leaf_max``; the basic method tightens the children's at their midpoint
+along a monotone split, the intermediate and advanced methods refresh
+every leaf's from the bin-space boxes after each split,
+learner/monotone.py ``box_bounds``, and advanced hands the children
+per-threshold bounds, ``advanced_split_bounds``); a leaf's children take
+the smoothed outputs toward its own output and are clipped into its
+bounds, so under a constraint the leaf values are kept per split on the
+device.  The node keys are the JAX package's: the root's ``split(fold_in(
+key, L))``, split ``i``'s ``split(fold_in(key, i), 4)`` (left and right
+by-node masks, left and right extra-trees keys), drawn in one launch a
+draw family (ops/prng.py ``draw``); interaction constraints mask each
+leaf to the sets that hold its whole path (:func:`node_feature_mask`).
+
 Supported: numeric and categorical features, serial training, EFB
 bundles, row masks, per-tree feature masks, ``max_depth``,
-``max_delta_step`` and quantized levels (``hist_scale``).  Anything else
-raises ``LightGBMError`` naming it.
+``max_delta_step``, quantized levels (``hist_scale``), monotone
+constraints (every method and the penalty), path smoothing, extra trees,
+by-node feature sampling and interaction constraints.
 """
 
 from __future__ import annotations
@@ -53,10 +69,15 @@ import torch
 from ..ops.histogram import (bins_to_words, histogram_for_leaf_bucketed,
                              histogram_for_leaf_masked, leaf_pass_scale,
                              root_histogram, wants_packed_mirror)
+from ..ops import prng
 from ..ops.split import (NEG_INF, VAR_CAT_FWD, VAR_CAT_ONEHOT, SplitHyper,
                          categorical_left_bitset, find_best_split,
-                         leaf_output)
-from ..utils import log
+                         leaf_output, smoothed_output)
+from .monotone import advanced_split_bounds, box_bounds, split_boxes
+
+#: the output bound of an unconstrained leaf (the JAX package's
+#: ``_INF_BOUND``)
+INF_BOUND = 3.0e38
 
 
 class DeviceBundle(NamedTuple):
@@ -199,17 +220,57 @@ def _empty_tree(num_leaves: int, n_bins: int, num_f: int,
     )
 
 
-def check_supported(hp: SplitHyper, learner: str) -> None:
-    """Raise ``LightGBMError`` naming the first configuration outside the
-    growers' supported set."""
-    for bad, what in ((hp.use_monotone, "monotone_constraints"),
-                      (hp.path_smooth > 0.0, "path_smooth"),
-                      (hp.extra_trees, "extra_trees"),
-                      (hp.feature_fraction_bynode < 1.0,
-                       "feature_fraction_bynode")):
-        if bad:
-            log.fatal(f"{what} is not supported by lightgbm_tpu_torch's "
-                      f"{learner} yet")
+def sample_features_bynode(mask: Optional[torch.Tensor], u: torch.Tensor,
+                           frac: float) -> torch.Tensor:
+    """bool [M, F]: each node's random feature subset (reference
+    col_sampler.hpp feature_fraction_bynode; the JAX package's
+    ``sample_features_bynode``, batched): of the allowed features
+    (``mask`` bool [F] or [M, F], None for all) keep max(int(allowed *
+    frac), 1), those whose uniform (``u`` f32 [M, F], the node key's
+    ``uniform(k, (F,))``) is at least the count-th largest.  Equal
+    uniforms cannot change the mask: it compares ``u >= kth``."""
+    M, F = u.shape
+    base = torch.ones(M, F, dtype=torch.bool, device=u.device) \
+        if mask is None else mask.expand(M, F)
+    u = torch.where(base, u, -1.0)
+    cnt = torch.clamp((base.sum(1).to(torch.float32) * frac)
+                      .to(torch.int64), min=1)
+    kth = torch.sort(u, dim=1).values.gather(1, (F - cnt)[:, None])
+    return base & (u >= kth) & (u >= 0)
+
+
+def node_feature_mask(feature_mask: Optional[torch.Tensor],
+                      paths: torch.Tensor,
+                      interaction_sets: Optional[torch.Tensor],
+                      u_bynode: Optional[torch.Tensor],
+                      frac: float) -> Optional[torch.Tensor]:
+    """The features M nodes may split on (bool [M, F], or the tree's
+    ``feature_mask`` when no node option applies): the tree's mask, and
+    the union of the interaction sets (bool [S, F]) that hold each node's
+    whole path (``paths`` bool [M, F]; reference col_sampler.hpp:91
+    GetByNode) plus the path itself, then the by-node subset drawn from
+    ``u_bynode`` (f32 [M, F], or None)."""
+    m = feature_mask
+    if interaction_sets is not None:
+        fits = (interaction_sets[None] | ~paths[:, None, :]).all(2)  # [M, S]
+        allowed = (interaction_sets[None] & fits[..., None]).any(1) | paths
+        m = allowed if m is None else m & allowed
+    if u_bynode is not None:
+        m = sample_features_bynode(m, u_bynode, frac)
+    return m
+
+
+def extra_tree_draws(keys: torch.Tensor, path: list, num_f: int,
+                     hp: SplitHyper) -> Optional[list]:
+    """The extra-trees uniforms of M nodes: for each variant family j (the
+    numeric threshold; on categorical data also the one-hot and the
+    sorted-subset ones) ``uniform(split(k, 3)[j], (F,))`` of each node's
+    key ``k`` (``keys`` and ``path``: ops/prng.py ``draw``'s), one launch
+    a family; None without extra trees."""
+    if not hp.extra_trees:
+        return None
+    fams = 3 if hp.has_categorical else 1
+    return [prng.draw(keys, num_f, path + [(j, 0)]) for j in range(fams)]
 
 
 #: columns of the grower's per-leaf best-split table (f32; feature,
@@ -235,7 +296,10 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
               bins_words: Optional[torch.Tensor] = None,
               bins_words_t: Optional[torch.Tensor] = None,
               bundle: Optional[DeviceBundle] = None,
-              is_cat: Optional[torch.Tensor] = None
+              is_cat: Optional[torch.Tensor] = None,
+              monotone: Optional[torch.Tensor] = None,
+              rng_key: Optional[prng.Key] = None,
+              interaction_sets: Optional[torch.Tensor] = None
               ) -> Tuple[TreeArrays, torch.Tensor]:
     """Grow one tree, one split per data pass.
 
@@ -246,10 +310,11 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     ``bins_words`` and ``bins_words_t`` the tree-invariant layouts, derived
     when not passed; ``bundle`` the EFB tables when ``bins`` holds bundle
     columns (F = Fv features over Fb columns; F = Fb without); ``is_cat``
-    bool [F], read when ``hp.has_categorical``.
+    bool [F], read when ``hp.has_categorical``; ``monotone`` int [F]
+    (``hp.use_monotone``); ``rng_key`` the tree's node key (extra trees,
+    by-node sampling); ``interaction_sets`` bool [S, F].
     Returns (TreeArrays, leaf_of_row i32 [n]).
     """
-    check_supported(hp, "strict leaf-wise grower")
     dev = grad.device
     f32, i32 = torch.float32, torch.int32
     n, n_cols = bins.shape
@@ -277,14 +342,38 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         return h if scale_vec is None else h * scale_vec
 
     cat = hp.has_categorical
+    mono = hp.use_monotone
+    use_boxes = mono and hp.monotone_method in ("intermediate", "advanced")
+    use_adv = mono and hp.monotone_method == "advanced"
+    # leaf outputs that depend on the parent's output or bounds are kept
+    # per split; otherwise they are computed once, from the final sums
+    track = mono or hp.path_smooth > 0.0
+    use_bynode = hp.feature_fraction_bynode < 1.0 and rng_key is not None
+    use_rng = rng_key is not None and (hp.extra_trees or use_bynode)
+    key_t = torch.tensor([list(rng_key)], dtype=torch.int64, device=dev) \
+        if use_rng else None
+    mono_h = monotone.cpu().numpy() if mono else None
+    if monotone is not None:
+        monotone = monotone.to(dev)
 
-    def best_of(h_phys, g_, h_, c_):
+    def draws(rows: int, fold: int, by_key, er_key):
+        """The by-node and extra-trees uniforms of ``rows`` nodes, whose
+        keys are the split keys ``by_key`` and ``er_key`` (ops/prng.py
+        ``draw`` steps) of ``fold_in(key, fold)``."""
+        if not use_rng:
+            return None, None
+        keys = key_t.expand(rows, 2)
+        ub = prng.draw(keys, num_f, [(fold, 0), by_key]) \
+            if use_bynode else None
+        return ub, extra_tree_draws(keys, [(fold, 0), er_key], num_f, hp)
+
+    def best_of(h_phys, g_, h_, c_, fm, **con):
         """Best splits of M leaves from their physical histograms: the
         table rows and, on categorical data, the winners' left bins."""
         hv = h_phys if bundle is None else \
             _expand_hist(h_phys, bundle, g_, h_, c_)
         res = find_best_split(hv, g_, h_, c_, num_bins, nan_bin, is_cat,
-                              feature_mask, hp)
+                              fm, hp, monotone=monotone, **con)
         bits = winner_bitset(h_phys, g_, h_, c_, res, num_bins, is_cat,
                              bundle, hp) if cat else None
         return _best_rows(res), bits
@@ -313,8 +402,32 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     sums[0] = torch.stack([g0, h0, c0])
     best = torch.zeros(L, 8, dtype=f32, device=dev)
     best[:, _GAIN] = NEG_INF
-    rows0, bits0 = best_of(hist0[None], g0[None], h0[None], c0[None])
+    root_out = leaf_output(g0, h0, l1, l2, mds)
+    path_t = torch.zeros(L, num_f, dtype=torch.bool, device=dev)
+    # the root's keys: split(fold_in(key, L)), by-node 0, extra trees 1
+    ub0, er0 = draws(1, L, (0, 0), (1, 0))
+    fm0 = node_feature_mask(feature_mask, path_t[:1], interaction_sets,
+                            ub0, hp.feature_fraction_bynode)
+    one = torch.ones(1, dtype=f32, device=dev)
+    # the monotone penalty's depths, made only where it reads them
+    pen = mono and hp.monotone_penalty > 0.0
+    rows0, bits0 = best_of(
+        hist0[None], g0[None], h0[None], c0[None], fm0,
+        parent_output=root_out.reshape(1), leaf_min=-INF_BOUND * one,
+        leaf_max=INF_BOUND * one,
+        depth=torch.zeros(1, dtype=i32, device=dev) if pen else None,
+        rand=er0)
     best[0] = rows0[0]
+    if track:
+        # per-split leaf outputs and (monotone) output bounds
+        leaf_val = torch.zeros(L, dtype=f32, device=dev)
+        leaf_val[0] = root_out
+        leaf_min = torch.full((L,), -INF_BOUND, dtype=f32, device=dev)
+        leaf_max = torch.full((L,), INF_BOUND, dtype=f32, device=dev)
+    if use_boxes:
+        leaf_lo = torch.zeros(L, num_f, dtype=i32, device=dev)
+        leaf_hi = torch.zeros(L, num_f, dtype=i32, device=dev)
+        leaf_hi[0] = num_bins.to(i32)
     # categorical: each leaf's cached left bins, and the recorded splits'
     bits = cat_bitset = None
     if cat:
@@ -399,6 +512,25 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         parent_side[bl], parent_side[new_leaf] = 0, 1
         path[bl, feat] = True
         path[new_leaf] = path[bl]
+        kid = torch.stack([pack[6:9], pack[12:15]])               # [2, 3]
+        con = {}
+        if track:
+            kid_out, kid_min, kid_max = _constrained_children(
+                kid, var, catl, feat, thr, bl, new_leaf, i, row, bl_t,
+                leaf_val, leaf_min, leaf_max, hp, mono_h,
+                monotone if use_boxes else None,
+                (leaf_lo, leaf_hi) if use_boxes else None)
+            con = dict(parent_output=kid_out, leaf_min=kid_min,
+                       leaf_max=kid_max)
+            if use_adv:
+                kids_t = torch.cat([bl_t, torch.full_like(bl_t, new_leaf)])
+                con["adv_bounds"] = advanced_split_bounds(
+                    leaf_lo, leaf_hi, leaf_val, monotone, i + 2, kids_t,
+                    hp.n_bins)
+
+        if interaction_sets is not None:
+            path_t[bl, feat] = True
+            path_t[new_leaf] = path_t[bl]
 
         # both children's best splits; past max_depth their gains are
         # -inf, as the JAX package's depth gate sets them
@@ -406,10 +538,17 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
             best[bl, _GAIN] = NEG_INF
             best[new_leaf, _GAIN] = NEG_INF
         else:
-            kid = torch.stack([pack[6:9], pack[12:15]])           # [2, 3]
+            # split(fold_in(key, i), 4): by-node keys 0 and 1, extra-trees
+            # keys 2 and 3 (left, right)
+            ub, er = draws(2, i, (0, 1), (2, 1))
+            fm = node_feature_mask(
+                feature_mask, path_t[bl].expand(2, num_f),
+                interaction_sets, ub, hp.feature_fraction_bynode)
             rows, kid_bits = best_of(
                 torch.stack([hist[bl], hist[new_leaf]]), kid[:, 0],
-                kid[:, 1], kid[:, 2])
+                kid[:, 1], kid[:, 2], fm,
+                depth=(torch.full((2,), d, dtype=i32, device=dev) if pen
+                       else None), rand=er, **con)
             best[bl].copy_(rows[0])
             best[new_leaf].copy_(rows[1])
             if cat:
@@ -433,6 +572,12 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         # the JAX package's f32 l2 + (subset ? cat_l2 : 0) of each leaf's
         # last split
         l2_leaf = l2 + torch.where(up(subset_leaf, bool), hp.cat_l2, 0.0)
+    if track:
+        leaf_value = leaf_val
+    else:
+        leaf_value = torch.where(
+            live_leaf, leaf_output(sums[:, 0], sums[:, 1], l1, l2_leaf, mds),
+            zero)
     tree = TreeArrays(
         split_feature=ints[0], split_bin=ints[1],
         default_left=ints[2].to(torch.bool),
@@ -443,10 +588,72 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         internal_value=torch.where(
             live_node, leaf_output(nodes[1], nodes[2], l1, l2, mds), zero),
         internal_count=nodes[3],
-        leaf_value=torch.where(
-            live_leaf,
-            leaf_output(sums[:, 0], sums[:, 1], l1, l2_leaf, mds), zero),
+        leaf_value=leaf_value,
         leaf_count=sums[:, 2].clone(), leaf_weight=sums[:, 1].clone(),
         leaf_depth=up(depth, np.int32), leaf_path=up(path, bool),
         num_leaves=torch.full((), i + 1, dtype=i32, device=dev))
     return tree, lor
+
+
+def _constrained_children(kid, var, catl, feat, thr, bl, new_leaf, i, row,
+                          bl_t, leaf_val, leaf_min, leaf_max, hp, mono_h,
+                          monotone, boxes):
+    """Split ``i``'s children under smoothing or monotone constraints (the
+    JAX package's grower.py:693-770): their outputs, smoothed toward the
+    parent's and clipped into its bounds, written into ``leaf_val``; the
+    basic method's midpoint bounds, or (``boxes``: the intermediate and
+    advanced methods' (leaf_lo, leaf_hi), split here) every leaf's bounds
+    refreshed from the boxes, written into ``leaf_min`` / ``leaf_max``.
+    ``kid`` f32 [2, 3]: the children's (g, h, count); ``row`` the
+    parent's best-split table row and ``bl_t`` its leaf id, on the
+    device.  Returns the children's (outputs, mins, maxes), f32 [2]
+    each."""
+    dev = kid.device
+    l2_eff = hp.lambda_l2 + torch.full(
+        (), hp.cat_l2 if var >= VAR_CAT_FWD else 0.0, dtype=torch.float32,
+        device=dev)
+    out = smoothed_output(kid[:, 0], kid[:, 1], kid[:, 2], leaf_val[bl],
+                          hp.lambda_l1, l2_eff, hp)
+    lo, ro = out[0], out[1]
+    # copies: the views would follow the writes below
+    lmin_p, lmax_p = leaf_min[bl].clone(), leaf_max[bl].clone()
+    lmin_l = lmin_r = lmin_p
+    lmax_l = lmax_r = lmax_p
+    m = 0 if catl or mono_h is None else int(mono_h[feat])
+    if hp.use_monotone:
+        lo = torch.clamp(lo, lmin_p, lmax_p)
+        ro = torch.clamp(ro, lmin_p, lmax_p)
+        if boxes is not None:
+            # siblings clipped to the parent's range may come out against
+            # the split feature's direction: collapse them to the midpoint
+            if m != 0:
+                inv = (lo > ro) if m > 0 else (lo < ro)
+                mid = torch.clamp((lo + ro) * 0.5, lmin_p, lmax_p)
+                lo = torch.where(inv, mid, lo)
+                ro = torch.where(inv, mid, ro)
+        elif m != 0:
+            mid = (lo + ro) * 0.5
+            if m > 0:
+                lmax_l = torch.minimum(lmax_p, mid)
+                lmin_r = torch.maximum(lmin_p, mid)
+            else:
+                lmin_l = torch.maximum(lmin_p, mid)
+                lmax_r = torch.minimum(lmax_p, mid)
+    leaf_val[bl] = lo
+    leaf_val[new_leaf] = ro
+    if boxes is not None:
+        leaf_lo, leaf_hi = boxes
+        split_boxes(leaf_lo, leaf_hi, bl_t, torch.full_like(bl_t, new_leaf),
+                    row[_FEAT:_FEAT + 1].long(), row[_THR:_THR + 1].long(),
+                    torch.full((1,), not catl, dtype=torch.bool,
+                               device=dev))
+        lower, upper = box_bounds(leaf_lo, leaf_hi, leaf_val, monotone,
+                                  i + 2)
+        leaf_min.copy_(lower)
+        leaf_max.copy_(upper)
+        ids = torch.cat([bl_t, torch.full_like(bl_t, new_leaf)])
+        return leaf_val[ids], lower[ids], upper[ids]
+    leaf_min[bl], leaf_min[new_leaf] = lmin_l, lmin_r
+    leaf_max[bl], leaf_max[new_leaf] = lmax_l, lmax_r
+    return (torch.stack([lo, ro]), torch.stack([lmin_l, lmin_r]),
+            torch.stack([lmax_l, lmax_r]))

@@ -32,12 +32,12 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("take", "hist", "radix", "packed", "rows", "partition", "forest",
-           "shap", "rank")
+           "shap", "rank", "prng")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
-_F = ctypes.c_float
+_F, _LL = ctypes.c_float, ctypes.c_longlong
 _DESC = (_P,) * 8  # the partition kernels' eight [K] slot descriptors
 #: C signatures of the exported functions (all return the launch's
 #: cudaGetLastError() code)
@@ -76,6 +76,10 @@ _SIGNATURES = {
     "rank": {
         "lgbt_lambdarank": (_P, _P, _P, _P, _P, _P, _I, _L, _F, _I, _I, _P,
                             _P, _P, _P),
+    },
+    "prng": {
+        "lgbt_threefry_draw": (_P, _L, _I) + (_P, _LL, _LL) * 3
+        + (_L, _I, _P, _P),
     },
     "partition": {
         "lgbt_partition_payload": (_L, _I, _P, _I, _P, _P, _P, _P) + _DESC

@@ -20,15 +20,25 @@ canonical (``key + 0.0`` turns -0.0 into +0.0): a CUDA radix sort orders
 as equal, so a category whose gradient sum is exactly zero would otherwise
 move between the card and the CPU.
 
-Not ported yet: monotone constraints, path smoothing, extra-trees random
-thresholds and CEGB penalties (the grower rejects the configurations that
-need them).
+Split constraints follow the JAX package's order of operations
+(``lightgbm_tpu/ops/split.py:186-400``): each candidate child's output is
+the smoothed output (``path_smooth`` pulls it toward the leaf's own
+output), clipped into the leaf's monotone bounds (or, under the advanced
+method, into per-threshold bounds that replace them); a candidate whose
+clipped outputs break its feature's monotone direction is forbidden; the
+parent-gain shift is evaluated at the leaf's actual output under
+smoothing; extra trees keep one random threshold per feature and variant
+family, from uniforms the grower draws (ops/prng.py ``draw``); and
+``monotone_penalty`` scales the final gains of monotone features by a
+factor that decays with depth before the flat argmax.
+
+Not ported yet: CEGB penalties (the booster rejects them).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
@@ -130,18 +140,67 @@ def gain_given_output(g: torch.Tensor, h: torch.Tensor, out: torch.Tensor,
     return -(2.0 * threshold_l1(g, l1) * out + (h + l2) * out * out)
 
 
+def smoothed_output(g: torch.Tensor, h: torch.Tensor, n: torch.Tensor,
+                    parent_output, l1: float, l2, hp: SplitHyper
+                    ) -> torch.Tensor:
+    """Leaf output with max_delta_step clipping and path smoothing toward
+    the parent (feature_histogram.hpp CalculateSplittedLeafOutput
+    USE_SMOOTHING: out' = (n out + path_smooth parent) / (n +
+    path_smooth), as out w + parent (1 - w))."""
+    out = leaf_output(g, h, l1, l2, hp.max_delta_step)
+    if hp.path_smooth > 0.0:
+        w = n / (n + hp.path_smooth)
+        out = out * w + parent_output * (1.0 - w)
+    return out
+
+
+def monotone_penalty_factor(depth: torch.Tensor,
+                            penalty: float) -> torch.Tensor:
+    """f32 [M]: the gain factor of a monotone feature's split at leaf depth
+    ``depth`` (reference monotone_constraints.hpp:357
+    ComputeMonotoneSplitGainPenalty; the JAX package's float32 steps)."""
+    d = depth.to(torch.float32)
+    # fills, not torch.tensor: a captured round copies nothing from the host
+    p = torch.full((), penalty, dtype=torch.float32, device=d.device)
+    eps = torch.full((), 1e-10, dtype=torch.float32, device=d.device)
+    one = torch.ones((), dtype=torch.float32, device=d.device)
+    return torch.where(
+        p >= d + 1.0, eps,
+        torch.where(p <= 1.0, one - p / torch.exp2(d) + eps,
+                    one - torch.exp2(p - 1.0 - d) + eps))
+
+
 def find_best_split(hist: torch.Tensor, sum_g: torch.Tensor,
                     sum_h: torch.Tensor, count: torch.Tensor,
                     num_bins: torch.Tensor, nan_bin: torch.Tensor,
                     is_cat: Optional[torch.Tensor],
                     feature_mask: Optional[torch.Tensor],
-                    hp: SplitHyper) -> SplitResult:
+                    hp: SplitHyper,
+                    monotone: Optional[torch.Tensor] = None,
+                    parent_output: Optional[torch.Tensor] = None,
+                    leaf_min: Optional[torch.Tensor] = None,
+                    leaf_max: Optional[torch.Tensor] = None,
+                    depth: Optional[torch.Tensor] = None,
+                    rand: Optional[Sequence] = None,
+                    adv_bounds: Optional[Sequence] = None) -> SplitResult:
     """Best (feature, threshold, default direction) of M leaves at once.
 
     hist: f32 [M, F, B, C>=3] (grad, hess, count); sum_g/sum_h/count: f32
     [M] leaf totals; num_bins/nan_bin: i32 [F]; is_cat: bool [F] (read only
     when ``hp.has_categorical``; None for all-numeric data); feature_mask:
-    bool [F] or None.
+    bool [F], [M, F] (a mask a leaf) or None.
+
+    Split constraints, read where ``hp`` turns them on: monotone int [F]
+    (categorical features 0) with ``hp.use_monotone``; parent_output f32
+    [M], each leaf's own output (the smoothing target); leaf_min /
+    leaf_max f32 [M], the leaves' output bounds; depth int [M] (the
+    monotone penalty); rand: with ``hp.extra_trees``, the uniforms f32
+    [M, F] of the numeric threshold draw and, on categorical data, of the
+    one-hot and the sorted-subset draws (the JAX package's
+    ``split(key, 3)`` keys' ``uniform(k, (F,))``); adv_bounds: the
+    advanced method's (lmin_left, lmax_left, lmin_right, lmax_right), f32
+    [M, F, B] each, which replace the leaf bounds on the numeric
+    thresholds.
     """
     M, F, B = hist.shape[0], hist.shape[1], hist.shape[2]
     dev = hist.device
@@ -167,8 +226,14 @@ def find_best_split(hist: torch.Tensor, sum_g: torch.Tensor,
     has_missing = nanb >= 0                                     # [F, 1]
 
     l1, l2 = hp.lambda_l1, hp.lambda_l2
-    output_path = hp.max_delta_step > 0.0
-    if output_path:
+    mono = hp.use_monotone
+    # the closed form g^2 / (h + l2) holds only at the unconstrained
+    # optimum: smoothing, clipping and monotone bounds evaluate the gain at
+    # the output itself, the parent's at its actual output
+    output_path = mono or hp.path_smooth > 0.0 or hp.max_delta_step > 0.0
+    if hp.path_smooth > 0.0:
+        parent_gain = gain_given_output(sum_g, sum_h, parent_output, l1, l2)
+    elif hp.max_delta_step > 0.0:
         po = leaf_output(sum_g, sum_h, l1, l2, hp.max_delta_step)
         parent_gain = gain_given_output(sum_g, sum_h, po, l1, l2)
     else:
@@ -177,8 +242,13 @@ def find_best_split(hist: torch.Tensor, sum_g: torch.Tensor,
     sg = sum_g[:, None, None]
     sh = sum_h[:, None, None]
     sc = count[:, None, None]
+    pout = None if parent_output is None else parent_output[:, None, None]
+    if mono:
+        lmin = leaf_min[:, None, None]
+        lmax = leaf_max[:, None, None]
+        mono_f = monotone.to(dev)[None, :, None]                # [1, F, 1]
 
-    def variant_gain(gl_v, hl_v, nl_v, l2_v):
+    def variant_gain(gl_v, hl_v, nl_v, l2_v, bnds=None):
         gr = sg - gl_v
         hr = sh - hl_v
         nr = sc - nl_v
@@ -186,10 +256,24 @@ def find_best_split(hist: torch.Tensor, sum_g: torch.Tensor,
             gain = (leaf_gain(gl_v, hl_v, l1, l2_v)
                     + leaf_gain(gr, hr, l1, l2_v))
         else:
-            lo = leaf_output(gl_v, hl_v, l1, l2_v, hp.max_delta_step)
-            ro = leaf_output(gr, hr, l1, l2_v, hp.max_delta_step)
+            lo = smoothed_output(gl_v, hl_v, nl_v, pout, l1, l2_v, hp)
+            ro = smoothed_output(gr, hr, nr, pout, l1, l2_v, hp)
+            if mono and bnds is not None:
+                # advanced: the per-threshold bounds replace the leaf's
+                bmin_l, bmax_l, bmin_r, bmax_r = bnds
+                lo = torch.clamp(lo, bmin_l, bmax_l)
+                ro = torch.clamp(ro, bmin_r, bmax_r)
+            elif mono:
+                lo = torch.clamp(lo, lmin, lmax)
+                ro = torch.clamp(ro, lmin, lmax)
             gain = (gain_given_output(gl_v, hl_v, lo, l1, l2_v)
                     + gain_given_output(gr, hr, ro, l1, l2_v))
+            if mono:
+                # outputs against the feature's direction: no split
+                # (feature_histogram.hpp:788-791)
+                bad = ((mono_f > 0) & (lo > ro)) | ((mono_f < 0) & (lo < ro))
+                gain = torch.where(bad, torch.full_like(gain, NEG_INF),
+                                   gain)
         ok = ((nl_v >= hp.min_data_in_leaf) & (nr >= hp.min_data_in_leaf)
               & (hl_v >= hp.min_sum_hessian_in_leaf)
               & (hr >= hp.min_sum_hessian_in_leaf))
@@ -203,19 +287,47 @@ def find_best_split(hist: torch.Tensor, sum_g: torch.Tensor,
         cat = is_cat.to(dev)
         thr_ok = thr_ok & ~cat[:, None]
     neg = torch.full((), NEG_INF, dtype=hist.dtype, device=dev)
-    gain_right = torch.where(thr_ok, variant_gain(gl, hl, nl, l2), neg)
+    adv = adv_bounds if mono else None
+    gain_right = torch.where(thr_ok, variant_gain(gl, hl, nl, l2, adv), neg)
     gain_left = torch.where(thr_ok & has_missing,
-                            variant_gain(gl + gm, hl + hm, nl + nm, l2), neg)
+                            variant_gain(gl + gm, hl + hm, nl + nm, l2, adv),
+                            neg)
     families = [gain_right, gain_left]
     if cat is not None:
-        cat_gains, cat_left = _categorical_candidates(
+        cat_gains, cat_left, k_limit = _categorical_candidates(
             g, h, n, valid_bin, nb[:, 0], cat, sc, variant_gain, hp)
         families += cat_gains
+    if hp.extra_trees and rand is not None:
+        # one random candidate threshold per feature and variant family
+        # (reference feature_histogram.cpp USE_RAND)
+        def keep(u, span):
+            r = torch.floor(u * span.to(torch.float32)).to(torch.int64)
+            return bin_idx == r[..., None]                      # [M, F, B]
+
+        keep_num = keep(rand[0], torch.clamp(nb[:, 0] - 1, min=1))
+        families[0] = torch.where(keep_num, families[0], neg)
+        families[1] = torch.where(keep_num, families[1], neg)
+        if cat is not None:
+            families[2] = torch.where(keep(rand[1], nb[:, 0]), families[2],
+                                      neg)
+            max_thr = torch.clamp(k_limit[..., 0] - 1, min=0)   # [M, F]
+            keep_sub = keep(rand[2], max_thr + 1)
+            families[3] = torch.where(keep_sub, families[3], neg)
+            families[4] = torch.where(keep_sub, families[4], neg)
     V = len(families)
     cand = torch.stack(families, dim=-1)                        # [M, F, B, V]
     if feature_mask is not None:
         fm = feature_mask.to(dev)
         cand = torch.where(fm[..., None, None], cand, neg)
+    if mono and hp.monotone_penalty > 0.0:
+        # the depth-decaying penalty on monotone features, applied to the
+        # final gain before the argmax (serial_tree_learner.cpp:994)
+        pen = monotone_penalty_factor(depth.to(dev), hp.monotone_penalty)
+        pen_f = torch.where(monotone.to(dev)[None, :] != 0, pen[:, None],
+                            torch.ones((), dtype=hist.dtype, device=dev))
+        final = cand - min_shift[:, None, None, None]
+        cand = torch.where(final > 0, final * pen_f[..., None, None], neg)
+        min_shift = torch.zeros_like(min_shift)
 
     flat = cand.reshape(M, -1)
     best = torch.argmax(flat, dim=1)                            # first max
@@ -281,7 +393,8 @@ def _categorical_candidates(g, h, n, valid_bin, nb, cat, sc, variant_gain,
                             hp: SplitHyper):
     """The JAX package's categorical candidate families (ops/split.py
     :289-333) over [M, F, B]: ([one-hot, ascending, descending] gains,
-    [(left g, h, count) cumulatives of the two sorted scans]).
+    [(left g, h, count) cumulatives of the two sorted scans], the prefix
+    cap k_limit [M, F, 1]).
 
     One-hot (reference feature_histogram.cpp:179): ``{bin == t}`` goes
     left on features of at most ``max_cat_to_onehot`` bins, plain
@@ -321,7 +434,7 @@ def _categorical_candidates(g, h, n, valid_bin, nb, cat, sc, variant_gain,
             ok = ok & crossed & ((sc - nlv) >= mdpg)
         gains.append(torch.where(ok, variant_gain(glv, hlv, nlv, l2c), neg))
         lefts.append((glv, hlv, nlv))
-    return gains, lefts
+    return gains, lefts, k_limit
 
 
 def categorical_left_bitset(hist_f: torch.Tensor, num_bins_f: torch.Tensor,

@@ -30,6 +30,7 @@ from lightgbm_tpu.learner.batch_grower import (
 from lightgbm_tpu.learner.grower import grow_tree as jax_grow_tree
 from lightgbm_tpu.ops.quantize import (
     discretize_gradients_levels as jax_discretize)
+from lightgbm_tpu.ops import histogram as JH
 from lightgbm_tpu.ops.split import SplitHyper as JSplitHyper
 
 import lightgbm_tpu_torch as lgb_torch
@@ -306,3 +307,149 @@ def test_grow_tree_finds_the_scale_once_per_tree(monkeypatch):
         scales[0].numpy(),
         np.array([np.abs(g).max(), np.abs(h).max()], np.float32).view(
             np.int32))
+
+
+def _nan_probe():
+    """ROADMAP.md Queue 3's probe: 3,000 x 6 normal values, seed 0, 10%
+    NaN, half of column 5 zeros, binary, ``max_bin_by_feature``."""
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(3000, 6))
+    X[rng.random((3000, 6)) < 0.1] = np.nan
+    X[:, 5] = np.where(rng.random(3000) < 0.5, 0, X[:, 5])
+    y = (np.nan_to_num(X[:, 0]) + 0.5 * np.nan_to_num(X[:, 1])
+         + 0.3 * rng.normal(size=3000) > 0).astype(np.float64)
+    params = dict(objective="binary", num_leaves=15, verbosity=-1,
+                  max_bin_by_feature=[15, 31, 63, 7, 255, 3])
+    return X, y, params
+
+
+def _variant_gains(xp, cumsum, leaf_gain, hist, tot, nb, nanb, hp):
+    """(best gain, its bin) of each missing-value variant of one feature,
+    0 (missing right) and 1 (missing left), in one package's arithmetic
+    (``xp`` torch or jax.numpy, with that package's ``leaf_gain``)."""
+    g, h, n = hist[:, 0], hist[:, 1], hist[:, 2]
+    b = xp.arange(hist.shape[0])
+    is_nan = b == nanb
+    zero = xp.zeros_like(g)
+    gl = cumsum(xp.where(is_nan, zero, g))
+    hl = cumsum(xp.where(is_nan, zero, h))
+    nl = cumsum(xp.where(is_nan, zero, n))
+    gm = xp.where(is_nan, g, zero).sum()
+    hm = xp.where(is_nan, h, zero).sum()
+    nm = xp.where(is_nan, n, zero).sum()
+    out = []
+    for dg, dh, dn in ((0.0, 0.0, 0.0), (gm, hm, nm)):
+        GL, HL, NL = gl + dg, hl + dh, nl + dn
+        gain = (leaf_gain(GL, HL, hp.lambda_l1, hp.lambda_l2)
+                + leaf_gain(tot[0] - GL, tot[1] - HL, hp.lambda_l1,
+                            hp.lambda_l2)
+                - leaf_gain(tot[0], tot[1], hp.lambda_l1, hp.lambda_l2))
+        ok = ((b < nb - 1) & ~is_nan & (NL >= hp.min_data_in_leaf)
+              & (tot[2] - NL >= hp.min_data_in_leaf)
+              & (HL >= hp.min_sum_hessian_in_leaf)
+              & (tot[1] - HL >= hp.min_sum_hessian_in_leaf))
+        gain = xp.where(ok, gain, xp.full_like(gain, -1e30))
+        t = int(np.argmax(np.asarray(gain)))
+        out.append((float(np.asarray(gain)[t]), t))
+    return out
+
+
+def test_nan_split_probe_same_histogram_same_winner(capsys):
+    """Queue 3's two-way NaN-or-not split (strict float32).  At the probed
+    node the two missing-value variants can send the same rows to each
+    child, so their float32 gains tie but for rounding.  On one shared
+    histogram (the node's rows summed in float64) both packages'
+    ``find_best_split`` return the same SplitResult, so where trained trees
+    differ it is the histograms' float32 summation order (a contract
+    note): the trees are held as partitions of the training rows, up to
+    the labels of the two children."""
+    from lightgbm_tpu.ops.split import find_best_split as jfbs
+    from lightgbm_tpu.ops.split import leaf_gain as jleaf_gain
+    from lightgbm_tpu_torch.ops.split import find_best_split as tfbs
+    from lightgbm_tpu_torch.ops.split import leaf_gain as tleaf_gain
+    X, y, params = _nan_probe()
+    bj = lgb_jax.train(dict(params), lgb_jax.Dataset(X, y),
+                       num_boost_round=1)
+    ds = lgb_torch.Dataset(X, y)
+    bt = lgb_torch.train(dict(params, device_type="cpu"), ds,
+                         num_boost_round=1)
+    tj, tt = bj._gbdt.models[0], bt._gbdt.models[0]
+    # the partitions of the training rows agree, up to leaf labels
+    lt, lj = tt.predict_leaf_index(X), tj.predict_leaf_index(X)
+    pairs = set(zip(lt.tolist(), lj.tolist()))
+    assert len(pairs) == len(set(lt.tolist())) == len(set(lj.tolist()))
+    for a, b in pairs:
+        np.testing.assert_allclose(tt.leaf_value[a], tj.leaf_value[b],
+                                   rtol=1e-5, atol=5e-5)
+    np.testing.assert_array_equal(tt.split_feature, tj.split_feature)
+
+    # node 13's rows, the round-0 gradients, one shared f32 histogram
+    node = 13
+    sub, stack = set(), [node]
+    while stack:
+        v = stack.pop()
+        for c in (tt.left_child[v], tt.right_child[v]):
+            (stack.append(c) if c >= 0 else sub.add(-c - 1))
+    rows = np.isin(lt, sorted(sub))
+    p0 = y.mean()
+    p = np.full(len(y), p0)
+    g = (p - y).astype(np.float32)
+    h = (p * (1 - p)).astype(np.float32)
+    inner = ds.construct()._inner
+    bins = np.asarray(inner.bins)[rows].astype(np.int64)
+    F, B = bins.shape[1], inner.device_n_bins()
+    shared = np.zeros((F, B, 4))
+    for f in range(F):
+        for c, v in enumerate((g[rows], h[rows], np.ones(rows.sum()))):
+            np.add.at(shared[f, :, c], bins[:, f], v.astype(np.float64))
+    shared = shared.astype(np.float32)
+    tot = shared[0].sum(0)
+    nb = inner.num_bins_array()
+    nanb = inner.nan_bin_array()
+    hp = bt._gbdt.hp
+    want = jfbs(jnp.asarray(shared), *(jnp.float32(tot[c])
+                                      for c in range(3)),
+                jnp.asarray(nb), jnp.asarray(nanb),
+                jnp.zeros(F, bool), None,
+                JSplitHyper(**{f: getattr(hp, f)
+                               for f in hp.__dataclass_fields__}))
+    got = tfbs(torch.as_tensor(shared)[None],
+               *(torch.tensor([tot[c]]) for c in range(3)),
+               torch.as_tensor(nb), torch.as_tensor(nanb), None, None, hp)
+    for name in got._fields:
+        assert getattr(got, name)[0].item() == \
+            np.asarray(getattr(want, name)).item(), name
+    f = int(tj.split_feature[node])
+    with capsys.disabled():
+        print(f"\nnan probe: tree 0 node {node}, feature {f}, "
+              f"{int(rows.sum())} rows; (gain, bin) of variants 0 / 1")
+        print("  shared histogram, JAX:  ",
+              _variant_gains(jnp, jnp.cumsum, jleaf_gain,
+                             jnp.asarray(shared[f]), jnp.asarray(tot),
+                             int(nb[f]), int(nanb[f]), hp))
+        print("  shared histogram, port: ",
+              _variant_gains(torch, lambda x: torch.cumsum(x, 0),
+                             tleaf_gain, torch.as_tensor(shared[f]),
+                             torch.as_tensor(tot), int(nb[f]),
+                             int(nanb[f]), hp))
+        # each package's own histogram pass over the node's rows
+        all_bins = np.asarray(inner.bins)
+        own_j = np.asarray(JH.root_histogram(
+            jnp.asarray(all_bins.T), jnp.asarray(g), jnp.asarray(h),
+            jnp.asarray(rows), n_bins=B, hist_dtype="float32",
+            hist_kernel=hp.hist_kernel))
+        own_t = TH.root_histogram(
+            torch.as_tensor(all_bins.T.copy()), torch.as_tensor(g),
+            torch.as_tensor(h), torch.as_tensor(rows), n_bins=B,
+            hist_dtype="float32", hist_kernel=hp.hist_kernel)
+        print("  own histogram, JAX:     ",
+              _variant_gains(jnp, jnp.cumsum, jleaf_gain,
+                             jnp.asarray(own_j[f]), jnp.asarray(tot),
+                             int(nb[f]), int(nanb[f]), hp))
+        print("  own histogram, port:    ",
+              _variant_gains(torch, lambda x: torch.cumsum(x, 0),
+                             tleaf_gain, own_t[f], torch.as_tensor(tot),
+                             int(nb[f]), int(nanb[f]), hp))
+        print("  trees: JAX bin %d type %d, port bin %d type %d"
+              % (tj.threshold_bin[node], tj.decision_type[node],
+                 tt.threshold_bin[node], tt.decision_type[node]))

@@ -415,7 +415,7 @@ def test_quantize_and_renew_match_jax():
 def test_unported_configurations_raise():
     X, y = _data("regression", n=2000)
     for extra in ({"tpu_split_batch": 1,
-                   "monotone_constraints": [1] + [0] * (X.shape[1] - 1)},
+                   "forcedsplits_filename": "forced_splits.json"},
                   {"linear_tree": True}):
         params = dict(SLICE, objective="regression", device_type="cpu")
         params.update(extra)
