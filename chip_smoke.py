@@ -99,8 +99,8 @@ else: no jax, no network.  Phases, each of which fails the run on error:
    ``predict`` AUC within 1e-4; a second card run must give byte-identical
    model text.  The strict default at 50k x 3 (seed 1): card and CPU AUCs
    within 1e-3, and two card runs byte-identical (the float32 path is
-   deterministic); the pooled recipe at 100k x 3: tree 0 identical on the
-   card and the CPU.
+   deterministic); the pooled recipe at 100k (card 3 rounds, CPU 1): tree
+   0 identical on the card and the CPU.
 
 5. the fused round loop (``GBDT.train_fused``, each boosting round one
    replay of a captured CUDA graph): the default recipe, max_bin=63, the
@@ -171,10 +171,11 @@ else: no jax, no network.  Phases, each of which fails the run on error:
    kernel's launches a tree; the table partition launched, the numeric
    one never; a chunk of replays allocating nothing outside the graph's
    pool); the pooled default (1M x 5, 128 slots,
-   ``partition_select_table``); the strict default at 90k x 5; ``max_cat_to_onehot=8`` at 100k x 3 and
-   100k x 5 with the held-out set as a valid set, each on the card and
-   the CPU (tree 0 identical, AUCs within 1e-3, the device valid AUC
-   within 1e-4 of ``predict``'s); ``partition_payload_table`` and
+   ``partition_select_table``); the strict default at 90k x 5;
+   ``max_cat_to_onehot=8`` at 100k (card 3 rounds, CPU 1: tree 0
+   identical) and 100k x 5 with the held-out set as a valid set, on the
+   card and the CPU (tree 0 identical, AUCs within 1e-3, the device
+   valid AUC within 1e-4 of ``predict``'s); ``partition_payload_table`` and
    ``partition_select_table`` at K = 42 with categorical bitset rows bit
    for bit against their plain twins; the same columns as numeric codes
    (s/round and AUC beside); a profiled fused chunk (device ms a round of
@@ -246,11 +247,32 @@ else: no jax, no network.  Phases, each of which fails the run on error:
    (``csrc/prng.cu``) against its plain version bit for bit at the
    round's shapes (84 keys x 28 for each draw family), the strict
    learner's 4-way split and a 1M draw, twice, timed beside its bound.
+13. forced splits, CEGB and linear trees (``check_learner_options``):
+   a forced schedule three levels deep on phase 3's 1M x 28 set, 10
+   rounds fused twice and classic once to the same text (the schedule
+   held in every tree), pooled (``histogram_pool_size=8``) and a forced
+   categorical root on the airline shape, each fused = classic, and the
+   regression recipe (leaf renewal off) at 100k x 5 on the card and the
+   CPU to the same trees' text; CEGB with split, coupled and lazy penalties (1M x 10,
+   classic, twice to the same text, s/round beside the plain classic
+   recipe's); linear trees on 1M rows of a piecewise-linear target (the
+   batched float32 grower, classic) 100 rounds with s/round and launches
+   a tree, ``Booster.predict`` of 1M held-out rows through the forest
+   kernel's linear mode (bit for bit against the plain version on the
+   card, both timed; the host walk on 20,000 rows), 5 rounds twice and
+   the strict learner at 90k x 3 twice to the same text; the two entries
+   of ``csrc/linear.cu`` (the leaves' normal equations, the linear leaf
+   scores) against their plain versions on one tree of that booster
+   (normal equations to 1e-5 of the largest value and the same bits
+   twice, scores bit for bit), timed beside their bounds, and the linear
+   fit's share of a round.
 
 It prints one JSON line with every kernel's numbers (launches: the fused
 runs' for the kernels a fused run holds, the table partitions' those of
 phases 7 and 8 together, the bucketed strict run's for
-``histogram_rows_t``, phase 12 (a)-(c)'s for the threefry kernel; the "library device ms" line adds the index_add_
+``histogram_rows_t``, phase 12 (a)-(c)'s for the threefry kernel, phase
+13 (c)'s for the linear kernels and the forest kernel's linear mode; the
+"library device ms" line adds the index_add_
 device times of rows 2, 7 and 8), the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.
 
@@ -2174,6 +2196,11 @@ def trees_text(bst):
     return bst.model_to_string().split("parameters:")[0]
 
 
+def trees_sha256(bst):
+    """sha256 of :func:`trees_text`."""
+    return hashlib.sha256(trees_text(bst).encode()).hexdigest()
+
+
 def leading_agreement(a, b):
     """How many of two trees' splits agree, in node order, before the
     first that differs."""
@@ -3406,6 +3433,23 @@ def synth_airline(n, rng, eff=None):
     return X, y, eff
 
 
+#: phase 8's constructed airline Dataset, which phase 13 trains on again
+AIR_DATA = {}
+
+
+def airline_dataset(lgbt, X=None, y=None):
+    """The 1M-row airline-shaped Dataset of phase 8 (``synth_airline`` of
+    seed 8), binned once and kept in AIR_DATA."""
+    if "train" not in AIR_DATA:
+        if X is None:
+            X, y, _ = synth_airline(N, np.random.default_rng(8))
+        AIR_DATA["train"] = lgbt.Dataset(
+            X, y, params={"max_bin": 255, "verbosity": -1},
+            feature_name=list(AIR_COLS),
+            categorical_feature=AIR_CAT).construct()
+    return AIR_DATA["train"]
+
+
 def check_cat_table_partition(torch, RF, inner, flush):
     """Phase 8 (f): ``partition_payload_table`` and
     ``partition_select_table`` at K = 42 on the 1M airline rows, the
@@ -3533,9 +3577,7 @@ def check_categorical(torch, lgbt, HK, RF, TB, prng):
     X, y, eff = synth_airline(N, rng)
     Xv, yv, _ = synth_airline(N_AVALID, rng, eff)
     t0 = time.perf_counter()
-    ds = lgbt.Dataset(X, y, params={"max_bin": 255, "verbosity": -1},
-                      feature_name=list(AIR_COLS),
-                      categorical_feature=AIR_CAT).construct()
+    ds = airline_dataset(lgbt, X, y)
     t_ds = time.perf_counter() - t0
     inner = ds.inner
     nb = inner.num_bins_array()
@@ -3700,15 +3742,16 @@ def check_categorical(torch, lgbt, HK, RF, TB, prng):
     t0 = time.perf_counter()
     oh = dict(RECIPE, max_cat_to_onehot=8)
     o_gpu = lgbt.train(oh, dsx, num_boost_round=3)
-    o_cpu = lgbt.train(dict(oh, device_type="cpu"), dsx, num_boost_round=3)
+    # tree 0 is compared: the CPU grows that one
+    o_cpu = lgbt.train(dict(oh, device_type="cpu"), dsx, num_boost_round=1)
     dow = AIR_COLS.index("DayOfWeek")
     onehot_nodes = sum(int(((t.decision_type & 1) > 0)[
         np.asarray(t.split_feature) == dow].sum())
         for t in o_gpu._gbdt.models)
     if not tree0_equal(o_gpu, o_cpu):
         fail("phase 8 (d): tree 0 differs between the card and the CPU")
-    print(f"categorical max_cat_to_onehot=8 ({N_ACROSS:,} x 3): tree 0 "
-          f"identical on the card and the CPU "
+    print(f"categorical max_cat_to_onehot=8 ({N_ACROSS:,}; card 3 rounds, "
+          f"CPU 1): tree 0 identical on the card and the CPU "
           f"({o_gpu._gbdt.models[0].num_leaves} leaves), {onehot_nodes} "
           f"DayOfWeek nodes ({time.perf_counter() - t0:.1f} s)", flush=True)
     del o_gpu, o_cpu
@@ -5231,6 +5274,505 @@ def check_constraints(torch, lgbt, HK, RF, TB, prng):
     return row
 
 
+# ---- phase 13: forced splits, CEGB and linear trees
+
+#: phase 13 (a)'s forced schedule on phase 3's features, three levels deep:
+#: BFS entries root (0), its left (1) and right (3) children, then the
+#: left-left (2) and right-right (4) grandchildren
+FORCED_13 = {"feature": 0, "threshold": 0.0,
+             "left": {"feature": 1, "threshold": 0.3,
+                      "left": {"feature": 2, "threshold": -0.2}},
+             "right": {"feature": 3, "threshold": 0.1,
+                       "right": {"feature": 4, "threshold": 0.5}}}
+#: the splits' original features in tree node order when every entry holds
+FORCED_13_NODES = [0, 1, 3, 2, 4]
+#: (a)'s forced categorical root on the airline set: UniqueCarrier code 3
+#: alone left, then DepTime at noon on its left
+FORCED_AIR = {"feature": 4, "threshold": 3,
+              "left": {"feature": 3, "threshold": 1200.0}}
+#: (b)'s CEGB penalties on phase 3's 28 features: a split penalty per row,
+#: a coupled penalty a feature, a lazy penalty a (row, feature)
+CEGB_13 = dict(cegb_penalty_split=1e-6, cegb_penalty_feature_coupled=[20.0] * F,
+               cegb_penalty_feature_lazy=[2e-4] * F)
+#: (c)'s linear-tree recipe: phase 3's, a regression target
+LINEAR_13 = dict(objective="regression", linear_tree=True)
+
+
+def synth_piecewise(n, rng):
+    """HIGGS-shaped features (phase 3's generator's columns) with a
+    piecewise-linear regression target: linear in three features, the
+    slope of one switching with the sign of another, and noise."""
+    X = rng.normal(size=(n, F)).astype(np.float32)
+    y = (1.5 * X[:, 0] + np.where(X[:, 1] > 0, 2.0 * X[:, 2], -X[:, 2])
+         - 0.8 * X[:, 3] * (X[:, 4] > 0.5)
+         + 0.3 * rng.normal(size=n)).astype(np.float32)
+    return X, y
+
+
+def forced_schedule_held(bst, nodes):
+    """How many of the model's trees split their first nodes on the
+    schedule's features (every entry held)."""
+    k = len(nodes)
+    return sum(1 for t in bst._gbdt.models
+               if list(t.split_feature[:k]) == nodes)
+
+
+def linear_launches(LK):
+    return {"linear_normal_equations": LK.normal_launches,
+            "linear_leaf_scores": LK.score_launches}
+
+
+def check_linear_kernels(torch, LK, g, flush):
+    """(d) the two entries of csrc/linear.cu against their plain versions
+    on one tree of the 1M-row linear booster ``g`` (its rows' leaves and
+    its leaves' path features): the normal equations to 1e-5 of each
+    output's largest |value| (they sum in another order) and the same
+    bits twice, also under a bag; the scores bit for bit; each timed
+    (one call, device time, the plain version) beside its bound.  Returns
+    the two kernels-line rows (launches set by the caller) and the fit's
+    one-tree device time."""
+    from lightgbm_tpu_torch.learner.linear import (fit_linear_leaves,
+                                                   leaf_features)
+    gr, hs = g.boosting_gradients()
+    gr, hs = gr[:, 0].contiguous(), hs[:, 0].contiguous()
+    arrays, lor = g._grow(gr, hs, None, None)
+    raw = g.raw_dev
+    n = raw.shape[0]
+    feat = leaf_features(arrays.leaf_path & ~g.is_cat_arr[None, :], 16)
+    L, Kf = feat.shape
+    D = Kf + 1
+    bag = torch.rand(n, device=raw.device) < 0.8
+    rows = []
+    worst = 0.0
+    f64 = [x.double() for x in (raw, gr, hs)]
+    for what, mask in (("all rows", None), ("a bag of 0.8", bag)):
+        a = LK.normal_equations(raw, lor, feat, gr, hs, mask)
+        b = LK.normal_equations(raw, lor, feat, gr, hs, mask)
+        p = LK.normal_equations_plain(raw, lor, feat, gr, hs, mask)
+        r = LK.normal_equations_plain(f64[0], lor, feat, f64[1], f64[2],
+                                      mask)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            fail(f"linear normal equations ({what}): other bits on a "
+                 f"second call")
+        errs = []
+        for x, y, z, name in zip(a, p, r, ("XtHX", "Xtg", "count")):
+            # float32 sums of up to ~1e5 products a leaf, in two orders
+            big = y.abs().max().clamp(min=1.0)
+            worst = max(worst, (x - y).abs().max().item())
+            rel = ((x - y).abs().max() / big).item()
+            errs.append(f"{name} {rel:.2e} (vs float64: kernel "
+                        f"{((x - z).abs().max() / big).item():.2e}, plain "
+                        f"{((y - z).abs().max() / big).item():.2e})")
+            if not rel <= 2e-4:
+                fail(f"linear normal equations ({what}): {name} differs "
+                     f"from the plain version by {rel:.3g} of its largest")
+        if not torch.equal(a[2], p[2]):
+            fail(f"linear normal equations ({what}): the counts differ")
+        print(f"linear normal equations ({what}): kernel vs plain, of the "
+              f"largest |value|: {'; '.join(errs)}", flush=True)
+    del f64, r
+    fn = lambda: LK.normal_equations(raw, lor, feat, gr, hs, None)  # noqa
+    nl, dms = device_per_call(torch, fn, reps=5)
+    kern = [(c, us) for nm, c, us in last_work if "normal_kernel" in nm]
+    kms = sum(us for _, us in kern) / 1e3 / max(sum(c for c, _ in kern), 1)
+    ms = time_ms(torch, fn, flush)
+    pms = time_ms(torch, lambda: LK.normal_equations_plain(
+        raw, lor, feat, gr, hs, None), flush, reps=3)
+    active = (feat < raw.shape[1]).sum(1)                  # [L]
+    reads = int(active[lor.long()].sum().item())
+    nbytes = n * (4 + 4 + 4) + 4 * reads + 4 * L * (D * D + D + 1)
+    P = D * (D + 1) // 2
+    ops = n * (3 * P + 2 * D + 1)
+    bnd, by = bound_ms(nbytes, ops)
+    print(f"kernel linear_normal_equations ({n:,} rows, {L} leaves, D = "
+          f"{D}): ms={ms:.4f} device_ms={dms} (the whole call, its sort "
+          f"and run table included; {nl} launches) kernel device_ms="
+          f"{kms:.4f} plain_ms={pms:.4f} bound_ms={bnd:.5f} ({by}: "
+          f"{nbytes:,} bytes, {ops:,} operations); max abs difference "
+          f"from the plain version {worst:.3g} (within 2e-4 of the largest "
+          f"|value|), the same bits twice",
+          flush=True)
+    rows.append(dict(name="linear_normal_equations", route="cuda",
+                     source="lightgbm_tpu_torch/csrc/linear.cu",
+                     replaces="lightgbm_tpu/learner/linear.py:33",
+                     launches=0, max_abs_err=worst, ms=ms, plain_ms=pms,
+                     bound_ms=bnd, bound_by=by, library_ms=None,
+                     device_ms=dms, kernel_device_ms=kms))
+    lam = float(g.config.linear_lambda)
+    fit = lambda: fit_linear_leaves(  # noqa: E731
+        raw, lor, arrays.leaf_path, ~g.is_cat_arr, gr, hs, None,
+        arrays.leaf_value, lam)
+    fit_ms = time_ms(torch, fit, flush, reps=5)
+    const, coeff = fit()
+    from lightgbm_tpu_torch.learner.linear import linear_leaf_scores
+    sfeat = leaf_features(coeff != 0.0, 16)
+    scoef = torch.cat([coeff, torch.zeros_like(coeff[:, :1])], 1) \
+        .gather(1, sfeat)
+    sargs = (raw, lor, sfeat, scoef, const, arrays.leaf_value)
+    a = LK.leaf_scores(*sargs)
+    b = LK.leaf_scores(*sargs)
+    p = LK.leaf_scores_plain(*sargs)
+    torch.cuda.synchronize()
+    if not (torch.equal(a, b) and torch.equal(a, p)):
+        fail(f"linear leaf scores vs plain: max abs diff "
+             f"{(a - p).abs().max().item()}")
+    if not torch.equal(a, linear_leaf_scores(raw, lor, const, coeff,
+                                             arrays.leaf_value)):
+        fail("linear_leaf_scores and the scores kernel differ")
+    fn = lambda: LK.leaf_scores(*sargs)  # noqa: E731
+    nl, dms = device_per_call(torch, fn, reps=5)
+    ms = time_ms(torch, fn, flush)
+    pms = time_ms(torch, lambda: LK.leaf_scores_plain(*sargs), flush,
+                  reps=3)
+    used = (scoef != 0).sum(1)[lor.long()]
+    nnz = int(used.sum().item())
+    nbytes = n * (4 + 4) + 4 * nnz + 4 * (2 * L * Kf + 2 * L)
+    bnd, by = bound_ms(nbytes, 2 * nnz + n)
+    print(f"kernel linear_leaf_scores ({n:,} rows, {nnz / n:.2f} "
+          f"coefficients a row): ms={ms:.4f} device_ms={dms} ({nl} "
+          f"launches) plain_ms={pms:.4f} bound_ms={bnd:.5f} ({by}); "
+          f"bitwise equal to the plain version, twice; the fit of one tree "
+          f"(normal equations, solve, coefficients) {fit_ms:.4f} ms",
+          flush=True)
+    rows.append(dict(name="linear_leaf_scores", route="cuda",
+                     source="lightgbm_tpu_torch/csrc/linear.cu",
+                     replaces="lightgbm_tpu/learner/linear.py:130",
+                     launches=0, max_abs_err=0.0, ms=ms, plain_ms=pms,
+                     bound_ms=bnd, bound_by=by, library_ms=None,
+                     device_ms=dms))
+    score_ms = rows[-1]["ms"]
+    return rows, fit_ms, score_ms
+
+
+def check_learner_options(torch, lgbt, HK, RF, TB, prng):
+    """Phase 13: forced splits, CEGB and linear trees on the card.  (a)
+    forced splits (FORCED_13, three levels, written to a temporary file) on
+    phase 3's 1M x 28 set and recipe, 10 rounds fused twice and classic
+    once to the same text, the schedule held in every tree, s/round; the
+    pooled recipe (``histogram_pool_size=8``) 5 rounds fused and classic;
+    a forced categorical root on the airline set (FORCED_AIR) 5 rounds
+    fused and classic; the regression recipe (leaf renewal off: every
+    number exact) at 100k x 5 on the card and the CPU to the same trees'
+    text.  (b) CEGB (CEGB_13, lazy penalties:
+    the [n, F] acquisition state) 10 rounds classic twice to the same text,
+    s/round beside the plain classic recipe's.  (c) linear trees on 1M rows
+    of a piecewise-linear target (the batched grower in float32, classic),
+    100 rounds with s/round and each linear kernel's launches a tree, 5
+    rounds twice to the same text, the strict learner at 90k x 3 twice;
+    ``Booster.predict`` of 1M held-out rows through the forest kernel's
+    linear mode (launches counted), against the host walk on 20,000 rows
+    and, bit for bit, the plain version on the card (both timed).  (d) the
+    linear kernels against their plain versions (check_linear_kernels) and
+    the fit's share of a linear round.  The linear kernels' counts are
+    zeroed just before (c) and read just after its prediction.  Returns
+    the three kernels-line rows."""
+    import tempfile
+    from lightgbm_tpu_torch.boosting import fused_graph as FG
+    from lightgbm_tpu_torch.boosting.gbdt import GBDT, forest_bitset_arrays
+    from lightgbm_tpu_torch.models import predict as MP
+    from lightgbm_tpu_torch.ops import forest_kernels as FK
+    from lightgbm_tpu_torch.ops import linear_kernels as LK
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+
+    def mark(what):
+        print(f"phase 13 {what}: {time.perf_counter() - t_phase:.1f} s",
+              flush=True)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_forced_")
+    try:
+        path = os.path.join(tmp, "forced.json")
+        with open(path, "w") as fh:
+            json.dump(FORCED_13, fh)
+        path_air = os.path.join(tmp, "forced_air.json")
+        with open(path_air, "w") as fh:
+            json.dump(FORCED_AIR, fh)
+
+        # (a) forced splits, fused twice and classic once
+        ds, _, _, _, _, _ = slice_data(lgbt, N, 0, 255)
+        zero_counts(HK, RF, TB, prng)
+        FG.counts.update(replays=0, reads=0, extra=0, rounds=0)
+        b1, per_f, wall_f, peak_f = fused_train(
+            torch, lgbt, ds, 10, forcedsplits_filename=path)
+        counts = launch_counts(HK, RF, TB, prng)
+        fc = dict(FG.counts)
+        g = b1._gbdt
+        if g.forced is None or len(g.forced.leaf) != 5 or \
+                not g._use_batched_grower():
+            fail("phase 13 (a): the forced schedule did not reach the "
+                 "batched grower")
+        held = forced_schedule_held(b1, FORCED_13_NODES)
+        if held != len(g.models):
+            fail(f"phase 13 (a): the schedule held in {held} of "
+                 f"{len(g.models)} trees")
+        b2, per_f2, _, _ = fused_train(torch, lgbt, ds, 10,
+                                       forcedsplits_filename=path)
+        bc, per_c, wall_c, _ = fused_train(torch, lgbt, ds, 10,
+                                           classic=True,
+                                           forcedsplits_filename=path)
+        if not (b1.model_to_string() == b2.model_to_string()
+                == bc.model_to_string()):
+            fail("phase 13 (a): forced splits, fused twice and classic: "
+                 "the model texts differ")
+        trees = len(g.models)
+        print(f"forced splits (1M x 28, 10 rounds, a schedule of 5 entries "
+              f"three levels deep, held in every tree): fused s/round "
+              f"{per_f:.5f} / {per_f2:.5f}, classic {per_c:.5f}; train() "
+              f"{wall_f:.2f} s fused, {wall_c:.2f} s classic; peak "
+              f"{peak_f:.1f} MiB; replays {fc['replays']}, flag reads "
+              f"{fc['reads']}, extra rounds {fc['extra']}; launches a tree "
+              f"{json.dumps({k: round(v / trees, 2) for k, v in counts.items() if v})}; "
+              f"fused twice and classic to the same text (the trees' text "
+              f"sha256 {trees_sha256(b1)}; the parameters name a temporary "
+              f"file)", flush=True)
+        del b1, b2, bc
+        bp, per_p, _, _ = fused_train(torch, lgbt, ds, 5,
+                                      forcedsplits_filename=path,
+                                      histogram_pool_size=8)
+        bpc, per_pc, _, _ = fused_train(torch, lgbt, ds, 5, classic=True,
+                                        forcedsplits_filename=path,
+                                        histogram_pool_size=8)
+        if bp._gbdt.hp.hist_pool_slots != 128 or \
+                bp.model_to_string() != bpc.model_to_string():
+            fail("phase 13 (a): pooled forced splits: fused and classic "
+                 "texts differ (or the pool was not engaged)")
+        print(f"forced splits, pooled (histogram_pool_size=8, 1M x 5): "
+              f"fused s/round {per_p:.5f}, classic {per_pc:.5f}, schedule "
+              f"held in {forced_schedule_held(bp, FORCED_13_NODES)} of 5 "
+              f"trees, fused = classic text", flush=True)
+        del bp, bpc
+        mark("(a) HIGGS shape")
+        dsa = airline_dataset(lgbt)
+        ba, per_a, _, _ = fused_train(torch, lgbt, dsa, 5,
+                                      forcedsplits_filename=path_air)
+        bac, per_ac, _, _ = fused_train(torch, lgbt, dsa, 5, classic=True,
+                                        forcedsplits_filename=path_air)
+        t0 = ba._gbdt.models[0]
+        if ba.model_to_string() != bac.model_to_string() or \
+                t0.split_feature[0] != 4 or not t0.decision_type[0] & 1:
+            fail("phase 13 (a): the forced categorical root: fused and "
+                 "classic texts differ, or tree 0's root is not the "
+                 "categorical split on UniqueCarrier")
+        print(f"forced splits, categorical root (airline shape, 1M x 5): "
+              f"fused s/round {per_a:.5f}, classic {per_ac:.5f}; root "
+              f"UniqueCarrier in {{{t0.cat_threshold[0]}}} left, schedule "
+              f"held in {forced_schedule_held(ba, [4, 3])} of 5 trees, "
+              f"fused = classic text", flush=True)
+        del ba, bac, dsa
+        AIR_DATA.clear()
+        t0 = time.perf_counter()
+        # regression (exact gradients) without leaf renewal, whose float
+        # sums run in another order on the card: every number is exact
+        reg = dict(objective="regression", forcedsplits_filename=path,
+                   quant_train_renew_leaf=False)
+        b_g, *_ = train_slice(torch, lgbt, 100_000, 5, seed=1, **reg)
+        b_c, *_ = train_slice(torch, lgbt, 100_000, 5, "cpu", seed=1, **reg)
+        if trees_text(b_g) != trees_text(b_c):
+            fail("phase 13 (a): forced splits, regression 100k x 5: the "
+                 "card's trees' text differs from the CPU's")
+        print(f"cross-check (forced splits, regression, leaf renewal off, "
+              f"100k x 5): the card's trees' text equals the CPU's "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        del b_g, b_c
+        mark("(a)")
+
+        # (b) CEGB with lazy penalties, classic twice
+        b0, per_0, _, _ = fused_train(torch, lgbt, ds, 5, classic=True)
+        del b0
+        zero_counts(HK, RF, TB, prng)
+        torch.cuda.reset_peak_memory_stats()
+        bc1, per_cg, wall_cg, peak_cg = fused_train(torch, lgbt, ds, 10,
+                                                    classic=True, **CEGB_13)
+        counts = launch_counts(HK, RF, TB, prng)
+        gc = bc1._gbdt
+        st = gc.cegb
+        if st is None or st.used_rows is None or \
+                tuple(st.used_rows.shape) != (N, F) or gc.supports_fused():
+            fail("phase 13 (b): CEGB's lazy state missing or the fused loop "
+                 "admitted")
+        bc2, *_ = fused_train(torch, lgbt, ds, 10, classic=True, **CEGB_13)
+        if bc1.model_to_string() != bc2.model_to_string():
+            fail("phase 13 (b): two CEGB card runs gave different text")
+        used = int(st.feature_used.sum().item())
+        acq = float(st.used_rows.float().mean().item())
+        print(f"CEGB (1M x 28, 10 rounds classic, split / coupled / lazy "
+              f"penalties): s/round {per_cg:.5f} (the plain classic recipe "
+              f"{per_0:.5f}), train() {wall_cg:.2f} s, peak {peak_cg:.1f} "
+              f"MiB, acquisition state {st.used_rows.numel() / 2**20:.1f} "
+              f"MiB bool; {used} of {F} features used, {acq:.4f} of the "
+              f"(row, feature) pairs acquired; launches a tree "
+              f"{json.dumps({k: round(v / 10, 2) for k, v in counts.items() if v})}; "
+              f"two runs to the same text", flush=True)
+        del bc1, bc2, st
+        mark("(b)")
+
+        # (c) linear trees: counts zeroed just before, read after predict
+        rng = np.random.default_rng(13)
+        X, y = synth_piecewise(N, rng)
+        Xv, yv = synth_piecewise(N, rng)
+        t0 = time.perf_counter()
+        dsl = lgbt.Dataset(X, y, params={"max_bin": 255, "verbosity": -1,
+                                         "linear_tree": True}).construct()
+        t_ds = time.perf_counter() - t0
+        LK.normal_launches = LK.score_launches = 0
+        FK.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        bl, per_l, wall_l, peak_l = fused_train(torch, lgbt, dsl, 100,
+                                                classic=True, **LINEAR_13)
+        lin_train = linear_launches(LK)
+        gl = bl._gbdt
+        T_ = len(gl.models)
+        if not (gl.linear and gl._use_batched_grower()
+                and gl.hp.hist_dtype == "float32"
+                and all(t.is_linear for t in gl.models[1:])):
+            fail("phase 13 (c): the linear run did not take the batched "
+                 "float32 grower with linear leaves")
+        if min(lin_train.values()) < T_ - 1:
+            fail(f"phase 13 (c): linear kernel launches {lin_train} for "
+                 f"{T_} trees")
+        FK.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pred = bl.predict(Xv)
+        t_pred = time.perf_counter() - t0
+        n_fk = FK.launches
+        lin_counts = dict(lin_train, forest_linear=n_fk)
+        if n_fk < 1:
+            fail("phase 13 (c): Booster.predict of the linear model did "
+                 "not launch the forest kernel")
+        rmse = float(np.sqrt(np.mean((pred - yv) ** 2)))
+        host = bl.predict(Xv[:N_HOST_CHECK])
+        if not np.allclose(pred[:N_HOST_CHECK], host, rtol=2e-5, atol=2e-6):
+            fail(f"phase 13 (c): linear predict vs the host walk: max abs "
+                 f"diff {np.abs(pred[:N_HOST_CHECK] - host).max()}")
+        leaves_n = sum(t.num_leaves for t in gl.models) / T_
+        nfeat = np.mean([len(f) for t in gl.models for f in t.leaf_features
+                         if t.is_linear])
+        print(f"linear trees (1M x 28 piecewise-linear target, 100 rounds "
+              f"classic, batched float32): dataset {t_ds:.2f} s, s/round "
+              f"{per_l:.5f}, train() {wall_l:.2f} s, peak {peak_l:.1f} MiB; "
+              f"{leaves_n:.1f} leaves a tree, {nfeat:.2f} features a "
+              f"leaf's model; launches {json.dumps(lin_train)} for {T_} "
+              f"trees; held-out RMSE {rmse:.5f} (target sd "
+              f"{float(yv.std()):.5f})", flush=True)
+        # the prediction's steps on the card: the kernel and the plain
+        # version on the same device inputs
+        t0 = time.perf_counter()
+        fb, lin_np, cat_feats = forest_bitset_arrays(gl.models, 1,
+                                                     gl.train_set)
+        t_tab = time.perf_counter() - t0
+        forest = MP.forest_from_numpy(fb, dev)
+        cols = np.nonzero(lin_np["featmask"].any((0, 1)))[0]
+        lin = MP.forest_from_numpy(dict(
+            const=lin_np["const"], coeff=lin_np["coeff"][..., cols],
+            featmask=lin_np["featmask"][..., cols]), dev)
+        t0 = time.perf_counter()
+        bins_np = gl.train_set.bin_external_pred(Xv)
+        t_bin = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        bins_t = torch.as_tensor(np.ascontiguousarray(bins_np.T),
+                                 device=dev)
+        raw_t = torch.as_tensor(np.ascontiguousarray(
+            Xv[:, cols].astype(np.float32).T), device=dev)
+        torch.cuda.synchronize()
+        t_copy = time.perf_counter() - t0
+        del bins_np
+        fn = lambda: FK.forest_values(forest, bins_t, 1, cat_feats,  # noqa
+                                      lin=lin, raw_t=raw_t)
+        out = fn()
+        plain_fn = lambda: MP.predict_bitset_forest(  # noqa: E731
+            forest, bins_t, 1, cat_feats, lin=lin,
+            raw=torch.nan_to_num(raw_t, nan=0.0).t(),
+            raw_nan=torch.isnan(raw_t).to(torch.float32))
+        plain = plain_fn()
+        if not (torch.equal(out, plain) and torch.equal(fn(), out)):
+            fail(f"forest kernel linear mode vs the plain version: max abs "
+                 f"diff {(out - plain).abs().max().item()}")
+        if not np.array_equal(out.double().cpu().numpy()[:, 0], pred):
+            fail("phase 13 (c): Booster.predict's values differ from the "
+                 "forest kernel's")
+        nl, dms = device_per_call(torch, fn, reps=5)
+        ms = time_ms(torch, fn, flush)
+        pms = time_ms(torch, plain_fn, flush, reps=1)
+        plain_forest_ms = time_ms(torch, lambda: FK.forest_values(
+            forest, bins_t, 1, cat_feats), flush)
+        leaves = FK.forest_leaves(forest, bins_t, cat_feats)
+        steps = int(torch.gather(forest.depth.long(), 1,
+                                 leaves.long()).sum().item())
+        pk = FK.pack_linear(lin)
+        nnz = int((pk.feat >= 0).sum(-1).gather(1, leaves.long())
+                  .sum().item())
+        p = FK.pack_forest(forest, cat_feats)
+        fbytes = sum(x.numel() * x.element_size() for x in p) + sum(
+            x.numel() * x.element_size() for x in pk)
+        nbytes = bins_t.numel() * 4 + raw_t.numel() * 4 + 4 * N + fbytes
+        bnd, by = bound_ms(nbytes, steps + 2 * nnz)
+        print(f"predict (linear, {N:,} x {T_} trees): Booster.predict "
+              f"{t_pred:.3f} s ({N / t_pred:,.0f} rows/s), {n_fk} forest-"
+              f"kernel launch(es); its steps: the forest's host tables "
+              f"{t_tab:.3f} s, host binning {t_bin:.3f} s, bins and raw "
+              f"columns to the card {t_copy:.3f} s; the forest kernel's "
+              f"linear mode one call {ms:.4f} ms, device {dms} ms ({nl} "
+              f"launches a call, the tables' packing included); the same "
+              f"forest without its linear leaves {plain_forest_ms:.4f} ms; "
+              f"the plain version on the card (the only card path before "
+              f"the linear mode) {pms:.4f} ms; {steps:,} node steps and "
+              f"{nnz:,} coefficients, bound {bnd:.4f} ms ({by}); bitwise "
+              f"equal to the plain version, twice; host walk on "
+              f"{N_HOST_CHECK:,} rows within rtol 2e-5 / atol 2e-6",
+              flush=True)
+        forest_row = dict(name="forest_linear", route="cuda",
+                          source="lightgbm_tpu_torch/csrc/forest.cu",
+                          replaces="lightgbm_tpu/models/predict.py:340",
+                          launches=n_fk, max_abs_err=0.0, ms=ms,
+                          plain_ms=pms, bound_ms=bnd, bound_by=by,
+                          library_ms=None, device_ms=dms)
+        del out, plain, leaves, bins_t, raw_t
+        # two runs of 5 rounds, and the strict learner at 90k rows
+        l1, *_ = fused_train(torch, lgbt, dsl, 5, classic=True, **LINEAR_13)
+        l2, *_ = fused_train(torch, lgbt, dsl, 5, classic=True, **LINEAR_13)
+        if l1.model_to_string() != l2.model_to_string():
+            fail("phase 13 (c): two linear card runs gave different text")
+        if [t.to_text(i) for i, t in enumerate(l1._gbdt.models)] != \
+                [t.to_text(i) for i, t in enumerate(gl.models[:5])]:
+            fail("phase 13 (c): the 5-round linear run's trees differ from "
+                 "the 100-round run's first trees")
+        del l1, l2
+        dss = lgbt.Dataset(X[:N_STRICT], y[:N_STRICT],
+                           params={"max_bin": 255, "verbosity": -1,
+                                   "linear_tree": True}).construct()
+        s1, per_s, _, _ = fused_train(torch, lgbt, dss, 3, classic=True,
+                                      **LINEAR_13)
+        s2, *_ = fused_train(torch, lgbt, dss, 3, classic=True, **LINEAR_13)
+        if s1._gbdt._use_batched_grower() or \
+                s1.model_to_string() != s2.model_to_string():
+            fail("phase 13 (c): the strict linear run took the batched "
+                 "grower, or two runs differ")
+        print(f"linear trees, strict ({N_STRICT:,} x 3 classic): s/round "
+              f"{per_s:.5f}, two runs to the same text; 1M x 5 twice to "
+              f"the same text", flush=True)
+        del s1, s2, dss
+        mark("(c)")
+
+        # (d) the linear kernels against their plain versions
+        rows, fit_ms, score_ms = check_linear_kernels(torch, LK, gl, flush)
+        for r in rows:
+            r["launches"] = lin_counts[r["name"]]
+        print(f"linear round (1M rows): the fit {fit_ms:.4f} ms and the "
+              f"scores {score_ms:.4f} ms of {per_l * 1e3:.3f} ms a round "
+              f"({(fit_ms + score_ms) / (per_l * 1e3):.4f} of it)",
+              flush=True)
+        print("phase 13 kernels (linear, 1M x 100, and its predict): "
+              + json.dumps(lin_counts), flush=True)
+        del bl, gl, dsl
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 13: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return rows + [forest_row]
+
+
 def load_other(root):
     """The port package of another checkout (``root``/lightgbm_tpu_torch),
     imported as ``lgbt_other`` beside this one; its kernels build into its
@@ -5491,6 +6033,7 @@ def main():
     check_determinism(torch, torch.device("cuda"))
     print(f"profiler: {len(lost_windows)} window(s) measured again after "
           f"a lost record {json.dumps(lost_windows)}", flush=True)
+    print(f"phases 1-2: {time.perf_counter() - t_script:.1f} s", flush=True)
 
     # ---- 3. the default recipe on the card, through the classic loop (the
     # per-round clock callback is not fused_safe); counts zeroed just
@@ -5684,6 +6227,8 @@ def main():
           flush=True)
     del bst, d_again
 
+    print(f"phases 1-3: {time.perf_counter() - t_script:.1f} s", flush=True)
+
     # ---- 4. cross-check: card vs CPU plain versions, and card vs card
     b_gpu, auc_gpu, *_ = train_slice(torch, lgbt, 100_000, 5, seed=1,
                                      valid=True, fresh=True)
@@ -5724,9 +6269,10 @@ def main():
           "model text", flush=True)
     del s_gpu, s_cpu, s_again
 
-    # the pooled recipe, card vs CPU (int8: exact)
+    # the pooled recipe, card vs CPU (int8: exact); tree 0 is compared, so
+    # the CPU grows that one
     p_gpu, *_ = train_slice(torch, lgbt, 100_000, 3, histogram_pool_size=8)
-    p_cpu, *_ = train_slice(torch, lgbt, 100_000, 3, "cpu",
+    p_cpu, *_ = train_slice(torch, lgbt, 100_000, 1, "cpu",
                             histogram_pool_size=8)
     t_g, t_c = p_gpu._gbdt.models[0], p_cpu._gbdt.models[0]
     if not (p_gpu._gbdt.hp.hist_pool_slots > 0
@@ -5734,15 +6280,18 @@ def main():
             and np.array_equal(t_g.split_feature, t_c.split_feature)
             and np.array_equal(t_g.threshold_bin, t_c.threshold_bin)):
         fail("pooled tree 0 differs between the card and the CPU")
-    print(f"cross-check (pooled, 100k x 3): tree 0 identical "
-          f"({t_g.num_leaves} leaves)", flush=True)
+    print(f"cross-check (pooled, 100k; card 3 rounds, CPU 1): tree 0 "
+          f"identical ({t_g.num_leaves} leaves)", flush=True)
     del p_gpu, p_cpu
+
+    print(f"phases 1-4: {time.perf_counter() - t_script:.1f} s", flush=True)
 
     # ---- 5. the fused round loop: a plain train() with no per-round
     # callback, each boosting round one CUDA graph replay
     launches.update(check_fused(torch, lgbt, classic_sha, HK, RF, TB, prng))
     for r in rows:
         r["launches"] = launches[r["name"]]
+    print(f"phases 1-5: {time.perf_counter() - t_script:.1f} s", flush=True)
 
     # ---- 6. prediction: the device forest predictor and TreeSHAP
     rows += check_predict(torch, lgbt)
@@ -5778,6 +6327,10 @@ def main():
     # ---- 12. split constraints: the threefry kernel's launches are those
     # of (a)-(c) (zeroed just before, read just after)
     rows.append(check_constraints(torch, lgbt, HK, RF, TB, prng))
+    # ---- 13. forced splits, CEGB and linear trees: the linear kernels'
+    # launches are the 1M-row linear run's and its prediction's (zeroed just
+    # before, read just after)
+    rows += check_learner_options(torch, lgbt, HK, RF, TB, prng)
     print(f"chip_smoke: {time.perf_counter() - t_script:.1f} s in all, the "
           f"kernel build {build_s:.1f} s of it", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

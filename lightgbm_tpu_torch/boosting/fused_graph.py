@@ -20,6 +20,12 @@ into one scan, this module runs one round over static buffers:
   is complete, so the tail's replay after the extra rounds redoes it;
 * on the CPU the same bodies run eagerly (the tests' path).
 
+Forced splits (``forcedsplits_filename``) ride the same graph: ``main``
+first runs one K = 1 forced round per schedule entry (the schedule's
+length is a host number known at set-up, so the captured graph holds that
+many), then the K-wide rounds without the warm-up ladder; a failed entry
+sets a device flag that turns the remaining forced rounds into no-ops.
+
 A k-class objective (multiclass) grows k trees a round.  One class body is
 captured and replayed k times: a fourth graph (``grads``) evaluates the
 [n, k] gradients and draws the round's rows once, then ``main`` grows the
@@ -356,7 +362,13 @@ class FusedRound:
             bins_words_t=g.bins_words_t,
             stop=self.stopped if self.es is not None else None,
             bundle=g.bundle, is_cat=g.is_cat_arr, monotone=g.monotone_arr,
-            rng_key=nkey, interaction_sets=g.interaction_sets)
+            rng_key=nkey, interaction_sets=g.interaction_sets,
+            forced=g.forced)
+        # forced splits: one K = 1 round a schedule entry (a failed entry
+        # makes the rest no-ops on the device), then no ladder; the budget
+        # counts from one leaf, an upper bound for any number of forced
+        # splits that held
+        tree.forced_phase()
         ladder = tree.ladder()
         self.R = full_width_rounds(self.L, self.batch, ladder)
         for width in ladder:

@@ -68,8 +68,17 @@ iter * k + cls)``) are set up as in the JAX package
 (``_split_constraints``) and reach both growers in both loops; the
 fused round stages each round's node keys on the device.
 
-Not ported yet: custom objectives, forced splits, CEGB, linear trees and
-the distributed modes.
+The learner options (``_learner_options``, the JAX package's
+boosting/gbdt.py:562-592): forced splits (``forcedsplits_filename``,
+:func:`parse_forced_splits`) reach both growers in both loops; CEGB
+penalties (the acquisition state kept on the booster across its trees),
+linear trees (each tree's leaves fitted on the raw columns after growth,
+learner/linear.py, its scores through the linear kernels) and
+``tpu_debug_checks`` (:meth:`GBDT._debug_check_tree`) take the classic
+loop in both growers, as in the JAX package.
+
+Not ported yet: custom objectives, ``nan_policy`` and the distributed
+modes.
 """
 
 from __future__ import annotations
@@ -85,11 +94,12 @@ from ..config import Config
 from ..io.dataset import Dataset
 from ..learner import batch_grower, grower
 from ..callback import EarlyStopException
-from ..learner.grower import DeviceBundle, TreeArrays
+from ..learner.grower import CegbState, DeviceBundle, ForcedSplits, TreeArrays
+from ..learner.linear import fit_linear_leaves, linear_leaf_scores
 from ..metrics import Metric, create_metrics
 from ..models.predict import (ForestArrays, forest_from_numpy,
-                              predict_bins_tree, predict_bins_tree_matmul,
-                              predict_bitset_forest)
+                              predict_bins_leaf_matmul, predict_bins_tree,
+                              predict_bins_tree_matmul)
 from ..models.tree import Tree
 from ..objectives import ObjectiveFunction, create_objective
 from ..ops import forest_kernels, prng
@@ -153,18 +163,58 @@ def _check_slice(config: Config, train_set: Dataset) -> None:
          f"boosting={config.boosting}"),
         (str(config.tree_learner) not in ("serial",),
          f"tree_learner={config.tree_learner}"),
-        (bool(config.linear_tree), "linear_tree"),
-        (bool(config.forcedsplits_filename), "forcedsplits_filename"),
-        (float(config.cegb_penalty_split) > 0.0
-         or bool(list(config.cegb_penalty_feature_lazy or []))
-         or bool(list(config.cegb_penalty_feature_coupled or [])),
-         "cegb penalties"),
         (config.nan_policy != "none", f"nan_policy={config.nan_policy}"),
-        (bool(config.tpu_debug_checks), "tpu_debug_checks"),
     ]
     for bad, what in unported:
         if bad:
             log.fatal(f"{what} is not supported by lightgbm_tpu_torch yet")
+
+
+def parse_forced_splits(filename: str, dataset: Dataset, num_leaves: int,
+                        device) -> Optional[ForcedSplits]:
+    """``forcedsplits_filename``'s JSON (nodes ``{"feature": original
+    index, "threshold": value, "left": ..., "right": ...}``) as the
+    schedule of the growers, in BFS order (reference
+    serial_tree_learner.cpp:620 ForceSplits; the JAX package's
+    ``_parse_forced_splits``): at entry i the left child keeps its parent's
+    leaf id and the right child becomes leaf i + 1, as the growers number
+    them; the threshold goes through the feature's mapper
+    (``values_to_bins``).  An entry on an unused feature ends the schedule
+    there.  None for an empty file or schedule."""
+    import json
+    with open(filename) as fh:
+        root = json.load(fh)
+    if not root:
+        return None
+    orig_to_packed = {int(o): p
+                      for p, o in enumerate(dataset.used_feature_idx)}
+    K = num_leaves - 1
+    leaf, feat, thr = [], [], []
+    queue = [(root, 0)]
+    i = 0
+    while queue and i < K:
+        node, lf = queue.pop(0)
+        p = orig_to_packed.get(int(node["feature"]))
+        if p is None:
+            log.warning("forced split on unused feature %s ignored; "
+                        "aborting remaining forced splits" % node["feature"])
+            break
+        mapper = dataset.mappers[int(node["feature"])]
+        t = int(mapper.values_to_bins(
+            np.array([float(node["threshold"])], np.float64))[0])
+        leaf.append(lf)
+        feat.append(p)
+        thr.append(t)
+        if node.get("left"):
+            queue.append((node["left"], lf))
+        if node.get("right"):
+            queue.append((node["right"], i + 1))
+        i += 1
+    if i == 0:
+        return None
+    a = [np.asarray(v, np.int32) for v in (leaf, feat, thr)]
+    return ForcedSplits(*a, table=torch.as_tensor(np.stack(a), device=device)
+                        .to(torch.int64))
 
 
 def _parse_interaction_sets(spec, used_feature_idx) -> Optional[np.ndarray]:
@@ -249,6 +299,7 @@ class GBDT:
             self.bins_words_t = self.bins_words.t().contiguous()
         self._check_pool(config)
         self._split_constraints(config)
+        self._learner_options(config)
         if self._use_batched_grower():
             batch_grower.check_supported(self.hp,
                                          int(config.tpu_split_batch))
@@ -266,6 +317,7 @@ class GBDT:
         self.valid_metrics: List[List[Metric]] = []
         self._valid_bins: List[torch.Tensor] = []
         self._valid_bins_t: List[torch.Tensor] = []
+        self._valid_raw: List[Optional[torch.Tensor]] = []
         self._fused_cache = {}
         self._last_fused_evals: List = []
 
@@ -298,6 +350,50 @@ class GBDT:
             torch.as_tensor(isets, device=self.device)
         self._needs_node_rng = (self.hp.extra_trees
                                 or self.hp.feature_fraction_bynode < 1.0)
+
+    def _learner_options(self, config: Config) -> None:
+        """The JAX package's set-up of forced splits, CEGB and linear
+        trees (boosting/gbdt.py:327-331, 562-592): the forced schedule on
+        the device; CEGB's penalties premultiplied by ``cegb_tradeoff``
+        (per original feature, mapped to the packed ones) and its
+        acquisition state (``used_rows`` bool [n, F] only with lazy
+        penalties), kept across every tree; under ``linear_tree`` the
+        training set's raw columns on the device."""
+        ts, dev = self.train_set, self.device
+        self.forced = None
+        if config.forcedsplits_filename:
+            self.forced = parse_forced_splits(
+                config.forcedsplits_filename, ts, self.hp.num_leaves, dev)
+        self.cegb: Optional[CegbState] = None
+        if (float(config.cegb_penalty_split) > 0.0
+                or list(config.cegb_penalty_feature_lazy or [])
+                or list(config.cegb_penalty_feature_coupled or [])):
+            tr = float(config.cegb_tradeoff)
+
+            def vec(lst):
+                full = np.zeros(ts.num_total_features, np.float64)
+                a = np.asarray(list(lst or []), np.float64)
+                full[:len(a)] = a[:ts.num_total_features]
+                return full[np.asarray(ts.used_feature_idx)] * tr
+
+            lazy = vec(config.cegb_penalty_feature_lazy)
+            F = self.num_features
+
+            def f32(a):
+                return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+            self.cegb = CegbState(
+                split_pen=f32(np.float32(tr * float(
+                    config.cegb_penalty_split))),
+                coupled_pen=f32(vec(config.cegb_penalty_feature_coupled)),
+                lazy_pen=f32(lazy),
+                feature_used=torch.zeros(F, dtype=torch.bool, device=dev),
+                used_rows=(torch.zeros(ts.num_data, F, dtype=torch.bool,
+                                       device=dev)
+                           if (lazy != 0).any() else None))
+        self.linear = bool(config.linear_tree) and ts.raw is not None
+        self.raw_dev = torch.as_tensor(ts.raw, device=dev) \
+            if self.linear else None
 
     def node_key(self, iter_: int, cls: int) -> prng.Key:
         """The key words of a tree's node draws: ``key(extra_seed *
@@ -368,7 +464,8 @@ class GBDT:
                   bins_words=self.bins_words, bins_words_t=self.bins_words_t,
                   bundle=self.bundle, is_cat=self.is_cat_arr,
                   monotone=self.monotone_arr,
-                  interaction_sets=self.interaction_sets)
+                  interaction_sets=self.interaction_sets,
+                  forced=self.forced, cegb=self.cegb)
         if self._use_batched_grower():
             key = None if node_key is None else torch.tensor(
                 node_key, dtype=torch.int64, device=self.device)
@@ -420,6 +517,10 @@ class GBDT:
         # logical (per-feature) bins when the data is bundled
         self._valid_bins_t.append(self._logical_bins_t(self._valid_bins[-1],
                                                        name))
+        # linear trees score the valid rows on their raw columns
+        self._valid_raw.append(
+            torch.as_tensor(valid_set.raw, device=self.device)
+            if self.linear and valid_set.raw is not None else None)
 
     def _logical_bins_t(self, bins: torch.Tensor, name: str) -> torch.Tensor:
         """u8 [F, n]: the transposed bins of ``bins`` [n, Fb], turned into
@@ -517,6 +618,8 @@ class GBDT:
                 row_mask, feature_mask, hist_scale=hist_scales[cls_idx],
                 node_key=(self.node_key(self.iter_, cls_idx)
                           if self._needs_node_rng else None))
+            if bool(self.config.tpu_debug_checks):
+                self._debug_check_tree(arrays, leaf_of_row, row_mask)
             if quant and bool(self.config.quant_train_renew_leaf):
                 renewed = renew_leaf_values(
                     leaf_of_row, g_true[:, cls_idx], h_true[:, cls_idx],
@@ -526,24 +629,96 @@ class GBDT:
                 arrays = arrays._replace(leaf_value=torch.where(
                     arrays.num_leaves > 1, renewed, arrays.leaf_value))
             arrays = self._renew_leaves(arrays, leaf_of_row, cls_idx)
-            # shrink BEFORE the gather, exactly like the JAX package: the
-            # other order differs by an ulp and cascades through the
-            # quantization grid
-            shrunk = arrays.leaf_value * self.shrinkage_rate
-            self.scores[:, cls_idx] += take_small_table(shrunk, leaf_of_row)
-            arrays_shrunk = arrays._replace(leaf_value=shrunk)
-            for vi in range(len(self.valid_sets)):
-                self.valid_scores[vi][:, cls_idx] += self._valid_tree_scores(
-                    arrays_shrunk, vi)
+            lin = None
+            if self.linear and int(arrays.num_leaves) > 1:
+                # each leaf's ridge fit on its numeric path features, from
+                # the TRUE gradients (the solution is not scale-invariant)
+                lin = fit_linear_leaves(
+                    self.raw_dev, leaf_of_row, arrays.leaf_path,
+                    ~self.is_cat_arr, g_true[:, cls_idx],
+                    h_true[:, cls_idx], row_mask, arrays.leaf_value,
+                    float(self.config.linear_lambda))
+                self._linear_scores(arrays, leaf_of_row, lin, cls_idx)
+            else:
+                # shrink BEFORE the gather, exactly like the JAX package:
+                # the other order differs by an ulp and cascades through
+                # the quantization grid
+                shrunk = arrays.leaf_value * self.shrinkage_rate
+                self.scores[:, cls_idx] += take_small_table(shrunk,
+                                                            leaf_of_row)
+                arrays_shrunk = arrays._replace(leaf_value=shrunk)
+                for vi in range(len(self.valid_sets)):
+                    self.valid_scores[vi][:, cls_idx] += \
+                        self._valid_tree_scores(arrays_shrunk, vi)
             tree = Tree.from_arrays(arrays, self.train_set)
             if tree.num_leaves > 1:
                 finished = False
+            if lin is not None:
+                tree.set_linear(lin[0].cpu().numpy().astype(np.float64),
+                                lin[1].cpu().numpy().astype(np.float64),
+                                self.train_set.used_feature_idx)
             tree.apply_shrinkage(self.shrinkage_rate)
             if self.iter_ == 0 and abs(self.init_scores[cls_idx]) > 1e-10:
                 tree.add_bias(self.init_scores[cls_idx])
             self.models.append(tree)
         self.iter_ += 1
         return finished
+
+    def _linear_scores(self, arrays: TreeArrays, leaf_of_row: torch.Tensor,
+                       lin, cls_idx: int) -> None:
+        """The score updates of a linear tree (the JAX package's
+        boosting/gbdt.py:1034-1049): each training row's linear leaf
+        output, and each valid row's from its leaf (path aggregation over
+        the valid bins) and the valid set's raw columns, scaled by the
+        shrinkage; the kernels of ops/linear_kernels.py on the card."""
+        const, coeff = lin
+        rate = self.shrinkage_rate
+        contrib = linear_leaf_scores(self.raw_dev, leaf_of_row, const, coeff,
+                                     arrays.leaf_value)
+        self.scores[:, cls_idx] += rate * contrib
+        for vi in range(len(self.valid_sets)):
+            leaf_v = predict_bins_leaf_matmul(
+                arrays, self._valid_bins_t[vi], self.nan_bin_arr,
+                has_categorical=self.hp.has_categorical)
+            vraw = self._valid_raw[vi]
+            vc = linear_leaf_scores(vraw, leaf_v, const, coeff,
+                                    arrays.leaf_value) \
+                if vraw is not None else arrays.leaf_value[leaf_v]
+            self.valid_scores[vi][:, cls_idx] += rate * vc
+
+    def _debug_check_tree(self, arrays: TreeArrays, leaf_of_row: torch.Tensor,
+                          row_mask) -> None:
+        """``tpu_debug_checks``: the per-tree invariant checks of the JAX
+        package's ``_debug_check_tree`` (reference
+        cuda_single_gpu_tree_learner DEBUG CheckSplitValid :571), on the
+        host: leaf ids in range, the stored leaf counts against the rows of
+        the partition, the child links in range.  One host read a tree."""
+        nl = int(arrays.num_leaves)
+        lor = leaf_of_row.cpu().numpy()
+        if lor.min() < 0 or lor.max() >= nl:
+            log.fatal("debug check: leaf_of_row out of range [0, %d): "
+                      "min=%d max=%d" % (nl, lor.min(), lor.max()))
+        mask = np.ones(lor.shape[0], bool) if row_mask is None \
+            else row_mask.cpu().numpy()
+        counts = np.bincount(lor[mask], minlength=self.hp.num_leaves)
+        stored = arrays.leaf_count.cpu().numpy()
+        # rtol: float32 counts of leaves past 2^24 rows
+        if not np.allclose(counts[:nl], stored[:nl], rtol=1e-6, atol=0.5):
+            bad = np.nonzero(~np.isclose(counts[:nl], stored[:nl],
+                                         rtol=1e-6, atol=0.5))[0]
+            log.fatal("debug check: leaf_count mismatch at leaves %s "
+                      "(partition %s vs stored %s)"
+                      % (bad[:5], counts[bad[:5]], stored[bad[:5]]))
+        lc = arrays.left_child.cpu().numpy()[:nl - 1]
+        rc = arrays.right_child.cpu().numpy()[:nl - 1]
+        for side, arr in (("left", lc), ("right", rc)):
+            # children: >= 0 a node, -(leaf + 1) a leaf
+            if (arr >= nl - 1).any():
+                log.fatal("debug check: %s child node index out of range"
+                          % side)
+            if (-arr - 1 >= nl).any():
+                log.fatal("debug check: %s child leaf index out of range"
+                          % side)
 
     def _renew_leaves(self, arrays: TreeArrays, leaf_of_row: torch.Tensor,
                       cls_idx: int) -> TreeArrays:
@@ -573,11 +748,14 @@ class GBDT:
         (``device_sample_fn``); by-query bagging, RF, DART and the strict
         learner keep the classic loop, as in the JAX package; so do the
         objectives whose calls change their state (``jit_safe``:
-        rank_xendcg, position-debiased lambdarank)."""
+        rank_xendcg, position-debiased lambdarank), linear trees, CEGB and
+        ``tpu_debug_checks``; forced splits take the fused loop."""
         return (type(self) is GBDT
                 and self.objective is not None
                 and not self.objective.need_renew_tree_output
                 and self.objective.jit_safe
+                and not self.linear
+                and self.cegb is None
                 and not bool(self.config.tpu_debug_checks)
                 and (not self.valid_sets or self.fused_valid_ok())
                 and (self._sampling_is_noop()
@@ -673,6 +851,10 @@ class GBDT:
                   and nvalid > 0 and float(es_params[2]) == 0.0)
         es = (int(es_params[0]), bool(es_params[1])) if use_es else None
         key = (chunk, nvalid, es, float(self.config.feature_fraction) < 1.0)
+        if self.forced is not None:
+            # the forced schedule's bytes key the captured rounds, as the
+            # JAX package keys its compiled runner
+            key += (self.forced.table.cpu().numpy().tobytes(),)
         fr = self._fused_cache.get(key)
         if fr is None:
             fr = self._fused_cache[key] = FusedRound(self, chunk, es)
@@ -839,8 +1021,9 @@ class GBDT:
         with the unseen / NaN sentinels) and :class:`BitsetForest`.
 
         On the card the bins [F, n] are copied once and the forest kernel
-        runs once per row block, with no padding; a linear model raises
-        (its leaves run only in the plain version).  On the CPU the plain
+        runs once per row block, with no padding; a linear model also
+        copies the raw values of the columns its leaves read, feature-major,
+        and the kernel runs in its linear mode.  On the CPU the plain
         version runs per block, the ragged tail padded up as the JAX
         package pads it (``predict_bucketing=on``: the geometric ladder of
         quantum multiples up to the block, ``off``: the next multiple of
@@ -857,14 +1040,20 @@ class GBDT:
         linear = any(t.is_linear for t in models)
         general = (linear or bool(ds.categorical_array().any())
                    or ds.bundle_plan is not None)
-        if linear and dev.type == "cuda":
-            log.fatal("linear leaves are predicted by the plain forest "
-                      "version only; the forest kernel takes no linear "
-                      "model (predict on device_type=cpu)")
         lin = None
         cat_feats = ()
         if general:
-            forest, lin, cat_feats = self._forest_bitset_arrays(models, k)
+            fb, lin_np, cat_feats = forest_bitset_arrays(models, k, ds)
+            forest = forest_from_numpy(fb, dev)
+            cols = np.zeros(0, np.int64) if lin_np is None else \
+                np.nonzero(lin_np["featmask"].any((0, 1)))[0]
+            if cols.size:
+                # only the raw columns the linear leaves read (a leaf with
+                # none outputs its plain value)
+                lin = forest_from_numpy(dict(
+                    const=lin_np["const"], coeff=lin_np["coeff"][..., cols],
+                    featmask=lin_np["featmask"][..., cols]), dev)
+                raw_np = np.asarray(X[:, cols], np.float32)
             bins_np = ds.bin_external_pred(X)
         else:
             forest = self._forest_arrays(models, k)
@@ -874,14 +1063,16 @@ class GBDT:
         if dev.type == "cuda":
             bins_t = torch.as_tensor(np.ascontiguousarray(bins_np.T),
                                      device=dev)
+            raw_t = None if lin is None else torch.as_tensor(
+                np.ascontiguousarray(raw_np.T), device=dev)
             outs = [forest_kernels.forest_values(
-                forest, bins_t[:, r0:r0 + blk], k, cat_feats)
+                forest, bins_t[:, r0:r0 + blk], k, cat_feats, lin=lin,
+                raw_t=None if raw_t is None else raw_t[:, r0:r0 + blk])
                 for r0 in range(0, n_all, blk)]
             out = torch.cat(outs).double().cpu().numpy()
             return out[:, 0] if k == 1 else out
         tail_q = min(int(self.PREDICT_TAIL_QUANTUM), blk)
         bucketing = self.config.predict_bucketing == "on"
-        raw_np = np.asarray(X, np.float32) if lin is not None else None
         outs = []
         for r0 in range(0, n_all, blk):
             chunk = bins_np[r0:r0 + blk]
@@ -895,17 +1086,12 @@ class GBDT:
                 pad = (-rows) % tail_q
             bins_t = torch.as_tensor(np.ascontiguousarray(
                 np.pad(chunk, ((0, pad), (0, 0))).T), device=dev)
-            if lin is not None:
-                rchunk = np.pad(raw_np[r0:r0 + blk], ((0, pad), (0, 0)))
-                res = predict_bitset_forest(
-                    forest, bins_t, k, cat_feats, lin=lin,
-                    raw=torch.as_tensor(np.nan_to_num(rchunk), device=dev),
-                    raw_nan=torch.as_tensor(np.isnan(rchunk).T
-                                            .astype(np.float32),
-                                            device=dev))
-            else:
-                res = forest_kernels.forest_values(forest, bins_t, k,
-                                                   cat_feats)
+            raw_t = None if lin is None else torch.as_tensor(
+                np.ascontiguousarray(np.pad(raw_np[r0:r0 + blk],
+                                            ((0, pad), (0, 0))).T),
+                device=dev)
+            res = forest_kernels.forest_values(forest, bins_t, k, cat_feats,
+                                               lin=lin, raw_t=raw_t)
             outs.append(res[:rows].double().numpy())
         out = np.concatenate(outs, axis=0)
         return out[:, 0] if k == 1 else out
@@ -915,14 +1101,6 @@ class GBDT:
         (:func:`forest_arrays`)."""
         return forest_from_numpy(forest_arrays(models, k, self.train_set),
                                  self.device)
-
-    def _forest_bitset_arrays(self, models, k: int):
-        """(BitsetForest, LinearLeaves or None, cat_feats) of ``models`` on
-        the booster's device (:func:`forest_bitset_arrays`)."""
-        fb, lin, cat_feats = forest_bitset_arrays(models, k, self.train_set)
-        return (forest_from_numpy(fb, self.device),
-                None if lin is None else forest_from_numpy(lin, self.device),
-                cat_feats)
 
     def predict(self, X: np.ndarray, raw_score: bool = False,
                 start_iteration: int = 0, num_iteration: int = -1,

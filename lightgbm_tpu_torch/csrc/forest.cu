@@ -25,6 +25,15 @@
 // before the block walks it.  Wider data (F > 96) or larger trees read the
 // same tables from device memory instead.
 //
+// Linear leaves (values mode, the JAX package's LinearLeaves extension of
+// predict_bitset_forest): when the leaf-linear tables are given, a leaf with
+// features outputs const + sum_j coeff_j x_j over its features in index
+// order (each product rounded, then each sum: the plain version's
+// additions in its order, so the bits stay the same), x read from the
+// feature-major raw values raw_t [Fr, ldr] (NaN as 0, +-inf as the largest
+// float); a row with a NaN in one of the leaf's features, and a leaf with
+// no feature, outputs the plain leaf value.
+//
 // Bound on the H100: operations, not bytes.  The bins (n F bytes), the
 // output (4 n k) and the forest are read or written once (~32 MB at
 // n = 1M, F = 28, k = 1: 0.01 ms at 3.35 TB/s); the walk is n T depth
@@ -32,6 +41,8 @@
 // few shared-memory loads, a compare and a branch.
 
 #include <cuda_runtime.h>
+#include <float.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -48,6 +59,10 @@ __global__ void __launch_bounds__(kRows)
                   int stage_nodes, const unsigned char* __restrict__ catb,
                   int C, int Bc, const float* __restrict__ value, int L,
                   const int* __restrict__ cls, int k,
+                  const float* __restrict__ raw_t, long ldr,
+                  const int* __restrict__ lin_feat,
+                  const float* __restrict__ lin_coef,
+                  const float* __restrict__ lin_const, int Kl,
                   float* __restrict__ out_values,
                   int* __restrict__ out_leaves) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -107,9 +122,29 @@ __global__ void __launch_bounds__(kRows)
         if (child >= ni) break;  // not a tree: leaf 0
         node = child;
       }
-      if (out_values != nullptr)
-        acc += __ldg(value + (long)t * L + leaf);
-      else
+      if (out_values != nullptr) {
+        float v = __ldg(value + (long)t * L + leaf);
+        if (lin_feat != nullptr) {
+          const long base = ((long)t * L + leaf) * Kl;
+          if (__ldg(lin_feat + base) >= 0) {
+            float lacc = 0.0f;
+            bool bad = false;
+            for (int j = 0; j < Kl; ++j) {
+              const int f = __ldg(lin_feat + base + j);
+              if (f < 0) break;
+              float x = raw_t[(long)f * ldr + r];
+              bad |= isnan(x);
+              if (isnan(x)) x = 0.0f;
+              else if (isinf(x)) x = x > 0.0f ? FLT_MAX : -FLT_MAX;
+              lacc = __fadd_rn(lacc,
+                               __fmul_rn(__ldg(lin_coef + base + j), x));
+            }
+            if (!bad)
+              v = __fadd_rn(lacc, __ldg(lin_const + (long)t * L + leaf));
+          }
+        }
+        acc = __fadd_rn(acc, v);
+      } else
         out_leaves[(long)t * n + r] = leaf;
     }
     if (out_values != nullptr && live) out_values[r * k + c] = acc;
@@ -120,6 +155,8 @@ template <typename BinT>
 int launch(const BinT* bins, long n, long ld, int F, const int4* nodes,
            const int2* meta, int T, int ni, const unsigned char* catb, int C,
            int Bc, const float* value, int L, const int* cls, int k,
+           const float* raw_t, long ldr, const int* lin_feat,
+           const float* lin_coef, const float* lin_const, int Kl,
            float* out_values, int* out_leaves, cudaStream_t stream) {
   const int stage_bins = F <= kStageBinsMaxF;
   const long tree_bytes = (long)ni * 24 + (long)C * Bc;
@@ -135,7 +172,8 @@ int launch(const BinT* bins, long n, long ld, int F, const int4* nodes,
   const long blocks = (n + kRows - 1) / kRows;
   forest_kernel<BinT><<<(unsigned)blocks, kRows, smem, stream>>>(
       bins, n, ld, F, stage_bins, nodes, meta, T, ni, stage_nodes, catb, C,
-      Bc, value, L, cls, k, out_values, out_leaves);
+      Bc, value, L, cls, k, raw_t, ldr, lin_feat, lin_coef, lin_const, Kl,
+      out_values, out_leaves);
   return (int)cudaGetLastError();
 }
 
@@ -144,12 +182,18 @@ int launch(const BinT* bins, long n, long ld, int F, const int4* nodes,
 // bins: u8 (bins_i32 = 0) or i32 [F, ld] feature-major, rows [0, n) used;
 // nodes i32 [T, ni, 4], meta i32 [T, ni, 2], catb u8 [T, C, Bc] (C may be
 // 0), value f32 [T, L], cls i32 [T].  Exactly one of out_values (f32
-// [n, k]) and out_leaves (i32 [T, n]) is given.
+// [n, k]) and out_leaves (i32 [T, n]) is given.  Linear leaves (values mode;
+// lin_feat null: none): raw_t f32 [Fr, ldr] feature-major raw values, rows
+// [0, n); lin_feat i32 [T, L, Kl] each leaf's raw columns in increasing
+// order, -1 after the last (-1 first: no feature); lin_coef f32 [T, L, Kl];
+// lin_const f32 [T, L].
 extern "C" int lgbt_forest(const void* bins, int bins_i32, long n, long ld,
                            int F, const int* nodes, const int* meta, int T,
                            int ni, const unsigned char* catb, int C, int Bc,
                            const float* value, int L, const int* cls, int k,
-                           float* out_values, int* out_leaves,
+                           const float* raw_t, long ldr, const int* lin_feat,
+                           const float* lin_coef, const float* lin_const,
+                           int Kl, float* out_values, int* out_leaves,
                            void* stream) {
   if (n <= 0) return 0;
   const int4* n4 = reinterpret_cast<const int4*>(nodes);
@@ -157,7 +201,9 @@ extern "C" int lgbt_forest(const void* bins, int bins_i32, long n, long ld,
   cudaStream_t s = (cudaStream_t)stream;
   if (bins_i32)
     return launch(static_cast<const int*>(bins), n, ld, F, n4, m2, T, ni,
-                  catb, C, Bc, value, L, cls, k, out_values, out_leaves, s);
+                  catb, C, Bc, value, L, cls, k, raw_t, ldr, lin_feat,
+                  lin_coef, lin_const, Kl, out_values, out_leaves, s);
   return launch(static_cast<const unsigned char*>(bins), n, ld, F, n4, m2, T,
-                ni, catb, C, Bc, value, L, cls, k, out_values, out_leaves, s);
+                ni, catb, C, Bc, value, L, cls, k, raw_t, ldr, lin_feat,
+                lin_coef, lin_const, Kl, out_values, out_leaves, s);
 }

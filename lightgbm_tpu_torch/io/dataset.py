@@ -12,8 +12,13 @@ bytes.
 External matrices bin the same way for the device forest predictor
 (``bin_external``, ``bin_external_pred``).
 
+With ``linear_tree`` set, a dataset (training or valid) also keeps the
+raw float32 values of its used features (``raw`` [n, F_used], NaN kept),
+which the linear-leaf fit and scores read (reference Dataset raw_data_;
+the JAX package's ``raw``).
+
 Not in this package yet: sparse (scipy) input, ``save_binary`` /
-``load_binary``, streamed and sharded ingest, linear-tree raw columns.
+``load_binary``, streamed and sharded ingest.
 """
 
 from __future__ import annotations
@@ -135,6 +140,8 @@ class Dataset:
         self.config: Config = Config()
         self._reference: Optional["Dataset"] = None
         self.bundle_plan: Optional[BundlePlan] = None
+        # raw values of the used features, kept only under linear_tree
+        self.raw: Optional[np.ndarray] = None
 
     # ------------------------------------------------------------ properties
     @property
@@ -245,6 +252,8 @@ class Dataset:
             if reference.bundle_plan is not None:
                 ds.bundle_plan = reference.bundle_plan
                 ds.bins = apply_bundles(ds.bins, ds.bundle_plan)
+            if bool(cfg.linear_tree):
+                ds.raw = _raw_columns(arr, ds.used_feature_idx)
             return ds
 
         cat_idx = _resolve_categorical(categorical_feature, ds.feature_names)
@@ -262,6 +271,8 @@ class Dataset:
                          f"{plan.num_bundles} columns (saved {saved})")
                 ds.bundle_plan = plan
                 ds.bins = apply_bundles(ds.bins, plan)
+        if bool(cfg.linear_tree):
+            ds.raw = _raw_columns(arr, ds.used_feature_idx)
         return ds
 
     def create_valid(self, data: Any, label: Optional[Sequence[float]] = None,
@@ -362,6 +373,12 @@ class Dataset:
             bins[:, col] = m.values_to_bins_pred(arr[:, j], m.num_bin,
                                                  m.num_bin + 1)
         return np.ascontiguousarray(bins)
+
+
+def _raw_columns(arr: np.ndarray, used: Sequence[int]) -> np.ndarray:
+    """float32 [n, F_used] row-major: the raw values of the used columns
+    (a column selection of a row-major matrix comes out column-major)."""
+    return np.ascontiguousarray(arr[:, list(used)], dtype=np.float32)
 
 
 def _resolve_categorical(categorical_feature: Optional[Sequence[Union[int, str]]],

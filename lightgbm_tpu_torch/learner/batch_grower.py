@@ -70,12 +70,28 @@ extra-trees draws; a node's key is ``fold_in(key, node * 2 + side + 1)``
 so a captured round draws fresh keys every replay, one launch a draw
 family (ops/prng.py ``draw``).
 
+Forced splits (``forced``, the JAX package's batch_grower.py:230,
+397-497, 1114-1126): before the gain rounds a tree runs one K = 1 round a
+schedule entry (:meth:`BatchedTree.forced_phase`): the entry at
+``n_splits`` is read on the device, its stats gathered at the
+prescribed threshold from the leaf's histogram column (under the pool,
+from the leaf's rows when its slot was evicted: one pass of the flat
+masked kernel over the feature's virtual bins) and staged into the
+leaf's cached best split, which the round's record then applies; a failed entry sets the device flag ``force_failed`` and the
+remaining forced rounds change nothing.  The warm-up ladder is skipped
+after a forced phase.  CEGB (``cegb``, batch_grower.py:125-205, 326-330,
+798-834, 1020-1052): each round's splits acquire their features (for the
+model, and with lazy penalties for their parents' rows) before the
+partition, and the 2K children's best splits take the penalties of the
+updated state (learner/grower.py ``cegb_penalty``).
+
 Supported here: numeric and categorical features, serial training, EFB
 bundles, row masks, per-tree feature masks, depth limits,
 max_delta_step, quantized levels (``hist_scale``), the histogram pool,
 monotone constraints (every method and the penalty), path smoothing,
-extra trees, by-node sampling and interaction constraints.  Not ported
-yet: forced splits, CEGB, linear trees, the distributed modes.
+extra trees, by-node sampling, interaction constraints, forced splits and
+CEGB (the trees carry ``leaf_path``, which linear trees' fit reads).  Not
+ported yet: the distributed modes.
 """
 
 from __future__ import annotations
@@ -91,11 +107,16 @@ from ..ops.round_fuse import (decision_table, partition_payload,
                               partition_payload_table, partition_select,
                               partition_select_table)
 from ..ops import prng
-from ..ops.split import (NEG_INF, VAR_CAT_FWD, SplitHyper, find_best_split,
-                         leaf_output, smoothed_output)
+from ..ops.hist_kernels import histogram_leaves
+from ..ops.split import (NEG_INF, VAR_CAT_FWD, VAR_CAT_ONEHOT, VAR_NUM_RIGHT,
+                         SplitHyper, find_best_split, leaf_output,
+                         smoothed_output)
 from ..utils import log
-from .grower import (INF_BOUND, DeviceBundle, TreeArrays, _expand_hist,
-                     extra_tree_draws, node_feature_mask, winner_bitset)
+from .grower import (INF_BOUND, CegbState, DeviceBundle, ForcedSplits,
+                     TreeArrays, _expand_hist, _expand_hist_col,
+                     cegb_acquire, cegb_lazy_counts, cegb_penalty,
+                     extra_tree_draws, gather_forced_split,
+                     node_feature_mask, winner_bitset)
 from .monotone import advanced_split_bounds, box_bounds, split_boxes
 
 #: rows below which the warm-up ladder is skipped, as in the JAX package
@@ -135,7 +156,9 @@ class BatchedTree:
     0-d early-stop flag; ``is_cat``: bool [F], read when
     ``hp.has_categorical``; ``monotone`` int [F] (``hp.use_monotone``);
     ``rng_key`` int64 [2], the tree's node key words on the device (extra
-    trees, by-node sampling); ``interaction_sets`` bool [S, F]."""
+    trees, by-node sampling); ``interaction_sets`` bool [S, F];
+    ``forced`` the forced-split schedule (:meth:`round` with ``forced``);
+    ``cegb`` the CEGB penalties and acquisition state (updated in place)."""
 
     def __init__(self, bins: torch.Tensor, grad: torch.Tensor,
                  hess: torch.Tensor, row_mask: Optional[torch.Tensor],
@@ -150,7 +173,9 @@ class BatchedTree:
                  is_cat: Optional[torch.Tensor] = None,
                  monotone: Optional[torch.Tensor] = None,
                  rng_key: Optional[torch.Tensor] = None,
-                 interaction_sets: Optional[torch.Tensor] = None):
+                 interaction_sets: Optional[torch.Tensor] = None,
+                 forced: Optional[ForcedSplits] = None,
+                 cegb: Optional[CegbState] = None):
         check_supported(hp, batch)
         dev = grad.device
         f32, i32 = torch.float32, torch.int32
@@ -169,6 +194,8 @@ class BatchedTree:
         self.adv = self.mono and hp.monotone_method == "advanced"
         self.monotone = None if monotone is None else monotone.to(dev)
         self.isets = interaction_sets
+        self.forced, self.cegb = forced, cegb
+        self.lor = torch.zeros(n, dtype=i32, device=dev)
         self.use_bynode = (hp.feature_fraction_bynode < 1.0
                            and rng_key is not None)
         self.use_rng = rng_key is not None and (hp.extra_trees
@@ -214,8 +241,8 @@ class BatchedTree:
             hist0[None], g0[None], h0[None], c0[None],
             torch.zeros(1, dtype=i32, device=dev),
             torch.zeros(1, num_f, dtype=torch.bool, device=dev), zero_i,
-            parent_output=root_out.reshape(1), leaf_min=-INF_BOUND * one,
-            leaf_max=INF_BOUND * one)
+            zero_i, parent_output=root_out.reshape(1),
+            leaf_min=-INF_BOUND * one, leaf_max=INF_BOUND * one)
 
         # state arrays carry one trash entry past the end (node index L-1,
         # leaf index L) that the masked scatters of invalid slots aim at —
@@ -296,20 +323,28 @@ class BatchedTree:
             self.leaf_hi[0] = self.num_bins.to(i32)
 
         self.iota_f = torch.arange(num_f, device=dev)
-        self.lor = torch.zeros(n, dtype=i32, device=dev)
         self.n_splits = torch.zeros((), dtype=torch.int64, device=dev)
         self.progress = torch.ones((), dtype=torch.bool, device=dev)
+        if forced is not None:
+            self.force_failed = torch.zeros((), dtype=torch.bool, device=dev)
 
     def scaled(self, h):
         return h if self.scale_vec is None else h * self.scale_vec
 
-    def child_best(self, h, g_, h_, c_, depth, paths, node_data, **con):
+    def child_best(self, h, g_, h_, c_, depth, paths, node_data, leaves,
+                   **con):
         """Best splits of M leaves from their physical histograms, and on
         categorical data the bins each sends left (bool [M, B]; else
         None).  ``paths`` bool [M, F]: the leaves' path features;
         ``node_data`` int64 [M]: the fold-in data of their node keys;
-        ``con``: find_best_split's outputs and bounds."""
+        ``leaves`` int64 [M]: their ids (CEGB's lazy counts, over the rows'
+        current leaves); ``con``: find_best_split's outputs and bounds."""
         hp = self.hp
+        if self.cegb is not None:
+            lazy = cegb_lazy_counts(self.cegb, self.lor, self.row_mask,
+                                    self.L)
+            con["gain_penalty"] = cegb_penalty(
+                self.cegb, c_, None if lazy is None else lazy[leaves])
         fm, rand = self.feature_mask, None
         if self.use_rng:
             keys = self.rng_key.expand(node_data.shape[0], 2)
@@ -411,9 +446,10 @@ class BatchedTree:
         leaf_slot[L].fill_(-1)
         return h_left, h_right
 
-    def round(self, Kr: int):
+    def round(self, Kr: int, forced: bool = False):
         """One round of (up to) ``Kr`` splits, gated by :meth:`live`; reads
-        nothing back."""
+        nothing back.  ``forced``: a forced-split round (``Kr`` = 1,
+        :meth:`_stage_forced`)."""
         hp, L = self.hp, self.L
         dev = self.grad.device
         i32 = torch.int32
@@ -421,13 +457,21 @@ class BatchedTree:
         best_gain, best_feat, best_thr = (self.best_gain, self.best_feat,
                                           self.best_thr)
         sum_g, sum_h, count = self.sum_g, self.sum_h, self.count
+        live = self.live()
+        use_f = self._stage_forced(live) if forced else None
         topg, parents = torch.sort(best_gain[:L], descending=True,
                                    stable=True)       # ties: lower id first
         topg, parents = topg[:Kr], parents[:Kr]
+        if use_f is not None:
+            # the forced leaf is the round's only candidate
+            fl = self._forced_entry()[0:1]
+            parents = torch.where(use_f, fl, parents)
+            topg = torch.where(use_f, best_gain[parents], topg)
         n_splits = self.n_splits
         room = n_splits + torch.arange(Kr, device=dev) < L - 1
-        live = self.live()
         valid = (topg > 0.0) & room & live
+        if use_f is not None:
+            valid = valid & use_f
         n_valid = valid.sum()
         rank = torch.cumsum(valid.to(torch.int64), 0) - 1
         node_ids = n_splits + rank
@@ -517,6 +561,13 @@ class BatchedTree:
         if self.boxes:
             self._record_boxes(ok, bl, new_leaves, feat, thr, catl, lo, ro,
                                mono_f)
+        if self.cegb is not None:
+            # the round's splits acquire their features, for their parents'
+            # rows (the leaves before this round's partition); later slots
+            # of the round see them at the next round's penalties, as in
+            # the JAX package
+            cegb_acquire(self.cegb, self.lor, self.row_mask, parents, feat,
+                         valid, L)
 
         # ---- smaller children first: the partition pass emits the next
         # histogram pass's compaction keys and payload for exactly them
@@ -602,7 +653,7 @@ class BatchedTree:
             torch.cat([h_left, h_right]), sum_g[kids], sum_h[kids],
             count[kids], self.leaf_depth[kids],
             self.path_f[kids] if self.isets is not None else None, node2,
-            **con)
+            kids, **con)
         tgt = torch.where(torch.cat([valid, valid]), kids, L)
         _put(best_gain, tgt, res.gain)
         _put(best_feat, tgt, res.feature)
@@ -614,6 +665,107 @@ class BatchedTree:
         if self.cat:
             _put(self.best_var, tgt, res.variant)
             _put(self.best_bitset, tgt, bits)
+
+    def _forced_entry(self) -> torch.Tensor:
+        """int64 [3]: the schedule entry of the next split (leaf, feature,
+        threshold), read on the device (clamped to the last entry)."""
+        tab = self.forced.table
+        i = self.n_splits.clamp(max=tab.shape[1] - 1).reshape(1)
+        return tab.index_select(1, i)[:, 0]
+
+    def _forced_column(self, fl: torch.Tensor, ff: torch.Tensor
+                       ) -> torch.Tensor:
+        """f32 [B, C]: leaf ``fl``'s virtual histogram of feature ``ff``
+        ([1] device tensors).  From the histogram state; under the bounded
+        pool, where the leaf's slot may have been evicted, from its rows:
+        one pass of the flat masked kernel over the feature's virtual bins
+        (the JAX package's ``forced_col_hist``), taken where the leaf holds
+        no slot."""
+        bd, hp = self.bundle, self.hp
+        col = ff if bd is None else bd.feat_col.index_select(0, ff).long()
+        g_, h_, c_ = (self.sum_g.index_select(0, fl),
+                      self.sum_h.index_select(0, fl),
+                      self.count.index_select(0, fl))
+        if self.pool:
+            slot = self.leaf_slot.index_select(0, fl).long()
+            resident = (slot >= 0) & (slot < self.P)
+            row = slot.clamp(0, self.P)
+        else:
+            row = fl
+        hc = self.hist.index_select(0, row)[0].index_select(0, col)  # [1,B,C]
+        if bd is not None:
+            hc = _expand_hist_col(hc, bd, ff, g_, h_, c_)
+        if not self.pool:
+            return hc[0]
+        if bd is None:
+            colv = self.bins_t.index_select(0, ff)
+        else:
+            phys = self.bins_t.index_select(0, col)[0].long()
+            colv = bd.inv_table.index_select(0, ff)[0][phys][None] \
+                .to(torch.uint8)
+        lor1 = self.lor if self.row_mask is None else \
+            torch.where(self.row_mask, self.lor, -1)
+        direct = self.scaled(histogram_leaves(
+            colv, self.grad, self.hess, lor1, fl.to(torch.int32),
+            n_bins=hp.n_bins, hist_dtype=hp.hist_dtype))[0, 0]
+        return torch.where(resident, hc[0], direct)
+
+    def _stage_forced(self, live: torch.Tensor) -> torch.Tensor:
+        """The forced round's entry (the JAX package's K = 1 forced body,
+        batch_grower.py:397-497): its stats gathered at the prescribed
+        threshold from the leaf's histogram column and, where valid,
+        staged into the leaf's cached best split, so the round's record
+        applies it.  A failed entry sets ``force_failed`` and ends the
+        schedule.  Returns bool [1]: the entry is applied."""
+        hp, L = self.hp, self.L
+        ent = self._forced_entry()
+        fl, ff, ft = ent[0:1], ent[1:2], ent[2:3]
+        active = ((self.n_splits < self.forced.table.shape[1])
+                  & ~self.force_failed & live).reshape(1)
+        hf = self._forced_column(fl, ff)
+        pg = self.sum_g.index_select(0, fl)[0]
+        ph = self.sum_h.index_select(0, fl)[0]
+        pc = self.count.index_select(0, fl)[0]
+        is_cat_f = (self.is_cat.index_select(0, ff)[0] if self.cat
+                    else torch.zeros((), dtype=torch.bool,
+                                     device=fl.device))
+        nanb = self.nan_bin.index_select(0, ff)[0]
+        lg, lh, lc, gain, ok = gather_forced_split(
+            hf, pg, ph, pc, ft[0], is_cat_f, nanb, hp)
+        use_f = active & ok
+        self.force_failed.logical_or_((active & ~ok)[0])
+        tgt = torch.where(use_f, fl, L)
+
+        def stage(arr, val):
+            _put(arr, tgt, val.reshape(1))
+
+        stage(self.best_gain, gain)
+        stage(self.best_feat, ff)
+        stage(self.best_thr, ft)
+        stage(self.best_dl, torch.zeros_like(use_f))
+        stage(self.best_lg, lg)
+        stage(self.best_lh, lh)
+        stage(self.best_lc, lc)
+        if self.cat:
+            stage(self.best_var, torch.where(
+                is_cat_f, VAR_CAT_ONEHOT, VAR_NUM_RIGHT))
+            # one-hot: bin ft goes left
+            _put(self.best_bitset, tgt,
+                 ((torch.arange(hp.n_bins, device=fl.device) == ft)
+                  & is_cat_f)[None])
+        return use_f
+
+    def forced_phase(self) -> None:
+        """The rounds a tree runs first under forced splits: one K = 1
+        forced round a schedule entry (a host number; after a failed entry
+        the rounds change nothing), then ``progress`` set again, so the
+        gain rounds run whatever the last forced round did (the JAX
+        package's forced while-loop and its reset)."""
+        if self.forced is None:
+            return
+        for _ in range(self.forced.table.shape[1]):
+            self.round(1, forced=True)
+        self.progress.fill_(True)
 
     def _record_boxes(self, ok, bl, new_leaves, feat, thr, catl, lo, ro,
                       mono_f):
@@ -653,8 +805,9 @@ class BatchedTree:
         (``ladder_profitable`` and at least ``_WARMUP_MIN_ROWS`` rows), a
         fixed host sequence as in the JAX package."""
         out = []
-        if self.n >= _WARMUP_MIN_ROWS and ladder_profitable(
-                self.hp.hist_kernel, self.hp.n_bins):
+        # skipped after a forced phase: its frontier can pass the widths
+        if self.forced is None and self.n >= _WARMUP_MIN_ROWS \
+                and ladder_profitable(self.hp.hist_kernel, self.hp.n_bins):
             kw = 1
             while kw < self.K:
                 out.append(kw)
@@ -713,7 +866,9 @@ def grow_tree_batched(bins: torch.Tensor, grad: torch.Tensor,
                       is_cat: Optional[torch.Tensor] = None,
                       monotone: Optional[torch.Tensor] = None,
                       rng_key: Optional[torch.Tensor] = None,
-                      interaction_sets: Optional[torch.Tensor] = None
+                      interaction_sets: Optional[torch.Tensor] = None,
+                      forced: Optional[ForcedSplits] = None,
+                      cegb: Optional[CegbState] = None
                       ) -> Tuple[TreeArrays, torch.Tensor]:
     """Grow one tree with ``batch`` splits per histogram pass.
 
@@ -726,8 +881,8 @@ def grow_tree_batched(bins: torch.Tensor, grad: torch.Tensor,
     the EFB tables when ``bins`` holds bundle columns (F then counts the
     virtual features); ``is_cat`` bool [F], read when
     ``hp.has_categorical``; ``monotone``, ``rng_key`` and
-    ``interaction_sets`` the split constraints' operands
-    (:class:`BatchedTree`).
+    ``interaction_sets`` the split constraints' operands, ``forced`` and
+    ``cegb`` forced splits and CEGB (:class:`BatchedTree`).
     Returns (TreeArrays, leaf_of_row i32 [n]).
     """
     tree = BatchedTree(bins, grad, hess, row_mask, num_bins, nan_bin,
@@ -735,7 +890,9 @@ def grow_tree_batched(bins: torch.Tensor, grad: torch.Tensor,
                        bins_t=bins_t, bins_words=bins_words,
                        bins_words_t=bins_words_t, bundle=bundle,
                        is_cat=is_cat, monotone=monotone, rng_key=rng_key,
-                       interaction_sets=interaction_sets)
+                       interaction_sets=interaction_sets, forced=forced,
+                       cegb=cegb)
+    tree.forced_phase()
     for kw in tree.ladder():
         tree.round(kw)
     # one host read a K-wide round: the progress test

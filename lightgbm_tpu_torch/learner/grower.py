@@ -52,11 +52,20 @@ by-node masks, left and right extra-trees keys), drawn in one launch a
 draw family (ops/prng.py ``draw``); interaction constraints mask each
 leaf to the sets that hold its whole path (:func:`node_feature_mask`).
 
+Forced splits (the JAX package's grower.py:566-600): split ``i`` takes
+schedule entry ``i`` while the entries hold; the prescribed split's stats
+(:func:`gather_forced_split`, from the leaf's histogram column, expanded
+under EFB) ride the split's one host read, and a categorical forced split
+is one-hot.  CEGB (grower.py:352-367, 500-507, 803-826): each leaf's best
+split pays :func:`cegb_penalty`, and a split acquires its feature
+(:func:`cegb_acquire`).
+
 Supported: numeric and categorical features, serial training, EFB
 bundles, row masks, per-tree feature masks, ``max_depth``,
 ``max_delta_step``, quantized levels (``hist_scale``), monotone
 constraints (every method and the penalty), path smoothing, extra trees,
-by-node feature sampling and interaction constraints.
+by-node feature sampling, interaction constraints, forced splits and
+CEGB.
 """
 
 from __future__ import annotations
@@ -70,9 +79,10 @@ from ..ops.histogram import (bins_to_words, histogram_for_leaf_bucketed,
                              histogram_for_leaf_masked, leaf_pass_scale,
                              root_histogram, wants_packed_mirror)
 from ..ops import prng
-from ..ops.split import (NEG_INF, VAR_CAT_FWD, VAR_CAT_ONEHOT, SplitHyper,
-                         categorical_left_bitset, find_best_split,
-                         leaf_output, smoothed_output)
+from ..ops.split import (NEG_INF, VAR_CAT_FWD, VAR_CAT_ONEHOT,
+                         VAR_NUM_RIGHT, SplitHyper, categorical_left_bitset,
+                         find_best_split, leaf_gain, leaf_output,
+                         smoothed_output)
 from .monotone import advanced_split_bounds, box_bounds, split_boxes
 
 #: the output bound of an unconstrained leaf (the JAX package's
@@ -157,6 +167,124 @@ def winner_bitset(h_phys: torch.Tensor, sum_g, sum_h, count,
     bits = categorical_left_bitset(hcol, num_bins[feat], res.variant,
                                    res.threshold, hp)
     return bits & is_cat[feat][:, None]
+
+
+class ForcedSplits(NamedTuple):
+    """``forcedsplits_filename``'s schedule in BFS order (boosting/gbdt.py
+    ``parse_forced_splits``): entry ``i`` is split ``i`` of every tree,
+    leaf ``leaf[i]`` on packed feature ``feat[i]`` at bin ``thr[i]``; a
+    failed entry ends the schedule.  Host arrays (the strict learner) and
+    the same entries on the booster's device, int64 [3, S] (the batched
+    rounds read them there, with no host read)."""
+    leaf: np.ndarray
+    feat: np.ndarray
+    thr: np.ndarray
+    table: torch.Tensor
+
+
+def gather_forced_split(hf: torch.Tensor, pg, ph, pc, ft, is_cat_f,
+                        nan_bin_f, hp: SplitHyper):
+    """The stats of a PRESCRIBED split of one leaf (the JAX package's
+    ``gather_forced_split``; reference FeatureHistogram::
+    GatherInfoForThreshold, called by ForceSplits
+    serial_tree_learner.cpp:620): ``hf`` f32 [B, C] the leaf's virtual
+    histogram of the forced feature, ``pg``/``ph``/``pc`` its totals,
+    ``ft`` the bin threshold, ``is_cat_f`` / ``nan_bin_f`` the feature's
+    (0-d tensors).  A categorical feature sends bin ``ft`` left, a numeric
+    one the bins up to ``ft`` but its NaN bin.  Returns (lg, lh, lc, gain,
+    ok), 0-d tensors: ``ok`` is the validity the reference checks
+    (min_data_in_leaf, min_sum_hessian_in_leaf on both sides, gain > 0).
+    The one implementation both growers call."""
+    b_i = torch.arange(hp.n_bins, device=hf.device)
+    lm = torch.where(is_cat_f, b_i == ft, (b_i <= ft) & (b_i != nan_bin_f))
+    lmf = lm.to(hf.dtype)
+    lg = (hf[:, 0] * lmf).sum()
+    lh = (hf[:, 1] * lmf).sum()
+    lc = (hf[:, 2] * lmf).sum()
+    rg, rh, rc = pg - lg, ph - lh, pc - lc
+    l1, l2 = hp.lambda_l1, hp.lambda_l2
+    gain = (leaf_gain(lg, lh, l1, l2) + leaf_gain(rg, rh, l1, l2)
+            - leaf_gain(pg, ph, l1, l2) - hp.min_gain_to_split)
+    ok = ((lc >= hp.min_data_in_leaf) & (rc >= hp.min_data_in_leaf)
+          & (lh >= hp.min_sum_hessian_in_leaf)
+          & (rh >= hp.min_sum_hessian_in_leaf) & (gain > 0.0))
+    return lg, lh, lc, gain, ok
+
+
+class CegbState(NamedTuple):
+    """Cost-effective gradient boosting (the JAX package's ``CegbInput``;
+    reference cost_effective_gradient_boosting.hpp): the penalties
+    premultiplied by ``cegb_tradeoff`` and the acquisition state, which
+    lives on the booster across every tree and which the growers update
+    in place (``used_rows`` None unless lazy penalties are set)."""
+    split_pen: torch.Tensor            # f32 0-d
+    coupled_pen: torch.Tensor          # f32 [F] once per feature
+    lazy_pen: torch.Tensor             # f32 [F] per (row, feature)
+    feature_used: torch.Tensor         # bool [F] features in the model
+    used_rows: Optional[torch.Tensor]  # bool [n, F] (row, feature) acquired
+
+
+def cegb_lazy_counts(cegb: CegbState, lor: torch.Tensor,
+                     row_mask: Optional[torch.Tensor],
+                     slots: int) -> Optional[torch.Tensor]:
+    """int32 [slots + 1, F]: for every leaf id below ``slots``, its rows
+    (within ``row_mask``) that have not acquired each feature; row
+    ``slots`` gathers the masked-out rows.  The JAX package sums a float32
+    one-hot product over the rows, exact below 2^24 rows; this integer
+    scatter-add is exact at any size and the same in any order (no float
+    atomics on the card), so the converted counts are the JAX package's
+    for n < 2^24.  None without lazy penalties."""
+    if cegb.used_rows is None:
+        return None
+    idx = lor.long()
+    if row_mask is not None:
+        idx = torch.where(row_mask, idx, slots)
+    F = cegb.used_rows.shape[1]
+    return torch.zeros(slots + 1, F, dtype=torch.int32,
+                       device=lor.device).index_add_(
+        0, idx, (~cegb.used_rows).to(torch.int32))
+
+
+def cegb_penalty(cegb: CegbState, leaf_count: torch.Tensor,
+                 lazy_cnt: Optional[torch.Tensor]) -> torch.Tensor:
+    """f32 [M, F]: the CEGB gain penalty of M leaves (DeltaGain): the
+    split penalty scaled by each leaf's row count, the coupled penalty of
+    the features the model does not use yet and, with lazy penalties, the
+    per-row penalty times the leaf's rows that have not acquired the
+    feature (``lazy_cnt`` int [M, F]); the JAX package's float32 order."""
+    pen = cegb.split_pen * leaf_count[:, None] + torch.where(
+        cegb.feature_used, torch.zeros_like(cegb.coupled_pen),
+        cegb.coupled_pen)[None, :]
+    if lazy_cnt is not None:
+        pen = pen + cegb.lazy_pen[None, :] * lazy_cnt.to(torch.float32)
+    return pen
+
+
+def cegb_acquire(cegb: CegbState, lor: torch.Tensor,
+                 row_mask: Optional[torch.Tensor], leaves: torch.Tensor,
+                 feats: torch.Tensor, valid: torch.Tensor,
+                 slots: int) -> None:
+    """Splits of ``leaves`` on ``feats`` (where ``valid``; [K] tensors)
+    acquire their features: for the model, and (lazy penalties) for every
+    row of the split leaf within ``row_mask`` (bagged-out rows do not
+    traverse the split, as in the reference's DataPartition); ``lor`` the
+    rows' leaves before the split.  In place, device operations only."""
+    F = cegb.feature_used.shape[0]
+    dev = lor.device
+    hit = torch.zeros(F + 1, dtype=torch.bool, device=dev)
+    hit.index_fill_(0, torch.where(valid, feats.long(), F), True)
+    cegb.feature_used.logical_or_(hit[:F])
+    if cegb.used_rows is None:
+        return
+    leaf_feat = torch.full((slots + 1,), -1, dtype=torch.int64, device=dev)
+    leaf_feat.index_put_((torch.where(valid, leaves.long(), slots),),
+                         feats.long())
+    leaf_feat[slots:].fill_(-1)
+    rf = leaf_feat[lor.long().clamp(0, slots)]
+    if row_mask is not None:
+        rf = torch.where(row_mask, rf, -1)
+    cegb.used_rows.logical_or_(
+        rf[:, None] == torch.arange(F, device=dev)[None, :])
 
 
 def _feature_bin_of_rows(bins_t: torch.Tensor,
@@ -299,7 +427,9 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
               is_cat: Optional[torch.Tensor] = None,
               monotone: Optional[torch.Tensor] = None,
               rng_key: Optional[prng.Key] = None,
-              interaction_sets: Optional[torch.Tensor] = None
+              interaction_sets: Optional[torch.Tensor] = None,
+              forced: Optional[ForcedSplits] = None,
+              cegb: Optional[CegbState] = None
               ) -> Tuple[TreeArrays, torch.Tensor]:
     """Grow one tree, one split per data pass.
 
@@ -312,7 +442,12 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     columns (F = Fv features over Fb columns; F = Fb without); ``is_cat``
     bool [F], read when ``hp.has_categorical``; ``monotone`` int [F]
     (``hp.use_monotone``); ``rng_key`` the tree's node key (extra trees,
-    by-node sampling); ``interaction_sets`` bool [S, F].
+    by-node sampling); ``interaction_sets`` bool [S, F]; ``forced`` the
+    forced-split schedule (split ``i`` takes entry ``i`` while the entries
+    hold: the prescribed split's stats come from the leaf's histogram,
+    :func:`gather_forced_split`, and are read with the split's one host
+    read; a failed entry ends the schedule and the split is the best one);
+    ``cegb`` the CEGB penalties and acquisition state (updated in place).
     Returns (TreeArrays, leaf_of_row i32 [n]).
     """
     dev = grad.device
@@ -367,11 +502,16 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
             if use_bynode else None
         return ub, extra_tree_draws(keys, [(fold, 0), er_key], num_f, hp)
 
-    def best_of(h_phys, g_, h_, c_, fm, **con):
+    def best_of(h_phys, g_, h_, c_, fm, leaves=None, **con):
         """Best splits of M leaves from their physical histograms: the
-        table rows and, on categorical data, the winners' left bins."""
+        table rows and, on categorical data, the winners' left bins;
+        ``leaves`` (i64 [M]) their ids, for CEGB's lazy counts."""
         hv = h_phys if bundle is None else \
             _expand_hist(h_phys, bundle, g_, h_, c_)
+        if cegb is not None:
+            lazy = cegb_lazy_counts(cegb, lor, row_mask, L)
+            con["gain_penalty"] = cegb_penalty(
+                cegb, c_, None if lazy is None else lazy[leaves])
         res = find_best_split(hv, g_, h_, c_, num_bins, nan_bin, is_cat,
                               fm, hp, monotone=monotone, **con)
         bits = winner_bitset(h_phys, g_, h_, c_, res, num_bins, is_cat,
@@ -411,8 +551,10 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     one = torch.ones(1, dtype=f32, device=dev)
     # the monotone penalty's depths, made only where it reads them
     pen = mono and hp.monotone_penalty > 0.0
+    lor = torch.zeros(n, dtype=i32, device=dev)
     rows0, bits0 = best_of(
         hist0[None], g0[None], h0[None], c0[None], fm0,
+        leaves=torch.zeros(1, dtype=torch.int64, device=dev),
         parent_output=root_out.reshape(1), leaf_min=-INF_BOUND * one,
         leaf_max=INF_BOUND * one,
         depth=torch.zeros(1, dtype=i32, device=dev) if pen else None,
@@ -435,7 +577,6 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         bits[0] = bits0[0]
         cat_bitset = torch.zeros(L - 1, hp.n_bins, dtype=torch.bool,
                                  device=dev)
-    lor = torch.zeros(n, dtype=i32, device=dev)
 
     # host state: the topology and the per-node f32 operands
     li = L - 1
@@ -447,6 +588,15 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     node_f32 = np.zeros((4, li), np.float32)   # gain, parent g, h, count
     parent_node, parent_side, depth = [-1] * L, [0] * L, [0] * L
     path = np.zeros((L, num_f), bool)
+    n_forced = 0 if forced is None else len(forced.leaf)
+    if n_forced:
+        # the host copies the forced entries read
+        is_cat_h = (np.zeros(num_f, bool) if is_cat is None
+                    else is_cat.cpu().numpy())
+        nan_bin_h = nan_bin.cpu().numpy()
+        col_h = (np.arange(num_f) if bundle is None
+                 else bundle.feat_col.cpu().numpy())
+    force_failed = False
 
     i = 0
     while i < li:
@@ -456,10 +606,32 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         row = best.index_select(0, bl_t)[0]
         s = sums.index_select(0, bl_t)[0]
         pack = torch.cat([bl_t.to(f32), row, s, s - row[_LG:]])
+        f_active = i < n_forced and not force_failed
+        if f_active:
+            # forced entry i: its leaf, feature and threshold are host
+            # numbers, its stats come from the leaf's histogram
+            fl, ff, ft = (int(forced.leaf[i]), int(forced.feat[i]),
+                          int(forced.thr[i]))
+            fpack = _forced_pack(hist[fl][int(col_h[ff])], sums[fl], fl, ff,
+                                 ft, bool(is_cat_h[ff]), int(nan_bin_h[ff]),
+                                 bundle, hp)
+            pack = torch.cat([pack, fpack])
         # the split's one host read: leaf, best split, parent and child sums
+        # (and the forced entry's, with its validity)
+        vals = pack.tolist()
+        use_f = f_active and vals[-1] != 0.0
+        force_failed = force_failed or (f_active and not use_f)
+        if use_f:
+            # the prescribed split: its table row and sums
+            pack = fpack[:15]
+            bl_t = torch.full((1,), fl, dtype=torch.int64, device=dev)
+            row = pack[1:9]
+            vals = vals[15:30]
+        elif f_active:
+            vals, pack = vals[:15], pack[:15]
         (blf, gain, featf, thrf, dlf, varf, lg, lh, lcn, pg, ph, pc, rg, rh,
-         rcn) = pack.tolist()
-        if not gain > 0.0:
+         rcn) = vals
+        if not (gain > 0.0 or use_f):
             break
         bl, feat, thr, dl = int(blf), int(featf), int(thrf), dlf != 0.0
         var = int(varf)
@@ -478,10 +650,18 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         # partition: the leaf's rows that go right take the new leaf id
         col = _feature_bin_of_rows(bins_t, bundle, feat)
         if catl:
+            if use_f:
+                # a forced categorical split is one-hot: bin thr goes left
+                bits[bl].copy_(torch.arange(hp.n_bins, device=dev) == thr)
             cat_bitset[i].copy_(bits[bl])
             go_left = bits[bl][col.long()]
         else:
             go_left = torch.where(col == nan_bin[feat], dl, col <= thr)
+        if cegb is not None:
+            cegb_acquire(cegb, lor, row_mask, bl_t,
+                         torch.full((1,), feat, dtype=torch.int64,
+                                    device=dev),
+                         torch.ones(1, dtype=torch.bool, device=dev), L)
         lor = torch.where((lor == bl) & ~go_left, new_leaf, lor)
 
         # histogram: a data pass over the smaller child only
@@ -547,6 +727,7 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
             rows, kid_bits = best_of(
                 torch.stack([hist[bl], hist[new_leaf]]), kid[:, 0],
                 kid[:, 1], kid[:, 2], fm,
+                leaves=torch.tensor([bl, new_leaf], device=dev),
                 depth=(torch.full((2,), d, dtype=i32, device=dev) if pen
                        else None), rand=er, **con)
             best[bl].copy_(rows[0])
@@ -593,6 +774,31 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         leaf_depth=up(depth, np.int32), leaf_path=up(path, bool),
         num_leaves=torch.full((), i + 1, dtype=i32, device=dev))
     return tree, lor
+
+
+def _forced_pack(hf, sums_leaf, fl, ff, ft, f_cat, nan_bin_f, bundle,
+                 hp) -> torch.Tensor:
+    """f32 [16]: forced entry (leaf ``fl``, feature ``ff``, bin ``ft``)
+    laid out as the strict learner's split pack (leaf, the best-split
+    table row, parent sums, right child's sums), then its validity 0/1.
+    ``hf`` [B, C]: the leaf's histogram of the feature's physical column;
+    ``sums_leaf`` [3]: its (g, h, count)."""
+    dev = hf.device
+    f32 = torch.float32
+    pg, ph, pc = sums_leaf[0], sums_leaf[1], sums_leaf[2]
+    if bundle is not None:
+        hf = _expand_hist_col(hf, bundle, ff, pg, ph, pc)
+    lg, lh, lc, gain, ok = gather_forced_split(
+        hf, pg, ph, pc, ft, torch.tensor(f_cat, device=dev), nan_bin_f, hp)
+    var = VAR_CAT_ONEHOT if f_cat else VAR_NUM_RIGHT
+
+    def c(v):
+        return torch.full((), v, dtype=f32, device=dev)
+
+    left = torch.stack([lg, lh, lc])
+    return torch.cat([torch.stack([c(fl), gain, c(ff), c(ft), c(0.0),
+                                   c(var), lg, lh, lc]), sums_leaf,
+                      sums_leaf - left, ok.to(f32).reshape(1)])
 
 
 def _constrained_children(kid, var, catl, feat, thr, bl, new_leaf, i, row,

@@ -138,8 +138,18 @@ _MATMUL_VALID_BLOCK = 131_072
 def predict_bins_tree_matmul(tree: TreeArrays, bins_t: torch.Tensor,
                              nan_bin: torch.Tensor,
                              has_categorical: bool = False) -> torch.Tensor:
-    """Leaf VALUE (f32 [n]) of every row for one tree, by path aggregation:
-    :func:`predict_bins_tree`'s values, bit for bit, with no host read.
+    """Leaf VALUE (f32 [n]) of every row for one tree, by path aggregation
+    (:func:`predict_bins_leaf_matmul`): :func:`predict_bins_tree`'s values,
+    bit for bit, with no host read."""
+    return tree.leaf_value[predict_bins_leaf_matmul(tree, bins_t, nan_bin,
+                                                    has_categorical)]
+
+
+def predict_bins_leaf_matmul(tree: TreeArrays, bins_t: torch.Tensor,
+                             nan_bin: torch.Tensor,
+                             has_categorical: bool = False) -> torch.Tensor:
+    """Leaf index (i64 [n]) of every row for one tree, by path
+    aggregation: :func:`predict_bins_leaf`'s leaves, with no host read.
 
     ``bins_t``: u8 [F, n], the transposed valid bins.  A node's decision
     bit is one gather of its feature's row (``has_categorical``: at a
@@ -163,7 +173,6 @@ def predict_bins_tree_matmul(tree: TreeArrays, bins_t: torch.Tensor,
     thr = tree.split_bin.to(torch.int32)[:, None]
     dl = tree.default_left[:, None]
     nanb = nan_bin.to(dev)[feat].to(torch.int32)[:, None]
-    value = tree.leaf_value
     outs = []
     for b0 in range(0, n, _MATMUL_VALID_BLOCK):
         cols = bins_t[:, b0:b0 + _MATMUL_VALID_BLOCK][feat].to(torch.int32)
@@ -174,9 +183,9 @@ def predict_bins_tree_matmul(tree: TreeArrays, bins_t: torch.Tensor,
         go = torch.where(cols == nanb, dl, go)
         counts = torch.matmul(diff, go.to(mm)).float() + base[:, None]
         sel = counts.to(torch.int32) == want[:, None]           # [L, rows]
-        outs.append(value[sel.to(torch.uint8).argmax(0)])
+        outs.append(sel.to(torch.uint8).argmax(0))
     if not outs:
-        return torch.zeros(0, dtype=value.dtype, device=dev)
+        return torch.zeros(0, dtype=torch.int64, device=dev)
     return outs[0] if len(outs) == 1 else torch.cat(outs)
 
 
@@ -348,10 +357,13 @@ def predict_bitset_forest(fb: BitsetForest, bins_t: torch.Tensor, k: int,
     value, as the JAX package's sum over the one-hot gives it.  ``lin`` /
     ``raw`` (f32 [n, Fr], NaN zeroed) / ``raw_nan`` ([Fr, n], 1 where
     NaN): linear leaves, const + raw . coeff per leaf, the plain leaf
-    value where one of the leaf's features is NaN."""
+    value where one of the leaf's features is NaN and for a leaf with no
+    feature; the products are added one feature after another in index
+    order and then the constant, the additions of csrc/forest.cu's linear
+    mode in its order (the same bits)."""
     n = bins_t.shape[1]
     out = torch.zeros(n, k, dtype=torch.float32, device=bins_t.device)
-    rows = torch.arange(n, device=bins_t.device)
+    zero = torch.zeros((), dtype=torch.float32, device=bins_t.device)
     for t, c in enumerate(fb.cls.tolist()):
         cat = (fb.catn[t], fb.catf[t], fb.catb[t], cat_feats) \
             if cat_feats else None
@@ -360,14 +372,16 @@ def predict_bitset_forest(fb: BitsetForest, bins_t: torch.Tensor, k: int,
         if lin is None:
             contrib = fb.value[t][leaf]
         else:
-            lin_out = torch.matmul(lin.coeff[t], raw.t()) \
-                + lin.const[t][:, None]                          # [L, n]
-            mask = lin.featmask[t].float()
-            nan_bad = torch.matmul(mask, raw_nan.float()) > 0.5  # [L, n]
-            has_lin = (mask > 0).any(1)[:, None]
-            leaf_out = torch.where(has_lin & ~nan_bad, lin_out,
-                                   fb.value[t][:, None])
-            contrib = leaf_out[leaf, rows]
+            use = lin.featmask[t].float()[leaf] > 0.5            # [n, Fr]
+            coef = lin.coeff[t][leaf]
+            acc = torch.zeros(n, dtype=torch.float32, device=bins_t.device)
+            for f in range(use.shape[1]):
+                acc = acc + torch.where(use[:, f], coef[:, f] * raw[:, f],
+                                        zero)
+            nan_bad = (use & (raw_nan.t() > 0.5)).any(1)
+            contrib = torch.where(use.any(1) & ~nan_bad,
+                                  acc + lin.const[t][leaf],
+                                  fb.value[t][leaf])
         out[:, c] += torch.where(sel.any(0), contrib, 0.0)
     return out
 

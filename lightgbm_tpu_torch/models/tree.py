@@ -168,6 +168,23 @@ class Tree:
                 is_cat, bool(dl[i]), mapper.missing_type)
         return t
 
+    def set_linear(self, const: np.ndarray, coeff_dense: np.ndarray,
+                   used_feature_idx) -> None:
+        """Attach a linear-leaf fit (learner/linear.py, the JAX package's
+        ``set_linear``): the dense [L, F_packed] coefficients become each
+        leaf's list of nonzero ones with their ORIGINAL feature indices
+        (reference SetLeafFeatures / SetLeafCoeffs,
+        linear_tree_learner.cpp:373-380)."""
+        self.is_linear = True
+        self.leaf_const = np.asarray(const, np.float64)[:self.num_leaves]
+        cd = np.asarray(coeff_dense, np.float64)
+        self.leaf_features = []
+        self.leaf_coeff = []
+        for l in range(self.num_leaves):
+            nz = np.nonzero(cd[l] != 0.0)[0] if l < cd.shape[0] else []
+            self.leaf_features.append([int(used_feature_idx[p]) for p in nz])
+            self.leaf_coeff.append([float(cd[l, p]) for p in nz])
+
     # ---------------------------------------------------------- operations
     def apply_shrinkage(self, rate: float) -> None:
         """reference tree.h:188 ``Shrinkage`` (scales linear const/coeffs

@@ -32,7 +32,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("take", "hist", "radix", "packed", "rows", "partition", "forest",
-           "shap", "rank", "prng")
+           "shap", "rank", "prng", "linear")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -67,7 +67,7 @@ _SIGNATURES = {
     },
     "forest": {
         "lgbt_forest": (_P, _I, _L, _L, _I, _P, _P, _I, _I, _P, _I, _I, _P,
-                        _I, _P, _I, _P, _P, _P),
+                        _I, _P, _I, _P, _L, _P, _P, _P, _I, _P, _P, _P),
     },
     "shap": {
         "lgbt_shap": (_P, _L, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P,
@@ -76,6 +76,11 @@ _SIGNATURES = {
     "rank": {
         "lgbt_lambdarank": (_P, _P, _P, _P, _P, _P, _I, _L, _F, _I, _I, _P,
                             _P, _P, _P),
+    },
+    "linear": {
+        "lgbt_linear_normal": (_P, _L, _I, _L, _P, _P, _P, _P, _I, _P, _I,
+                               _P, _P, _P, _P, _L, _P, _P, _P, _P, _P),
+        "lgbt_linear_scores": (_P, _L, _P, _L, _P, _P, _I, _P, _P, _P, _P),
     },
     "prng": {
         "lgbt_threefry_draw": (_P, _L, _I) + (_P, _LL, _LL) * 3

@@ -15,13 +15,20 @@ CPU tensor they run those functions' plain versions (models/predict.py
 ``predict_bitset_forest``, which serves numeric forests as well, and
 ``predict_forest_leaves``).  The kernel's leaves are the plain version's
 exactly, and its float32 sums are the plain version's bit for bit (the
-same additions in the same order).  Linear leaves have no kernel:
-boosting/gbdt.py refuses a linear model on the card.
+same additions in the same order).
+
+Linear leaves (:class:`~lightgbm_tpu_torch.models.predict.LinearLeaves`,
+values mode; the JAX package's ``LinearLeaves`` extension,
+models/predict.py:229-236, 340-370): :func:`forest_values` takes them with
+the rows' raw values ``raw_t`` [Fr, n] (feature-major, NaN kept); the
+kernel's linear mode adds each leaf's ``const + coeff . x`` after the walk
+(:func:`pack_linear`'s per-leaf feature lists), in the plain version's
+order, so the bits stay the same.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -83,8 +90,33 @@ def pack_forest(f, cat_feats: tuple = ()) -> PackedForest:
         cls=f.cls.to(i32).contiguous())
 
 
+class PackedLinear(NamedTuple):
+    """A forest's linear leaves in the kernel's layout."""
+    feat: torch.Tensor    # i32 [T, L, Kl] raw columns, increasing, -1 pad
+    coef: torch.Tensor    # f32 [T, L, Kl]
+    const: torch.Tensor   # f32 [T, L]
+
+
+def pack_linear(lin) -> PackedLinear:
+    """The kernel's tables of :class:`LinearLeaves`: each leaf's columns
+    (``featmask`` set) in increasing order and their coefficients, Kl the
+    most a leaf has (one host read of it)."""
+    use = lin.featmask.float() > 0.5                       # [T, L, Fr]
+    Fr = use.shape[-1]
+    Kl = max(int(use.sum(-1).max()) if use.numel() else 0, 1)
+    iota = torch.arange(Fr, device=use.device)
+    idx = torch.sort(torch.where(use, iota, Fr), dim=-1).values[..., :Kl]
+    has = idx < Fr
+    coef = lin.coeff.float().gather(-1, idx.clamp(max=max(Fr - 1, 0)))
+    return PackedLinear(
+        feat=torch.where(has, idx, -1).to(torch.int32).contiguous(),
+        coef=torch.where(has, coef, torch.zeros_like(coef)).contiguous(),
+        const=lin.const.to(torch.float32).contiguous())
+
+
 def _launch(f, bins_t: torch.Tensor, k: int, cat_feats: tuple,
-            leaves: bool) -> torch.Tensor:
+            leaves: bool, lin=None,
+            raw_t: Optional[torch.Tensor] = None) -> torch.Tensor:
     global launches
     if bins_t.dim() != 2 or bins_t.dtype not in (torch.uint8, torch.int32):
         log.fatal("the forest kernel takes u8 or i32 bins [F, n]")
@@ -104,25 +136,51 @@ def _launch(f, bins_t: torch.Tensor, k: int, cat_feats: tuple,
     else:
         out = torch.empty(n, k, dtype=torch.float32, device=bins_t.device)
         ov, ol = out.data_ptr(), 0
+    lp = None
+    if lin is not None:
+        lp = pack_linear(lin)
+        if (raw_t is None or raw_t.dtype != torch.float32
+                or raw_t.dim() != 2 or raw_t.shape[1] != n
+                or raw_t.shape[0] != lin.coeff.shape[-1]
+                or raw_t.get_device() != dev or lp.feat.shape[1] != L):
+            log.fatal("linear leaves need f32 raw_t [Fr, n] on the bins' "
+                      "device, Fr the leaves' columns")
+        if raw_t.stride(1) != 1 and n > 1:
+            raw_t = raw_t.contiguous()
     code = cuda_lib.load("forest").lgbt_forest(
         bins_t.data_ptr(), int(bins_t.dtype == torch.int32), n,
         bins_t.stride(0), F, p.nodes.data_ptr(), p.meta.data_ptr(), T, ni,
         p.catb.data_ptr() if C else 0, C, Bc, p.value.data_ptr(), L,
-        p.cls.data_ptr(), k, ov, ol, cuda_lib.stream_handle(bins_t))
+        p.cls.data_ptr(), k,
+        0 if lp is None else raw_t.data_ptr(),
+        0 if lp is None else raw_t.stride(0),
+        0 if lp is None else lp.feat.data_ptr(),
+        0 if lp is None else lp.coef.data_ptr(),
+        0 if lp is None else lp.const.data_ptr(),
+        0 if lp is None else lp.feat.shape[2],
+        ov, ol, cuda_lib.stream_handle(bins_t))
     if code:
         cuda_lib.check(code, "forest kernel")
     launches += 1
     return out
 
 
-def forest_values(f, bins_t: torch.Tensor, k: int,
-                  cat_feats: tuple = ()) -> torch.Tensor:
+def forest_values(f, bins_t: torch.Tensor, k: int, cat_feats: tuple = (),
+                  lin=None, raw_t: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
     """Raw scores f32 [n, k] of the stacked forest ``f`` over ``bins_t``
     [F, n]: each tree's leaf value added into column ``cls`` in model
-    order."""
+    order; ``lin`` (:class:`LinearLeaves` over Fr raw columns) and
+    ``raw_t`` f32 [Fr, n] (NaN kept): linear leaves."""
     if not bins_t.is_cuda:
-        return predict_bitset_forest(f, bins_t, k, cat_feats)
-    return _launch(f, bins_t, k, cat_feats, leaves=False)
+        if lin is None:
+            return predict_bitset_forest(f, bins_t, k, cat_feats)
+        return predict_bitset_forest(
+            f, bins_t, k, cat_feats, lin=lin,
+            raw=torch.nan_to_num(raw_t, nan=0.0).t(),
+            raw_nan=torch.isnan(raw_t).to(torch.float32))
+    return _launch(f, bins_t, k, cat_feats, leaves=False, lin=lin,
+                   raw_t=raw_t)
 
 
 def forest_leaves(f, bins_t: torch.Tensor,

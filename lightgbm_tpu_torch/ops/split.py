@@ -182,7 +182,9 @@ def find_best_split(hist: torch.Tensor, sum_g: torch.Tensor,
                     leaf_max: Optional[torch.Tensor] = None,
                     depth: Optional[torch.Tensor] = None,
                     rand: Optional[Sequence] = None,
-                    adv_bounds: Optional[Sequence] = None) -> SplitResult:
+                    adv_bounds: Optional[Sequence] = None,
+                    gain_penalty: Optional[torch.Tensor] = None
+                    ) -> SplitResult:
     """Best (feature, threshold, default direction) of M leaves at once.
 
     hist: f32 [M, F, B, C>=3] (grad, hess, count); sum_g/sum_h/count: f32
@@ -200,7 +202,10 @@ def find_best_split(hist: torch.Tensor, sum_g: torch.Tensor,
     ``split(key, 3)`` keys' ``uniform(k, (F,))``); adv_bounds: the
     advanced method's (lmin_left, lmax_left, lmin_right, lmax_right), f32
     [M, F, B] each, which replace the leaf bounds on the numeric
-    thresholds.
+    thresholds; gain_penalty: f32 [M, F], CEGB's per-feature cost of each
+    leaf, subtracted from every candidate that is not -inf before the
+    argmax (the JAX package's order: after the feature mask, before the
+    monotone penalty).
     """
     M, F, B = hist.shape[0], hist.shape[1], hist.shape[2]
     dev = hist.device
@@ -319,6 +324,11 @@ def find_best_split(hist: torch.Tensor, sum_g: torch.Tensor,
     if feature_mask is not None:
         fm = feature_mask.to(dev)
         cand = torch.where(fm[..., None, None], cand, neg)
+    if gain_penalty is not None:
+        # CEGB (cost_effective_gradient_boosting.hpp DeltaGain)
+        cand = torch.where(cand > NEG_INF / 2,
+                           cand - gain_penalty.to(dev)[:, :, None, None],
+                           cand)
     if mono and hp.monotone_penalty > 0.0:
         # the depth-decaying penalty on monotone features, applied to the
         # final gain before the argmax (serial_tree_learner.cpp:994)

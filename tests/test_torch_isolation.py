@@ -74,6 +74,50 @@ def test_trains_with_jax_unimportable(tmp_path):
     assert out.stdout.strip().endswith("ok 3")
 
 
+def test_scan_covers_the_learner_option_modules():
+    names = {str(p.relative_to(REPO)) for p in _port_sources()}
+    for mod in ("learner/linear.py", "ops/linear_kernels.py",
+                "learner/grower.py", "learner/batch_grower.py"):
+        assert f"lightgbm_tpu_torch/{mod}" in names
+
+
+def test_learner_options_train_with_jax_unimportable(tmp_path):
+    """Forced splits, CEGB and linear trees train and predict with jax
+    and lightgbm_tpu unimportable."""
+    (tmp_path / "forced.json").write_text(
+        '{"feature": 0, "threshold": 0.0, '
+        '"left": {"feature": 1, "threshold": 0.2}}')
+    code = textwrap.dedent("""
+        import sys
+        for name in ("jax", "jaxlib", "lightgbm_tpu"):
+            sys.modules[name] = None   # poison: importing it now fails
+        import numpy as np
+        import lightgbm_tpu_torch as lgb
+        rng = np.random.default_rng(0)
+        X = rng.normal(size=(2000, 4))
+        y = X[:, 0] + np.where(X[:, 1] > 0, X[:, 2], -X[:, 2])
+        base = dict(objective="regression", num_leaves=7, device_type="cpu",
+                    verbosity=-1)
+        for extra in (dict(forcedsplits_filename="forced.json",
+                           tpu_split_batch=2),
+                      dict(cegb_penalty_split=1e-4,
+                           cegb_penalty_feature_lazy=[1e-3] * 4),
+                      dict(linear_tree=True, tpu_debug_checks=True)):
+            bst = lgb.train(dict(base, **extra), lgb.Dataset(X, y),
+                            num_boost_round=3)
+            assert np.isfinite(bst.predict(X[:50])).all()
+        assert not any(m.split(".")[0] in ("jax", "jaxlib")
+                       for m, mod in sys.modules.items() if mod is not None)
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("ok")
+
+
 @pytest.mark.parametrize("device_type", [None, "", "cuda", "gpu"])
 def test_default_device_without_a_card_raises(monkeypatch, device_type):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -423,15 +423,24 @@ def test_predict_raw_blocks_and_padding(slice_pair, monkeypatch, bucketing):
 
 
 def test_predict_linear_model_on_card_raises(slice_pair, monkeypatch):
-    """A linear model above the threshold on the card raises: the forest
-    kernel has no linear leaves and nothing falls back to the host."""
+    """A linear model above the threshold on the card takes the card path
+    (the forest kernel's linear mode), with no refusal and no fall back to
+    the host walk: on a machine without a card it raises where it first
+    puts a tensor on the card."""
     _, bt, _, Xq = slice_pair
     g = bt._gbdt
     monkeypatch.setattr(TGBDT, "DEVICE_PREDICT_MIN_WORK", 0)
     monkeypatch.setattr(g.models[0], "is_linear", True)
     monkeypatch.setattr(g, "device", torch.device("cuda"))
-    with pytest.raises(LightGBMError, match="linear"):
+    import lightgbm_tpu_torch.basic as TB
+    host = []
+    monkeypatch.setattr(TB, "_host_raw", lambda *a, **k: host.append(1))
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the card path runs")
+    with pytest.raises((AssertionError, RuntimeError)) as err:
         g.predict_raw(Xq)
+    assert not isinstance(err.value, LightGBMError)
+    assert "CUDA" in str(err.value) and not host
 
 
 # --------------------------------------------------------- Booster.predict

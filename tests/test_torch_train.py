@@ -414,9 +414,7 @@ def test_quantize_and_renew_match_jax():
 
 def test_unported_configurations_raise():
     X, y = _data("regression", n=2000)
-    for extra in ({"tpu_split_batch": 1,
-                   "forcedsplits_filename": "forced_splits.json"},
-                  {"linear_tree": True}):
+    for extra in ({"nan_policy": "raise"}, {"tree_learner": "data"}):
         params = dict(SLICE, objective="regression", device_type="cpu")
         params.update(extra)
         with pytest.raises(lgb_torch.LightGBMError):
