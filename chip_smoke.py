@@ -92,12 +92,12 @@ else: no jax, no network.  Phases, each of which fails the run on error:
    max_bin=63 run, the onehot run, the strict default, the bucketed run,
    the pooled run and the deterministic run, and the bucketed run's rows
    launches by S;
-4. cross-check: the default recipe at 100k rows x 5 rounds on the card and
+4. cross-check: the default recipe at 100k rows x 1 round on the card and
    on the CPU (plain versions), the held-out set also a valid set scored on
    the device each round: tree 0's splits must match, the held-out AUCs
    agree within 1e-3, and each run's valid-set AUC agrees with its
    ``predict`` AUC within 1e-4; a second card run must give byte-identical
-   model text.  The strict default at 50k x 3 (seed 1): card and CPU AUCs
+   model text.  The strict default at 50k x 1 (seed 1): card and CPU AUCs
    within 1e-3, and two card runs byte-identical (the float32 path is
    deterministic); the pooled recipe at 100k (card 3 rounds, CPU 1): tree
    0 identical on the card and the CPU.
@@ -111,12 +111,12 @@ else: no jax, no network.  Phases, each of which fails the run on error:
    kernel launches per tree (counts zeroed just before, read just after);
    a profiled fused chunk of the default recipe (busy share, launches),
    the device time of a round that is not live, and the chunk's host
-   reads by source line; ten alternating fused/classic training
+   reads by source line; six alternating fused/classic training
    pairs of the default recipe (the classic loop forced by patching
    ``GBDT.supports_fused``): median s/round, the pairs' mean difference
    and its standard error, the fused median no slower; early stopping on
-   100k rows with the 200k-row valid set (metric=auc, learning_rate 0.5,
-   patience 3): best_iteration, trees and the recorded evaluations as the
+   100k rows with the 200k-row valid set (metric=auc, learning_rate 1.0,
+   patience 1): best_iteration, trees and the recorded evaluations as the
    classic loop's, the device AUC within 1e-4 of ``predict``'s.
 
 6. prediction: the default recipe trained on a 1M-row synthetic set for
@@ -156,10 +156,11 @@ else: no jax, no network.  Phases, each of which fails the run on error:
    text; the same data with ``enable_bundle=false`` (s/round, peak memory,
    AUC side by side); the pooled recipe (1M x 3: the select variant); a
    profiled fused chunk (the table partition's device ms and launches a
-   tree); early stopping on the valid set, fused and classic to the same
-   best_iteration; ``Booster.predict`` of the bundled model on the valid
-   rows through the forest kernel against the host walk; 100k x 5 on the
-   card against ``device_type=cpu`` (tree 0 identical, AUC within 1e-3).
+   tree); early stopping on the valid set (patience 1), fused and classic
+   to the same best_iteration; ``Booster.predict`` of the bundled model on
+   the valid rows through the forest kernel against the host walk; 100k x
+   1 on the card against ``device_type=cpu`` (tree 0 identical, AUC within
+   1e-3).
 
 8. categorical features: 1M rows of the Data Expo 2009 airline on-time
    shape (the 8-column form of the szilard/benchm-ml benchmark: Month,
@@ -198,7 +199,7 @@ else: no jax, no network.  Phases, each of which fails the run on error:
    x 5, its s/round beside the plain classic loop's, its train scores
    against ``predict``; one tree's contribution walked over 1M rows);
    bagged EFB and categorical cells at 100k x 5 (fused and classic to the
-   same text); the bagged (100k x 3) and GOSS (100k x 1, no warm-up)
+   same text); the bagged and GOSS (100k x 1, no warm-up)
    cells on the card and the CPU, tree 0 identical.
 10. the other objectives and their metrics: multiclass (k = 7 trees a
    round, one class body replayed per class) on 581,012 Covertype-shaped
@@ -214,8 +215,8 @@ else: no jax, no network.  Phases, each of which fails the run on error:
    regression family and the cross-entropies on phase 3's 1M x 28 rows,
    5 rounds each (fused twice and classic once to the same text; l1,
    quantile and MAPE classic with their host renewal's seconds a tree);
-   multiclass, huber and quantile on the card against the CPU, tree 0
-   identical.
+   multiclass (15 leaves), huber and quantile on the card against the
+   CPU, tree 0 identical.
 11. learning to rank on 2,270,296 synthetic documents of MSLR-WEB30K Fold
    1's shape (18,919 lognormal-length queries, 136 features, labels 0-4,
    a valid set of 6,306 queries): lambdarank at its defaults with 255
@@ -242,7 +243,7 @@ else: no jax, no network.  Phases, each of which fails the run on error:
    every root-to-leaf path inside one set; the strict learner at 90k rows
    (intermediate monotone, extra trees, by-node sampling, classic, 3
    rounds) with its launches a split; the basic and the extra-trees
-   configurations on the card against the CPU (100k x 5, tree 0
+   configurations on the card against the CPU (100k x 1, tree 0
    identical, AUC within 1e-3); and the threefry kernel
    (``csrc/prng.cu``) against its plain version bit for bit at the
    round's shapes (84 keys x 28 for each draw family), the strict
@@ -252,7 +253,7 @@ else: no jax, no network.  Phases, each of which fails the run on error:
    rounds fused twice and classic once to the same text (the schedule
    held in every tree), pooled (``histogram_pool_size=8``) and a forced
    categorical root on the airline shape, each fused = classic, and the
-   regression recipe (leaf renewal off) at 100k x 5 on the card and the
+   regression recipe (leaf renewal off) at 100k x 1 on the card and the
    CPU to the same trees' text; CEGB with split, coupled and lazy penalties (1M x 10,
    classic, twice to the same text, s/round beside the plain classic
    recipe's); linear trees on 1M rows of a piecewise-linear target (the
@@ -292,6 +293,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -399,25 +401,38 @@ def sass_atomics(cuda_lib):
     instr = re.compile(r"^\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]+\s+)?"
                        r"([A-Z][A-Z0-9_]*(?:\.[A-Z0-9_]+)*)")
     found = {}
-    for name in ("radix", "rows", "packed", "hist"):
-        text = subprocess.run([tool, "-sass", str(cuda_lib._lib_path(name))],
-                              capture_output=True, text=True,
-                              timeout=300).stdout
-        key = None
-        for ln in text.splitlines():
-            if "Function :" in ln:
-                m = kern.search(ln)
-                key = None
-                if m:
-                    key = f"{m.group(1)}<{m.group(2)}>"
-                    if m.group(1) == "masked_cluster":
-                        key += " " + MASKED_SOURCES[m.group(3)]
-                        key += " any" if m.group(4) == "1" else ""
-            elif key is not None:
-                o = instr.match(ln)
-                if o and o.group(1).startswith(("ATOM", "RED")):
-                    c = found.setdefault(key, {})
-                    c[o.group(1)] = c.get(o.group(1), 0) + 1
+    # one cuobjdump a library, all started together, each into a file of
+    # its own (a pipe would hold the others back while one is read)
+    outs = [tempfile.TemporaryFile("w+") for _ in range(4)]
+    procs = [subprocess.Popen([tool, "-sass", str(cuda_lib._lib_path(name))],
+                              stdout=out, stderr=subprocess.DEVNULL)
+             for name, out in zip(("radix", "rows", "packed", "hist"), outs)]
+    try:
+        for proc, out in zip(procs, outs):
+            proc.wait(timeout=300)
+            out.seek(0)
+            text = out.read()
+            key = None
+            for ln in text.splitlines():
+                if "Function :" in ln:
+                    m = kern.search(ln)
+                    key = None
+                    if m:
+                        key = f"{m.group(1)}<{m.group(2)}>"
+                        if m.group(1) == "masked_cluster":
+                            key += " " + MASKED_SOURCES[m.group(3)]
+                            key += " any" if m.group(4) == "1" else ""
+                elif key is not None:
+                    o = instr.match(ln)
+                    if o and o.group(1).startswith(("ATOM", "RED")):
+                        c = found.setdefault(key, {})
+                        c[o.group(1)] = c.get(o.group(1), 0) + 1
+    finally:
+        for proc, out in zip(procs, outs):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
     return found
 
 
@@ -2081,11 +2096,16 @@ def profile_round(torch, bst):
 
 
 def auc(y, s):
+    """Area under the ROC curve: the Mann-Whitney statistic, a tied
+    (positive, negative) pair counted half, as LightGBM's auc metric
+    counts it (a model of a few trees predicts many equal scores)."""
     order = np.argsort(s, kind="mergesort")
-    y = y[order]
+    s, y = np.asarray(s)[order], y[order]
     pos = y > 0
-    ranks = np.arange(1, len(y) + 1)
-    # ties are measure-zero on continuous predictions
+    # each run of equal scores takes the mean of its 1-based ranks
+    start = np.flatnonzero(np.r_[True, s[1:] != s[:-1]])
+    size = np.diff(np.r_[start, len(s)])
+    ranks = np.repeat(start + (size + 1) / 2, size)
     return float((ranks[pos].sum() - pos.sum() * (pos.sum() + 1) / 2)
                  / (pos.sum() * (~pos).sum()))
 
@@ -2302,7 +2322,7 @@ def check_fused(torch, lgbt, classic_sha, HK, RF, TB, prng):
     times; each run's kernel launches (counts zeroed just before, read just
     after) with its graph replays, flag reads and extra one-round replays.
     Then a profiled fused chunk of the default recipe (busy share,
-    launches, host reads by source line), ten alternating fused/classic
+    launches, host reads by source line), six alternating fused/classic
     training pairs of the default recipe, and early stopping with the
     200k-row valid set (metric=auc): best_iteration as the classic loop's,
     device AUC within 1e-4 of predict's.  Returns the fused launches of
@@ -2449,11 +2469,11 @@ def check_fused(torch, lgbt, classic_sha, HK, RF, TB, prng):
           f"boosting round", flush=True)
     del bst, g
 
-    # ten alternating fused/classic pairs of the default recipe
+    # six alternating fused/classic pairs of the default recipe
     per = {"fused": [], "classic": []}
     whole = {"fused": [], "classic": []}
     texts = set()
-    for _ in range(10):
+    for _ in range(6):
         for loop in ("fused", "classic"):
             bst, sr, wall, _ = fused_train(torch, lgbt, data[255], 10,
                                            classic=loop == "classic")
@@ -2469,7 +2489,7 @@ def check_fused(torch, lgbt, classic_sha, HK, RF, TB, prng):
         diff = np.array(d["fused"]) - np.array(d["classic"])
         pairs = [[round(f, 5), round(c, 5)]
                  for f, c in zip(d["fused"], d["classic"])]
-        print(f"fused vs classic (default, 1M x 10, ten alternating pairs, "
+        print(f"fused vs classic (default, 1M x 10, six alternating pairs, "
               f"{tag}): median fused {np.median(d['fused']):.5f} classic "
               f"{np.median(d['classic']):.5f}, fused - classic "
               f"{diff.mean():+.5f} +- "
@@ -2494,15 +2514,18 @@ def check_fused(torch, lgbt, classic_sha, HK, RF, TB, prng):
         FG.counts.update(replays=0, reads=0, extra=0, rounds=0)
         try:
             t0 = time.perf_counter()
-            bst = lgbt.train(dict(RECIPE, metric="auc", learning_rate=0.5),
+            bst = lgbt.train(dict(RECIPE, metric="auc", learning_rate=1.0),
                              ds, num_boost_round=100, valid_sets=[vs],
                              valid_names=["held_out"],
-                             callbacks=[lgbt.early_stopping(3, verbose=False),
+                             callbacks=[lgbt.early_stopping(1, verbose=False),
                                         lgbt.record_evaluation(rec)])
             t_es = time.perf_counter() - t0
         finally:
             G.GBDT.supports_fused = orig
-        a = auc(yv, bst.predict(Xv))
+        # predict() walks the trees on the host at this size: once, for
+        # the fused booster (the classic run's best iteration, trees and
+        # recorded evaluations are held to the fused run's)
+        a = auc(yv, bst.predict(Xv)) if loop == "fused" else None
         res[loop] = (bst.best_iteration, bst.num_trees(),
                      bst.best_score["held_out"]["auc"], a, rec, t_es,
                      (FG.counts["rounds"], FG.counts["extra"]))
@@ -2510,8 +2533,8 @@ def check_fused(torch, lgbt, classic_sha, HK, RF, TB, prng):
     (bi_f, nt_f, dev_f, a_f, rec_f, t_f, r_f), \
         (bi_c, nt_c, dev_c, a_c, rec_c, t_c, _) = res["fused"], \
         res["classic"]
-    print(f"early stopping (100k x <= 100, lr 0.5, 200k valid, auc, "
-          f"patience 3): best_iteration fused {bi_f} classic {bi_c}, trees "
+    print(f"early stopping (100k x <= 100, lr 1.0, 200k valid, auc, "
+          f"patience 1): best_iteration fused {bi_f} classic {bi_c}, trees "
           f"{nt_f} / {nt_c}, fused rounds run {r_f[0]} (one-round extra "
           f"replays {r_f[1]}), device AUC fused "
           f"{dev_f:.6f} classic {dev_c:.6f}, predict AUC {a_f:.6f}, "
@@ -3173,9 +3196,10 @@ def check_bundled(torch, lgbt, HK, RF, TB, prng):
     ``histogram_pool_size=8``: ``partition_select_table``); a profiled
     fused chunk (the table partition's device ms and launches a tree, the
     wrappers' counts equal to the profiler's kernels); early stopping on
-    the valid set, fused and classic to the same best_iteration;
+    the valid set (patience 1), fused and classic to the same
+    best_iteration;
     ``Booster.predict`` of the bundled model on the valid rows through the
-    forest kernel, against the host walk; 100k x 5 on the card against
+    forest kernel, against the host walk; 100k x 1 on the card against
     ``device_type=cpu``: tree 0 identical, AUC within 1e-3.  Returns the
     table partition's kernel rows with the fused runs' launches."""
     from lightgbm_tpu_torch.boosting import fused_graph as FG
@@ -3313,10 +3337,10 @@ def check_bundled(torch, lgbt, HK, RF, TB, prng):
             G.GBDT.supports_fused = lambda self: False
         try:
             t0 = time.perf_counter()
-            b = lgbt.train(dict(RECIPE, metric="auc", learning_rate=0.5),
+            b = lgbt.train(dict(RECIPE, metric="auc", learning_rate=1.0),
                            dsx, num_boost_round=100, valid_sets=[vs],
                            valid_names=["held_out"],
-                           callbacks=[lgbt.early_stopping(3, verbose=False)])
+                           callbacks=[lgbt.early_stopping(1, verbose=False)])
             t_es = time.perf_counter() - t0
         finally:
             G.GBDT.supports_fused = orig
@@ -3325,9 +3349,9 @@ def check_bundled(torch, lgbt, HK, RF, TB, prng):
         es_model = b
     (bi_f, nt_f, dev_f, t_f), (bi_c, nt_c, dev_c, t_c) = res["fused"], \
         res["classic"]
-    print(f"bundled early stopping ({N_BCROSS:,} x <= 100, lr 0.5, 200k "
+    print(f"bundled early stopping ({N_BCROSS:,} x <= 100, lr 1.0, 200k "
           f"valid, auc, "
-          f"patience 3): best_iteration fused {bi_f} classic {bi_c}, trees "
+          f"patience 1): best_iteration fused {bi_f} classic {bi_c}, trees "
           f"{nt_f} / {nt_c}, device AUC {dev_f:.6f} / {dev_c:.6f}, train s "
           f"{t_f:.2f} / {t_c:.2f}", flush=True)
     if bi_f != bi_c or nt_f != nt_c or dev_f != dev_c:
@@ -3361,11 +3385,11 @@ def check_bundled(torch, lgbt, HK, RF, TB, prng):
           flush=True)
     del es_model, vs, raw
 
-    # cross-check: 100k x 5 on the card against the CPU
+    # cross-check: 100k x 1 on the card against the CPU
     t0 = time.perf_counter()
-    b_gpu, _, _, _ = fused_train(torch, lgbt, dsx, 5)
+    b_gpu, _, _, _ = fused_train(torch, lgbt, dsx, 1)
     b_cpu = lgbt.train(dict(RECIPE, device_type="cpu"), dsx,
-                       num_boost_round=5)
+                       num_boost_round=1)
     t_x = time.perf_counter() - t0
     t_g, t_c = b_gpu._gbdt.models[0], b_cpu._gbdt.models[0]
     a_g, a_c = auc(yv, b_gpu.predict(Xv)), auc(yv, b_cpu.predict(Xv))
@@ -3377,7 +3401,7 @@ def check_bundled(torch, lgbt, HK, RF, TB, prng):
              "CPU")
     if abs(a_g - a_c) > 1e-3:
         fail(f"bundled cross-check: AUC card {a_g} vs cpu {a_c}")
-    print(f"bundled cross-check ({N_BCROSS:,} x 5): tree 0 identical "
+    print(f"bundled cross-check ({N_BCROSS:,} x 1): tree 0 identical "
           f"({t_g.num_leaves} leaves), AUC card {a_g:.6f} cpu {a_c:.6f} "
           f"({t_x:.1f} s)", flush=True)
     print(f"phase 7: {time.perf_counter() - t_phase:.1f} s", flush=True)
@@ -3756,6 +3780,11 @@ def check_categorical(torch, lgbt, HK, RF, TB, prng):
           f"DayOfWeek nodes ({time.perf_counter() - t0:.1f} s)", flush=True)
     del o_gpu, o_cpu
 
+    # 5 rounds: held-out airports folded into bin 0 (past max_bin) take
+    # bin 0's side in the valid scoring and go right in predict's walk of
+    # the raw codes, in the JAX package too; after one tree that share of
+    # the rows moves the AUC by more than 1e-4 (0.701863 against
+    # 0.701544), after five it no longer does
     t0 = time.perf_counter()
     vs = dsx.create_valid(Xv, yv)
     res = {}
@@ -3822,7 +3851,7 @@ def pass_groups(work, rounds):
 PREROLL_SPINS = 500
 
 
-def profiled_chunk(torch, g, what, HK, RF, TB, prng, rounds=10):
+def profiled_chunk(torch, g, what, HK, RF, TB, prng, rounds=5):
     """A fused chunk of ``rounds`` rounds of booster ``g`` under the
     profiler (its device work grouped by :func:`pass_groups`, the wrappers'
     launches held against the profiler's kernels; the window opens with
@@ -3989,7 +4018,7 @@ def check_sampling(torch, lgbt, HK, RF, TB, prng):
     s/round beside the plain classic loop, and one tree's contribution
     walked over 1M rows, what each drop costs); (f) bagged EFB and
     categorical cells at phase 7's and 8's 100k cross-check sizes; (g)
-    the bagged (100k x 3) and GOSS (100k x 1: no warm-up) cells on the
+    the bagged and GOSS (100k x 1: no warm-up) cells on the
     card and the CPU, tree 0 identical.  Returns the bagged run's
     launches."""
     from lightgbm_tpu_torch.boosting import fused_graph as FG
@@ -4179,7 +4208,7 @@ def check_sampling(torch, lgbt, HK, RF, TB, prng):
                 and np.array_equal(ta.threshold_bin, tb.threshold_bin)
                 and np.array_equal(ta.leaf_count, tb.leaf_count))
 
-    for what, rounds, extra in (("bagged", 3, BAG), ("GOSS", 1, GOSS)):
+    for what, rounds, extra in (("bagged", 1, BAG), ("GOSS", 1, GOSS)):
         t0 = time.perf_counter()
         b_g = lgbt.train(dict(RECIPE, **extra), dsx, num_boost_round=rounds)
         b_c = lgbt.train(dict(RECIPE, device_type="cpu", **extra), dsx,
@@ -4279,7 +4308,7 @@ def check_objectives(torch, lgbt, HK, RF, TB, prng):
     7 x phase 5's binary fused round, graph replays and flag reads a
     round, the capture's seconds, peak memory, the path's kernel launches
     a tree (rows 1, 3, 8-10, 14; counts zeroed just before, read just
-    after), a profiled chunk of 3 rounds; (b) a 100k-row valid set with
+    after), a profiled chunk of 1 round; (b) a 100k-row valid set with
     multi_logloss and multi_error evaluated inside the round and early
     stopping (fused; the last round's values against the host's float64
     evaluation of the valid scores); (c)
@@ -4289,8 +4318,8 @@ def check_objectives(torch, lgbt, HK, RF, TB, prng):
     text; (e) the regression family on phase 3's 1M x 28 rows, 5 rounds
     each: the fused objectives fused twice and classic once to the same
     text, l1 / quantile / MAPE classic with their host renewal's seconds
-    a tree; (f) card against CPU: multiclass 100k (round 0's 7 trees; the
-    CPU trains one round), huber and quantile 100k (tree 0, quantile's
+    a tree; (f) card against CPU: multiclass 100k at 15 leaves (round 0's
+    7 trees; the CPU trains one round), huber and quantile 100k (tree 0, quantile's
     host-renewed leaf values too; the CPU trains one round)."""
     from lightgbm_tpu_torch.basic import _host_raw
     from lightgbm_tpu_torch.boosting import fused_graph as FG
@@ -4341,7 +4370,12 @@ def check_objectives(torch, lgbt, HK, RF, TB, prng):
     del again, classic
     per_tree = {k: round(v / 70, 2) for k, v in counts.items() if v}
     binary = FUSED_S_ROUND.get("default")
+    # the valid rows through the forest kernel: below the threshold the
+    # host walks the 70 trees (ten rounds of k = 7) a row, which (c) holds
+    # the kernel against
+    g.DEVICE_PREDICT_MIN_WORK = 0
     acc = float((bst.predict(Xv).argmax(1) == yv).mean())
+    del g.DEVICE_PREDICT_MIN_WORK
     print(f"multiclass (Covertype shape {N_COV:,} x 54 in "
           f"{ds.inner.bins.shape[1]} columns, k = 7, 10 rounds = 70 trees; "
           f"dataset {t_ds:.2f} s): fused s/round {per_f:.5f} (7 x phase 5's "
@@ -4358,7 +4392,7 @@ def check_objectives(torch, lgbt, HK, RF, TB, prng):
           flush=True)
     print(f"model text sha256 (multiclass, Covertype shape, 10 rounds): "
           f"{text_sha256(bst)}", flush=True)
-    profiled_chunk(torch, g, "multiclass", HK, RF, TB, prng, rounds=3)
+    profiled_chunk(torch, g, "multiclass", HK, RF, TB, prng, rounds=1)
     del bst, g, fr
 
     # (b) a valid set evaluated inside the round, early stopping: the
@@ -4438,19 +4472,19 @@ def check_objectives(torch, lgbt, HK, RF, TB, prng):
           f"byte-identical", flush=True)
     del ova, ova_c
 
-    # (f) card vs CPU, multiclass: round 0's seven trees (the CPU trains
-    # one round: seven 255-leaf trees take it ~50 s; at 100k rows both
-    # take the batched int8 learner, exact on both)
+    # (f) card vs CPU, multiclass: round 0's seven trees, cut to 15 leaves
+    # (the CPU trains one round: seven 255-leaf trees take it ~50 s; at
+    # 100k rows both take the batched int8 learner, exact on both)
     t0 = time.perf_counter()
-    b_g = lgbt.train(dict(RECIPE, **MC), dsc, num_boost_round=3)
-    b_c = lgbt.train(dict(RECIPE, **MC, device_type="cpu"), dsc,
-                     num_boost_round=1)
+    MCX = dict(RECIPE, **MC, num_leaves=15)
+    b_g = lgbt.train(MCX, dsc, num_boost_round=3)
+    b_c = lgbt.train(dict(MCX, device_type="cpu"), dsc, num_boost_round=1)
     same = [trees_equal(a, b) for a, b in zip(b_g._gbdt.models[:7],
                                               b_c._gbdt.models)]
     if len(same) != 7 or not all(same):
         fail(f"multiclass cross-check: round 0's trees card vs CPU {same}")
-    print(f"multiclass cross-check ({N_COV_CROSS:,} rows; card 3 rounds, "
-          f"CPU 1): round 0's 7 trees identical "
+    print(f"multiclass cross-check ({N_COV_CROSS:,} rows, 15 leaves; card 3 "
+          f"rounds, CPU 1): round 0's 7 trees identical "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     del b_g, b_c, dsc, ds
 
@@ -4745,7 +4779,7 @@ def check_ranking(torch, lgbt, HK, RF, TB, prng):
     capture seconds, peak memory, the kernels' launches a tree (counts
     zeroed just before, read just after), the round's device values
     against the host's float64 NDCG of the valid scores; a profiled chunk
-    of 10 rounds (the rank kernel against the passes); (b) the rank kernel
+    of 5 rounds (the rank kernel against the passes); (b) the rank kernel
     against its plain version on the booster's real scores (timed) and
     on the skewed fixture (a query of length 1, one of equal labels, one
     past the shared-memory staging; weights; norm on and off); (c)
@@ -4810,7 +4844,7 @@ def check_ranking(torch, lgbt, HK, RF, TB, prng):
           f"{text_sha256(bst)}", flush=True)
     # 10 rounds: the chunk length of the run above, so the window replays
     # its graphs (no warm-up round or capture inside it)
-    profiled_chunk(torch, g, "lambdarank", HK, RF, TB, prng, rounds=10)
+    profiled_chunk(torch, g, "lambdarank", HK, RF, TB, prng)
 
     # (b) the kernel against its plain version: the booster's scores
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
@@ -5248,9 +5282,9 @@ def check_constraints(torch, lgbt, HK, RF, TB, prng):
     for what, extra in (("basic monotone", dict(
             monotone_constraints=mono, quant_train_renew_leaf=False)),
             ("extra trees", EXTRA_12)):
-        b_g, a_g, *_ = train_slice(torch, lgbt, 100_000, 5, seed=1,
+        b_g, a_g, *_ = train_slice(torch, lgbt, 100_000, 1, seed=1,
                                    **extra)
-        b_c, a_c, *_ = train_slice(torch, lgbt, 100_000, 5, "cpu", seed=1,
+        b_c, a_c, *_ = train_slice(torch, lgbt, 100_000, 1, "cpu", seed=1,
                                    **extra)
         t_g, t_c = b_g._gbdt.models[0], b_c._gbdt.models[0]
         if not (t_g.num_leaves == t_c.num_leaves
@@ -5260,7 +5294,7 @@ def check_constraints(torch, lgbt, HK, RF, TB, prng):
                  f"and the CPU")
         if abs(a_g - a_c) > 1e-3:
             fail(f"phase 12 (d) {what}: AUC card {a_g} vs cpu {a_c}")
-        print(f"cross-check ({what}, 100k x 5): tree 0 identical "
+        print(f"cross-check ({what}, 100k x 1): tree 0 identical "
               f"({t_g.num_leaves} leaves), AUC card {a_g:.6f} cpu "
               f"{a_c:.6f}, the trees' text (parameters aside) equal: "
               f"{trees_text(b_g) == trees_text(b_c)}", flush=True)
@@ -5453,7 +5487,7 @@ def check_learner_options(torch, lgbt, HK, RF, TB, prng):
     pooled recipe (``histogram_pool_size=8``) 5 rounds fused and classic;
     a forced categorical root on the airline set (FORCED_AIR) 5 rounds
     fused and classic; the regression recipe (leaf renewal off: every
-    number exact) at 100k x 5 on the card and the CPU to the same trees'
+    number exact) at 100k x 1 on the card and the CPU to the same trees'
     text.  (b) CEGB (CEGB_13, lazy penalties:
     the [n, F] acquisition state) 10 rounds classic twice to the same text,
     s/round beside the plain classic recipe's.  (c) linear trees on 1M rows
@@ -5567,13 +5601,13 @@ def check_learner_options(torch, lgbt, HK, RF, TB, prng):
         # sums run in another order on the card: every number is exact
         reg = dict(objective="regression", forcedsplits_filename=path,
                    quant_train_renew_leaf=False)
-        b_g, *_ = train_slice(torch, lgbt, 100_000, 5, seed=1, **reg)
-        b_c, *_ = train_slice(torch, lgbt, 100_000, 5, "cpu", seed=1, **reg)
+        b_g, *_ = train_slice(torch, lgbt, 100_000, 1, seed=1, **reg)
+        b_c, *_ = train_slice(torch, lgbt, 100_000, 1, "cpu", seed=1, **reg)
         if trees_text(b_g) != trees_text(b_c):
-            fail("phase 13 (a): forced splits, regression 100k x 5: the "
+            fail("phase 13 (a): forced splits, regression 100k x 1: the "
                  "card's trees' text differs from the CPU's")
         print(f"cross-check (forced splits, regression, leaf renewal off, "
-              f"100k x 5): the card's trees' text equals the CPU's "
+              f"100k x 1): the card's trees' text equals the CPU's "
               f"({time.perf_counter() - t0:.1f} s)", flush=True)
         del b_g, b_c
         mark("(a)")
@@ -5771,6 +5805,290 @@ def check_learner_options(torch, lgbt, HK, RF, TB, prng):
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"phase 13: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return rows + [forest_row]
+
+
+# ---- phase 14: the training surface
+
+def surface_fobj(spent, poison_at=None):
+    """Phase 14's custom binary logloss in numpy: (grad, hess) of the
+    sigmoid at the raw scores, float64; with ``poison_at`` the gradients of
+    that call (that boosting round) are NaN.  The seconds spent inside are
+    added to ``spent["fobj"]``."""
+    calls = []
+
+    def fobj(preds, data):
+        t0 = time.perf_counter()
+        p = 1.0 / (1.0 + np.exp(-preds))
+        g = p - data.get_label()
+        h = p * (1.0 - p)
+        if poison_at is not None and len(calls) == poison_at:
+            g = np.full_like(g, np.nan)
+        calls.append(1)
+        spent["fobj"] += time.perf_counter() - t0
+        return g, h
+    return fobj
+
+
+def check_training_surface(torch, lgbt, HK, RF, TB, prng, card):
+    """Phase 14: the training surface on phase 3's 1M x 28 set and recipe
+    (``num_leaves=255``) with its 200,000 held-out rows.  (a) a custom
+    binary logloss ``fobj`` in numpy, 10 rounds, against the built-in
+    ``binary`` objective with ``boost_from_average=false``, both through
+    the classic loop: s/round of each, the ``fobj`` round's share in the
+    callback and in the host-card copies (the scores' copy to the host
+    timed in the round, the gradients' upload timed apart on the same
+    arrays), the held-out AUC of each (within 1e-3), the ``fobj`` text's
+    sha256 twice (equal).  (b) that ``fobj`` with NaN gradients at round 3
+    under ``skip_round`` (9 trees of 10), ``raise`` (the message names
+    round 3) and ``halt_and_keep_best`` (3 trees, ``best_iteration`` 3),
+    with the counters.  (c) ``init_model`` continuation, 5 + 5 rounds: the
+    init scores of the training and held-out rows through the forest
+    kernel (``DEVICE_PREDICT_MIN_WORK`` lowered for the call: 1M x 5 trees
+    is below it), its launches counted (zeroed just before, read just
+    after); the continued booster's raw predictions equal the init
+    model's plus the new trees' within 1e-5, and so does its held-out
+    score cache.  (d) ``cv(nfold=5)`` at 1M rows x 5 rounds with
+    ``metric=auc``: seconds and the peak and live device memory at each
+    fold's end (no growth from fold 2 on).  (e) ``refit`` of (a)'s
+    built-in booster on the 1M rows and ``rollback_one_iter``, timed; the
+    scores after the rollback equal those of that run at its round 9
+    within 1e-5.  Returns the forest kernel's launches in (c)."""
+    from lightgbm_tpu_torch.boosting import gbdt as G
+    from lightgbm_tpu_torch.ops import forest_kernels as FK
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+
+    def mark(what):
+        print(f"phase 14 {what}: {time.perf_counter() - t_phase:.1f} s",
+              flush=True)
+
+    ds, X, y, Xv, yv, _ = slice_data(lgbt, N, 0, 255)
+    spent = {"fobj": 0.0, "d2h": 0.0}
+    real_preds = lgbt.Booster._current_train_preds
+
+    def timed_preds(self):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_preds(self)
+        spent["d2h"] += time.perf_counter() - t0
+        return out
+
+    def clocked(rounds, stamps, snap=None):
+        def clock(env):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            if snap is not None and env.iteration == rounds - 2:
+                snap.append(env.model._gbdt.scores.clone())
+        return clock
+
+    # (a) fobj against the built-in objective, both classic
+    zero_counts(HK, RF, TB, prng)
+    stamps_f = []
+    lgbt.Booster._current_train_preds = timed_preds
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b_f = lgbt.train(dict(RECIPE), ds, 10,
+                         fobj=surface_fobj(spent),
+                         callbacks=[clocked(10, stamps_f)])
+        wall_f = time.perf_counter() - t0
+    finally:
+        lgbt.Booster._current_train_preds = real_preds
+    counts_f = launch_counts(HK, RF, TB, prng)
+    g = b_f._gbdt
+    if g.objective is not None or g.supports_fused() or \
+            b_f.num_trees() != 10:
+        fail("phase 14 (a): the fobj run did not train 10 custom-gradient "
+             "trees")
+    per_f = float(np.mean(np.diff(stamps_f)))
+    # the gradients' upload, the same two arrays, timed apart
+    gh = surface_fobj({"fobj": 0.0})(b_f._current_train_preds(), ds)
+    n = ds.num_data()
+    ups = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for a in gh:
+            torch.as_tensor(np.asarray(a, np.float32).reshape(
+                n, 1, order="F"), device=dev)
+        torch.cuda.synchronize()
+        ups.append(time.perf_counter() - t0)
+    h2d = float(np.median(ups))
+    stamps_b, snap = [], []
+    t0 = time.perf_counter()
+    b_b = lgbt.train(dict(RECIPE, boost_from_average=False), ds, 10,
+                     callbacks=[clocked(10, stamps_b, snap)])
+    if b_b._gbdt._fused_cache:
+        fail("phase 14 (a): the built-in run took the fused loop")
+    per_b = float(np.mean(np.diff(stamps_b)))
+    auc_f = auc(yv, b_f.predict(Xv, raw_score=True))
+    auc_b = auc(yv, b_b.predict(Xv, raw_score=True))
+    sha_f = text_sha256(b_f)
+    b_f2 = lgbt.train(dict(RECIPE), ds, 10, fobj=surface_fobj({"fobj": 0}))
+    sha_f2 = text_sha256(b_f2)
+    del b_f2
+    print(f"phase 14 (a) fobj (numpy binary logloss, 1M x 10, classic): "
+          f"s/round {per_f:.5f} (rounds 2-10), the built-in binary "
+          f"(boost_from_average=false, classic) {per_b:.5f}; of the fobj "
+          f"rounds' {wall_f:.3f} s: callback {spent['fobj']:.3f} s "
+          f"({spent['fobj'] / wall_f:.4f}), scores to the host "
+          f"{spent['d2h']:.3f} s ({spent['d2h'] / wall_f:.4f}), gradients "
+          f"to the card {10 * h2d:.3f} s ({10 * h2d / wall_f:.4f}, timed "
+          f"apart); held-out AUC fobj {auc_f:.6f} built-in {auc_b:.6f}; "
+          f"fobj model text sha256 {sha_f} and {sha_f2}; card {card}",
+          flush=True)
+    print("phase 14 kernels (fobj, 1M x 10, classic): "
+          + json.dumps(counts_f), flush=True)
+    if abs(auc_f - auc_b) > 1e-3 or not auc_f > 0.7:
+        fail(f"phase 14 (a): held-out AUC fobj {auc_f} vs built-in {auc_b}")
+    if sha_f != sha_f2:
+        fail("phase 14 (a): two fobj card runs gave different model text")
+    for k_ in ("histogram_payload", "partition_payload", "take_small_table"):
+        if counts_f[k_] <= 0:
+            fail(f"phase 14 (a): the fobj run never launched {k_}")
+    del b_f
+    mark("(a)")
+
+    # (b) nan_policy: NaN gradients at round 3
+    vs = ds.create_valid(Xv, yv)
+    got = {}
+    for policy in ("skip_round", "raise", "halt_and_keep_best"):
+        rec = {}
+        p = dict(RECIPE, nan_policy=policy, metric="auc")
+        try:
+            b = lgbt.train(p, ds, 10, valid_sets=[vs], valid_names=["v"],
+                           fobj=surface_fobj({"fobj": 0.0}, poison_at=3),
+                           callbacks=[lgbt.record_evaluation(rec)])
+        except lgbt.LightGBMError as e:
+            if policy != "raise" or "round 3" not in str(e):
+                fail(f"phase 14 (b) {policy}: {e}")
+            got[policy] = str(e)
+            continue
+        c = b.telemetry()["counters"]
+        got[policy] = dict(trees=b.num_trees(),
+                           best_iteration=b.best_iteration,
+                           recorded=len(rec["v"]["auc"]),
+                           counters={k_: v for k_, v in c.items()
+                                     if k_.startswith("nan_")})
+        del b
+    if "round 3" not in got.get("raise", ""):
+        fail("phase 14 (b): nan_policy=raise did not raise at round 3")
+    sk, hk = got["skip_round"], got["halt_and_keep_best"]
+    if not (sk["trees"] == 9 and sk["counters"].get("nan_rounds_skipped")
+            == 1 and sk["recorded"] == 10):
+        fail(f"phase 14 (b) skip_round: {sk}")
+    if not (hk["trees"] == 3 and hk["best_iteration"] == 3
+            and hk["recorded"] == 3
+            and hk["counters"].get("nan_guard_halts") == 1):
+        fail(f"phase 14 (b) halt_and_keep_best: {hk}")
+    print("phase 14 (b) nan_policy (NaN gradients at round 3, 1M x 10): "
+          + json.dumps(got), flush=True)
+    del vs
+    mark("(b)")
+
+    # (c) init_model continuation 5 + 5, the init scores through the
+    # forest kernel
+    dsc = lgbt.Dataset(X, y, params={"max_bin": 255, "verbosity": -1},
+                       free_raw_data=False).construct()
+    b1 = lgbt.train(dict(RECIPE), dsc, 5)
+    old_min = G.GBDT.DEVICE_PREDICT_MIN_WORK
+    G.GBDT.DEVICE_PREDICT_MIN_WORK = 0
+    try:
+        FK.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vsc = dsc.create_valid(Xv, yv)
+        rec = {}
+        b2 = lgbt.train(dict(RECIPE, metric="auc"), dsc, 5, init_model=b1,
+                        valid_sets=[vsc], valid_names=["v"],
+                        callbacks=[lgbt.record_evaluation(rec)])
+        torch.cuda.synchronize()
+        t_cont = time.perf_counter() - t0
+        n_fk = FK.launches
+        raw2 = b2.predict(Xv, raw_score=True)
+        raw1 = b1.predict(Xv, raw_score=True)
+        new = b2.predict(Xv, raw_score=True, start_iteration=5)
+    finally:
+        G.GBDT.DEVICE_PREDICT_MIN_WORK = old_min
+    g2 = b2._gbdt
+    err_pred = float(np.abs(raw2 - (raw1 + new)).max())
+    err_cache = float(np.abs(g2.valid_scores[0][:, 0].cpu().numpy()
+                             - raw2).max())
+    print(f"phase 14 (c) init_model 5 + 5 (1M rows, the held-out set "
+          f"scored in the round): {t_cont:.3f} s, forest kernel launches "
+          f"{n_fk} (the init scores of 1M training and 200,000 held-out "
+          f"rows), trees {b2.num_trees()}, num_init_iteration "
+          f"{g2.num_init_iteration}, fused {bool(g2._fused_cache)}; "
+          f"|predict - (init + new trees)| max {err_pred:.3e}, |held-out "
+          f"score cache - predict| max {err_cache:.3e}, held-out AUC "
+          f"{rec['v']['auc'][-1]:.6f}", flush=True)
+    if n_fk < 2 or b2.num_trees() != 10 or g2.num_init_iteration != 5:
+        fail(f"phase 14 (c): {n_fk} forest launches, {b2.num_trees()} "
+             f"trees")
+    if err_pred > 1e-5 or err_cache > 1e-5:
+        fail(f"phase 14 (c): continued predictions off by {err_pred} / "
+             f"{err_cache}")
+    del b1, b2, g2, dsc, vsc
+    mark("(c)")
+
+    # (d) cv: five folds, no growth of device memory from fold to fold
+    folds = []
+    state = {"t": time.perf_counter()}
+
+    def fold_end(env):
+        if env.iteration == env.end_iteration - 1:
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            folds.append((now - state["t"],
+                          torch.cuda.max_memory_allocated() / 2**20,
+                          torch.cuda.memory_allocated() / 2**20))
+            state["t"] = now
+            torch.cuda.reset_peak_memory_stats()
+    fold_end.order = 40
+    fold_end.fused_safe = True
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = state["t"] = time.perf_counter()
+    res = lgbt.cv(dict(RECIPE, metric="auc"), ds, 5, nfold=5, seed=0,
+                  callbacks=[fold_end])
+    t_cv = time.perf_counter() - t0
+    curve = res["valid auc-mean"]
+    print(f"phase 14 (d) cv (nfold=5, 1M rows x 5 rounds, metric=auc, "
+          f"fused folds): {t_cv:.2f} s; per fold (s, peak MiB, live MiB "
+          f"at its end) {json.dumps([[round(a, 3), round(b, 1), round(c, 1)] for a, b, c in folds])}; valid auc-mean "
+          f"{[round(v, 6) for v in curve]}, stdv "
+          f"{[round(v, 6) for v in res['valid auc-stdv']]}", flush=True)
+    if len(folds) != 5 or len(curve) != 5 or not curve[-1] > 0.7:
+        fail(f"phase 14 (d): {len(folds)} folds, curve {curve}")
+    if any(f[1] > folds[1][1] + 16 or f[2] > folds[1][2] + 16
+           for f in folds[2:]):
+        fail(f"phase 14 (d): device memory grew from fold 2 on: {folds}")
+    mark("(d)")
+
+    # (e) refit and rollback of (a)'s built-in booster
+    t0 = time.perf_counter()
+    r = b_b.refit(X, y)
+    t_refit = time.perf_counter() - t0
+    raw_r = r.predict(Xv, raw_score=True)
+    auc_r = auc(yv, raw_r)
+    moved = float(np.abs(raw_r - b_b.predict(Xv, raw_score=True)).max())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    b_b.rollback_one_iter()
+    torch.cuda.synchronize()
+    t_rb = time.perf_counter() - t0
+    err_rb = float((b_b._gbdt.scores - snap[0]).abs().max())
+    print(f"phase 14 (e) refit (1M rows x 10 trees, decay 0.9): "
+          f"{t_refit:.3f} s, held-out AUC {auc_r:.6f} (before {auc_b:.6f}),"
+          f" raw scores moved by up to {moved:.3e};"
+          f" rollback_one_iter {t_rb * 1e3:.2f} ms, |scores - round 9's| "
+          f"max {err_rb:.3e}, trees {b_b.num_trees()}", flush=True)
+    if b_b.num_trees() != 9 or err_rb > 1e-5 or not auc_r > 0.7:
+        fail(f"phase 14 (e): rollback left {b_b.num_trees()} trees, scores "
+             f"off by {err_rb}, refit AUC {auc_r}")
+    del b_b, r, snap
+    print(f"phase 14: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return n_fk
 
 
 def load_other(root):
@@ -6230,20 +6548,20 @@ def main():
     print(f"phases 1-3: {time.perf_counter() - t_script:.1f} s", flush=True)
 
     # ---- 4. cross-check: card vs CPU plain versions, and card vs card
-    b_gpu, auc_gpu, *_ = train_slice(torch, lgbt, 100_000, 5, seed=1,
+    b_gpu, auc_gpu, *_ = train_slice(torch, lgbt, 100_000, 1, seed=1,
                                      valid=True, fresh=True)
-    b_cpu, auc_cpu, *_ = train_slice(torch, lgbt, 100_000, 5, "cpu", seed=1,
+    b_cpu, auc_cpu, *_ = train_slice(torch, lgbt, 100_000, 1, "cpu", seed=1,
                                      valid=True, fresh=True)
     t_g, t_c = b_gpu._gbdt.models[0], b_cpu._gbdt.models[0]
     if not (t_g.num_leaves == t_c.num_leaves
             and np.array_equal(t_g.split_feature, t_c.split_feature)
             and np.array_equal(t_g.threshold_bin, t_c.threshold_bin)):
         fail("tree 0 differs between the card and the CPU")
-    print(f"cross-check: tree 0 identical ({t_g.num_leaves} leaves), "
-          f"AUC card {auc_gpu:.6f} cpu {auc_cpu:.6f}", flush=True)
+    print(f"cross-check (100k x 1): tree 0 identical ({t_g.num_leaves} "
+          f"leaves), AUC card {auc_gpu:.6f} cpu {auc_cpu:.6f}", flush=True)
     if abs(auc_gpu - auc_cpu) > 1e-3:
         fail(f"AUC card {auc_gpu} vs cpu {auc_cpu} differ by more than 1e-3")
-    b_again, *_ = train_slice(torch, lgbt, 100_000, 5, seed=1, valid=True,
+    b_again, *_ = train_slice(torch, lgbt, 100_000, 1, seed=1, valid=True,
                               fresh=True)
     if b_again.model_to_string() != b_gpu.model_to_string():
         fail("two card trainings gave different model text")
@@ -6252,16 +6570,16 @@ def main():
     del b_gpu, b_cpu, b_again
 
     # the strict default, card vs CPU and card vs card (float32 sums)
-    s_gpu, a_gpu, *_ = train_slice(torch, lgbt, 50_000, 3, seed=1)
-    s_cpu, a_cpu, *_ = train_slice(torch, lgbt, 50_000, 3, "cpu", seed=1)
+    s_gpu, a_gpu, *_ = train_slice(torch, lgbt, 50_000, 1, seed=1)
+    s_cpu, a_cpu, *_ = train_slice(torch, lgbt, 50_000, 1, "cpu", seed=1)
     t_g, t_c = s_gpu._gbdt.models[0], s_cpu._gbdt.models[0]
-    print(f"cross-check (strict, 50k x 3): AUC card {a_gpu:.6f} cpu "
+    print(f"cross-check (strict, 50k x 1): AUC card {a_gpu:.6f} cpu "
           f"{a_cpu:.6f}; tree 0: {leading_agreement(t_g, t_c)} of "
           f"{t_g.num_leaves - 1} card splits agree in order with the CPU's "
           f"{t_c.num_leaves - 1}", flush=True)
     if abs(a_gpu - a_cpu) > 1e-3:
         fail(f"strict AUC card {a_gpu} vs cpu {a_cpu}: more than 1e-3")
-    s_again, *_ = train_slice(torch, lgbt, 50_000, 3, seed=1, fresh=True)
+    s_again, *_ = train_slice(torch, lgbt, 50_000, 1, seed=1, fresh=True)
     if s_again.model_to_string() != s_gpu.model_to_string():
         fail("two card trainings of the strict default (float32) gave "
              "different model text")
@@ -6331,6 +6649,13 @@ def main():
     # launches are the 1M-row linear run's and its prediction's (zeroed just
     # before, read just after)
     rows += check_learner_options(torch, lgbt, HK, RF, TB, prng)
+    # ---- 14. the training surface: the forest kernel's launches for the
+    # continued training's init scores (zeroed just before, read just
+    # after) join its row
+    init_fk = check_training_surface(torch, lgbt, HK, RF, TB, prng, card)
+    for r in rows:
+        if r["name"] == "forest_values":
+            r["launches"] += init_fk
     print(f"chip_smoke: {time.perf_counter() - t_script:.1f} s in all, the "
           f"kernel build {build_s:.1f} s of it", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

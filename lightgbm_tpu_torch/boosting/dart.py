@@ -41,7 +41,7 @@ class DART(GBDT):
                                    self.nan_bin_arr, self.bundle)
             self.valid_scores[vi][:, cls_idx] += vc * factor
 
-    def train_one_iter(self) -> bool:
+    def train_one_iter(self, grad=None, hess=None) -> bool:
         drop_idx = self._select_drop()
         k = len(drop_idx)
         ktrees = self.num_tree_per_iteration
@@ -49,7 +49,7 @@ class DART(GBDT):
             self._add_contrib(self.models[ti], ti % ktrees, -1.0)
 
         start_model = len(self.models)
-        finished = super().train_one_iter()
+        finished = super().train_one_iter(grad, hess)
 
         if k > 0:
             lr = self.shrinkage_rate

@@ -95,6 +95,21 @@ GROWING, STOPPED, STUMP = 1, 2, 4
 #: every flag word read back, ``extra`` the one-round graphs
 counts = {"replays": 0, "reads": 0, "extra": 0, "rounds": 0}
 
+#: the one side stream per device that every warm-up and capture runs on.
+#: PyTorch keeps a cuBLAS workspace (32 MiB on Hopper) for each stream
+#: that ran a matmul (the valid sets' path aggregation), for the life of
+#: the process: a new stream a capture added 32 MiB a ``train()`` with a
+#: valid set until the stream pool wrapped round.
+_SIDE_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+
+def side_stream(dev: torch.device) -> "torch.cuda.Stream":
+    """The side stream of device ``dev`` (made on first use)."""
+    s = _SIDE_STREAMS.get(dev)
+    if s is None:
+        s = _SIDE_STREAMS[dev] = torch.cuda.Stream(dev)
+    return s
+
 #: the kernel wrappers' launch counters (module, attribute).  A wrapper
 #: counts when its Python code launches; inside a capture it records
 #: instead, so a capture's counts move to its graph, which adds them on
@@ -468,7 +483,7 @@ class FusedRound:
             state += [self.best, self.best_it, self.seen, self.stopped]
         saved = [s.clone() for s in state]
         torch.cuda.synchronize(self.dev)
-        side = torch.cuda.Stream(self.dev)
+        side = side_stream(self.dev)
         side.wait_stream(torch.cuda.current_stream(self.dev))
         with torch.cuda.stream(side):
             if self.k > 1:
@@ -484,7 +499,7 @@ class FusedRound:
             for name in self._bodies():
                 gr = torch.cuda.CUDAGraph()
                 before = _read_counters()
-                with torch.cuda.graph(gr, pool=pool):
+                with torch.cuda.graph(gr, pool=pool, stream=side):
                     getattr(self, name)()
                 graphs[name] = gr
                 delta = [a - b for a, b in zip(_read_counters(), before)]

@@ -77,15 +77,22 @@ learner/linear.py, its scores through the linear kernels) and
 ``tpu_debug_checks`` (:meth:`GBDT._debug_check_tree`) take the classic
 loop in both growers, as in the JAX package.
 
-Not ported yet: custom objectives, ``nan_policy`` and the distributed
-modes.
+Custom gradients (``objective=none``: ``train_one_iter(grad, hess)``
+with host arrays uploaded once a round), the numeric guard of
+``nan_policy`` (robustness/guards.py, classic loop only), continued
+training (``merge_from``: the init model's trees ahead of the new ones,
+``num_init_iteration``), ``rollback_one_iter`` and ``reset_config`` are
+the JAX package's.  Every booster keeps a telemetry registry
+(obs/metrics.py; ``telemetry()``).
+
+Not ported yet: the distributed modes.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -102,6 +109,7 @@ from ..models.predict import (ForestArrays, forest_from_numpy,
                               predict_bins_tree_matmul)
 from ..models.tree import Tree
 from ..objectives import ObjectiveFunction, create_objective
+from ..obs.metrics import MetricsRegistry, count_event
 from ..ops import forest_kernels, prng
 from ..ops.histogram import resolve_hist_kernel, wants_packed_mirror
 from ..ops.quantize import discretize_gradients_levels, renew_leaf_values
@@ -163,7 +171,6 @@ def _check_slice(config: Config, train_set: Dataset) -> None:
          f"boosting={config.boosting}"),
         (str(config.tree_learner) not in ("serial",),
          f"tree_learner={config.tree_learner}"),
-        (config.nan_policy != "none", f"nan_policy={config.nan_policy}"),
     ]
     for bad, what in unported:
         if bad:
@@ -251,22 +258,26 @@ class GBDT:
         self.train_set = train_set
         self.device = resolve_device(config.device_type)
         _check_slice(config, train_set)
+        # objective=none: the gradients come from the caller each round
+        # (train_one_iter(grad, hess))
         self.objective = objective if objective is not None else \
             create_objective(config)
-        if self.objective is None:
-            log.fatal("objective=none (custom gradients) is not supported by "
-                      "lightgbm_tpu_torch yet")
-        self.objective.init(train_set.metadata, train_set.num_data,
-                            self.device)
+        if self.objective is not None:
+            self.objective.init(train_set.metadata, train_set.num_data,
+                                self.device)
         self.train_metrics = metrics if metrics is not None else \
             create_metrics(config)
         for m in self.train_metrics:
             m.init(train_set.metadata, train_set.num_data)
+        self.metrics = MetricsRegistry()
         self.num_class = max(1, int(config.num_class))
-        self.num_tree_per_iteration = self.objective.num_model_per_iteration
+        self.num_tree_per_iteration = (
+            self.objective.num_model_per_iteration
+            if self.objective is not None else self.num_class)
         self.shrinkage_rate = float(config.learning_rate)
         self.models: List[Tree] = []          # iter-major, one per class
         self.iter_ = 0
+        self.num_init_iteration = 0
 
         # device operands: the row-major bins, their transposed copy (the
         # histogram and partition kernels' layout) and the packed word
@@ -287,22 +298,13 @@ class GBDT:
         ba = train_set.device_bundle_arrays()
         self.bundle = None if ba is None else \
             DeviceBundle(*(torch.as_tensor(a, device=dev) for a in ba))
-
-        self._resolve_auto_params(config)
-        self.hp = _hp_from_config(config, train_set.device_n_bins())
-        if bool(train_set.categorical_array().any()):
-            self.hp = dataclasses.replace(self.hp, has_categorical=True)
-        # the transposed packed mirror [W, n], resident when the masked
-        # passes may take the packed kernel (the JAX booster's bins_words)
+        # linear trees: the training set's raw columns on the device (kept
+        # across reset_config, which cannot change linear_tree)
+        self.linear = bool(config.linear_tree) and train_set.raw is not None
+        self.raw_dev = torch.as_tensor(train_set.raw, device=dev) \
+            if self.linear else None
         self.bins_words_t = None
-        if wants_packed_mirror(self.hp.hist_kernel, self.hp.n_bins):
-            self.bins_words_t = self.bins_words.t().contiguous()
-        self._check_pool(config)
-        self._split_constraints(config)
-        self._learner_options(config)
-        if self._use_batched_grower():
-            batch_grower.check_supported(self.hp,
-                                         int(config.tpu_split_batch))
+        self._derive_learner_state(config)
 
         n = train_set.num_data
         k = self.num_tree_per_iteration
@@ -318,8 +320,60 @@ class GBDT:
         self._valid_bins: List[torch.Tensor] = []
         self._valid_bins_t: List[torch.Tensor] = []
         self._valid_raw: List[Optional[torch.Tensor]] = []
-        self._fused_cache = {}
         self._last_fused_evals: List = []
+
+    def _derive_learner_state(self, config: Config) -> None:
+        """The split hyperparameters ``hp`` and the learner's device state
+        from ``config`` (the JAX package's ``_derive_learner_state``, run by
+        ``__init__`` and ``reset_config``): the auto policy, the packed
+        mirror's transposed copy, the pool translation, the split
+        constraints, forced splits and CEGB (its acquisition state starts
+        afresh, as the reference's ResetConfig recreates it), the
+        ``nan_policy``.  The captured fused rounds are dropped: a graph
+        holds the learning rate, ``hp`` and the sampling of the config it
+        was captured under."""
+        ts = self.train_set
+        self._fused_cache = {}
+        self.nan_policy = str(config.nan_policy or "none")
+        self._resolve_auto_params(config)
+        self.hp = _hp_from_config(config, ts.device_n_bins())
+        if bool(ts.categorical_array().any()):
+            self.hp = dataclasses.replace(self.hp, has_categorical=True)
+        # the transposed packed mirror [W, n], resident when the masked
+        # passes may take the packed kernel (the JAX booster's bins_words)
+        if wants_packed_mirror(self.hp.hist_kernel, self.hp.n_bins):
+            if self.bins_words_t is None:
+                self.bins_words_t = self.bins_words.t().contiguous()
+        else:
+            self.bins_words_t = None
+        self._check_pool(config)
+        self._split_constraints(config)
+        self._learner_options(config)
+        if self._use_batched_grower():
+            batch_grower.check_supported(self.hp,
+                                         int(config.tpu_split_batch))
+
+    # ------------------------------------------------------------ telemetry
+    def _count(self, name: str, value: float = 1) -> None:
+        """Bump a telemetry counter in this booster's registry and the
+        process-wide one (obs/metrics.py)."""
+        count_event(name, value, self.metrics)
+
+    def _hist_rounds_per_tree(self) -> int:
+        """Histogram passes one tree costs, counted on the host: one a split
+        in the strict learner, one a K-split round in the batched grower."""
+        splits = max(1, self.hp.num_leaves - 1)
+        if self._use_batched_grower():
+            return -(-splits // max(1, int(self.config.tpu_split_batch)))
+        return splits
+
+    def telemetry(self) -> Dict[str, Any]:
+        """This booster's counters and gauges (``Booster.telemetry()``).
+        ``phases`` and ``memory`` stay empty dicts: the JAX package's phase
+        timers and memory sampling (its ``obs/``) are not ported yet."""
+        snap = self.metrics.snapshot()
+        return {"counters": snap["counters"], "gauges": snap["gauges"],
+                "phases": {}, "memory": {}}
 
     def _split_constraints(self, config: Config) -> None:
         """The JAX package's set-up of the split constraints
@@ -352,13 +406,13 @@ class GBDT:
                                 or self.hp.feature_fraction_bynode < 1.0)
 
     def _learner_options(self, config: Config) -> None:
-        """The JAX package's set-up of forced splits, CEGB and linear
-        trees (boosting/gbdt.py:327-331, 562-592): the forced schedule on
-        the device; CEGB's penalties premultiplied by ``cegb_tradeoff``
-        (per original feature, mapped to the packed ones) and its
-        acquisition state (``used_rows`` bool [n, F] only with lazy
-        penalties), kept across every tree; under ``linear_tree`` the
-        training set's raw columns on the device."""
+        """The JAX package's set-up of forced splits and CEGB
+        (boosting/gbdt.py:562-592): the forced schedule on the device;
+        CEGB's penalties premultiplied by ``cegb_tradeoff`` (per original
+        feature, mapped to the packed ones) and its acquisition state
+        (``used_rows`` bool [n, F] only with lazy penalties), kept across
+        every tree.  Linear trees' raw columns are set up in
+        ``__init__``."""
         ts, dev = self.train_set, self.device
         self.forced = None
         if config.forcedsplits_filename:
@@ -391,9 +445,6 @@ class GBDT:
                 used_rows=(torch.zeros(ts.num_data, F, dtype=torch.bool,
                                        device=dev)
                            if (lazy != 0).any() else None))
-        self.linear = bool(config.linear_tree) and ts.raw is not None
-        self.raw_dev = torch.as_tensor(ts.raw, device=dev) \
-            if self.linear else None
 
     def node_key(self, iter_: int, cls: int) -> prng.Key:
         """The key words of a tree's node draws: ``key(extra_seed *
@@ -476,7 +527,9 @@ class GBDT:
 
     def _init_base_score(self) -> None:
         md = self.train_set.metadata
-        if md.init_score is not None:
+        if self.objective is None or md.init_score is not None:
+            # no boost-from-average for custom gradients or when the
+            # dataset carries init scores (a continued training's)
             init = np.zeros(self.num_tree_per_iteration)
         elif self.config.boost_from_average:
             init = np.array([self.objective.boost_from_score(k)
@@ -561,6 +614,8 @@ class GBDT:
     def boosting_gradients(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """reference GBDT::Boosting (gbdt.cpp:220): grad and hess [n, k];
         a k-class objective takes the whole [n, k] score matrix."""
+        if self.objective is None:
+            log.fatal("No objective; pass grad/hess to train_one_iter")
         if self.num_tree_per_iteration == 1:
             g, h = self.objective.get_gradients(self.scores[:, 0])
             return g[:, None], h[:, None]
@@ -583,11 +638,29 @@ class GBDT:
         return torch.as_tensor(self._feature_mask_array(self.iter_),
                                device=self.device)
 
-    def train_one_iter(self) -> bool:
+    def train_one_iter(self, grad: Optional[np.ndarray] = None,
+                       hess: Optional[np.ndarray] = None) -> bool:
         """One boosting iteration (reference gbdt.cpp:344 TrainOneIter).
-        Returns True when no tree could be grown (early finish)."""
+        ``grad`` / ``hess``: a custom objective's host arrays (n * k values,
+        class-major when flat: the JAX package's Fortran-order reshape),
+        uploaded once to the booster's device as float32 [n, k].  Returns
+        True when no tree could be grown (early finish)."""
+        n = self.train_set.num_data
         k = self.num_tree_per_iteration
-        g, h = self.boosting_gradients()
+        if grad is None or hess is None:
+            g, h = self.boosting_gradients()
+        else:
+            g = torch.as_tensor(np.asarray(grad, np.float32).reshape(
+                n, k, order="F"), device=self.device)
+            h = torch.as_tensor(np.asarray(hess, np.float32).reshape(
+                n, k, order="F"), device=self.device)
+        if self.nan_policy != "none":
+            # one finite reduction over (g, h, scores) and one host read;
+            # raises for raise / halt_and_keep_best, True skips the round
+            from ..robustness.guards import enforce_nan_policy
+            if enforce_nan_policy(self, g, h):
+                self.iter_ += 1
+                return False
         row_mask, g, h = self.sample_strategy.sample(
             self.iter_, g, h, self.train_set.metadata)
         feature_mask = self._feature_mask_for_tree()
@@ -604,12 +677,15 @@ class GBDT:
                     g[:, c], h[:, c], prng.fold_in(qkey, c),
                     n_levels=int(self.config.num_grad_quant_bins),
                     stochastic=bool(self.config.stochastic_rounding),
-                    constant_hessian=self.objective.is_constant_hessian)
+                    constant_hessian=bool(
+                        self.objective is not None
+                        and self.objective.is_constant_hessian))
                 gq.append(gc)
                 hq.append(hc)
                 hist_scales[c] = torch.stack([gs, hs])
             g = torch.stack(gq, dim=1)
             h = torch.stack(hq, dim=1)
+            self._count("quantize_rounds")
 
         finished = True
         for cls_idx in range(k):
@@ -662,6 +738,10 @@ class GBDT:
                 tree.add_bias(self.init_scores[cls_idx])
             self.models.append(tree)
         self.iter_ += 1
+        self._count("iterations")
+        self._count("strict_rounds")
+        self._count("trees_grown", k)
+        self._count("hist_build_rounds", self._hist_rounds_per_tree() * k)
         return finished
 
     def _linear_scores(self, arrays: TreeArrays, leaf_of_row: torch.Tensor,
@@ -727,7 +807,8 @@ class GBDT:
         residuals at the scores before the tree, one host read of
         ``leaf_of_row`` a tree (the JAX package's ``_renew_leaves``).
         Returns the arrays with their unshrunk leaf values."""
-        if not self.objective.need_renew_tree_output:
+        if (self.objective is None
+                or not self.objective.need_renew_tree_output):
             return arrays
         lor = leaf_of_row.cpu().numpy()
         score_host = self.scores[:, cls_idx].cpu().numpy().astype(np.float64)
@@ -749,13 +830,16 @@ class GBDT:
         learner keep the classic loop, as in the JAX package; so do the
         objectives whose calls change their state (``jit_safe``:
         rank_xendcg, position-debiased lambdarank), linear trees, CEGB and
-        ``tpu_debug_checks``; forced splits take the fused loop."""
+        ``tpu_debug_checks``; forced splits take the fused loop.  The
+        numeric guard of a ``nan_policy`` is a host check a round, so a
+        policy keeps the classic loop too."""
         return (type(self) is GBDT
                 and self.objective is not None
                 and not self.objective.need_renew_tree_output
                 and self.objective.jit_safe
                 and not self.linear
                 and self.cegb is None
+                and self.nan_policy == "none"
                 and not bool(self.config.tpu_debug_checks)
                 and (not self.valid_sets or self.fused_valid_ok())
                 and (self._sampling_is_noop()
@@ -858,6 +942,9 @@ class GBDT:
         fr = self._fused_cache.get(key)
         if fr is None:
             fr = self._fused_cache[key] = FusedRound(self, chunk, es)
+            self._count("fused_runner_cache_misses")
+        else:
+            self._count("fused_runner_cache_hits")
         fr.reset_es()
         k = self.num_tree_per_iteration
         begin_iter = self.iter_
@@ -880,6 +967,11 @@ class GBDT:
                     stumps += tree.num_leaves <= 1
                 self.iter_ += 1
                 done += 1
+                self._count("iterations")
+                self._count("fused_rounds")
+                self._count("trees_grown", k)
+                self._count("hist_build_rounds",
+                            self._hist_rounds_per_tree() * k)
                 if nvalid:
                     self._last_fused_evals = [
                         (mrows[j][0], mrows[j][1], float(mvals[j]),
@@ -904,9 +996,14 @@ class GBDT:
                              - (fr.capture_s - cap0), done - done0))
         return finished
 
-    def invalidate_score_cache(self) -> None:
+    def invalidate_score_cache(self,
+                               only_valid_index: Optional[int] = None
+                               ) -> None:
         """Rebuild the train and valid scores from the model list (after a
-        fused chunk ran rounds past the kept ones), in place."""
+        fused chunk ran rounds past the kept ones, or leaf values were
+        refitted), in place.  ``only_valid_index`` rebuilds one valid
+        set's scores (a set added after training began) and leaves the
+        others."""
         k = self.num_tree_per_iteration
 
         def rebuild(n, bins_d, init_score):
@@ -923,11 +1020,66 @@ class GBDT:
                                                   self.bundle)
             return sc
 
-        self.scores.copy_(rebuild(self.train_set.num_data, self.bins,
-                                  self.train_set.metadata.init_score))
-        for vi, vs in enumerate(self.valid_sets):
+        if only_valid_index is None:
+            self.scores.copy_(rebuild(self.train_set.num_data, self.bins,
+                                      self.train_set.metadata.init_score))
+            targets = range(len(self.valid_sets))
+        else:
+            targets = [only_valid_index]
+        for vi in targets:
+            vs = self.valid_sets[vi]
             self.valid_scores[vi].copy_(rebuild(
                 vs.num_data, self._valid_bins[vi], vs.metadata.init_score))
+
+    def merge_from(self, trees: List[Tree]) -> None:
+        """Seed this booster with an init model's trees (reference gbdt.h:70
+        ``MergeFrom``; continued training).  The init model's predictions
+        are already in the score caches through the datasets' init scores,
+        so only the model list and the iteration counters move."""
+        import copy
+        k = self.num_tree_per_iteration
+        if len(trees) % k != 0:
+            log.fatal("init model has %d trees, not divisible by "
+                      "num_tree_per_iteration=%d" % (len(trees), k))
+        self.models = [copy.deepcopy(t) for t in trees] + self.models
+        self.num_init_iteration = len(trees) // k
+        self.iter_ = self.num_init_iteration
+
+    def rollback_one_iter(self) -> None:
+        """reference GBDT::RollbackOneIter (gbdt.cpp:454): pop the last
+        iteration's k trees and subtract their contributions (the folded
+        boost-from-average bias excluded: the score caches hold it apart)
+        from the training and valid scores on the device.  Never below
+        ``num_init_iteration``."""
+        if self.iter_ <= self.num_init_iteration:
+            return
+        k = self.num_tree_per_iteration
+        for c in reversed(range(k)):
+            arrays = _tree_to_arrays_stub(self.models.pop(), self.train_set,
+                                          self.device)
+            self.scores[:, c] -= predict_bins_tree(
+                arrays, self.bins, self.nan_bin_arr, self.bundle)
+            for vi in range(len(self.valid_sets)):
+                self.valid_scores[vi][:, c] -= predict_bins_tree(
+                    arrays, self._valid_bins[vi], self.nan_bin_arr,
+                    self.bundle)
+        self.iter_ -= 1
+
+    def reset_config(self, config: Config) -> None:
+        """Swap learning-control parameters on the live booster (reference
+        GBDT::ResetConfig; the JAX package's ``reset_config``): the learner
+        state is derived anew from ``config`` (the captured fused rounds
+        dropped with it), the shrinkage and the sampling strategy follow
+        it; the objective, metrics, datasets and ``linear_tree`` stay."""
+        if bool(config.linear_tree) != bool(self.config.linear_tree):
+            log.warning("linear_tree cannot be changed on a live booster; "
+                        "keeping linear_tree=%s" % self.config.linear_tree)
+            config.linear_tree = self.config.linear_tree
+        self.config = config
+        self.shrinkage_rate = float(config.learning_rate)
+        self._derive_learner_state(config)
+        self.sample_strategy = create_sample_strategy(
+            config, self.train_set.num_data)
 
     # ------------------------------------------------------------- evaluate
     def eval_train(self) -> List[Tuple[str, str, float, bool]]:
@@ -1117,7 +1269,8 @@ class GBDT:
             return _host_leaves(self.models, X, k, start_iteration, end)
         raw = self.predict_raw(X, start_iteration, num_iteration,
                                early=early)
-        if raw_score or not self.objective.need_convert_output:
+        if raw_score or self.objective is None or \
+                not self.objective.need_convert_output:
             return raw
         # f32 conversion, as the JAX package converts raw scores on its
         # device (x64 off)

@@ -1,14 +1,17 @@
-"""Training callbacks: evaluation logging and recording, early stopping.
+"""Training callbacks: evaluation logging and recording, early stopping,
+parameter resets.
 
 Counterpart of ``log_evaluation``, ``record_evaluation``,
-``early_stopping`` and ``EarlyStopException`` of ``lightgbm_tpu/callback.py``
-(reference python-package/lightgbm/callback.py, ``CallbackEnv``
-namedtuple).  The three carry ``fused_safe``: they only read each round's
-evaluation list, so the fused round loop (engine.py, ``GBDT.train_fused``)
-drives them once per round with the metrics it evaluated on the device.
-``early_stopping`` also carries ``es_params``, from which the fused loop
-keeps its own stop flag inside the round.  Parameter resets and telemetry
-come later.
+``early_stopping``, ``reset_parameter`` and ``EarlyStopException`` of
+``lightgbm_tpu/callback.py`` (reference python-package/lightgbm/callback.py,
+``CallbackEnv`` namedtuple).  The first three carry ``fused_safe``: they
+only read each round's evaluation list, so the fused round loop (engine.py,
+``GBDT.train_fused``) drives them once per round with the metrics it
+evaluated on the device.  ``early_stopping`` also carries ``es_params``,
+from which the fused loop keeps its own stop flag inside the round.
+``reset_parameter`` runs before each round (``before_iteration``) and keeps
+the classic loop.  The JAX package's telemetry callback waits for its
+``obs/`` layer.
 """
 
 from __future__ import annotations
@@ -33,13 +36,21 @@ class EarlyStopException(Exception):
         self.best_score = best_score
 
 
-def log_evaluation(period: int = 1) -> Callable:
-    """Log the evaluation results every ``period`` iterations."""
+def log_evaluation(period: int = 1, show_stdv: bool = True) -> Callable:
+    """Log the evaluation results every ``period`` iterations; an item with
+    a fifth field (cv's mean and standard deviation) prints its deviation
+    too unless ``show_stdv`` is false."""
     def _callback(env: CallbackEnv) -> None:
         if period > 0 and env.evaluation_result_list and \
                 (env.iteration + 1) % period == 0:
-            parts = [f"{item[0]}'s {item[1]}: {item[2]:g}"
-                     for item in env.evaluation_result_list]
+            parts = []
+            for item in env.evaluation_result_list:
+                name, metric, val = item[0], item[1], item[2]
+                if len(item) == 5 and show_stdv:
+                    parts.append(f"{name}'s {metric}: {val:g} + "
+                                 f"{item[4]:g}")
+                else:
+                    parts.append(f"{name}'s {metric}: {val:g}")
             log.info(f"[{env.iteration + 1}]\t" + "\t".join(parts))
     _callback.order = 10
     _callback.fused_safe = True
@@ -68,6 +79,32 @@ def record_evaluation(eval_result: Dict[str, Dict[str, List[float]]]
             eval_result[name].setdefault(metric, []).append(val)
     _callback.order = 20
     _callback.fused_safe = True
+    return _callback
+
+
+def reset_parameter(**kwargs: Any) -> Callable:
+    """Reset parameters before each round (reference callback.py
+    ``reset_parameter``): each value a list with one entry a round, or a
+    function of the round index (counted from the run's first round).
+    ``learning_rate`` reaches the booster's shrinkage; every reset value
+    is written into the run's params."""
+    def _callback(env: CallbackEnv) -> None:
+        new_params = {}
+        for key, value in kwargs.items():
+            if isinstance(value, list):
+                if len(value) != env.end_iteration - env.begin_iteration:
+                    raise ValueError(f"Length of list {key!r} has to be equal "
+                                     "to number of boosting rounds")
+                new_params[key] = value[env.iteration - env.begin_iteration]
+            elif callable(value):
+                new_params[key] = value(env.iteration - env.begin_iteration)
+        if new_params:
+            if "learning_rate" in new_params:
+                env.model._gbdt.shrinkage_rate = float(
+                    new_params["learning_rate"])
+            env.params.update(new_params)
+    _callback.before_iteration = True
+    _callback.order = 10
     return _callback
 
 

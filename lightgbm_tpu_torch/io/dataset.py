@@ -17,6 +17,9 @@ raw float32 values of its used features (``raw`` [n, F_used], NaN kept),
 which the linear-leaf fit and scores read (reference Dataset raw_data_;
 the JAX package's ``raw``).
 
+``subset`` takes rows of a constructed dataset with its mappers and EFB
+plan (cv's folds).
+
 Not in this package yet: sparse (scipy) input, ``save_binary`` /
 ``load_binary``, streamed and sharded ingest.
 """
@@ -210,6 +213,43 @@ class Dataset:
         self._packed_mirror = np.ascontiguousarray(b).view(np.int32) \
             .reshape(n, (num_f + pad) // 4)
         return self._packed_mirror
+
+    def subset(self, indices) -> "Dataset":
+        """Row subset sharing the mappers and the EFB plan, nothing binned
+        again (reference Dataset::CopySubrow dataset.h:661; the JAX
+        package's ``subset``; cv's folds): the rows' bins, label, weight,
+        init score (column-major per class when it has k columns),
+        positions and, under ``linear_tree``, raw columns.  Query
+        boundaries do not survive an arbitrary subset: callers that fold
+        whole queries set the groups afterwards.  ``indices``: row indices
+        into this dataset."""
+        idx = np.asarray(indices, np.int64)
+        ds = Dataset()
+        ds.mappers = self.mappers
+        ds.used_feature_idx = list(self.used_feature_idx)
+        ds.num_total_features = self.num_total_features
+        ds.feature_names = self.feature_names
+        ds.config = self.config
+        ds.bundle_plan = self.bundle_plan
+        ds.bins = self.bins[idx]
+        md = Metadata(len(idx))
+        md.set_label(self.metadata.label[idx])
+        if self.metadata.weight is not None:
+            md.set_weight(self.metadata.weight[idx])
+        isc = self.metadata.init_score
+        if isc is not None:
+            if isc.size == self.num_data:
+                md.set_init_score(isc[idx])
+            else:
+                k = isc.size // self.num_data
+                md.set_init_score(isc.reshape(self.num_data, k, order="F")
+                                  [idx].reshape(-1, order="F"))
+        if self.metadata.position is not None:
+            md.set_position(self.metadata.position[idx])
+        ds.metadata = md
+        if self.raw is not None:
+            ds.raw = self.raw[idx]
+        return ds
 
     # ---------------------------------------------------------- construction
     @classmethod

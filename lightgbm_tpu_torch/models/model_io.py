@@ -48,6 +48,26 @@ def objective_to_string(name: str, config) -> str:
     return name
 
 
+def objective_string_to_params(s: str) -> Dict[str, Any]:
+    """Inverse of :func:`objective_to_string`: the params of a model
+    header's objective string (``"binary sigmoid:1"`` ->
+    ``{"objective": "binary", "sigmoid": "1"}``)."""
+    toks = s.split(" ")
+    name = toks[0]
+    out: Dict[str, Any] = {"objective": "none" if name == "custom" else name}
+    key_map = {"sigmoid": "sigmoid", "num_class": "num_class",
+               "alpha": "alpha", "c": "fair_c",
+               "tweedie_variance_power": "tweedie_variance_power"}
+    for tok in toks[1:]:
+        if tok == "sqrt":
+            out["reg_sqrt"] = True
+        elif ":" in tok:
+            k, v = tok.split(":", 1)
+            if k in key_map:
+                out[key_map[k]] = v
+    return out
+
+
 def model_to_string(trees: List[Tree], *, num_class: int,
                     num_tree_per_iteration: int, max_feature_idx: int,
                     objective_str: str, feature_names: List[str],

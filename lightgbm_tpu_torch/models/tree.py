@@ -272,15 +272,25 @@ class Tree:
             v_safe = np.where(isnan, 0.0, v)
             go_left = v_safe <= thr
             if is_cat.any():
+                # one pass per categorical split reached, not per row: a
+                # finite value goes left when its integer part is in the
+                # split's category list, NaN as the split says
                 cat_left = np.zeros(len(v), bool)
-                for ci in np.nonzero(is_cat)[0]:
-                    csi = self.cat_split_index[cur[ci]]
-                    sets = self.cat_threshold[csi]
-                    if isnan[ci]:
-                        cat_left[ci] = (self.cat_nan_left[csi]
-                                        if csi < len(self.cat_nan_left) else False)
-                    else:
-                        cat_left[ci] = int(v[ci]) in sets
+                ci = np.nonzero(is_cat)[0]
+                csi_of = self.cat_split_index[cur[ci]]
+                for csi in np.unique(csi_of):
+                    at = ci[csi_of == csi]
+                    vr = v[at]
+                    nan_r = np.isnan(vr)
+                    inf_r = np.isinf(vr)
+                    if inf_r.any():
+                        int(vr[inf_r][0])   # OverflowError, as int(inf) is
+                    nan_left = (self.cat_nan_left[csi]
+                                if csi < len(self.cat_nan_left) else False)
+                    cats = np.asarray(self.cat_threshold[csi], np.float64)
+                    cat_left[at] = np.where(
+                        nan_r, nan_left,
+                        np.isin(np.trunc(np.where(nan_r, 0.0, vr)), cats))
                 go_left = np.where(is_cat, cat_left, go_left)
                 miss = np.where(is_cat, False, miss)
             use_default = miss & (mtype != MISSING_NONE)

@@ -657,6 +657,51 @@ def test_predict_unseen_categories_and_nan_match_jax(path, monkeypatch):
                                       bj.predict(Xh, raw_score=True))
 
 
+@pytest.mark.parametrize("name", ["probe-255", "onehot-16"])
+def test_host_walk_leaves_match_jax_on_odd_codes(name, monkeypatch):
+    """The port's host walk decides its categorical nodes a split at a
+    time; the JAX package's walk decides them a row at a time.  Leaf for
+    leaf they agree on fractional, negative, huge and NaN codes and unseen
+    categories, for the trained trees and the text-loaded ones (NaN goes
+    right there); an infinite code raises OverflowError in both."""
+    params, _ = BATCHED[name]
+    data = _batched_data("probe")
+    bt = _train_cat(params, data, 3, monkeypatch)
+    X, y, cats = data
+    bj = lgb_jax.train(dict(params), lgb_jax.Dataset(
+        X, y, categorical_feature=cats), num_boost_round=3)
+    assert _head(bt) == _head(bj)
+    Xh, _ = _probe(3000, seed=11)
+    rng = np.random.default_rng(11)
+    for j in CAT_COLS:
+        r = rng.random(len(Xh))
+        Xh[:, j] += rng.choice([0.0, 0.5, 0.999, -0.5], len(Xh))
+        Xh[r < 0.05, j] = np.nan
+        odd = (r >= 0.05) & (r < 0.08)
+        Xh[odd, j] = rng.choice([-1e19, 1e300, 2.0 ** 40, -1.0], odd.sum())
+    trees_t = bt._gbdt.models + lgb_torch.Booster(
+        model_str=bt.model_to_string())._loaded["trees"]
+    trees_j = bj._gbdt.models + lgb_jax.Booster(
+        model_str=bj.model_to_string())._loaded["trees"]
+    assert sum(len(t.cat_threshold) for t in trees_t) > 0
+    for tt, tj in zip(trees_t, trees_j, strict=True):
+        np.testing.assert_array_equal(tt.predict_leaf_index(Xh),
+                                      tj.predict_leaf_index(Xh))
+    Xh[:, CAT_COLS] = np.inf
+    raised = []
+    for tt, tj in zip(trees_t, trees_j):
+        both = []
+        for t in (tt, tj):
+            try:
+                t.predict_leaf_index(Xh)
+                both.append(False)
+            except OverflowError:
+                both.append(True)
+        assert both[0] == both[1]
+        raised.append(both[0])
+    assert any(raised)
+
+
 # ------------------------------------------------------------ the loop
 
 def test_refusal_is_gone_and_fused_admits_categorical():

@@ -137,3 +137,82 @@ def test_cpu_only_on_request():
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(lgb_torch.LightGBMError):
         resolve_device("tpu")
+
+
+def test_scan_covers_the_training_surface_modules():
+    names = {str(p.relative_to(REPO)) for p in _port_sources()}
+    for mod in ("obs/__init__.py", "obs/metrics.py",
+                "robustness/__init__.py", "robustness/guards.py",
+                "engine.py", "basic.py", "callback.py"):
+        assert f"lightgbm_tpu_torch/{mod}" in names
+
+
+def test_training_surface_runs_with_jax_unimportable(tmp_path):
+    """Custom objectives and metrics, nan_policy, continued training,
+    rollback, refit, reset_parameter, cv and the telemetry counters run
+    with jax and lightgbm_tpu unimportable."""
+    code = textwrap.dedent("""
+        import sys
+        for name in ("jax", "jaxlib", "lightgbm_tpu"):
+            sys.modules[name] = None   # poison: importing it now fails
+        import numpy as np
+        import lightgbm_tpu_torch as lgb
+        rng = np.random.default_rng(0)
+        X = rng.normal(size=(2000, 4))
+        y = (X[:, 0] + 0.3 * rng.normal(size=2000) > 0).astype(float)
+
+        def fobj(p, ds):
+            q = 1.0 / (1.0 + np.exp(-p))
+            g = q - ds.get_label()
+            if len(calls) == 2:
+                g = g * np.nan
+            calls.append(1)
+            return g, q * (1.0 - q)
+
+        def feval(p, ds):
+            return "err", float(np.mean((p > 0) != ds.get_label())), False
+        base = dict(num_leaves=7, device_type="cpu", verbosity=-1)
+        calls = []
+        ds = lgb.Dataset(X, y, free_raw_data=False)
+        b = lgb.train(dict(base, nan_policy="skip_round"), ds, 4,
+                      valid_sets=[ds], fobj=fobj, feval=feval)
+        assert b.num_trees() == 3
+        assert b.telemetry()["counters"]["nan_rounds_skipped"] == 1
+        b2 = lgb.train(dict(base, objective="binary"), ds, 3, init_model=b,
+                       callbacks=[lgb.reset_parameter(
+                           learning_rate=[0.1, 0.2, 0.3])])
+        assert b2.num_trees() == 6
+        b2.rollback_one_iter()
+        assert b2.num_trees() == 5
+        r = b2.refit(X, y, decay_rate=0.5)
+        assert np.isfinite(r.predict(X[:50])).all()
+        res = lgb.cv(dict(base, objective="binary"), lgb.Dataset(X, y), 3,
+                     nfold=3, return_cvbooster=True)
+        assert len(res["valid binary_logloss-mean"]) == 3
+        assert not any(m.split(".")[0] in ("jax", "jaxlib")
+                       for m, mod in sys.modules.items() if mod is not None)
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_training_surface_without_a_card_raises(monkeypatch):
+    """cv and a loaded model's refit run on the card by default: without
+    one they raise."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(300, 3))
+    y = (X[:, 0] > 0).astype(float)
+    params = dict(objective="binary", num_leaves=7, verbosity=-1)
+    with pytest.raises(lgb_torch.LightGBMError):
+        lgb_torch.cv(params, lgb_torch.Dataset(X, y), 2, nfold=2)
+    bst = lgb_torch.train(dict(params, device_type="cpu"),
+                          lgb_torch.Dataset(X, y), 2)
+    loaded = lgb_torch.Booster(model_str=bst.model_to_string())
+    with pytest.raises(lgb_torch.LightGBMError):
+        loaded.refit(X, y)

@@ -414,7 +414,10 @@ def test_quantize_and_renew_match_jax():
 
 def test_unported_configurations_raise():
     X, y = _data("regression", n=2000)
-    for extra in ({"nan_policy": "raise"}, {"tree_learner": "data"}):
+    # nan_policy trains (tests/test_torch_custom.py);
+    # checkpoints and the distributed learners are still refused
+    for extra in ({"checkpoint_dir": "ckpt"}, {"tree_learner": "data"},
+                  {"tree_learner": "voting"}):
         params = dict(SLICE, objective="regression", device_type="cpu")
         params.update(extra)
         with pytest.raises(lgb_torch.LightGBMError):
