@@ -267,6 +267,29 @@ else: no jax, no network.  Phases, each of which fails the run on error:
    (normal equations to 1e-5 of the largest value and the same bits
    twice, scores bit for bit), timed beside their bounds, and the linear
    fit's share of a round.
+14. the training surface (``check_training_surface``): a numpy ``fobj``
+   against the built-in objective, ``nan_policy``, ``init_model``
+   continuation (the init scores through the forest kernel), ``cv`` and
+   ``refit`` / ``rollback_one_iter`` on phase 3's set.
+15. the user surfaces (``check_user_surfaces``; no new kernel, the
+   launches of each part printed on a ``phase 15 kernels`` line): (a) a
+   50,000-row CSV with a header and a ``.weight`` file and 10,000 LibSVM
+   rows, ``Dataset(path)`` equal to the matrix's Dataset and 5 fused
+   rounds to the matrix's text, the parse's MiB/s; (b) binary datasets
+   (plain and EFB-bundled) saved, loaded and trained to the same text;
+   (c) 1M x 4,000 one-hot CSR columns (8 exclusive groups) binned without
+   a dense matrix (the resident set's growth under 4 GB), bundled into at
+   most 64 columns of up to 256 bins, 5 fused rounds, the trainer's
+   scores against ``Booster.predict`` of the CSR (host walk and forest
+   kernel), 100k x 1 card against CPU to the same text; (d) the sklearn
+   estimators to ``train()``'s texts; (e) ``feature_importance`` and
+   ``dump_model`` against the model text, ``eval_train`` after
+   ``set_leaf_output`` / ``merge_models`` / ``shuffle_models`` and a
+   linear model's ``set_leaf_output`` against the metric of ``predict``,
+   ``reset_training_data`` then fused rounds equal to the classic loop's,
+   its live device memory no more than a fresh booster's; (f) the CLI in
+   subprocesses (train, predict, convert_model; exit code 1 without a
+   card).
 
 It prints one JSON line with every kernel's numbers (launches: the fused
 runs' for the kernels a fused run holds, the table partitions' those of
@@ -285,6 +308,7 @@ the two packages' trainings: see ``ab_main``.
 """
 
 import collections
+import gc
 import hashlib
 import inspect
 import json
@@ -6091,6 +6115,659 @@ def check_training_surface(torch, lgbt, HK, RF, TB, prng, card):
     return n_fk
 
 
+# ---- phase 15: the user surfaces
+
+#: phase 15 (a)'s file rows (phase 3's first rows) and LibSVM rows, cut
+#: from 200,000 and 50,000 for the phase's time budget (the host's text
+#: parse and write run at ~7 MiB/s)
+N_FILE, N_LIBSVM = 50_000, 10_000
+#: the auto policy's four settings, given explicitly where the rows are
+#: below its 100,000-row switch (and on the CLI, which passes every
+#: parameter explicitly): the batched int8 recipe, the fused loop
+AUTO4 = dict(tpu_split_batch=42, tpu_hist_dtype="int8",
+             use_quantized_grad=True, quant_train_renew_leaf=True)
+FILE_RECIPE = dict(RECIPE, **AUTO4)
+#: phase 15 (c)'s wide sparse set (tests/test_ingestion.py:314-390):
+#: 8 exclusive groups of 500 one-hot columns, seed 11; its forest-kernel
+#: predict takes the first of the 50,000 rows' three 16,777-row blocks,
+#: and its card-vs-CPU check 50,000 rows (cut from 50,000 and 100,000 for
+#: the phase's budget: the host bins 4,000 columns a block, the CPU trains
+#: on the plain versions)
+N_WIDE, WIDE_GROUPS, WIDE_MEMBERS = 1_000_000, 8, 500
+N_WIDE_FOREST, N_WIDE_CROSS = 16_777, 50_000
+#: (e)'s linear model's rows, and the live device memory (the bytes its
+#: tensors requested) a booster reset to a subset may hold beyond a fresh
+#: booster's on it (one 1M-row float32 vector is 3.8 MiB)
+N_LIN, MEM_SLACK_MIB = 200_000, 1.0
+WIDE_PARAMS = dict(objective="binary", num_leaves=15, verbosity=-1,
+                   max_bin=63, min_data_in_leaf=20, tpu_split_batch=4,
+                   tpu_hist_dtype="float32", metric="auc")
+
+
+def synth_wide_sparse(n, rng):
+    """tests/test_ingestion.py's Allstate-shaped CSR matrix: each row one
+    indicator in each of ``WIDE_GROUPS`` groups of ``WIDE_MEMBERS``
+    columns; the label depends on group 0's member."""
+    import scipy.sparse as sp
+    member = rng.integers(0, WIDE_MEMBERS, size=(n, WIDE_GROUPS))
+    rows = np.repeat(np.arange(n), WIDE_GROUPS)
+    cols = (np.arange(WIDE_GROUPS)[None, :] * WIDE_MEMBERS + member).ravel()
+    X = sp.csr_matrix((np.ones(n * WIDE_GROUPS), (rows, cols)),
+                      shape=(n, WIDE_GROUPS * WIDE_MEMBERS))
+    y = ((member[:, 0] % 7 < 3).astype(np.float64)
+         + 0.3 * rng.normal(size=n) > 0.5).astype(np.float64)
+    return X, y
+
+
+class RssPeak:
+    """The process's resident set, sampled every 10 ms from
+    /proc/self/statm in a thread while the block runs: ``grew`` is the
+    peak minus the resident set at entry, in bytes."""
+
+    def _rss(self):
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+    def __enter__(self):
+        import threading
+        self.start = self.peak = self._rss()
+        self._stop = threading.Event()
+
+        def sample():
+            while not self._stop.wait(0.01):
+                self.peak = max(self.peak, self._rss())
+        self._t = threading.Thread(target=sample, daemon=True)
+        self._t.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._t.join()
+        self.peak = max(self.peak, self._rss())
+        self.grew = self.peak - self.start
+        return False
+
+
+def fused_s_round(bst):
+    """s/round of a fused ``train()``: its chunk walls over their rounds
+    (``FusedRound.walls``, the capture left out)."""
+    frs = list(bst._gbdt._fused_cache.values())
+    if len(frs) != 1 or frs[0].graphs is None:
+        fail("a phase 15 training expected on the fused loop did not "
+             "replay its CUDA graphs")
+    return (sum(w for w, _ in frs[0].walls)
+            / sum(r for _, r in frs[0].walls))
+
+
+def write_csv(path, y, X, header):
+    """y then X as '%.17g' CSV (float64 round trip), with a header."""
+    M = np.column_stack([np.asarray(y, np.float64),
+                         np.asarray(X, np.float64)])
+    np.savetxt(path, M, fmt="%.17g", delimiter=",", comments="",
+               header=",".join(header))
+
+
+def write_libsvm(path, y, X):
+    """y then 1-based index:value pairs of the nonzeros, '%.17g'."""
+    with open(path, "w") as f:
+        for lab, row in zip(y, np.asarray(X, np.float64)):
+            nz = np.flatnonzero(row)
+            f.write(f"{lab:.17g} " + " ".join(
+                f"{j + 1}:{row[j]:.17g}" for j in nz) + "\n")
+
+
+def cli_argv(csv, out):
+    """The CLI's training arguments on (a)'s file: ``FILE_RECIPE`` (the
+    CLI, like the JAX package's, passes every parameter explicitly, and
+    the auto policy yields to explicit settings)."""
+    return [f"data={csv}", "header=true", "objective=binary",
+            "num_leaves=255", "max_bin=255", "learning_rate=0.1",
+            "min_data_in_leaf=0", "min_sum_hessian_in_leaf=100",
+            "num_iterations=5", "tpu_split_batch=42",
+            "tpu_hist_dtype=int8", "use_quantized_grad=true",
+            "quant_train_renew_leaf=true", "verbosity=-1",
+            f"output_model={out}"]
+
+
+def check_user_surfaces(torch, lgbt, HK, RF, TB, prng, card):
+    """Phase 15: the user surfaces on the card, no new kernel.  (a) phase
+    3's first ``N_FILE`` rows as a CSV with a header, a label column and a
+    ``.weight`` companion, and ``N_LIBSVM`` rows as LibSVM:
+    ``Dataset(path)`` gives the in-memory Dataset's bins, label and
+    weights; 5 fused rounds (``FILE_RECIPE``) from the file give the
+    matrix's model text; the parse time and MiB/s.  (b) ``save_binary`` /
+    ``load_binary`` of (a)'s Dataset and of an ``N_FILE``-row
+    phase-7-shaped bundled one: 5 fused rounds from each loaded file give
+    the original's text; the file sizes.  (c) the
+    Allstate shape of tests/test_ingestion.py (1M rows, 8 x 500 one-hot
+    columns, seed 11) from CSR: construction s and the host's resident
+    set growth (under 4 GB; dense float64 would be 32 GB), the bundled
+    columns (at most 64), ``device_n_bins``, the kernels the batched
+    grower launched, 5 fused rounds' s/round; the trainer's scores against
+    ``Booster.predict`` of the CSR on 50,000 rows (the JAX test's
+    collision ceiling: under 0.1% of rows off by more than 1e-4, the rest
+    within rtol 1e-5), that predict of its first ``N_WIDE_FOREST`` rows
+    on the forest kernel (``DEVICE_PREDICT_MIN_WORK`` lowered for the
+    call) against the host walk; ``N_WIDE_CROSS`` rows of that binning x
+    1 round on the card and the CPU to the same text
+    (regression with leaf renewal off: exact gradients, so the two
+    devices can share the text).  (d) ``LGBMClassifier(n_estimators=20)``
+    on phase 3's 1M rows with the 200,000-row held-out set as its
+    ``eval_set`` and ``early_stopping_rounds=5`` to ``train()``'s text,
+    ``predict_proba[:, 1]`` equal to ``booster_.predict``, its s/round
+    beside phase 5's; an ``LGBMRegressor`` and an ``LGBMRanker`` at
+    100,000 rows x 5 to ``train()``'s texts.  (e) on a card booster (phase
+    3's set, 5 fused rounds): ``feature_importance`` against the text's
+    split counts and summed gains, ``dump_model``'s leaf values against
+    the text's; after ``set_leaf_output``, ``merge_models`` (a second
+    booster without boost-from-average, whose folded bias the score cache
+    would leave out, as in the JAX package; then its text loaded, whose
+    thresholds the rebuild bins) and ``shuffle_models``,
+    ``eval_train`` equal to the metric of ``predict(raw_score=True)``, and
+    so after a linear model's ``set_leaf_output`` (``N_LIN`` rows x 3; the
+    rebuild one linear-scores launch a linear tree);
+    ``reset_training_data`` to a 500,000-row subset, 5 more fused rounds
+    equal to the classic loop's, its live device memory at most
+    ``MEM_SLACK_MIB`` over a fresh booster's of 5 fused rounds on the
+    subset.  (f) the CLI (``python3 -m lightgbm_tpu_torch``) in
+    subprocesses, started after (d)'s timed fit (the rest of (d) and (e)
+    run beside them) and collected here: ``task=train`` on (a)'s CSV to
+    the Python API's text on the same file and arguments, ``task=predict``
+    equal to ``Booster.predict``, ``task=convert_model`` a non-empty C++
+    file, and exit code 1 with ``CUDA_VISIBLE_DEVICES=""``.  Returns the
+    launches per part."""
+    import scipy.sparse as sp
+    from lightgbm_tpu_torch.application import parse_argv
+    from lightgbm_tpu_torch.boosting import gbdt as G
+    from lightgbm_tpu_torch.config import Config, normalize_params
+    from lightgbm_tpu_torch.ops import forest_kernels as FK
+    from lightgbm_tpu_torch.ops import linear_kernels as LK
+    t_phase = time.perf_counter()
+    part_launches = {}
+
+    def mark(what):
+        print(f"phase 15 {what}: {time.perf_counter() - t_phase:.1f} s",
+              flush=True)
+
+    def counted(part):
+        c = {k: v for k, v in launch_counts(HK, RF, TB, prng).items() if v}
+        if FK.launches:
+            c["forest_values"] = FK.launches
+        part_launches[part] = c
+        zero_counts(HK, RF, TB, prng)
+        FK.launches = 0
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p15_")
+    procs = []
+    try:
+        ds_full, X, y, Xv, yv, _ = slice_data(lgbt, N, 0, 255)
+        zero_counts(HK, RF, TB, prng)
+        FK.launches = 0
+
+        # (a) file input
+        rng = np.random.default_rng(15)
+        Xf, yf = X[:N_FILE], y[:N_FILE]
+        wf = rng.uniform(0.5, 1.5, size=N_FILE)
+        csv = os.path.join(tmp, "higgs.csv")
+        t0 = time.perf_counter()
+        write_csv(csv, yf, Xf, ["label"] + [f"f{j}" for j in range(F)])
+        np.savetxt(csv + ".weight", wf, fmt="%.17g")
+        svm = os.path.join(tmp, "higgs.svm")
+        write_libsvm(svm, y[:N_LIBSVM], X[:N_LIBSVM])
+        t_write = time.perf_counter() - t0
+        mb = os.path.getsize(csv) / 2**20
+        fp = {"max_bin": 255, "verbosity": -1, "header": True}
+        t0 = time.perf_counter()
+        dsf = lgbt.Dataset(csv, params=fp).construct()
+        t_parse = time.perf_counter() - t0
+        dsm = lgbt.Dataset(Xf, yf, weight=wf, params={
+            "max_bin": 255, "verbosity": -1}).construct()
+        fi, mi = dsf._inner, dsm._inner
+        if not (np.array_equal(fi.bins, mi.bins)
+                and np.array_equal(fi.metadata.label, mi.metadata.label)
+                and np.array_equal(fi.metadata.weight, mi.metadata.weight)):
+            fail("phase 15 (a): the CSV's Dataset differs from the "
+                 "matrix's (bins, label or weights)")
+        t0 = time.perf_counter()
+        dss = lgbt.Dataset(svm, params={"max_bin": 255,
+                                        "verbosity": -1}).construct()
+        t_svm = time.perf_counter() - t0
+        dsd = lgbt.Dataset(np.column_stack([np.zeros(N_LIBSVM),
+                                            X[:N_LIBSVM]]), y[:N_LIBSVM],
+                           params={"max_bin": 255,
+                                   "verbosity": -1}).construct()
+        if not np.array_equal(dss._inner.bins, dsd._inner.bins):
+            fail("phase 15 (a): the LibSVM file's bins differ from the "
+                 "matrix's (1-based indices: column 0 empty)")
+        b_file = lgbt.train(dict(FILE_RECIPE), dsf, 5)
+        b_mat = lgbt.train(dict(FILE_RECIPE), dsm, 5)
+        per_file = fused_s_round(b_file)
+        if b_file.model_to_string() != b_mat.model_to_string():
+            fail("phase 15 (a): 5 fused rounds from the CSV gave another "
+                 "model text than from the matrix")
+        # the Python API's model on the CLI's arguments; the CLI's
+        # subprocesses start after (d)'s timed fit and are collected in (f)
+        api_model = os.path.join(tmp, "api_model.txt")
+        argv = cli_argv(csv, os.path.join(tmp, "cli_model.txt"))
+        cli_params = Config(normalize_params(parse_argv(argv))).to_dict()
+        b_api = lgbt.train(cli_params, dsf, 5)
+        b_api.save_model(api_model)
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=root)
+        cli = [sys.executable, "-m", "lightgbm_tpu_torch"]
+        runs = {
+            "train": (argv, env),
+            "predict": ([f"task=predict", f"data={csv}", "header=true",
+                         f"input_model={api_model}",
+                         f"output_result={os.path.join(tmp, 'pred.txt')}"],
+                        env),
+            "convert_model": ([f"task=convert_model",
+                               f"input_model={api_model}",
+                               f"convert_model="
+                               f"{os.path.join(tmp, 'model.cpp')}"], env),
+            "no card": ([f"data={csv}", "num_iterations=1",
+                         f"output_model={os.path.join(tmp, 'x.txt')}"],
+                        dict(env, CUDA_VISIBLE_DEVICES="")),
+        }
+        counted("(a)")
+        print(f"phase 15 (a) file input: CSV {N_FILE:,} x {F + 1} with a "
+              f"header and a .weight file, {mb:.1f} MiB, written in "
+              f"{t_write:.2f} s (with {N_LIBSVM:,} LibSVM rows), parsed "
+              f"and binned in {t_parse:.2f} s ({mb / t_parse:.1f} MiB/s); "
+              f"LibSVM {N_LIBSVM:,} rows {t_svm:.2f} s; bins, label and "
+              f"weights equal to the matrix's; 5 fused rounds from the file "
+              f"(s/round {per_file:.5f}) gave the matrix's text", flush=True)
+        del dsm, dss, dsd, b_mat
+        mark("(a)")
+
+        # (b) binary datasets: (a)'s Dataset and a bundled one
+        rng = np.random.default_rng(7)
+        Xb, yb, _ = synth_bundled(N_FILE, rng)
+        dsb = lgbt.Dataset(Xb, yb, params={"max_bin": 255,
+                                           "verbosity": -1}).construct()
+        if dsb._inner.bundle_plan is None:
+            fail("phase 15 (b): the phase-7-shaped set was not bundled")
+        sizes = {}
+        for name, d in (("file", dsf), ("bundled", dsb)):
+            path = os.path.join(tmp, f"{name}.bin")
+            t0 = time.perf_counter()
+            d.save_binary(path)
+            t_save = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            loaded = lgbt.Dataset(path).construct()
+            t_load = time.perf_counter() - t0
+            sizes[name] = (os.path.getsize(path) / 2**20, t_save, t_load)
+            if not np.array_equal(loaded._inner.bins, d._inner.bins):
+                fail(f"phase 15 (b) {name}: loaded bins differ")
+            # (a)'s training of the file's Dataset is the first baseline
+            b0 = b_file if d is dsf else lgbt.train(dict(FILE_RECIPE), d, 5)
+            b1 = lgbt.train(dict(FILE_RECIPE), loaded, 5)
+            fused_s_round(b1)
+            if b0.model_to_string() != b1.model_to_string():
+                fail(f"phase 15 (b) {name}: 5 fused rounds from the loaded "
+                     f"binary gave another text")
+            del loaded, b0, b1
+        del b_file
+        counted("(b)")
+        print("phase 15 (b) binary datasets (MiB, save s, load s): "
+              + json.dumps({k: [round(a, 2), round(b, 3), round(c, 3)]
+                            for k, (a, b, c) in sizes.items()})
+              + f"; bundled {Xb.shape[1]} features into "
+              f"{dsb._inner.bins.shape[1]} columns; 5 fused rounds from "
+              f"each loaded file gave the original's text", flush=True)
+        del dsb, Xb
+        mark("(b)")
+
+        # (c) wide sparse input, the Allstate shape
+        rng = np.random.default_rng(11)
+        t0 = time.perf_counter()
+        Xw, yw = synth_wide_sparse(N_WIDE, rng)
+        t_make = time.perf_counter() - t0
+        with RssPeak() as rss:
+            t0 = time.perf_counter()
+            dsw = lgbt.Dataset(Xw, yw, params=dict(WIDE_PARAMS)).construct()
+            t_con = time.perf_counter() - t0
+        wi = dsw._inner
+        if rss.grew >= 4 << 30 or wi.bins.shape[1] > 64 \
+                or wi.bins.dtype != np.uint8 or wi.bundle_plan is None:
+            fail(f"phase 15 (c): construction grew the resident set by "
+                 f"{rss.grew / 2**30:.2f} GiB, bins {wi.bins.shape} "
+                 f"{wi.bins.dtype}")
+        zero_counts(HK, RF, TB, prng)
+        bw = lgbt.train(dict(WIDE_PARAMS), dsw, 5)
+        gw = bw._gbdt
+        per_w = fused_s_round(bw)
+        kc = {k: v for k, v in launch_counts(HK, RF, TB, prng).items() if v}
+        pred = bw.predict(Xw[:50_000])
+        train_p = 1.0 / (1.0 + np.exp(-gw.scores[:50_000, 0].double()
+                                      .cpu().numpy()))
+        off = np.abs(train_p - pred) > 1e-4
+        if off.mean() >= 1e-3 or not np.allclose(
+                train_p[~off], pred[~off], rtol=1e-5, atol=1e-6):
+            fail(f"phase 15 (c): trainer scores vs predict of the CSR: "
+                 f"{int(off.sum())} of 50,000 rows off by more than 1e-4")
+        FK.launches = 0
+        orig = G.GBDT.DEVICE_PREDICT_MIN_WORK
+        G.GBDT.DEVICE_PREDICT_MIN_WORK = 0
+        try:
+            t0 = time.perf_counter()
+            pred_dev = bw.predict(Xw[:N_WIDE_FOREST])
+            t_pdev = time.perf_counter() - t0
+        finally:
+            G.GBDT.DEVICE_PREDICT_MIN_WORK = orig
+        n_fk = FK.launches
+        if n_fk < 1 or not np.allclose(pred_dev, pred[:N_WIDE_FOREST],
+                                       rtol=2e-5, atol=2e-6):
+            fail(f"phase 15 (c): {n_fk} forest launches for the sparse "
+                 f"predict, max abs diff vs the host walk "
+                 f"{np.abs(pred_dev - pred[:N_WIDE_FOREST]).max()}")
+        a_w = auc(yw[:50_000], pred)
+        print(f"phase 15 (c) wide sparse ({N_WIDE:,} x "
+              f"{Xw.shape[1]:,} CSR, {Xw.nnz:,} nonzeros, made in "
+              f"{t_make:.2f} s): construction {t_con:.2f} s, resident set "
+              f"peak {rss.peak / 2**30:.2f} GiB, +{rss.grew / 2**20:.0f} MiB "
+              f"over its start (dense float64 would be "
+              f"{N_WIDE * Xw.shape[1] * 8 / 2**30:.1f} GiB); "
+              f"{len(wi.used_feature_idx):,} features bundled into "
+              f"{wi.bins.shape[1]} columns, bins on the card "
+              f"{gw.bins.numel() / 2**20:.1f} MiB, device_n_bins "
+              f"{wi.device_n_bins()}, hist_kernel {gw.hp.hist_kernel} at "
+              f"{gw.hp.n_bins} bins, {gw.hp.hist_dtype}; 5 fused rounds "
+              f"s/round {per_w:.5f}, the kernels the batched grower "
+              f"launched {json.dumps(kc)}; "
+              f"trainer scores vs predict of 50,000 CSR rows: {int(off.sum())}"
+              f" off by more than 1e-4 (EFB's sampled conflicts), AUC "
+              f"{a_w:.6f}; the forest kernel on the first {N_WIDE_FOREST:,} "
+              f"rows ({n_fk} launch(es), threshold lowered) {t_pdev:.2f} s, "
+              f"within rtol 2e-5 of the host walk",
+              flush=True)
+        if t_con > 20:
+            print(f"phase 15 (c): construction took {t_con:.1f} s, over "
+                  f"20 s on this host", flush=True)
+        counted("(c)")
+        # card against CPU, 100k x 1: the same text
+        xp = dict(WIDE_PARAMS, objective="regression", metric="l2",
+                  tpu_hist_dtype="int8", use_quantized_grad=True,
+                  quant_train_renew_leaf=False, stochastic_rounding=False)
+        # the first rows of the 1M-row binning: its 256-bin bundles
+        dsx = dsw.subset(np.arange(N_WIDE_CROSS), params=dict(xp))
+        t0 = time.perf_counter()
+        b_g = lgbt.train(dict(xp), dsx, 1)
+        b_c = lgbt.train(dict(xp, device_type="cpu"), dsx, 1)
+        t_x = time.perf_counter() - t0
+        if trees_text(b_g) != trees_text(b_c):
+            fail("phase 15 (c): wide sparse x 1 round, card text differs from "
+                 "the CPU's")
+        print(f"phase 15 (c) cross-check ({N_WIDE_CROSS:,} x 1, regression, "
+              f"int8, leaf "
+              f"renewal off): card text equal to the CPU's "
+              f"({b_g._gbdt.models[0].num_leaves} leaves, "
+              f"{dsx._inner.bins.shape[1]} columns), {t_x:.2f} s",
+              flush=True)
+        counted("(c) cross-check")
+        del Xw, yw, dsw, bw, gw, dsx, b_g, b_c, pred, pred_dev, train_p
+        mark("(c)")
+
+        # (d) the sklearn estimators
+        clf = lgbt.LGBMClassifier(n_estimators=20, verbosity=-1)
+        t0 = time.perf_counter()
+        clf.fit(X, y, eval_set=[(Xv, yv)], early_stopping_rounds=5)
+        t_clf = time.perf_counter() - t0
+        per_clf = fused_s_round(clf.booster_)
+        # the CLI's subprocesses run beside the rest of (d) and (e), whose
+        # printed times are taken under their load
+        t_cli0 = time.perf_counter()
+        for name, (args, e) in runs.items():
+            procs.append((name, subprocess.Popen(
+                cli + args, cwd=root, env=e, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)))
+        p = clf._train_params()
+        b_t = lgbt.train(p, clf.booster_.train_set, 20,
+                         valid_sets=[clf.booster_.train_set.create_valid(
+                             Xv, label=yv)],
+                         callbacks=[lgbt.early_stopping(5),
+                                    lgbt.record_evaluation({})])
+        if clf.booster_.model_to_string() != b_t.model_to_string():
+            fail("phase 15 (d): LGBMClassifier's text differs from "
+                 "train()'s")
+        proba = clf.predict_proba(Xv)
+        if not np.array_equal(proba[:, 1], clf.booster_.predict(Xv)):
+            fail("phase 15 (d): predict_proba[:, 1] differs from "
+                 "booster_.predict")
+        a_clf = auc(yv, proba[:, 1])
+        n_r = min(100_000, len(y))
+        reg = lgbt.LGBMRegressor(n_estimators=5, verbosity=-1)
+        yr = X[:n_r] @ np.linspace(-1, 1, F) + y[:n_r]
+        reg.fit(X[:n_r], yr)
+        # train() on the estimators' own (binned) Datasets
+        b_r = lgbt.train(reg._train_params(), reg.booster_.train_set, 5)
+        rk = lgbt.LGBMRanker(n_estimators=5, verbosity=-1)
+        yk = np.digitize(yr, np.quantile(yr, [0.5, 0.75, 0.9, 0.97]))
+        grp = np.full(n_r // 100, 100)
+        grp[-1] += n_r % 100
+        rk.fit(X[:n_r], yk, group=grp)
+        b_k = lgbt.train(rk._train_params(), rk.booster_.train_set, 5)
+        for name, e, b in (("LGBMRegressor", reg, b_r),
+                           ("LGBMRanker", rk, b_k)):
+            if e.booster_.model_to_string() != b.model_to_string():
+                fail(f"phase 15 (d): {name}'s text differs from train()'s")
+        counted("(d)")
+        print(f"phase 15 (d) sklearn: LGBMClassifier(n_estimators=20) on "
+              f"1M x {F} with a 200,000-row eval_set and early stopping "
+              f"(patience 5): fit {t_clf:.2f} s, {clf.n_estimators_} trees "
+              f"(best iteration {clf.best_iteration_}), s/round "
+              f"{per_clf:.5f} (phase 5's default {FUSED_S_ROUND.get('default', float('nan')):.5f}), "
+              f"held-out AUC {a_clf:.6f}; its text equal to train()'s, "
+              f"predict_proba[:, 1] equal to booster_.predict; "
+              f"LGBMRegressor and LGBMRanker (100k x 5) equal to train()'s "
+              f"texts; fused: classifier {bool(clf.booster_._gbdt._fused_cache)}, "
+              f"regressor {bool(reg.booster_._gbdt._fused_cache)}, ranker "
+              f"{bool(rk.booster_._gbdt._fused_cache)}", flush=True)
+        del clf, b_t, reg, rk, b_r, b_k, proba
+        mark("(d)")
+
+        # (e) inspection and model edits on a card booster
+        pe = dict(RECIPE, metric="binary_logloss")
+        b = lgbt.train(pe, ds_full, 5)
+        text = b.model_to_string()
+        nfeat = b.num_feature()
+        cnt, gain = np.zeros(nfeat), np.zeros(nfeat)
+        leaf_text = []
+        for line in text.splitlines():
+            if line.startswith("split_feature="):
+                feats = np.array(line.split("=")[1].split(), int)
+                np.add.at(cnt, feats, 1)
+            elif line.startswith("split_gain="):
+                np.add.at(gain, feats, np.maximum(
+                    np.array(line.split("=")[1].split(), float), 0.0))
+            elif line.startswith("leaf_value="):
+                leaf_text.extend(float(v) for v in line.split("=")[1].split())
+        leaf_dump = []
+
+        def leaves(node):
+            if "leaf_value" in node:
+                leaf_dump.append((node["leaf_index"], node["leaf_value"]))
+            else:
+                leaves(node["left_child"])
+                leaves(node["right_child"])
+        for info in b.dump_model()["tree_info"]:
+            start = len(leaf_dump)
+            leaves(info["tree_structure"])
+            leaf_dump[start:] = sorted(leaf_dump[start:])
+        if not np.array_equal(b.feature_importance("split"), cnt) or \
+                not np.allclose(b.feature_importance("gain"), gain,
+                                rtol=1e-5, atol=0):
+            fail("phase 15 (e): feature_importance differs from the model "
+                 "text's split counts or gains")
+        if [v for _, v in leaf_dump] != leaf_text:
+            fail("phase 15 (e): dump_model's leaf values differ from the "
+                 "text's")
+
+        def eval_vs_predict(bst, Xe, ye):
+            """eval_train's logloss and the host's of predict(raw_score)
+            over ``Xe`` (the forest kernel: the threshold lowered)."""
+            (_, _, val, _), = bst.eval_train()
+            keep = G.GBDT.DEVICE_PREDICT_MIN_WORK
+            G.GBDT.DEVICE_PREDICT_MIN_WORK = 0
+            try:
+                raw = bst.predict(Xe, raw_score=True)
+            finally:
+                G.GBDT.DEVICE_PREDICT_MIN_WORK = keep
+            p_ = np.clip(1.0 / (1.0 + np.exp(-raw)), 1e-15, 1 - 1e-15)
+            want = float(-np.mean(ye * np.log(p_)
+                                  + (1 - ye) * np.log(1 - p_)))
+            return val, want
+
+        second = lgbt.train(dict(pe, boost_from_average=False), ds_full, 3)
+        # a linear model's leaf edit: its scores are rebuilt through the
+        # linear scores kernel, one launch a linear tree
+        dl = lgbt.Dataset(X[:N_LIN], y[:N_LIN], params={
+            "max_bin": 255, "verbosity": -1, "linear_tree": True}).construct()
+        bl = lgbt.train(dict(pe, linear_tree=True), dl, 3)
+        n_lin = sum(t.is_linear for t in bl._gbdt.models)
+        edits, lin_rebuild = {}, None
+        for name, bst, (Xe, ye), edit in (
+                ("set_leaf_output", b, (X, y),
+                 lambda: b.set_leaf_output(2, 3, b.get_leaf_output(2, 3)
+                                           + 0.5)),
+                ("merge_models", b, (X, y), lambda: b.merge_models(second)),
+                # a model read from text has no bin thresholds: the rebuild
+                # bins its thresholds with the training set's mappers
+                ("merge_models (loaded)", b, (X, y),
+                 lambda: b.merge_models(lgbt.Booster(
+                     model_str=second.model_to_string()))),
+                ("shuffle_models", b, (X, y), lambda: b.shuffle_models()),
+                ("linear set_leaf_output", bl, (X[:N_LIN], y[:N_LIN]),
+                 lambda: bl.set_leaf_output(1, 0, bl.get_leaf_output(1, 0)
+                                            + 0.5))):
+            LK.score_launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            edit()
+            torch.cuda.synchronize()
+            t_e = time.perf_counter() - t0
+            if bst is bl:
+                lin_rebuild = LK.score_launches
+            val, want = eval_vs_predict(bst, Xe, ye)
+            edits[name] = [round(t_e, 3), val, want]
+            if abs(val - want) > 1e-5 * abs(want):
+                fail(f"phase 15 (e) {name}: eval_train {val} vs the metric "
+                     f"of predict {want}")
+        if b.num_trees() != 11:
+            fail(f"phase 15 (e): {b.num_trees()} trees after the merge")
+        if n_lin < 2 or lin_rebuild != n_lin:
+            fail(f"phase 15 (e): the linear model's score rebuild launched "
+                 f"the linear scores kernel {lin_rebuild} times for {n_lin} "
+                 f"linear trees")
+        del b, second, bl, dl
+        # reset_training_data to a 500,000-row subset, 5 more fused rounds,
+        # against the classic loop; its live device memory against a fresh
+        # booster's of 5 fused rounds on the subset
+        sub = ds_full.subset(np.arange(0, N, 2))
+        texts, mem, alloc = [], {}, []
+
+        def live_mib():
+            """The bytes the live tensors asked for (a block the allocator
+            hands out whole may hold up to 1 MiB more than was asked)."""
+            gc.collect()
+            torch.cuda.synchronize()
+            st = torch.cuda.memory_stats()
+            alloc.append(round(st["allocated_bytes.all.current"] / 2**20, 1))
+            return st["requested_bytes.all.current"] / 2**20
+        for loop in ("fused", "fresh", "classic"):
+            bb = lgbt.train(dict(RECIPE), sub if loop == "fresh" else ds_full,
+                            5)
+            if loop == "fresh":
+                mem["fresh"] = live_mib()
+                del bb
+                continue
+            if loop == "fused":
+                mem["before"] = live_mib()
+            bb.reset_training_data(sub)
+            if loop == "fused":
+                bb._gbdt.train_fused(5)
+                mem["after"] = live_mib()
+                fused_s_round(bb)
+            else:
+                for _ in range(5):
+                    bb.update()
+            texts.append(trees_text(bb))
+            del bb
+        if texts[0] != texts[1]:
+            fail("phase 15 (e): after reset_training_data, the fused loop's "
+                 "text differs from the classic loop's")
+        if mem["after"] > mem["fresh"] + MEM_SLACK_MIB:
+            fail(f"phase 15 (e): after reset_training_data the booster "
+                 f"holds more live device memory than a fresh one on the "
+                 f"subset (MiB): {mem}")
+        counted("(e)")
+        print(f"phase 15 (e) inspection on a card booster (1M x 5): "
+              f"feature_importance equal to the text's split counts and "
+              f"summed gains, dump_model's leaf values the text's; edits "
+              f"(s beside the CLI's subprocesses, eval_train, the metric of "
+              f"predict) {json.dumps(edits)}; the linear model's rebuild "
+              f"({N_LIN:,} x 3) {lin_rebuild} linear-scores launches for "
+              f"{n_lin} linear trees; reset_training_data to 500,000 rows "
+              f"+ 5 fused rounds equal to the classic loop's text; live "
+              f"device MiB (requested) with the 1M-row booster "
+              f"{mem['before']:.1f}, "
+              f"after the reset and 5 rounds {mem['after']:.1f}, a fresh "
+              f"booster's of 5 fused rounds on the subset "
+              f"{mem['fresh']:.1f} (at most {MEM_SLACK_MIB} MiB more "
+              f"allowed; allocated blocks {alloc})", flush=True)
+        del sub
+        mark("(e)")
+
+        # (f) the CLI's subprocesses
+        out = {}
+        for name, pr in procs:
+            try:
+                so, se = pr.communicate(timeout=600)
+            except subprocess.TimeoutExpired:
+                pr.kill()
+                so, se = pr.communicate()
+            out[name] = (pr.returncode, se)
+        t_cli = time.perf_counter() - t_cli0
+        bad = {k: (rc, se[-800:]) for k, (rc, se) in out.items()
+               if (rc != 0) != (k == "no card")}
+        if bad or "device_type=cpu" not in out["no card"][1]:
+            fail(f"phase 15 (f): CLI exit codes {json.dumps(bad)}")
+        with open(os.path.join(tmp, "cli_model.txt")) as f:
+            cli_text = f.read()
+        if cli_text != b_api.model_to_string():
+            fail("phase 15 (f): the CLI's model file differs from the "
+                 "Python API's text on the same file")
+        cli_pred = np.loadtxt(os.path.join(tmp, "pred.txt"))
+        want = lgbt.Booster(model_file=api_model).predict(
+            np.asarray(Xf, np.float64))
+        if not np.array_equal(cli_pred, want):
+            fail("phase 15 (f): task=predict differs from Booster.predict")
+        cpp = os.path.getsize(os.path.join(tmp, "model.cpp"))
+        if cpp == 0:
+            fail("phase 15 (f): task=convert_model wrote an empty file")
+        print(f"phase 15 (f) CLI (python3 -m lightgbm_tpu_torch, 4 "
+              f"subprocesses started after (d)'s timed fit, {t_cli:.1f} s "
+              f"to the last): "
+              f"task=train on the CSV equal to the Python API's text "
+              f"(fused: {bool(b_api._gbdt._fused_cache)}), task=predict of "
+              f"{N_FILE:,} rows equal to Booster.predict, convert_model "
+              f"{cpp / 2**20:.2f} MiB of C++, exit code "
+              f"{out['no card'][0]} with CUDA_VISIBLE_DEVICES=\"\"",
+              flush=True)
+        del b_api, dsf
+    finally:
+        for _, pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("phase 15 kernels (launches per part): "
+          + json.dumps(part_launches), flush=True)
+    t = time.perf_counter() - t_phase
+    print(f"phase 15: {t:.1f} s", flush=True)
+    return part_launches
+
+
 def load_other(root):
     """The port package of another checkout (``root``/lightgbm_tpu_torch),
     imported as ``lgbt_other`` beside this one; its kernels build into its
@@ -6656,6 +7333,13 @@ def main():
     for r in rows:
         if r["name"] == "forest_values":
             r["launches"] += init_fk
+    print(f"phases 1-14: {time.perf_counter() - t_script:.1f} s",
+          flush=True)
+    # ---- 15. the user surfaces: no new kernel; the launches per part are
+    # printed there, and the rows keep their earlier phases' counts
+    check_user_surfaces(torch, lgbt, HK, RF, TB, prng, card)
+    print(f"phases 1-15: {time.perf_counter() - t_script:.1f} s",
+          flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_script:.1f} s in all, the "
           f"kernel build {build_s:.1f} s of it", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

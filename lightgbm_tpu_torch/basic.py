@@ -2,11 +2,20 @@
 
 Counterpart of ``lightgbm_tpu/basic.py`` (reference python-package
 lightgbm/basic.py — ``Dataset`` :1764 lazy construction with reference
-alignment, ``Booster`` :3586) for dense numeric input: lazy Dataset
-construction, valid sets binned against their training reference, Booster
-train / eval / predict / save / load with the same model text format.
-Booster(model_str=...) and Booster(model_file=...) load the JAX package's
-model text as well as this package's.
+alignment, ``Booster`` :3586): lazy Dataset construction, valid sets binned
+against their training reference, Booster train / eval / predict / save /
+load with the same model text format.  Booster(model_str=...) and
+Booster(model_file=...) load the JAX package's model text as well as this
+package's.
+
+Input, at construction and at predict time: numpy and lists of rows, a
+text file path (CSV / TSV / LibSVM, io/parser.py) or a binary dataset
+written by ``save_binary`` (of either package), scipy CSR / CSC (binned
+from its columns, never made dense; predicted in byte-bounded row blocks),
+pandas frames (category columns as codes, their category lists kept as
+``pandas_categorical`` in the model text and reapplied by position at
+predict time), pyarrow Tables, datatable Frames (by duck type) and
+:class:`Sequence` objects or lists of them.
 
 ``Booster.predict`` has the JAX package's surface: raw or converted
 scores, ``pred_leaf``, ``pred_contrib`` (TreeSHAP, models/shap.py) and
@@ -16,29 +25,157 @@ The training surface (the JAX package's): ``Booster.update(train_set,
 fobj)`` with custom gradients, continued training (a Dataset's predictor
 gives its init score, ``Booster.__init__`` merges the init model's trees),
 ``rollback_one_iter``, ``refit`` / ``refit_from_leaf_preds``,
-``reset_parameter``, ``eval`` with custom metrics, ``telemetry``, and
-``Dataset.subset`` with the field accessors.
+``reset_parameter``, ``eval`` with custom metrics (a loaded model's too),
+``telemetry``, ``Dataset.subset`` with the field accessors.
 
-Not here yet: file / pandas-categorical / sparse / Sequence input (also at
-predict time), binary datasets, the model-inspection methods,
-``merge_models``, ``shuffle_models``, ``reset_training_data``, dump/plot
-helpers.
+Model inspection and edits: ``feature_importance``, ``dump_model``,
+``trees_to_dataframe``, ``get_split_value_histogram``, ``upper_bound`` /
+``lower_bound``, ``get_leaf_output`` / ``set_leaf_output``,
+``model_from_string``, ``merge_models``, ``shuffle_models`` and
+``reset_training_data`` (the score caches rebuilt on the booster's
+device).
+
+Not here yet: the C API, ``set_network`` / ``free_network``
+(multi-device, ROADMAP Queue 1 item 6) and ``prometheus_text`` (item 8);
+they raise ``LightGBMError``.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, List, Optional, Sequence as TSeq, Union
 
 import numpy as np
 
 from .boosting import create_boosting
-from .config import Config, normalize_params
-from .io.dataset import Dataset as _InnerDataset
-from .models.model_io import (model_to_string, objective_string_to_params,
+from .config import Config, normalize_params, raw_param
+from .io.dataset import Dataset as _InnerDataset, _is_sparse
+from .io.parser import load_text_file
+from .models.model_io import (model_to_dict, model_to_string,
+                              objective_string_to_params,
                               objective_to_string, parse_model_string)
 from .models.tree import Tree
 from .utils import log
 from .utils.device import resolve_device
+
+
+class Sequence:
+    """Generic data access for batched construction (reference
+    basic.py:915 ``Sequence``): a subclass implements ``__getitem__`` (a
+    row or a slice) and ``__len__``; the loader reads ``batch_size`` rows
+    at a time."""
+
+    batch_size = 4096
+
+    def __getitem__(self, idx):  # pragma: no cover - interface
+        raise NotImplementedError("Sub-classes of lightgbm_tpu_torch."
+                                  "Sequence must implement __getitem__")
+
+    def __len__(self) -> int:  # pragma: no cover - interface
+        raise NotImplementedError("Sub-classes of lightgbm_tpu_torch."
+                                  "Sequence must implement __len__")
+
+
+def _sequence_to_array(seqs) -> np.ndarray:
+    """Sequences read batch by batch into one float64 [n, F] matrix."""
+    parts = []
+    for s in seqs:
+        n = len(s)
+        bs = int(getattr(s, "batch_size", 4096) or 4096)
+        for lo in range(0, n, bs):
+            hi = min(n, lo + bs)
+            batch = np.asarray(s[slice(lo, hi)], dtype=np.float64)
+            parts.append(batch.reshape(hi - lo, -1))
+    return np.concatenate(parts, axis=0) if parts else np.zeros((0, 0))
+
+
+def _convert_pandas_categorical(df, stored: Optional[list] = None):
+    """Category columns as float codes (NaN for missing and unseen
+    categories): (frame, category lists in column order, the category
+    columns' names).  ``stored`` (the training lists, the model's
+    ``pandas_categorical``) is zipped by position with the frame's category
+    columns."""
+    import pandas as pd
+    cat_cols = [c for c in df.columns
+                if isinstance(df[c].dtype, pd.CategoricalDtype)]
+    if not cat_cols:
+        return df, None, []
+    if stored is not None and len(stored) != len(cat_cols):
+        log.fatal(f"train data had {len(stored)} categorical column(s), "
+                  f"this data has {len(cat_cols)}")
+    df = df.copy()
+    out = []
+    for i, c in enumerate(cat_cols):
+        cats = list(stored[i]) if stored is not None \
+            else list(df[c].cat.categories)
+        codes = pd.Categorical(df[c],
+                               categories=cats).codes.astype(np.float64)
+        df[c] = np.where(codes < 0, np.nan, codes)
+        out.append(cats)
+    return df, out, [str(c) for c in cat_cols]
+
+
+def _coerce_data(data: Any, categorical_feature, category_maps=None):
+    """Input data as (float64 matrix or scipy sparse, feature names or
+    None, categorical_feature, pandas_categorical or None), the JAX
+    package's rules: a Sequence or a list of them is read in batches; a
+    datatable Frame (by its module name) through its ``to_numpy``, masked
+    cells NaN; a pyarrow Table column by column when no column is a
+    dictionary, else through pandas; a pandas frame's category columns as
+    codes ('auto' categorical resolves to them); scipy sparse passed on
+    as it is.  ``category_maps``: the training category lists a valid
+    set aligns to."""
+    pandas_categorical = None
+    feature_names = None
+    if isinstance(data, Sequence):
+        data = _sequence_to_array([data])
+    elif isinstance(data, list) and data and \
+            all(isinstance(s, Sequence) for s in data):
+        data = _sequence_to_array(data)
+    if type(data).__module__.split(".")[0] == "datatable" and \
+            hasattr(data, "to_numpy"):
+        feature_names = [str(c) for c in data.names] \
+            if hasattr(data, "names") else None
+        arr = data.to_numpy()
+        if np.ma.isMaskedArray(arr):
+            arr = np.ma.filled(arr.astype(np.float64), np.nan)
+        arr = np.asarray(arr, dtype=np.float64)
+        if arr.ndim == 1:
+            arr = arr.reshape(-1, 1)
+        return arr, feature_names, categorical_feature, None
+    if hasattr(data, "column_names") and hasattr(data, "to_pandas"):
+        import pyarrow as pa
+        if not any(pa.types.is_dictionary(f.type) for f in data.schema):
+            names = [str(c) for c in data.column_names]
+            arr = np.empty((data.num_rows, len(names)), np.float64)
+            for ci, col in enumerate(data.columns):
+                arr[:, ci] = col.cast(pa.float64()).to_numpy(
+                    zero_copy_only=False)
+            return arr, names, categorical_feature, None
+        data = data.to_pandas()
+    if hasattr(data, "columns") and hasattr(data, "dtypes"):  # DataFrame
+        feature_names = [str(c) for c in data.columns]
+        data, pandas_categorical, cat_names = _convert_pandas_categorical(
+            data, stored=category_maps)
+        if cat_names and categorical_feature in ("auto", None):
+            categorical_feature = cat_names
+        arr = data.to_numpy(dtype=np.float64, na_value=np.nan)
+        return arr, feature_names, categorical_feature, pandas_categorical
+    if _is_sparse(data):
+        return data, feature_names, categorical_feature, pandas_categorical
+    return (np.asarray(data, dtype=np.float64), feature_names,
+            categorical_feature, pandas_categorical)
+
+
+def _is_binary_dataset(path) -> bool:
+    """True when ``path`` is a binary dataset (an npz with the
+    ``lgbtpu_dataset`` marker)."""
+    try:
+        with np.load(str(path), allow_pickle=False) as z:
+            return "lgbtpu_dataset" in z
+    except (OSError, ValueError):
+        return False
+
 
 
 def _margin_reached(out: np.ndarray, margin: float) -> np.ndarray:
@@ -129,6 +266,7 @@ class Dataset:
         self.params = dict(params or {})
         self.free_raw_data = free_raw_data
         self.position = position
+        self.pandas_categorical: Optional[list] = None
         self._inner: Optional[_InnerDataset] = None
         # continued training: a predictor whose raw predictions become this
         # dataset's init score (reference basic.py:2059
@@ -136,6 +274,11 @@ class Dataset:
         self._predictor: Optional["Booster"] = None
 
     def construct(self) -> "Dataset":
+        """Bin the data (once).  A binary dataset path is loaded as it is
+        (the metadata given here replaces the file's); a text path is
+        parsed, its label and companion files filling what was not given;
+        other input is coerced (``_coerce_data``), a valid set's pandas
+        categories aligned to its reference's."""
         if self._inner is not None:
             return self
         params = dict(self.params)
@@ -144,31 +287,72 @@ class Dataset:
             self.reference.construct()
             ref_inner = self.reference._inner
             params = {**self.reference.params, **params}
-        if isinstance(self.data, (str, bytes)) or hasattr(self.data,
-                                                          "__fspath__"):
-            log.fatal("file input is not supported by lightgbm_tpu_torch "
-                      "yet; pass a dense matrix")
         cfg = Config(params)
+        data = self.data
+        if isinstance(data, (str, os.PathLike)) and _is_binary_dataset(data):
+            self._inner = _InnerDataset.load_binary(str(data), cfg)
+            md = self._inner.metadata
+            if self.label is not None:
+                md.set_label(self.label)
+            if self.weight is not None:
+                md.set_weight(self.weight)
+            if self.group is not None:
+                md.set_group(self.group)
+            if self.init_score is not None:
+                md.set_init_score(self.init_score)
+            if self.position is not None:
+                md.set_position(self.position)
+            if self._predictor is not None:
+                log.fatal("init_model continuation requires raw data; "
+                          "binary datasets store only binned values")
+            if self.free_raw_data:
+                self.data = None
+            return self
+        if isinstance(data, (str, os.PathLike)):
+            arr, label, meta = load_text_file(str(data), cfg)
+            if self.label is None:
+                self.label = label
+            for k, v in meta.items():
+                if getattr(self, k, None) is None:
+                    setattr(self, k, v)
+            data = arr
+        else:
+            ref_cats = self.reference.pandas_categorical \
+                if self.reference is not None else None
+            data, fn_auto, catf, pcats = _coerce_data(
+                data, self.categorical_feature, category_maps=ref_cats)
+            if self.feature_name in ("auto", None) and fn_auto:
+                self.feature_name = fn_auto
+            self.categorical_feature = catf
+            self.pandas_categorical = pcats
         fn = None if self.feature_name in ("auto", None) \
             else list(self.feature_name)
         cat = None if self.categorical_feature in ("auto", None) else \
             list(self.categorical_feature)
+        if cat is None:
+            # categorical_feature may come through params too, under any
+            # of its aliases (reference config.h)
+            pcat = raw_param(params, "categorical_feature")
+            if pcat not in (None, "", "auto"):
+                if isinstance(pcat, str):
+                    pcat = [int(x) for x in pcat.split(",") if x != ""]
+                cat = list(pcat)
         predictor = self._predictor
         if predictor is None and self.reference is not None:
             predictor = self.reference._predictor
         if predictor is not None and self.init_score is None:
             # all of the predictor's trees: they are merged whole into the
             # new booster, so the residuals are against the full model
-            raw = predictor.predict(self.data, raw_score=True,
-                                    num_iteration=-1)
+            raw = predictor.predict(data, raw_score=True, num_iteration=-1)
             # column-major flatten for k outputs (reference basic.py:2089)
             self.init_score = np.asarray(raw, np.float64).reshape(
                 -1, order="F")
         self._inner = _InnerDataset.from_data(
-            self.data, label=self.label, config=cfg, weight=self.weight,
+            data, label=self.label, config=cfg, weight=self.weight,
             group=self.group, init_score=self.init_score, feature_names=fn,
             categorical_feature=cat, reference=ref_inner)
-        if self.position is not None:
+        if self._inner.metadata.position is None and \
+                self.position is not None:
             self._inner.metadata.set_position(self.position)
         if self.free_raw_data:
             self.data = None
@@ -326,6 +510,123 @@ class Dataset:
         """reference Dataset.get_params."""
         return dict(self.params)
 
+    def save_binary(self, filename: str) -> "Dataset":
+        """Write the binned dataset (reference Dataset.save_binary ->
+        LGBM_DatasetSaveBinary c_api.h:516); loading it back skips parsing
+        and binning."""
+        self.construct()
+        self._inner.save_binary(str(filename))
+        return self
+
+    def get_feature_name(self) -> List[str]:
+        """reference Dataset.get_feature_name."""
+        return list(self.feature_names)
+
+    def set_feature_name(self, feature_name: List[str]) -> "Dataset":
+        """reference Dataset.set_feature_name."""
+        return self.set_feature_names(list(feature_name))
+
+    @property
+    def feature_names(self) -> List[str]:
+        return self.inner.feature_names
+
+    def set_feature_names(self, names: List[str]) -> "Dataset":
+        """LGBM_DatasetSetFeatureNames (c_api.h:551)."""
+        names = [str(n) for n in names]
+        inner = self.inner
+        if len(names) != inner.num_total_features:
+            raise ValueError(
+                f"{len(names)} names for {inner.num_total_features} features")
+        inner.feature_names = names
+        return self
+
+    def set_categorical_feature(self, categorical_feature) -> "Dataset":
+        """reference Dataset.set_categorical_feature: effective before
+        construction; afterwards the binning is fixed."""
+        if self._inner is not None and \
+                list(categorical_feature or []) != \
+                list(self.categorical_feature or []):
+            log.warning("set_categorical_feature ignored: the Dataset is "
+                        "already constructed with its own binning")
+            return self
+        self.categorical_feature = categorical_feature
+        return self
+
+    def set_reference(self, reference: "Dataset") -> "Dataset":
+        """reference Dataset.set_reference: bin against another dataset's
+        mappers (before construction)."""
+        if self._inner is not None and reference is not self.reference:
+            log.warning("set_reference ignored: the Dataset is already "
+                        "constructed")
+            return self
+        self.reference = reference
+        return self
+
+    def feature_num_bin(self, feature: Union[int, str]) -> int:
+        """reference Dataset.feature_num_bin: one feature's bin count."""
+        self.construct()
+        if isinstance(feature, str):
+            feature = self.feature_names.index(feature)
+        return int(self._inner.mappers[int(feature)].num_bin)
+
+    def add_features_from(self, other: "Dataset") -> "Dataset":
+        """Append another constructed dataset's features as columns
+        (reference LGBM_DatasetAddFeaturesFrom c_api.h:631); neither may be
+        EFB-bundled."""
+        a, b = self.inner, other.inner
+        if a.num_data != b.num_data:
+            raise ValueError("datasets hold different row counts")
+        if a.bundle_plan is not None or b.bundle_plan is not None:
+            raise ValueError(
+                "add_features_from does not compose with EFB bundles; "
+                "construct both datasets with enable_bundle=false")
+        na = a.num_total_features
+        a.bins = np.concatenate([a.bins, b.bins], axis=1)
+        a.used_feature_idx = list(a.used_feature_idx) + \
+            [na + i for i in b.used_feature_idx]
+        a.mappers = list(a.mappers) + list(b.mappers)
+        a.feature_names = list(a.feature_names) + list(b.feature_names)
+        a.num_total_features = na + b.num_total_features
+        a._packed_mirror = None
+        return self
+
+    def serialize_reference(self) -> bytes:
+        """The binning reference (mappers and schema, no rows) as bytes
+        (reference LGBM_DatasetSerializeReferenceToBinary), in the JAX
+        package's JSON form."""
+        import json
+        inner = self.inner
+        doc = {
+            "lgbtpu_reference": 1,
+            "mappers": [m.to_dict() for m in inner.mappers],
+            "used_feature_idx": list(map(int, inner.used_feature_idx)),
+            "num_total_features": int(inner.num_total_features),
+            "feature_names": list(inner.feature_names),
+            "params": {k: v for k, v in (self.params or {}).items()
+                       if isinstance(v, (str, int, float, bool))},
+        }
+        return json.dumps(doc).encode()
+
+    @classmethod
+    def deserialize_reference(cls, raw: bytes) -> "Dataset":
+        """A row-less reference Dataset whose ``create_valid`` bins new
+        rows on the serialized mappers (reference
+        LGBM_DatasetCreateFromSerializedReference c_api.h:142)."""
+        import json
+        from .io.binning import BinMapper
+        from .io.dataset import Metadata
+        doc = json.loads(raw.decode())
+        if not doc.get("lgbtpu_reference"):
+            raise ValueError("not a serialized dataset reference")
+        inner = _InnerDataset()
+        inner.mappers = [BinMapper.from_dict(d) for d in doc["mappers"]]
+        inner.used_feature_idx = doc["used_feature_idx"]
+        inner.num_total_features = doc["num_total_features"]
+        inner.feature_names = doc["feature_names"]
+        inner.bins = np.zeros((0, len(inner.used_feature_idx)), np.uint8)
+        inner.metadata = Metadata(0)
+        return cls.from_inner(inner, params=doc.get("params") or {})
+
 
 class Booster:
     """Trained/trainable model handle (reference basic.py:3586)."""
@@ -340,6 +641,7 @@ class Booster:
         self._gbdt = None
         self._loaded: Optional[Dict[str, Any]] = None
         self.train_set = train_set
+        self.pandas_categorical: Optional[list] = None
         if model_file is not None:
             try:
                 with open(model_file) as f:
@@ -357,11 +659,13 @@ class Booster:
                 raise log.LightGBMError(
                     f"failed to parse model string: {type(e).__name__}: {e}"
                 ) from e
+            self.pandas_categorical = self._loaded.get("pandas_categorical")
             return
         if train_set is None:
             log.fatal("Booster requires train_set or a model to load")
         train_set.params = {**train_set.params, **self.params}
         train_set.construct()
+        self.pandas_categorical = train_set.pandas_categorical
         self._gbdt = create_boosting(Config(self.params), train_set.inner)
         # continued training: the init model's trees ahead of the new ones
         # (reference basic.py:3675 LGBM_BoosterMerge -> gbdt.h:70
@@ -385,12 +689,10 @@ class Booster:
         LGBM_BoosterUpdateOneIterCustom).  ``fobj(preds, train_set)``
         returns (grad, hess) for the current raw scores (float64, [n], or
         [n, k] for k outputs); they reach the device once, as float32.
-        ``train_set`` must be the booster's own (training data is not
-        replaced: ``reset_training_data`` is not ported)."""
+        Another ``train_set`` than the booster's replaces its training
+        data first (``reset_training_data``), as in the reference."""
         if train_set is not None and train_set is not self.train_set:
-            log.fatal("Booster.update with another train_set "
-                      "(reset_training_data) is not supported by "
-                      "lightgbm_tpu_torch yet")
+            self.reset_training_data(train_set)
         if fobj is None:
             return self._gbdt.train_one_iter()
         if self._gbdt.objective is not None:
@@ -439,7 +741,11 @@ class Booster:
 
     # ---------------------------------------------------------- evaluation
     def eval_train(self):
-        return self._gbdt.eval_train()
+        out = self._gbdt.eval_train()
+        name = getattr(self, "_train_data_name", "training")
+        if name != "training":
+            out = [(name,) + r[1:] for r in out]
+        return out
 
     def eval_valid(self):
         return self._gbdt.eval_valid()
@@ -473,8 +779,7 @@ class Booster:
         so), its scores built from the trees.  ``feval`` (one callable or a
         list) gets the raw scores (float64) and ``data``."""
         if self._gbdt is None:
-            log.fatal("Booster.eval of a loaded model is not supported by "
-                      "lightgbm_tpu_torch yet")
+            return self._eval_loaded(data, name, feval)
         g = self._gbdt
         if data is self.train_set:
             out = [(name,) + r[1:] for r in self.eval_train()]
@@ -495,6 +800,50 @@ class Booster:
                 out.append((name,) + tuple(f(sc, data)))
         return out
 
+    def _eval_loaded(self, data: Dataset, name: str, feval) -> List[tuple]:
+        """A loaded model's evaluation (the JAX package's): the metrics and
+        output conversion of the model's objective (its header tokens, then
+        the booster's params), on the host walk's raw scores of ``data``'s
+        raw rows (``free_raw_data=False``) plus its init score."""
+        from .metrics import create_metrics
+        from .objectives import create_objective
+        data.construct()
+        obj_toks = str(self._loaded.get("objective", "none")).split()
+        obj_extra = {t.split(":", 1)[0]: t.split(":", 1)[1]
+                     for t in obj_toks[1:] if ":" in t}
+        cfg = Config({**(self._loaded.get("params") or {}), **obj_extra,
+                      "objective": obj_toks[0] if obj_toks else "none",
+                      **self.params})
+        ms = create_metrics(cfg)
+        md = data.inner.metadata
+        for m in ms:
+            m.init(md, data.inner.num_data)
+        try:
+            obj = create_objective(cfg)
+            if obj is not None:
+                obj.init(md, data.inner.num_data)
+        except Exception:
+            obj = None
+        raw = np.asarray(self.predict(data.get_data(), raw_score=True),
+                         np.float64)
+        k = self.num_model_per_iteration()
+        score = raw if k == 1 else raw.reshape(-1, k, order="F")
+        isc = md.init_score
+        if isc is not None:
+            score = score + (np.asarray(isc).reshape(score.shape, order="F")
+                             if np.size(isc) == score.size
+                             else np.asarray(isc).reshape(-1, 1))
+        out = []
+        for m in ms:
+            for mname, val in m.eval(score, obj):
+                out.append((name, mname, val, m.bigger_is_better))
+        if feval is not None:
+            sc = score[:, 0] if score.ndim == 2 and score.shape[1] == 1 \
+                else score
+            for f in feval if isinstance(feval, (list, tuple)) else [feval]:
+                out.append((name,) + tuple(f(sc, data)))
+        return out
+
     # ---------------------------------------------------------- prediction
     def predict(self, data: Any, start_iteration: int = 0,
                 num_iteration: Optional[int] = None, raw_score: bool = False,
@@ -508,8 +857,27 @@ class Booster:
         start_iteration + num_iteration) (all, or up to ``best_iteration``,
         when ``num_iteration`` is None).  ``pred_early_stop`` stops a row
         every ``pred_early_stop_freq`` iterations once its margin reaches
-        ``pred_early_stop_margin`` (host walk)."""
-        X = np.asarray(data, np.float64)
+        ``pred_early_stop_margin`` (host walk).
+
+        ``data``: a matrix, a pandas frame (category columns through the
+        training category lists), a pyarrow Table, or scipy sparse, made
+        dense in row blocks of about 512 MB each (the JAX package's
+        geometry), never as a whole."""
+        if _is_sparse(data):
+            block = max(256, min(65536, self.SPARSE_BLOCK_BYTES
+                                 // (8 * max(data.shape[1], 1))))
+            if data.shape[0] > block:
+                csr = data.tocsr()
+                blocks = [self.predict(
+                    csr[r0:r0 + block], start_iteration=start_iteration,
+                    num_iteration=num_iteration, raw_score=raw_score,
+                    pred_leaf=pred_leaf, pred_contrib=pred_contrib,
+                    pred_early_stop=pred_early_stop,
+                    pred_early_stop_freq=pred_early_stop_freq,
+                    pred_early_stop_margin=pred_early_stop_margin, **kwargs)
+                    for r0 in range(0, data.shape[0], block)]
+                return np.concatenate(blocks, axis=0)
+        X = self._to_matrix(data)
         if num_iteration is None:
             num_iteration = self.best_iteration if self.best_iteration > 0 \
                 else -1
@@ -524,6 +892,26 @@ class Booster:
                                       pred_leaf=pred_leaf, early=early)
         return self._predict_loaded(X, start_iteration, num_iteration,
                                     raw_score, pred_leaf, early)
+
+    #: scipy input's row blocks at predict time: dense float64 blocks of at
+    #: most this many bytes, 256 to 65,536 rows (a class attribute so tests
+    #: can shrink it)
+    SPARSE_BLOCK_BYTES = 512 << 20
+
+    def _to_matrix(self, data: Any) -> np.ndarray:
+        """Predict-time input as float64: a pyarrow Table through pandas,
+        a pandas frame's category columns through the training category
+        lists (``pandas_categorical``), a sparse block made dense."""
+        if hasattr(data, "column_names") and hasattr(data, "to_pandas"):
+            data = data.to_pandas()
+        if hasattr(data, "columns") and hasattr(data, "dtypes"):
+            data, _, _ = _convert_pandas_categorical(
+                data, stored=self.pandas_categorical)
+            return data.to_numpy(dtype=np.float64, na_value=np.nan)
+        if _is_sparse(data):
+            # column-major: binning and the host walk read whole columns
+            return np.asarray(data.toarray(order="F"), np.float64)
+        return np.asarray(data, np.float64)
 
     def _predict_loaded(self, X, start_iteration, num_iteration, raw_score,
                         pred_leaf=False, early=None) -> np.ndarray:
@@ -619,7 +1007,7 @@ class Booster:
         cfg = Config(params)
         if decay_rate is None:
             decay_rate = float(cfg.refit_decay_rate)
-        X = np.asarray(data, np.float64)
+        X = self._to_matrix(data)
         n = X.shape[0]
         md = Metadata(n)
         md.set_label(np.asarray(label, np.float64))
@@ -684,7 +1072,7 @@ class Booster:
                 max_feature_idx=d["max_feature_idx"],
                 objective_str=d["objective"], feature_names=d["feature_names"],
                 feature_infos=d["feature_infos"], params={},
-                pandas_categorical=d.get("pandas_categorical"))
+                pandas_categorical=self.pandas_categorical)
         g = self._gbdt
         ds = g.train_set
         k = g.num_tree_per_iteration
@@ -713,10 +1101,11 @@ class Booster:
             trees, num_class=g.num_class, num_tree_per_iteration=k,
             max_feature_idx=ds.num_total_features - 1, objective_str=obj_str,
             feature_names=ds.feature_names, feature_infos=feature_infos,
-            params=g.config._explicit, pandas_categorical=None)
+            params=g.config._explicit,
+            pandas_categorical=self.pandas_categorical)
 
     def save_model(self, filename: str, num_iteration: Optional[int] = None,
-                   start_iteration: int = 0) -> "Booster":
+                   start_iteration: int = 0, **kwargs) -> "Booster":
         with open(filename, "w") as f:
             f.write(self.model_to_string(num_iteration, start_iteration))
         return self
@@ -727,4 +1116,261 @@ class Booster:
         return self._loaded["feature_names"]
 
     def num_feature(self) -> int:
+        """Number of features the model was trained on (reference
+        LGBM_BoosterGetNumFeature c_api.h:876)."""
         return len(self.feature_name())
+
+    # ------------------------------------------------------- model edits
+    def merge_models(self, other: "Booster") -> "Booster":
+        """Append the other model's trees (reference LGBM_BoosterMerge
+        c_api.h:680), as copies; a training booster's score caches are
+        rebuilt on its device."""
+        import copy
+        trees = other._get_trees()
+        if self._gbdt is not None:
+            self._gbdt.append_models(trees)
+        else:
+            self._loaded["trees"].extend(copy.deepcopy(trees))
+        return self
+
+    def reset_training_data(self, train_set: Dataset) -> "Booster":
+        """LGBM_BoosterResetTrainingData (c_api.h:843): train on
+        ``train_set`` from now on; it must be binned like the old set
+        (``GBDT.reset_training_data``)."""
+        train_set.construct()
+        if self._gbdt is None:
+            log.fatal("reset_training_data needs a training booster")
+        self._gbdt.reset_training_data(train_set.inner)
+        self.train_set = train_set
+        return self
+
+    def shuffle_models(self, start: int = 0, end: int = -1) -> "Booster":
+        """LGBM_BoosterShuffleModels (c_api.h:698): permute whole
+        iterations in [start, end), the permutation the JAX package draws
+        (``default_rng(seed or 1)``); a training booster's score caches are
+        rebuilt."""
+        k = max(1, self.num_model_per_iteration())
+        trees = self._get_trees()
+        n_iter = len(trees) // k
+        end = n_iter if end < 0 else min(end, n_iter)
+        start = max(0, start)
+        if end - start > 1:
+            rng = np.random.default_rng(int(self.params.get("seed") or 1))
+            perm = rng.permutation(end - start) + start
+            groups = [trees[i * k:(i + 1) * k] for i in range(n_iter)]
+            shuffled = groups[:start] + [groups[p] for p in perm] \
+                + groups[end:]
+            flat = [t for grp in shuffled for t in grp]
+            if self._gbdt is not None:
+                self._gbdt.models = flat
+                self._gbdt.invalidate_score_cache()
+            else:
+                self._loaded["trees"] = flat
+        return self
+
+    def get_leaf_output(self, tree_id: int, leaf_id: int) -> float:
+        """reference Booster.get_leaf_output / LGBM_BoosterGetLeafValue."""
+        return float(self._get_trees()[tree_id].leaf_value[leaf_id])
+
+    def set_leaf_output(self, tree_id: int, leaf_id: int,
+                        value: float) -> "Booster":
+        """reference Booster.set_leaf_output / LGBM_BoosterSetLeafValue: a
+        linear leaf becomes the constant ``value``; a training booster's
+        score caches are rebuilt."""
+        t = self._get_trees()[tree_id]
+        t.leaf_value[leaf_id] = float(value)
+        if t.is_linear:
+            t.leaf_const[leaf_id] = float(value)
+            t.leaf_coeff[leaf_id] = []
+            t.leaf_features[leaf_id] = []
+        if self._gbdt is not None:
+            self._gbdt.invalidate_score_cache()
+        return self
+
+    def model_from_string(self, model_str: str) -> "Booster":
+        """Load a model into this booster (reference
+        Booster.model_from_string): the model state is replaced, the
+        booster's params kept, the training state dropped."""
+        other = Booster(model_str=model_str)
+        self._gbdt = None
+        self._loaded = other._loaded
+        self.pandas_categorical = other.pandas_categorical
+        self.best_iteration = -1
+        self.train_set = None
+        self._valid_lookup = {}
+        self._train_data_name = "training"
+        return self
+
+    def set_train_data_name(self, name: str) -> "Booster":
+        """reference Booster.set_train_data_name: the training set's name
+        in ``eval_train``."""
+        self._train_data_name = name
+        return self
+
+    def free_dataset(self) -> "Booster":
+        """reference Booster.free_dataset: drop the reference to the
+        training Dataset (the booster's device state stays)."""
+        self.train_set = None
+        return self
+
+    def set_network(self, machines, local_listen_port: int = 12400,
+                    listen_time_out: int = 120,
+                    num_machines: int = 1) -> "Booster":
+        """reference Booster.set_network: multi-device training is not
+        ported (ROADMAP Queue 1 item 6)."""
+        log.fatal("set_network (multi-device training, ROADMAP Queue 1 "
+                  "item 6) is not supported by lightgbm_tpu_torch yet")
+
+    def free_network(self) -> "Booster":
+        """reference Booster.free_network (ROADMAP Queue 1 item 6)."""
+        log.fatal("free_network (multi-device training, ROADMAP Queue 1 "
+                  "item 6) is not supported by lightgbm_tpu_torch yet")
+
+    def prometheus_text(self) -> str:
+        """The JAX package's Prometheus exposition belongs to its ``obs/``
+        layer (ROADMAP Queue 1 item 8), not ported."""
+        log.fatal("prometheus_text (the obs/ layer, ROADMAP Queue 1 item "
+                  "8) is not supported by lightgbm_tpu_torch yet")
+
+    # -------------------------------------------------------- inspection
+    def dump_model(self, num_iteration: Optional[int] = None,
+                   start_iteration: int = 0) -> Dict[str, Any]:
+        """The model as a dict (reference Booster.dump_model, the parsed
+        JSON of LGBM_BoosterDumpModel; models/model_io.py
+        ``model_to_dict``): every tree, as the JAX package dumps it."""
+        if self._gbdt is not None:
+            g = self._gbdt
+            return model_to_dict(
+                g.models, num_class=g.num_class,
+                num_tree_per_iteration=g.num_tree_per_iteration,
+                max_feature_idx=g.train_set.num_total_features - 1,
+                objective_str=objective_to_string(
+                    g.objective.NAME if g.objective is not None else "none",
+                    g.config),
+                feature_names=g.train_set.feature_names)
+        d = self._loaded
+        return model_to_dict(
+            d["trees"], num_class=d["num_class"],
+            num_tree_per_iteration=d["num_tree_per_iteration"],
+            max_feature_idx=d["max_feature_idx"],
+            objective_str=d["objective"], feature_names=d["feature_names"])
+
+    def trees_to_dataframe(self):
+        """The model as a pandas DataFrame, one row a node (reference
+        Booster.trees_to_dataframe): tree_index, node_depth, node_index,
+        left_child, right_child, parent_index, split_feature, split_gain,
+        threshold (a categorical node's '||'-joined categories),
+        decision_type, missing_direction, missing_type, value, weight,
+        count; nodes in depth-first order, left first."""
+        import pandas as pd
+        from .models.tree import _decode_decision_type
+        rows = []
+        names = self.feature_name()
+
+        def visit(t, ti, node, depth, parent):
+            if node < 0:
+                leaf = -node - 1
+                tag = f"{ti}-L{leaf}"
+                rows.append(dict(
+                    tree_index=ti, node_depth=depth, node_index=tag,
+                    left_child=None, right_child=None, parent_index=parent,
+                    split_feature=None, split_gain=None, threshold=None,
+                    decision_type=None, missing_direction=None,
+                    missing_type=None, value=float(t.leaf_value[leaf]),
+                    weight=float(t.leaf_weight[leaf]),
+                    count=int(t.leaf_count[leaf])))
+                return tag, None
+            tag = f"{ti}-S{node}"
+            is_cat, default_left, missing_type = _decode_decision_type(
+                int(t.decision_type[node]))
+            if is_cat:
+                csi = int(t.cat_split_index[node])
+                thr_out = "||".join(str(c) for c in t.cat_threshold[csi])
+            else:
+                thr_out = float(t.threshold[node])
+            row = dict(
+                tree_index=ti, node_depth=depth, node_index=tag,
+                parent_index=parent,
+                split_feature=names[int(t.split_feature[node])],
+                split_gain=float(t.split_gain[node]),
+                threshold=thr_out,
+                decision_type="==" if is_cat else "<=",
+                missing_direction="left" if default_left else "right",
+                missing_type=["None", "Zero", "NaN"][missing_type],
+                value=float(t.internal_value[node]),
+                weight=float(t.internal_weight[node])
+                if len(t.internal_weight) > node else 0.0,
+                count=int(t.internal_count[node]))
+            rows.append(row)
+            return tag, row
+
+        for ti, t in enumerate(self._get_trees()):
+            # an explicit stack: a leaf-wise tree can be num_leaves deep
+            stack = [(0 if t.num_leaves > 1 else -1, 1, None, None, None)]
+            while stack:
+                node, depth, parent, prow, side = stack.pop()
+                tag, row = visit(t, ti, node, depth, parent)
+                if prow is not None:
+                    prow[side] = tag
+                if row is not None:
+                    stack.append((int(t.right_child[node]), depth + 1, tag,
+                                  row, "right_child"))
+                    stack.append((int(t.left_child[node]), depth + 1, tag,
+                                  row, "left_child"))
+        cols = ["tree_index", "node_depth", "node_index", "left_child",
+                "right_child", "parent_index", "split_feature", "split_gain",
+                "threshold", "decision_type", "missing_direction",
+                "missing_type", "value", "weight", "count"]
+        return pd.DataFrame(rows).reindex(columns=cols)
+
+    def feature_importance(self, importance_type: str = "split",
+                           iteration: Optional[int] = None) -> np.ndarray:
+        """Per original feature: the number of splits on it (``split``) or
+        their summed gains (``gain``, negative gains counted as 0), over
+        every tree, as the JAX package counts them."""
+        trees = self._get_trees()
+        nf = (self._gbdt.train_set.num_total_features if self._gbdt
+              else self._loaded["max_feature_idx"] + 1)
+        imp = np.zeros(nf)
+        for t in trees:
+            for i in range(t.num_leaves - 1):
+                if importance_type == "split":
+                    imp[t.split_feature[i]] += 1
+                else:
+                    imp[t.split_feature[i]] += max(float(t.split_gain[i]),
+                                                   0.0)
+        return imp
+
+    def upper_bound(self) -> float:
+        """reference Booster.upper_bound: the sum over trees of each
+        tree's largest leaf output (GBDT::GetUpperBoundValue)."""
+        return float(sum(float(np.max(t.leaf_value)) if t.num_leaves else 0.0
+                         for t in self._get_trees()))
+
+    def lower_bound(self) -> float:
+        """reference Booster.lower_bound (GBDT::GetLowerBoundValue)."""
+        return float(sum(float(np.min(t.leaf_value)) if t.num_leaves else 0.0
+                         for t in self._get_trees()))
+
+    def get_split_value_histogram(self, feature, bins=None,
+                                  xgboost_style: bool = False):
+        """reference Booster.get_split_value_histogram: a histogram of the
+        model's numeric thresholds on one feature ((counts, edges), or
+        [[edge, count], ...] of the non-empty bins ``xgboost_style``)."""
+        fnames = self.feature_name()
+        fidx = fnames.index(feature) if isinstance(feature, str) \
+            else int(feature)
+        values = []
+        for t in self._get_trees():
+            for i in range(max(t.num_leaves - 1, 0)):
+                if int(t.split_feature[i]) == fidx and \
+                        not (int(t.decision_type[i]) & 1):
+                    values.append(float(t.threshold[i]))
+        values = np.asarray(values, np.float64)
+        if bins is None:
+            bins = max(len(np.unique(values)), 1)
+        hist, edges = np.histogram(values, bins=bins)
+        if not xgboost_style:
+            return hist, edges
+        nz = hist > 0
+        return np.column_stack([edges[1:][nz], hist[nz]])

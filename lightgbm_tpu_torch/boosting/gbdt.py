@@ -105,6 +105,7 @@ from ..learner.grower import CegbState, DeviceBundle, ForcedSplits, TreeArrays
 from ..learner.linear import fit_linear_leaves, linear_leaf_scores
 from ..metrics import Metric, create_metrics
 from ..models.predict import (ForestArrays, forest_from_numpy,
+                              predict_bins_leaf,
                               predict_bins_leaf_matmul, predict_bins_tree,
                               predict_bins_tree_matmul)
 from ..models.tree import Tree
@@ -955,58 +956,93 @@ class GBDT:
             T = min(chunk, num_rounds - done)
             t0, cap0, done0 = time.perf_counter(), fr.capture_s, done
             rows = chunk_rows(fr.run(self.iter_, T), fr)
-            for t, (class_arrays, mvals) in enumerate(rows):
-                stumps = 0
-                for cls_idx, arrays in enumerate(class_arrays):
-                    tree = Tree.from_arrays(arrays, self.train_set)
-                    tree.apply_shrinkage(self.shrinkage_rate)
-                    if (self.iter_ == 0
-                            and abs(self.init_scores[cls_idx]) > 1e-10):
-                        tree.add_bias(self.init_scores[cls_idx])
-                    self.models.append(tree)
-                    stumps += tree.num_leaves <= 1
-                self.iter_ += 1
-                done += 1
-                self._count("iterations")
-                self._count("fused_rounds")
-                self._count("trees_grown", k)
-                self._count("hist_build_rounds",
-                            self._hist_rounds_per_tree() * k)
-                if nvalid:
-                    self._last_fused_evals = [
-                        (mrows[j][0], mrows[j][1], float(mvals[j]),
-                         mrows[j][2]) for j in range(len(mrows))]
-                if cb_driver is not None:
-                    try:
-                        cb_driver(self.iter_ - 1 - begin_iter,
-                                  self._last_fused_evals)
-                    except EarlyStopException:
-                        # the device ran the chunk's later rounds: rebuild
-                        # the score caches from the kept trees
+            try:
+                for t, (class_arrays, mvals) in enumerate(rows):
+                    stumps = 0
+                    for cls_idx, arrays in enumerate(class_arrays):
+                        tree = Tree.from_arrays(arrays, self.train_set)
+                        tree.apply_shrinkage(self.shrinkage_rate)
+                        if (self.iter_ == 0
+                                and abs(self.init_scores[cls_idx]) > 1e-10):
+                            tree.add_bias(self.init_scores[cls_idx])
+                        self.models.append(tree)
+                        stumps += tree.num_leaves <= 1
+                    self.iter_ += 1
+                    done += 1
+                    self._count("iterations")
+                    self._count("fused_rounds")
+                    self._count("trees_grown", k)
+                    self._count("hist_build_rounds",
+                                self._hist_rounds_per_tree() * k)
+                    if nvalid:
+                        self._last_fused_evals = [
+                            (mrows[j][0], mrows[j][1], float(mvals[j]),
+                             mrows[j][2]) for j in range(len(mrows))]
+                    if cb_driver is not None:
+                        try:
+                            cb_driver(self.iter_ - 1 - begin_iter,
+                                      self._last_fused_evals)
+                        except EarlyStopException:
+                            # the device ran the chunk's later rounds:
+                            # rebuild the score caches from the kept trees
+                            if t + 1 < len(rows):
+                                self.invalidate_score_cache()
+                            raise
+                    if stumps == k:
+                        # the classic loop stops after a round of k stumps
+                        finished = True
                         if t + 1 < len(rows):
                             self.invalidate_score_cache()
-                        raise
-                if stumps == k:
-                    # the classic loop stops after a round of k stumps
-                    finished = True
-                    if t + 1 < len(rows):
-                        self.invalidate_score_cache()
-                    break
-            fr.walls.append((time.perf_counter() - t0
-                             - (fr.capture_s - cap0), done - done0))
+                        break
+            finally:
+                # a chunk a callback stopped keeps its wall too
+                fr.walls.append((time.perf_counter() - t0
+                                 - (fr.capture_s - cap0), done - done0))
         return finished
 
     def invalidate_score_cache(self,
                                only_valid_index: Optional[int] = None
                                ) -> None:
         """Rebuild the train and valid scores from the model list (after a
-        fused chunk ran rounds past the kept ones, or leaf values were
-        refitted), in place.  ``only_valid_index`` rebuilds one valid
-        set's scores (a set added after training began) and leaves the
-        others."""
+        fused chunk ran rounds past the kept ones, leaf values were refitted
+        or set, or models were merged or shuffled), in place: the captured
+        fused rounds hold these tensors.  A linear tree adds its linear
+        leaf output (const + coeff . raw, the plain value where a row's
+        feature is NaN), as the JAX package rebuilds it, through the
+        linear scores kernel on the card.
+        ``only_valid_index`` rebuilds one valid set's scores (a set added
+        after training began) and leaves the others."""
         k = self.num_tree_per_iteration
+        any_linear = any(t.is_linear for t in self.models)
+        o2p = {int(o): p
+               for p, o in enumerate(self.train_set.used_feature_idx)}
 
-        def rebuild(n, bins_d, init_score):
+        def linear_contrib(t, arrs, bins_d, raw):
+            # the tree's shrunk const (the folded bias out) and coefficients
+            # over the packed columns, as the training loop hands them over
+            const = np.zeros(arrs.leaf_value.shape[0], np.float32)
+            const[:t.num_leaves] = t.leaf_const - t.bias
+            coeff = np.zeros((const.shape[0], raw.shape[1]), np.float32)
+            for lf, feats in enumerate(t.leaf_features):
+                coeff[lf, [o2p[f] for f in feats]] = t.leaf_coeff[lf]
+            leaf = predict_bins_leaf(arrs, bins_d, self.nan_bin_arr,
+                                     self.bundle)
+            return linear_leaf_scores(
+                raw, leaf, torch.as_tensor(const, device=self.device),
+                torch.as_tensor(coeff, device=self.device), arrs.leaf_value,
+                max_feats=max([len(f) for f in t.leaf_features] + [1]))
+
+        def raw_of(dev_raw, ds):
+            if dev_raw is not None or not any_linear:
+                return dev_raw
+            if ds.raw is None:
+                log.fatal("rebuilding the scores of a linear_tree model "
+                          "needs the dataset's raw columns (construct it "
+                          "with linear_tree on)")
+            return torch.as_tensor(ds.raw, dtype=torch.float32,
+                                   device=self.device)
+
+        def rebuild(n, bins_d, init_score, raw):
             sc = np.zeros((n, k), np.float32) + self.init_scores[None, :]
             if init_score is not None:
                 sc += init_score.reshape(sc.shape, order="F") \
@@ -1015,21 +1051,93 @@ class GBDT:
             sc = torch.as_tensor(sc, device=self.device)
             for i, t in enumerate(self.models):
                 arrs = _tree_to_arrays_stub(t, self.train_set, self.device)
-                sc[:, i % k] += predict_bins_tree(arrs, bins_d,
-                                                  self.nan_bin_arr,
-                                                  self.bundle)
+                sc[:, i % k] += linear_contrib(t, arrs, bins_d, raw) \
+                    if t.is_linear else predict_bins_tree(
+                        arrs, bins_d, self.nan_bin_arr, self.bundle)
             return sc
 
         if only_valid_index is None:
-            self.scores.copy_(rebuild(self.train_set.num_data, self.bins,
-                                      self.train_set.metadata.init_score))
+            self.scores.copy_(rebuild(
+                self.train_set.num_data, self.bins,
+                self.train_set.metadata.init_score,
+                raw_of(self.raw_dev, self.train_set)))
             targets = range(len(self.valid_sets))
         else:
             targets = [only_valid_index]
         for vi in targets:
             vs = self.valid_sets[vi]
             self.valid_scores[vi].copy_(rebuild(
-                vs.num_data, self._valid_bins[vi], vs.metadata.init_score))
+                vs.num_data, self._valid_bins[vi], vs.metadata.init_score,
+                raw_of(self._valid_raw[vi], vs)))
+
+    def append_models(self, trees: List[Tree]) -> None:
+        """Append another model's trees (reference LGBM_BoosterMerge ->
+        GBDT::MergeFrom at the tail; the JAX package's ``append_models``):
+        copies, so later edits of either booster stay its own; the score
+        caches are rebuilt."""
+        import copy
+        k = self.num_tree_per_iteration
+        if len(trees) % k != 0:
+            log.fatal("merged model has %d trees, not divisible by "
+                      "num_tree_per_iteration=%d" % (len(trees), k))
+        self.models = self.models + [copy.deepcopy(t) for t in trees]
+        self.iter_ = len(self.models) // k
+        self.invalidate_score_cache()
+
+    def reset_training_data(self, train_set: Dataset) -> None:
+        """Point the live booster at a new training set (reference
+        GBDT::ResetTrainingData; the JAX package's): the trees are kept and
+        their scores rebuilt over the new rows.  The new set must be binned
+        like the old one (``create_valid`` / ``subset`` of the same
+        reference): its bin counts, NaN bins and categorical flags must
+        equal the model's.  The device operands of the old rows are
+        replaced, so the captured fused rounds, which hold their
+        addresses, are dropped (``_derive_learner_state``; their memory
+        pool goes with them) and captured again on the next fused run."""
+        if train_set.num_features != self.num_features:
+            log.fatal("new training data has %d features, model needs %d"
+                      % (train_set.num_features, self.num_features))
+        same = (np.array_equal(train_set.num_bins_array(),
+                               self.num_bins_arr.cpu().numpy())
+                and np.array_equal(train_set.nan_bin_array(),
+                                   self.nan_bin_arr.cpu().numpy())
+                and np.array_equal(train_set.categorical_array(),
+                                   self.is_cat_arr.cpu().numpy()))
+        if not same:
+            log.fatal("reset_training_data: the new dataset's bin mappers "
+                      "differ from the model's (construct it against the "
+                      "same reference binning)")
+        if (train_set.bundle_plan is None) != (self.bundle is None) or (
+                train_set.bundle_plan is not None
+                and train_set.bundle_plan.bundles
+                != self.train_set.bundle_plan.bundles):
+            log.fatal("reset_training_data: the new dataset's EFB bundles "
+                      "differ from the model's")
+        dev = self.device
+        self._fused_cache = {}
+        self.train_set = train_set
+        if self.objective is not None:
+            self.objective.init(train_set.metadata, train_set.num_data, dev)
+        for m in self.train_metrics:
+            m.init(train_set.metadata, train_set.num_data)
+        self.bins = torch.as_tensor(train_set.bins, device=dev)
+        self.bins_t = self.bins.t().contiguous()
+        self.bins_words = torch.as_tensor(train_set.packed_mirror(),
+                                          device=dev)
+        self.bins_words_t = None
+        self.raw_dev = torch.as_tensor(train_set.raw, device=dev) \
+            if self.linear and train_set.raw is not None else None
+        if self.linear and self.raw_dev is None:
+            log.fatal("reset_training_data: a linear_tree booster needs a "
+                      "training set with raw columns")
+        self._derive_learner_state(self.config)
+        self.sample_strategy = create_sample_strategy(self.config,
+                                                      train_set.num_data)
+        k = self.num_tree_per_iteration
+        self.scores = torch.zeros(train_set.num_data, k, dtype=torch.float32,
+                                  device=dev)
+        self._init_base_score()
+        self.invalidate_score_cache()
 
     def merge_from(self, trees: List[Tree]) -> None:
         """Seed this booster with an init model's trees (reference gbdt.h:70
@@ -1285,17 +1393,36 @@ class GBDT:
         return self.iter_
 
 
+def threshold_bins(tree: Tree, dataset: Dataset) -> np.ndarray:
+    """int32 [ni]: the tree's bin thresholds under ``dataset``'s mappers.
+    A tree grown here keeps its training bins; a tree read from text (an
+    init model, a merged model) has real thresholds only, and its numeric
+    ones are binned by the mappers (a raw ``value <= threshold`` is then
+    ``bin <= threshold bin``).  The JAX package walks such a tree's nodes
+    as bin 0 in its score rebuild and its device predict."""
+    if getattr(tree, "bins_known", False):
+        return tree.threshold_bin
+    out = np.array(tree.threshold_bin, np.int32)
+    for i, f in enumerate(tree.split_feature):
+        if not tree.decision_type[i] & 1:
+            out[i] = dataset.mappers[int(f)].values_to_bins(
+                [tree.threshold[i]])[0]
+    return out
+
+
 def _tree_to_arrays_stub(tree: Tree, dataset: Dataset,
                          device) -> TreeArrays:
     """A host Tree as device TreeArrays (packed feature indices, bin
     thresholds, categorical nodes' bitsets over the training bins) for the
     walk: its own contribution, the folded boost-from-average bias taken
-    out (the JAX package's stub)."""
+    out (the JAX package's stub), its bin thresholds
+    :func:`threshold_bins`'s."""
     L = max(tree.num_leaves, 2)
     ni = L - 1
     orig_to_packed = {o: p for p, o in enumerate(dataset.used_feature_idx)}
     sf = np.array([orig_to_packed.get(int(f), 0)
                    for f in tree.split_feature], np.int32)
+    thr_bin = threshold_bins(tree, dataset)
 
     def pad(a, fill, dtype):
         out = np.full(ni, fill, dtype)
@@ -1323,7 +1450,7 @@ def _tree_to_arrays_stub(tree: Tree, dataset: Dataset,
     leaf[:tree.num_leaves] = (tree.leaf_value - tree.bias).astype(np.float32)
     return TreeArrays(
         split_feature=pad(sf, 0, np.int32),
-        split_bin=pad(tree.threshold_bin, 0, np.int32),
+        split_bin=pad(thr_bin, 0, np.int32),
         default_left=pad((tree.decision_type & 2) > 0, False, bool),
         split_cat=pad((tree.decision_type & 1) > 0, False, bool),
         left_child=pad(tree.left_child, -1, np.int32),
@@ -1394,7 +1521,7 @@ def forest_arrays(models, k: int, ds: Dataset) -> dict:
             pf = np.array([orig_to_packed.get(int(f), 0)
                            for f in t.split_feature[:nn]], np.int32)
             d["feat"][ti, :nn] = pf
-            d["thr"][ti, :nn] = t.threshold_bin[:nn]
+            d["thr"][ti, :nn] = threshold_bins(t, ds)[:nn]
             d["dl"][ti, :nn] = (np.asarray(t.decision_type[:nn]) & 2) > 0
             d["nanb"][ti, :nn] = nan_bin[pf]
             d["left"][ti, :nn] = t.left_child[:nn]

@@ -397,6 +397,16 @@ def normalize_params(params: Optional[Dict[str, Any]]) -> Dict[str, Any]:
     return out
 
 
+def raw_param(params: Optional[Dict[str, Any]], name: str) -> Any:
+    """The value of canonical ``name`` in ``params`` under any of its
+    aliases, uncoerced (a list stays a list), first wins as in
+    :func:`normalize_params`; None where it is not set."""
+    for k, v in (params or {}).items():
+        if _ALIASES.get(str(k).strip().lower()) == name:
+            return v
+    return None
+
+
 class Config:
     """Flat runtime config; attribute access for every canonical parameter."""
 

@@ -122,6 +122,9 @@ def _plan_from_masks(nz_masks: List[np.ndarray], nz_counts: np.ndarray,
     # sparsest-last order (reference sorts by conflict degree; nonzero count
     # is the cheap proxy): densest features claim bundles first
     order = np.argsort(-nz_counts, kind="stable")
+    # each feature's nonzero rows: a conflict count gathers the bundle's
+    # mask at them, the same count as ``(mask & nz).sum()`` over all rows
+    rows_of = [np.flatnonzero(m) for m in nz_masks]
 
     bundle_members: List[List[int]] = []
     bundle_mask: List[np.ndarray] = []
@@ -134,10 +137,11 @@ def _plan_from_masks(nz_masks: List[np.ndarray], nz_counts: np.ndarray,
             for bi in range(len(bundle_members)):
                 if bundle_bins[bi] + extra > max_total_bins:
                     continue
-                conflicts = int((bundle_mask[bi] & nz_masks[f]).sum())
+                conflicts = int(np.count_nonzero(
+                    bundle_mask[bi][rows_of[f]]))
                 if conflicts <= max_conflicts:
                     bundle_members[bi].append(f)
-                    bundle_mask[bi] |= nz_masks[f]
+                    bundle_mask[bi][rows_of[f]] = True
                     bundle_bins[bi] += extra
                     placed = True
                     break

@@ -1,13 +1,21 @@
 """Binned Dataset + Metadata.
 
-Counterpart of ``lightgbm_tpu/io/dataset.py`` for dense numeric input
-(reference: include/LightGBM/dataset.h:487 ``Dataset``, dataset.h:48
-``Metadata``, src/io/dataset_loader.cpp ``DatasetLoader``).  The binned data
-is one row-major ``uint8`` matrix ``[n_rows, n_used_features]`` built on the
-host with NumPy; the booster copies it to the torch device once
-(boosting/gbdt.py).  Binning, trivial-feature dropping and the EFB plan run
-the same NumPy code as ``lightgbm_tpu``, so the same input gives the same
-bytes.
+Counterpart of ``lightgbm_tpu/io/dataset.py`` (reference:
+include/LightGBM/dataset.h:487 ``Dataset``, dataset.h:48 ``Metadata``,
+src/io/dataset_loader.cpp ``DatasetLoader``).  The binned data is one
+row-major ``uint8`` matrix ``[n_rows, n_used_features]`` (bundled columns
+under EFB) built on the host with NumPy; the booster copies it to the torch
+device once (boosting/gbdt.py).  Binning, trivial-feature dropping and the
+EFB plan run the same NumPy code as ``lightgbm_tpu``, so the same input
+gives the same bytes.
+
+Sparse (scipy CSR / CSC) input is binned from its CSC columns without a
+dense ``[n, F]`` matrix (``_from_sparse``): the mappers come from each
+column's nonzeros, the EFB plan from sampled nonzero-row masks
+(``plan_bundles_sparse``), and the only row-major matrix made is the
+bundled ``uint8`` one (``_sparse_bundled_matrix``).  The numpy random
+draws are made in the JAX package's order, so the sampled mappers and
+masks are the same.
 
 External matrices bin the same way for the device forest predictor
 (``bin_external``, ``bin_external_pred``).
@@ -18,10 +26,12 @@ which the linear-leaf fit and scores read (reference Dataset raw_data_;
 the JAX package's ``raw``).
 
 ``subset`` takes rows of a constructed dataset with its mappers and EFB
-plan (cv's folds).
+plan (cv's folds).  ``save_binary`` / ``load_binary`` write and read the
+JAX package's npz format (the ``lgbtpu_dataset`` marker and
+``format_version``), so a file written by either package loads in the
+other.
 
-Not in this package yet: sparse (scipy) input, ``save_binary`` /
-``load_binary``, streamed and sharded ingest.
+Not in this package yet: streamed and sharded ingest.
 """
 
 from __future__ import annotations
@@ -35,9 +45,16 @@ import numpy as np
 from ..config import Config, as_config
 from ..utils import log
 from .binning import BIN_CATEGORICAL, BinMapper
-from .bundling import BundlePlan, apply_bundles, plan_bundles
+from .bundling import (BundlePlan, apply_bundles, plan_bundles,
+                       plan_bundles_sparse)
 
 MAX_UINT8_BINS = 256
+
+#: on-disk binary dataset format version (``save_binary`` /
+#: ``load_binary``), the JAX package's: v1 carries only the marker, v2 the
+#: version field and the streamed-ingest provenance.  Readers accept up to
+#: their own version.
+BINARY_FORMAT_VERSION = 2
 
 #: raw values a matrix holds from which its columns bin on a thread each
 #: (NumPy's casts and searchsorted release the GIL; the bytes are the same)
@@ -51,12 +68,13 @@ def device_bins_pow2(widest: int) -> int:
     return max(1 << max(1, (int(widest) - 1).bit_length()), 4)
 
 
+def _is_sparse(data: Any) -> bool:
+    return hasattr(data, "tocsc") and hasattr(data, "nnz")
+
+
 def _as_2d_float(data: Any) -> np.ndarray:
     """Accept numpy / pandas / list-of-rows; return float64 [n, F] with NaN
-    for missing."""
-    if hasattr(data, "tocsc") and hasattr(data, "nnz"):
-        log.fatal("sparse input is not supported by lightgbm_tpu_torch yet; "
-                  "pass a dense matrix")
+    for missing.  Sparse matrices never come here (``_from_sparse``)."""
     if hasattr(data, "values") and hasattr(data, "columns"):  # pandas
         arr = data.to_numpy(dtype=np.float64, na_value=np.nan)
     else:
@@ -145,6 +163,9 @@ class Dataset:
         self.bundle_plan: Optional[BundlePlan] = None
         # raw values of the used features, kept only under linear_tree
         self.raw: Optional[np.ndarray] = None
+        # how a streamed ingest built this dataset (the JAX package's
+        # io/streaming.py): kept through save_binary / load_binary only
+        self.ingest_provenance: Optional[Dict[str, Any]] = None
 
     # ------------------------------------------------------------ properties
     @property
@@ -261,9 +282,13 @@ class Dataset:
                   feature_names: Optional[List[str]] = None,
                   categorical_feature: Optional[Sequence[Union[int, str]]] = None,
                   reference: Optional["Dataset"] = None) -> "Dataset":
-        """Build a binned dataset from a dense matrix (reference
-        DatasetLoader::ConstructFromSampleData)."""
+        """Build a binned dataset from a dense or a scipy sparse matrix
+        (reference DatasetLoader::ConstructFromSampleData)."""
         cfg = as_config(config)
+        if _is_sparse(data):
+            return cls._from_sparse(data, label, cfg, weight, group,
+                                    init_score, feature_names,
+                                    categorical_feature, reference)
         arr = _as_2d_float(data)
         n, f = arr.shape
         ds = cls()
@@ -320,6 +345,133 @@ class Dataset:
         return Dataset.from_data(data, label=label, config=self.config,
                                  reference=self, **kwargs)
 
+    # ------------------------------------------------------------- sparse
+    @classmethod
+    def _from_sparse(cls, data, label, cfg, weight, group, init_score,
+                     feature_names, categorical_feature, reference
+                     ) -> "Dataset":
+        """Scipy CSR / CSC input binned without a dense matrix (the JAX
+        package's ``_from_sparse``; reference sparse_bin.hpp + EFB): each
+        feature's mapper from its CSC column's nonzeros (the implicit rows
+        counted as zeros through ``total_sample_cnt``; a column with more
+        than ``bin_construct_sample_cnt`` nonzeros is sampled), the EFB plan
+        from nonzero-row masks of up to 100,000 sampled rows, kept only
+        where it shrinks the histogram cells or, at most doubling them, the
+        columns by a quarter; the one row-major matrix made is the bundled
+        uint8 ``[n, columns]``.  A valid set bins against its reference's
+        mappers and plan, dense-built or categorical ones included."""
+        csc = data.tocsc(copy=True)  # copy: sum_duplicates works in place
+        csc.sum_duplicates()
+        n, f = csc.shape
+        if bool(cfg.linear_tree):
+            log.fatal("linear_tree=true requires dense input "
+                      "(sparse ingestion keeps no raw matrix)")
+        if categorical_feature not in (None, "auto") and \
+                len(list(categorical_feature)):
+            log.fatal("categorical_feature with sparse input is not "
+                      "supported; pass a dense matrix or a DataFrame")
+        ds = cls()
+        ds.config = cfg
+        ds.num_total_features = f
+        ds.feature_names = feature_names or [f"Column_{i}" for i in range(f)]
+        ds.metadata = Metadata(n)
+        if label is not None:
+            ds.metadata.set_label(label)
+        ds.metadata.set_weight(weight)
+        ds.metadata.set_group(group)
+        ds.metadata.set_init_score(init_score)
+
+        if reference is not None:
+            ds.mappers = reference.mappers
+            ds.used_feature_idx = list(reference.used_feature_idx)
+            ds.num_total_features = reference.num_total_features
+            ds.feature_names = reference.feature_names
+            ds._reference = reference
+            ds.bundle_plan = reference.bundle_plan
+            ds.bins = _sparse_bundled_matrix(
+                csc, ds.mappers, ds.used_feature_idx, ds.bundle_plan, n)
+            return ds
+
+        # the mappers from the columns' nonzeros (bin.cpp:311 FindBin with
+        # zero elision: total_sample_cnt - len(values) count as zeros)
+        max_bin = min(int(cfg.max_bin), MAX_UINT8_BINS)
+        cap = int(cfg.bin_construct_sample_cnt)
+        rng = np.random.default_rng(cfg.data_random_seed)
+        mbf = list(cfg.max_bin_by_feature or [])
+        forced = _load_forced_bins(cfg, f)
+        mappers = []
+        for j in range(f):
+            vals = csc.data[csc.indptr[j]:csc.indptr[j + 1]]
+            if len(vals) > cap:
+                vals = vals[rng.choice(len(vals), cap, replace=False)]
+                total = int(round(n * cap / (csc.indptr[j + 1]
+                                             - csc.indptr[j])))
+            else:
+                total = n
+            fmax = mbf[j] if j < len(mbf) and mbf[j] > 1 else max_bin
+            mappers.append(BinMapper.find_bin(
+                vals, total_sample_cnt=max(total, len(vals)),
+                max_bin=int(fmax),
+                min_data_in_bin=int(cfg.min_data_in_bin),
+                use_missing=bool(cfg.use_missing),
+                zero_as_missing=bool(cfg.zero_as_missing),
+                forced_bounds=forced.get(j)))
+        ds.mappers = mappers
+        ds.used_feature_idx = [j for j in range(f)
+                               if not mappers[j].is_trivial()]
+        dropped = f - len(ds.used_feature_idx)
+        if dropped:
+            log.info(f"Dropped {dropped} trivial (single-bin) feature(s)")
+        if not ds.used_feature_idx:
+            log.fatal("Cannot construct Dataset: all features are trivial")
+
+        # the EFB plan from sampled nonzero-row masks
+        plan = None
+        if bool(cfg.enable_bundle) and cfg.tree_learner not in (
+                "feature", "feature_parallel"):
+            ns = min(n, 100_000)
+            sample_rows = np.sort(rng.choice(n, ns, replace=False)) \
+                if ns < n else np.arange(n)
+            masks = []
+            for j in ds.used_feature_idx:
+                rows = csc.indices[csc.indptr[j]:csc.indptr[j + 1]]
+                mask = np.zeros(ns, bool)
+                pos = np.searchsorted(sample_rows, rows)
+                inb = pos < ns
+                hit = np.zeros(len(rows), bool)
+                hit[inb] = sample_rows[pos[inb]] == rows[inb]
+                mask[pos[hit]] = True
+                masks.append(mask)
+            zero_bins = np.array([mappers[j].default_bin
+                                  for j in ds.used_feature_idx], np.int32)
+            # unlike the dense path, which never widens the bin axis, wide
+            # sparse data wants full-width bundles: the plan is kept when
+            # the histogram cells shrink, or when the columns shrink by a
+            # quarter and the cells at most double
+            n_bins_pre = ds.device_n_bins()
+            plan = plan_bundles_sparse(masks, ds.num_bins_array(),
+                                       zero_bins, ns)
+            if plan is not None:
+                ds.bundle_plan = plan
+                cells_with = plan.num_bundles * ds.device_n_bins()
+                cells_without = len(ds.used_feature_idx) * n_bins_pre
+                ds.bundle_plan = None
+                shrinks_cols = plan.num_bundles <= \
+                    0.75 * len(ds.used_feature_idx)
+                if not (cells_with < cells_without
+                        or (shrinks_cols and cells_with
+                            <= 2 * cells_without)):
+                    plan = None
+            if plan is not None:
+                saved = len(ds.used_feature_idx) - plan.num_bundles
+                log.info(f"EFB bundled {len(ds.used_feature_idx)} sparse "
+                         f"features into {plan.num_bundles} columns "
+                         f"(saved {saved})")
+        ds.bundle_plan = plan
+        ds.bins = _sparse_bundled_matrix(csc, mappers, ds.used_feature_idx,
+                                         plan, n)
+        return ds
+
     def _construct_mappers(self, arr: np.ndarray, cfg: Config,
                            cat_idx: Sequence[int]) -> None:
         n, f = arr.shape
@@ -360,20 +512,20 @@ class Dataset:
             log.fatal("Cannot construct Dataset: all features are trivial "
                       "(single bin). Check your data or binning parameters.")
 
-    def _bin_matrix(self, arr: np.ndarray) -> np.ndarray:
-        """Apply this dataset's per-feature mappers to a raw matrix (from
-        ``PARALLEL_BIN_VALUES`` values on, a column per thread)."""
-        n = arr.shape[0]
-        used = self.used_feature_idx
-        bins = np.zeros((n, len(used)), dtype=np.uint8)
+    def _map_columns(self, arr: np.ndarray, dtype, fn) -> np.ndarray:
+        """``fn(mapper, column)`` of each used feature's raw column into a
+        ``dtype`` [n, used] matrix; from ``PARALLEL_BIN_VALUES`` values on,
+        a column per thread (the bytes are the same)."""
         if arr.shape[1] != self.num_total_features:
             log.fatal(f"The number of features in data ({arr.shape[1]}) does "
                       f"not match Dataset ({self.num_total_features})")
+        n = arr.shape[0]
+        used = self.used_feature_idx
+        out = np.zeros((n, len(used)), dtype=dtype)
 
         def one(col: int) -> None:
             j = used[col]
-            bins[:, col] = self.mappers[j].values_to_bins(arr[:, j]) \
-                .astype(np.uint8)
+            out[:, col] = fn(self.mappers[j], arr[:, j])
 
         workers = min(os.cpu_count() or 1, len(used))
         if n * len(used) < PARALLEL_BIN_VALUES or workers < 2:
@@ -382,7 +534,12 @@ class Dataset:
         else:
             with ThreadPoolExecutor(workers) as pool:
                 list(pool.map(one, range(len(used))))
-        return np.ascontiguousarray(bins)
+        return np.ascontiguousarray(out)
+
+    def _bin_matrix(self, arr: np.ndarray) -> np.ndarray:
+        """Apply this dataset's per-feature mappers to a raw matrix."""
+        return self._map_columns(
+            arr, np.uint8, lambda m, v: m.values_to_bins(v).astype(np.uint8))
 
     def bin_external(self, arr: np.ndarray) -> np.ndarray:
         """Bin an external raw matrix with this dataset's mappers and its
@@ -403,16 +560,107 @@ class Dataset:
         a category unseen at training time to the sentinel bin ``num_bin``
         and NaN to ``num_bin + 1``, so a bitset node sends them where the
         raw-space walk does (unseen right, NaN by ``cat_nan_left``)."""
-        if arr.shape[1] != self.num_total_features:
-            log.fatal(f"The number of features in data ({arr.shape[1]}) "
-                      f"does not match Dataset ({self.num_total_features})")
-        used = self.used_feature_idx
-        bins = np.zeros((arr.shape[0], len(used)), dtype=np.int32)
-        for col, j in enumerate(used):
-            m = self.mappers[j]
-            bins[:, col] = m.values_to_bins_pred(arr[:, j], m.num_bin,
-                                                 m.num_bin + 1)
-        return np.ascontiguousarray(bins)
+        return self._map_columns(
+            arr, np.int32,
+            lambda m, v: m.values_to_bins_pred(v, m.num_bin, m.num_bin + 1))
+
+    # --------------------------------------------------------------- utility
+    def bin_threshold_to_value(self, packed_feature: int,
+                               bin_thr: int) -> float:
+        """A learner bin threshold of a packed feature as the model's
+        real-valued threshold."""
+        return self.mappers[self.used_feature_idx[packed_feature]] \
+            .bin_to_value(bin_thr)
+
+    # ------------------------------------------------------- binary format
+    def save_binary(self, path: str) -> None:
+        """Write the binned dataset (reference Dataset::SaveBinaryFile /
+        LGBM_DatasetSaveBinary c_api.h:516) in the JAX package's npz
+        format: the marker, the format version, the bin matrix, the
+        mappers as JSON, the metadata, the raw columns and the bundle
+        plan."""
+        import json
+        mappers_json = json.dumps([m.to_dict() for m in self.mappers])
+        md = self.metadata
+        extra: Dict[str, Any] = {}
+        if md.weight is not None:
+            extra["weight"] = md.weight
+        if md.query_boundaries is not None:
+            extra["query_boundaries"] = md.query_boundaries
+        if md.init_score is not None:
+            extra["init_score"] = md.init_score
+        if md.position is not None:
+            extra["position"] = md.position
+        if self.raw is not None:
+            extra["raw"] = self.raw
+        if self.bundle_plan is not None:
+            p = self.bundle_plan
+            extra["bundle_json"] = json.dumps(p.bundles)
+            extra["bundle_feat_col"] = p.feat_col
+            extra["bundle_src_idx"] = p.src_idx
+            extra["bundle_valid"] = p.valid
+            extra["bundle_default_bin"] = p.default_bin
+            extra["bundle_inv_table"] = p.inv_table
+        if self.ingest_provenance is not None:
+            extra["provenance_json"] = json.dumps(self.ingest_provenance)
+        with open(path, "wb") as fh:  # the exact name (np would add .npz)
+            np.savez_compressed(
+                fh, lgbtpu_dataset=np.int32(1),
+                format_version=np.int64(BINARY_FORMAT_VERSION),
+                bins=self.bins,
+                label=md.label, mappers_json=mappers_json,
+                used_feature_idx=np.asarray(self.used_feature_idx, np.int64),
+                num_total_features=np.int64(self.num_total_features),
+                feature_names=np.asarray(self.feature_names, dtype=object),
+                **extra)
+
+    @classmethod
+    def load_binary(cls, path: str, config: Optional[Config] = None
+                    ) -> "Dataset":
+        """Read a dataset written by :meth:`save_binary` (of either
+        package); a newer format version is refused."""
+        import json
+        z = np.load(path, allow_pickle=True)
+        if "lgbtpu_dataset" not in z:
+            log.fatal(f"{path} is not a lightgbm_tpu binary dataset")
+        version = int(z["format_version"]) if "format_version" in z else 1
+        if version > BINARY_FORMAT_VERSION:
+            log.fatal(
+                f"Binary dataset {path!r} has format version {version}, but "
+                f"this build reads up to version {BINARY_FORMAT_VERSION}; "
+                "re-save it with a matching version")
+        ds = cls()
+        ds.config = config or Config()
+        ds.bins = z["bins"]
+        ds.used_feature_idx = [int(i) for i in z["used_feature_idx"]]
+        ds.num_total_features = int(z["num_total_features"])
+        ds.feature_names = [str(s) for s in z["feature_names"]]
+        ds.mappers = [BinMapper.from_dict(d)
+                      for d in json.loads(str(z["mappers_json"]))]
+        ds.metadata = Metadata(ds.bins.shape[0])
+        ds.metadata.set_label(z["label"])
+        if "weight" in z:
+            ds.metadata.set_weight(z["weight"])
+        if "query_boundaries" in z:
+            ds.metadata.query_boundaries = z["query_boundaries"]
+        if "init_score" in z:
+            ds.metadata.set_init_score(z["init_score"])
+        if "position" in z:
+            ds.metadata.set_position(z["position"])
+        if "raw" in z:
+            ds.raw = z["raw"]
+        if "provenance_json" in z:
+            ds.ingest_provenance = json.loads(str(z["provenance_json"]))
+        if "bundle_json" in z:
+            bundles = json.loads(str(z["bundle_json"]))
+            ds.bundle_plan = BundlePlan(
+                bundles=bundles,
+                feat_col=z["bundle_feat_col"],
+                src_idx=z["bundle_src_idx"], valid=z["bundle_valid"],
+                default_bin=z["bundle_default_bin"],
+                inv_table=z["bundle_inv_table"],
+                num_bundles=len(bundles))
+        return ds
 
 
 def _raw_columns(arr: np.ndarray, used: Sequence[int]) -> np.ndarray:
@@ -435,6 +683,51 @@ def _resolve_categorical(categorical_feature: Optional[Sequence[Union[int, str]]
         else:
             out.append(int(c))
     return sorted(set(out))
+
+
+def _sparse_bundled_matrix(csc, mappers, used_idx, plan, n: int) -> np.ndarray:
+    """The bundled uint8 [n, columns] straight from CSC columns (the JAX
+    package's).  An implicit entry is 0.0, so each column starts at its
+    feature's bin of zero (``values_to_bins(0.0)``: numeric and
+    categorical mappers alike) and only the nonzeros are binned and
+    scattered.  Under a bundle plan, member encoding and first-writer
+    conflict resolution are ``apply_bundles``' on the equivalent dense
+    matrix, a dense-built plan included: a member whose zero bin is a
+    stored bin claims its implicit rows in member order too."""
+    _z = np.zeros(1, np.float64)
+
+    def zero_bin(m) -> int:
+        return int(m.values_to_bins(_z)[0])
+
+    def column(j):
+        lo, hi = csc.indptr[j], csc.indptr[j + 1]
+        return mappers[j], csc.indices[lo:hi], csc.data[lo:hi]
+
+    bundles = [[f] for f in range(len(used_idx))] if plan is None \
+        else plan.bundles
+    out = np.zeros((n, len(bundles)), np.uint8)
+    for col, members in enumerate(bundles):
+        if len(members) == 1:
+            m, rows, vals = column(used_idx[members[0]])
+            zb = zero_bin(m)
+            if zb:
+                out[:, col] = zb
+            out[rows, col] = m.values_to_bins(vals).astype(np.uint8)
+            continue
+        for fv in members:
+            m, rows, vals = column(used_idx[fv])
+            b = m.values_to_bins(vals).astype(np.int64)
+            stored = plan.valid[fv][b]
+            write = stored & (out[rows, col] == 0)
+            out[rows[write], col] = \
+                plan.src_idx[fv][b[write]].astype(np.uint8)
+            zb = zero_bin(m)
+            if 0 <= zb < len(plan.valid[fv]) and plan.valid[fv][zb]:
+                imp = np.ones(n, bool)
+                imp[rows] = False
+                imp &= out[:, col] == 0
+                out[imp, col] = np.uint8(plan.src_idx[fv][zb])
+    return out
 
 
 def _load_forced_bins(cfg: Config, num_features: int) -> dict:

@@ -170,3 +170,122 @@ def parse_model_string(text: str) -> Dict[str, Any]:
         "params": params,
         "pandas_categorical": pandas_categorical,
     }
+
+
+def model_to_dict(trees: List[Tree], *, num_class: int,
+                  num_tree_per_iteration: int, max_feature_idx: int,
+                  objective_str: str, feature_names: List[str]
+                  ) -> Dict[str, Any]:
+    """The DumpModel structure (gbdt_model_text.cpp DumpModel) as a dict:
+    the header and each tree's nested nodes, the JAX package's keys."""
+
+    def node_json(t: Tree, node: int) -> Dict[str, Any]:
+        if node < 0:
+            leaf = -node - 1
+            return {"leaf_index": int(leaf),
+                    "leaf_value": float(t.leaf_value[leaf]),
+                    "leaf_weight": float(t.leaf_weight[leaf])
+                    if len(t.leaf_weight) > leaf else 0.0,
+                    "leaf_count": int(t.leaf_count[leaf])
+                    if len(t.leaf_count) > leaf else 0}
+        dt = int(t.decision_type[node])
+        return {
+            "split_index": int(node),
+            "split_feature": int(t.split_feature[node]),
+            "split_gain": float(t.split_gain[node]),
+            "threshold": float(t.threshold[node]),
+            "decision_type": "==" if dt & 1 else "<=",
+            "default_left": bool(dt & 2),
+            "missing_type": ["None", "Zero", "NaN"][(dt >> 2) & 3],
+            "internal_value": float(t.internal_value[node]),
+            "internal_count": int(t.internal_count[node]),
+            "left_child": node_json(t, int(t.left_child[node])),
+            "right_child": node_json(t, int(t.right_child[node])),
+        }
+
+    return {
+        "name": "tree",
+        "version": "v4",
+        "num_class": num_class,
+        "num_tree_per_iteration": num_tree_per_iteration,
+        "label_index": 0,
+        "max_feature_idx": max_feature_idx,
+        "objective": objective_str,
+        "feature_names": feature_names,
+        "tree_info": [
+            {"tree_index": i, "num_leaves": t.num_leaves,
+             "shrinkage": t.shrinkage,
+             "tree_structure": node_json(t, 0 if t.num_leaves > 1 else -1)}
+            for i, t in enumerate(trees)
+        ],
+    }
+
+
+def model_to_json(trees: List[Tree], **kwargs: Any) -> str:
+    return json.dumps(model_to_dict(trees, **kwargs), indent=2)
+
+
+def model_to_cpp(trees: List[Tree], *, num_tree_per_iteration: int = 1) -> str:
+    """Standalone C++ prediction code of a model (the reference's
+    ``convert_model`` task / ModelToIfElse, gbdt_model_text.cpp; the JAX
+    package's text, byte for byte): one ``double PredictTreeK(const
+    double* arr)`` of nested ifs a tree and a ``Predict`` that sums them a
+    class; a missing value goes to the node's default side."""
+
+    def node_code(t: Tree, node: int, indent: str) -> str:
+        if node < 0:
+            leaf = -node - 1
+            if t.is_linear:
+                terms = [f"{t.leaf_const[leaf]:.17g}"]
+                for fi, co in zip(t.leaf_features[leaf], t.leaf_coeff[leaf]):
+                    terms.append(f"({co:.17g}) * arr[{fi}]")
+                return f"{indent}return {' + '.join(terms)};\n"
+            return f"{indent}return {t.leaf_value[leaf]:.17g};\n"
+        f = int(t.split_feature[node])
+        dt = int(t.decision_type[node])
+        is_cat = bool(dt & 1)
+        default_left = bool(dt & 2)
+        mtype = (dt >> 2) & 3  # 0 none / 1 zero / 2 nan (tree.py encoding)
+        if is_cat:
+            # NaN categorical routes per the recorded cat_nan_left
+            # (predict_leaf_index in tree.py)
+            ci = int(t.cat_split_index[node])
+            cats = sorted(t.cat_threshold[ci]) if ci >= 0 else []
+            nan_left = (ci >= 0 and ci < len(t.cat_nan_left)
+                        and bool(t.cat_nan_left[ci]))
+            in_set = " || ".join(f"ivalue == {c}" for c in cats) or "false"
+            member = (f"[&]{{ int ivalue = (int)arr[{f}]; "
+                      f"return {in_set}; }}()")
+            cond = f"std::isnan(arr[{f}]) ? {str(nan_left).lower()} : {member}"
+        else:
+            thr = float(t.threshold[node])
+            nan = f"std::isnan(arr[{f}])"
+            base = f"arr[{f}] <= {thr:.17g}"
+            if mtype == 0:
+                # missing_type none: NaN falls back to 0.0 before comparing
+                cond = (f"({nan}) ? (0.0 <= {thr:.17g}) : ({base})")
+            else:
+                miss = nan if mtype == 2 else \
+                    f"(({nan}) || std::fabs(arr[{f}]) <= 1e-35)"
+                cond = f"({miss}) || ({base})" if default_left \
+                    else f"!({miss}) && ({base})"
+        left = node_code(t, int(t.left_child[node]), indent + "  ")
+        right = node_code(t, int(t.right_child[node]), indent + "  ")
+        return (f"{indent}if ({cond}) {{\n{left}{indent}}} else {{\n"
+                f"{right}{indent}}}\n")
+
+    # the JAX package's banner, so both packages write the same file
+    parts = ["#include <cmath>", "", "// generated by lightgbm_tpu "
+             "convert_model (reference ModelToIfElse equivalent)", ""]
+    for i, t in enumerate(trees):
+        body = node_code(t, 0 if t.num_leaves > 1 else -1, "  ")
+        parts.append(f"double PredictTree{i}(const double* arr) {{\n{body}}}\n")
+    k = max(1, num_tree_per_iteration)
+    calls = [f"PredictTree{i}(arr)" for i in range(len(trees))]
+    parts.append("void Predict(const double* arr, double* out) {")
+    for c in range(k):
+        sub = [calls[j] for j in range(c, len(calls), k)]
+        expr = " + ".join(sub) if sub else "0.0"
+        parts.append(f"  out[{c}] = {expr};")
+    parts.append("}\n")
+    return "\n".join(parts)

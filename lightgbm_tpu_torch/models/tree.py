@@ -50,6 +50,9 @@ class Tree:
         self.split_gain = np.zeros(ni, np.float32)
         self.threshold = np.zeros(ni, np.float64)        # real-valued
         self.threshold_bin = np.zeros(ni, np.int32)      # bin threshold
+        # threshold_bin holds the training bins (a tree grown here), not
+        # zeros (a tree read from text, which keeps real thresholds only)
+        self.bins_known = False
         self.decision_type = np.zeros(ni, np.int32)
         self.left_child = np.full(ni, -1, np.int32)
         self.right_child = np.full(ni, -1, np.int32)
@@ -96,6 +99,7 @@ class Tree:
             return t
         sf_packed = np.asarray(arrays.split_feature)[:ni]
         t.threshold_bin = np.asarray(arrays.split_bin)[:ni].astype(np.int32)
+        t.bins_known = True
         dl = np.asarray(arrays.default_left)[:ni]
         cat = np.asarray(arrays.split_cat)[:ni]
         t.left_child = np.asarray(arrays.left_child)[:ni].astype(np.int32)

@@ -260,11 +260,18 @@ def test_update_fobj_rounds_match_jax():
 
 
 def test_update_with_another_train_set_fatal():
+    """``update(train_set)`` with another set resets the training data
+    first (reference Booster.update, ``reset_training_data``):
+    fatal when its bins do not align with the model's, a reset when they
+    do."""
     X, y = _data("binary", 300)
-    b = lgb_torch.Booster(dict(STRICT, objective="binary", **CPU),
-                          lgb_torch.Dataset(X, y))
+    ds = lgb_torch.Dataset(X, y)
+    b = lgb_torch.Booster(dict(STRICT, objective="binary", **CPU), ds)
     with pytest.raises(lgb_torch.LightGBMError, match="reset_training_data"):
-        b.update(lgb_torch.Dataset(X, y))
+        b.update(lgb_torch.Dataset(X * 3.0 + 1.0, y, params={"max_bin": 7}))
+    sub = ds.subset(np.arange(200))
+    b.update(sub)
+    assert b.train_set is sub and b._gbdt.scores.shape[0] == 200
 
 
 # ------------------------------------------------------------- nan_policy

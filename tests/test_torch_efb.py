@@ -6,7 +6,9 @@ bundle columns, split finding over histograms expanded to per-feature
 (virtual) bins.  Inputs are made from seeded numpy (the JAX package's
 ``tests/test_efb.py`` one-hot fixture; a variant with 10% NaN in its
 dense columns; the same matrix handed to the JAX package as a scipy
-sparse matrix, which the port takes dense; the probe of 6 normal plus 8
+sparse matrix and to the port dense, the dense-vs-sparse check (the
+port's own sparse path is held in tests/test_torch_ingest.py); the
+probe of 6 normal plus 8
 one-hot columns):
 
 * ``device_bundle_arrays`` equal to the JAX package's, element for

@@ -111,6 +111,35 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+    _release_jax_executables()
+
+
+#: the memory mappings of a test process past which the port's tests drop
+#: JAX's compiled executables (Linux's default vm.max_map_count is 65,530)
+MAX_PROCESS_MAPS = 20_000
+
+
+def _release_jax_executables():
+    """Drop JAX's in-process executables once this process holds more than
+    ``MAX_PROCESS_MAPS`` memory mappings.  Every XLA:CPU executable JAX
+    keeps maps its code and data, and the mappings only grow: four port
+    test files in one process reached 64,250 of the 65,530 the kernel
+    allows, and a six-worker run lost workers to segfaults in JAX's
+    executable loading late in the run.  ``jax.clear_caches()`` took one
+    process from 11,793 mappings to 749; the next JAX call reloads its
+    executable from the persistent cache."""
+    try:
+        with open("/proc/self/maps", "rb") as f:
+            n = sum(1 for _ in f)
+    except OSError:
+        return
+    if n > MAX_PROCESS_MAPS:
+        import gc
+
+        import jax
+
+        jax.clear_caches()
+        gc.collect()
 
 
 class _Loop:

@@ -216,3 +216,56 @@ def test_training_surface_without_a_card_raises(monkeypatch):
     loaded = lgb_torch.Booster(model_str=bst.model_to_string())
     with pytest.raises(lgb_torch.LightGBMError):
         loaded.refit(X, y)
+
+
+def test_scan_covers_the_user_surface_modules():
+    names = {str(p.relative_to(REPO)) for p in _port_sources()}
+    for mod in ("io/parser.py", "io/dataset.py", "sklearn.py",
+                "plotting.py", "application.py", "__main__.py",
+                "models/model_io.py"):
+        assert f"lightgbm_tpu_torch/{mod}" in names
+
+
+def test_user_surfaces_run_with_jax_unimportable(tmp_path):
+    """File input, sparse input, a binary dataset, an estimator, the
+    inspection methods and the CLI run with jax and lightgbm_tpu
+    unimportable."""
+    code = textwrap.dedent("""
+        import sys
+        for name in ("jax", "jaxlib", "lightgbm_tpu"):
+            sys.modules[name] = None   # poison: importing it now fails
+        import numpy as np
+        import scipy.sparse as sp
+        import lightgbm_tpu_torch as lgb
+        from lightgbm_tpu_torch.application import main
+        rng = np.random.default_rng(0)
+        X = rng.normal(size=(1500, 4))
+        y = X[:, 0] + 0.1 * rng.normal(size=1500)
+        np.savetxt("train.csv", np.column_stack([y, X]), fmt="%.17g",
+                   delimiter=",")
+        base = dict(objective="regression", num_leaves=7, device_type="cpu",
+                    verbosity=-1)
+        b = lgb.train(base, lgb.Dataset("train.csv"), 3)
+        assert b.num_trees() == 3 and b.dump_model()["tree_info"]
+        assert b.feature_importance("gain").shape == (4,)
+        S = sp.random(1500, 30, density=0.1, random_state=0, format="csr")
+        bs = lgb.train(base, lgb.Dataset(S, y), 2)
+        assert np.isfinite(bs.predict(S)).all()
+        lgb.Dataset(X, y).save_binary("d.bin")
+        assert lgb.Dataset("d.bin").construct().num_data() == 1500
+        reg = lgb.LGBMRegressor(n_estimators=2, verbosity=-1,
+                                device_type="cpu").fit(X, y)
+        assert np.isfinite(reg.predict(X)).all()
+        main(["data=train.csv", "num_trees=2", "device_type=cpu",
+              "output_model=m.txt", "verbosity=-1"])
+        assert lgb.Booster(model_file="m.txt").num_trees() == 2
+        assert not any(m.split(".")[0] in ("jax", "jaxlib")
+                       for m, mod in sys.modules.items() if mod is not None)
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("ok")
