@@ -290,13 +290,33 @@ else: no jax, no network.  Phases, each of which fails the run on error:
    its live device memory no more than a fresh booster's; (f) the CLI in
    subprocesses (train, predict, convert_model; exit code 1 without a
    card).
+16. the C API (``check_c_api``; no new kernel): through the port's
+   ``liblgbtpu_capi.so`` (g++, built beside phase 1's kernels) in this
+   process, a Dataset made by ``DatasetCreateFromMat`` from phase 3's 1M x
+   28 rows: (a) a C ABI booster and a Python ``Booster`` on that one
+   Dataset take turns for 5 rounds on the card, their texts equal, a C
+   round against a Python round and the shim's cost a call; (b) 1,000
+   ``PredictForMatSingleRowFast`` rows, each bitwise ``Booster.predict``
+   of the row, one forest-kernel launch (leaves mode) a row; (c)
+   ``CompiledPredictor`` (trained and from model text) over the default
+   ladder, 120 mixed-size requests, exact mode bitwise against
+   ``Booster.predict(raw_score=True)``, fast mode against the device
+   predict, live device memory flat across the requests; (f) the model
+   text loaded through the ABI predicts 100,000 rows on the card through
+   the forest kernel's leaves, bitwise the host walk; (e) live device
+   memory back within 1 MiB after ``FreeHandle``; then a pure C program
+   (gcc) trains the same 5 rounds through ``LGBMTPU_*`` calls, its model
+   text and predictions equal to the Python booster's, and (d) a pthread
+   of that program trains a second booster on the first's dataset handle
+   to the same text and bits.
 
 It prints one JSON line with every kernel's numbers (launches: the fused
 runs' for the kernels a fused run holds, the table partitions' those of
 phases 7 and 8 together, the bucketed strict run's for
 ``histogram_rows_t``, phase 12 (a)-(c)'s for the threefry kernel, phase
-13 (c)'s for the linear kernels and the forest kernel's linear mode; the
-"library device ms" line adds the index_add_
+13 (c)'s for the linear kernels and the forest kernel's linear mode,
+phase 16's fast path, serving predictor and loaded-model predict added to
+the forest kernel's; the "library device ms" line adds the index_add_
 device times of rows 2, 7 and 8), the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.
 
@@ -6768,6 +6788,521 @@ def check_user_surfaces(torch, lgbt, HK, RF, TB, prng, card):
     return part_launches
 
 
+# ---- phase 16: the C API on the card
+
+#: phase 16's C consumer: reads the rows the script wrote, trains through
+#: the C ABI on the card (booster A on this thread, booster B on a pthread,
+#: from the same dataset handle), predicts, and checks that B equals A
+C_CONSUMER = r"""
+#include <pthread.h>
+#include <stdio.h>
+#include <stdlib.h>
+#include <string.h>
+#include <stdint.h>
+#include <time.h>
+#include "capi.h"
+
+#define CHECK(call) do { if ((call) != 0) { \
+  fprintf(stderr, "FAIL %s: %s\n", #call, LGBMTPU_GetLastError()); \
+  return 1; } } while (0)
+
+static double now(void) {
+  struct timespec t;
+  clock_gettime(CLOCK_MONOTONIC, &t);
+  return t.tv_sec + 1e-9 * t.tv_nsec;
+}
+
+static void* slurp(const char* dir, const char* name, size_t bytes) {
+  char path[4096];
+  snprintf(path, sizeof path, "%s/%s", dir, name);
+  FILE* f = fopen(path, "rb");
+  void* p = malloc(bytes);
+  if (!f || !p || fread(p, 1, bytes, f) != bytes) {
+    fprintf(stderr, "cannot read %s\n", path);
+    exit(2);
+  }
+  fclose(f);
+  return p;
+}
+
+static void spill(const char* dir, const char* name, const void* p,
+                  size_t bytes) {
+  char path[4096];
+  snprintf(path, sizeof path, "%s/%s", dir, name);
+  FILE* f = fopen(path, "wb");
+  fwrite(p, 1, bytes, f);
+  fclose(f);
+}
+
+static char* model_text(int64_t bst) {
+  int64_t need = 0;
+  if (LGBMTPU_BoosterSaveModelToString(bst, NULL, &need)) return NULL;
+  char* text = malloc(need);
+  if (LGBMTPU_BoosterSaveModelToString(bst, text, &need)) return NULL;
+  return text;
+}
+
+struct job {
+  int64_t bst, np, f;
+  const double* xp;
+  double* out;
+  int rounds;
+  char err[1024];
+};
+
+/* the second host thread: rounds and a predict on handles made by main */
+static void* second_thread(void* arg) {
+  struct job* j = (struct job*)arg;
+  int fin = 0;
+  j->err[0] = 0;
+  for (int r = 0; r < j->rounds; ++r)
+    if (LGBMTPU_BoosterUpdateOneIter(j->bst, &fin) != 0) {
+      snprintf(j->err, sizeof j->err, "update: %s", LGBMTPU_GetLastError());
+      return NULL;
+    }
+  int64_t len = j->np;
+  if (LGBMTPU_BoosterPredictForMat(j->bst, j->xp, j->np, j->f, 1, j->out,
+                                   &len) != 0 || len != j->np)
+    snprintf(j->err, sizeof j->err, "predict: %s", LGBMTPU_GetLastError());
+  return NULL;
+}
+
+int main(int argc, char** argv) {
+  if (argc != 7) return 2;
+  const char* dir = argv[1];
+  const int64_t n = atoll(argv[2]), f = atoll(argv[3]), np = atoll(argv[4]);
+  const int rounds = atoi(argv[5]);
+  const char* params = argv[6];
+  double* X = slurp(dir, "X.bin", sizeof(double) * n * f);
+  double* y = slurp(dir, "y.bin", sizeof(double) * n);
+  double* xp = slurp(dir, "Xp.bin", sizeof(double) * np * f);
+  double t0 = now();
+  int64_t ds, a, b;
+  CHECK(LGBMTPU_DatasetCreateFromMat(X, n, f, y, params, &ds));
+  double t_ds = now() - t0;
+  CHECK(LGBMTPU_BoosterCreate(ds, params, &a));
+  CHECK(LGBMTPU_BoosterCreate(ds, params, &b));
+  printf("c rounds:");
+  int fin = 0;
+  for (int r = 0; r < rounds; ++r) {
+    double t = now();
+    CHECK(LGBMTPU_BoosterUpdateOneIter(a, &fin));
+    printf(" %.6f", now() - t);
+  }
+  printf("\n");
+  double* pred = malloc(sizeof(double) * np);
+  double* raw = malloc(sizeof(double) * np);
+  int64_t len = np;
+  t0 = now();
+  CHECK(LGBMTPU_BoosterPredictForMat(a, xp, np, f, 0, pred, &len));
+  double t_pred = now() - t0;
+  len = np;
+  CHECK(LGBMTPU_BoosterPredictForMat(a, xp, np, f, 1, raw, &len));
+  spill(dir, "pred.bin", pred, sizeof(double) * np);
+  spill(dir, "raw.bin", raw, sizeof(double) * np);
+  char* text_a = model_text(a);
+  if (!text_a) return 3;
+  spill(dir, "model.txt", text_a, strlen(text_a));
+  struct job j = {b, np, f, xp, malloc(sizeof(double) * np), rounds, {0}};
+  pthread_t th;
+  t0 = now();
+  if (pthread_create(&th, NULL, second_thread, &j) != 0) return 4;
+  pthread_join(th, NULL);
+  double t_thread = now() - t0;
+  if (j.err[0]) { fprintf(stderr, "second thread: %s\n", j.err); return 5; }
+  char* text_b = model_text(b);
+  if (!text_b || strcmp(text_a, text_b) != 0) {
+    fprintf(stderr, "the second thread's model text differs\n");
+    return 6;
+  }
+  if (memcmp(raw, j.out, sizeof(double) * np) != 0) {
+    fprintf(stderr, "the second thread's raw predictions differ\n");
+    return 7;
+  }
+  /* booster a and the dataset are freed; b stays alive at exit */
+  CHECK(LGBMTPU_BoosterFree(a));
+  CHECK(LGBMTPU_DatasetFree(ds));
+  printf("c consumer: dataset %.3f s, predict %lld rows %.3f s, second "
+         "thread %.3f s (%d rounds and a predict)\n", t_ds, (long long)np,
+         t_pred, t_thread, rounds);
+  return 0;
+}
+"""
+
+#: phase 16's sizes: (a)'s training rows are phase 3's N, its predicted
+#: rows, the fast path's single rows, (c)'s requests
+N_CAPI_PRED = 100_000
+N_FAST_ROWS = 1_000
+N_REQUESTS = 120
+CAPI_ROUNDS = 5
+N_SHIM_CALLS = 2_000
+
+
+def check_c_api(torch, lgbt, capi_build):
+    """Phase 16: the C API on the card, no new kernel.  In this process,
+    through the built library (ctypes; ``capi_build`` the future of
+    ``lightgbm_tpu_torch.native.build_capi()``, started in phase 1): a
+    Dataset made with ``DatasetCreateFromMat`` from phase 3's 1M x 28 rows
+    and a Booster with ``BoosterCreate`` and the recipe (no
+    ``device_type``: the card).  (a) a Python ``Booster`` on that same
+    Dataset object, the two taking turns (ABI, Python, then Python, ABI,
+    ...) for ``CAPI_ROUNDS`` rounds each, every round synchronized and
+    timed, the texts equal; a C round against a Python round (each side's
+    first round left out), and what the shim alone costs a call
+    (``N_SHIM_CALLS`` of ``BoosterGetCurrentIteration`` through ctypes
+    against the same ``capi_impl`` function called from Python).  (b)
+    ``FastInit`` and ``N_FAST_ROWS`` ``PredictForMatSingleRowFast`` calls,
+    each equal bitwise to ``Booster.predict`` of the row, one forest-kernel
+    launch (leaves mode) a row, the microseconds a row.  (c)
+    ``CompiledPredictor`` from the Python booster and from its model text
+    over the default ladder: ``N_REQUESTS`` requests of mixed sizes (1 to
+    6,000 rows), exact mode bitwise against
+    ``Booster.predict(raw_score=True)``, fast mode bitwise against the
+    booster's device ``_device_predict_raw``, one launch a chunk, live
+    device memory equal at every request after warm-up.  (f) the model
+    text loaded through ``BoosterLoadModelFromString`` (no params: the
+    card) and ``PredictForMat`` of ``N_CAPI_PRED`` held-out rows, normal
+    and raw, with ``DEVICE_PREDICT_MIN_WORK`` lowered for the calls:
+    ``Booster.predict``'s loaded-model path, one leaves launch a call,
+    bitwise the host walk.  (e) after ``FreeHandle`` of every handle and
+    the Python objects, live device memory (requested bytes) within 1 MiB
+    of its value at the phase's start.  Then a pure C program compiled
+    with gcc against the library and run as a subprocess: (a) the same
+    dataset, booster and rounds (each timed), ``PredictForMat`` of
+    ``N_CAPI_PRED`` held-out rows (normal and raw), ``SaveModelToString``;
+    its text equal to the Python booster's, its predictions equal bitwise
+    to that booster's ``predict`` and ``predict(raw_score=True)``.  (d) in
+    the same program a pthread runs the rounds and a raw predict on a
+    second booster made by the main thread: its text and predictions must
+    equal the first's; the program frees one booster and the dataset and
+    exits with the other alive.  Returns the forest kernel's launches of
+    (b), (c) and (f) (counts zeroed just before each, read just after)."""
+    import ctypes
+    from lightgbm_tpu_torch import capi_impl as TC
+    from lightgbm_tpu_torch.boosting import gbdt as G
+    from lightgbm_tpu_torch.ops import forest_kernels as FK
+    from lightgbm_tpu_torch.serving import BucketLadder, CompiledPredictor
+    t_phase = time.perf_counter()
+
+    def mark(what):
+        print(f"phase 16 {what}: {time.perf_counter() - t_phase:.1f} s",
+              flush=True)
+
+    def requested(collect=True):
+        """Requested device bytes of the live tensors; ``collect`` runs a
+        collection pass first (about 0.2 s in this process by phase 16:
+        (c) reads without one, a request's tensors die with their last
+        reference)."""
+        if collect:
+            gc.collect()
+        torch.cuda.synchronize()
+        return torch.cuda.memory_stats()["requested_bytes.all.current"]
+
+    _, X, y, Xv, yv, _ = slice_data(lgbt, N, 0, 255)
+    X64 = np.ascontiguousarray(X, np.float64)
+    y64 = np.ascontiguousarray(y, np.float64)
+    Xp = np.ascontiguousarray(Xv[:N_CAPI_PRED], np.float64)
+    params = json.dumps(RECIPE)
+    root = os.path.dirname(os.path.abspath(__file__))
+    mem0 = requested()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p16_")
+    try:
+        lib_path = capi_build.result()
+        lib = ctypes.CDLL(lib_path)
+        lib.LGBMTPU_GetLastError.restype = ctypes.c_char_p
+        I64, P = ctypes.c_int64, ctypes.c_void_p
+
+        def ok(rc, what):
+            if rc != 0:
+                fail(f"phase 16: {what}: "
+                     f"{lib.LGBMTPU_GetLastError().decode()}")
+        dsh, bh, fh_, lh = I64(), I64(), I64(), I64()
+        fin = ctypes.c_int()
+        ok(lib.LGBMTPU_DatasetCreateFromMat(
+            P(X64.ctypes.data), I64(N), I64(F), P(y64.ctypes.data),
+            params.encode(), ctypes.byref(dsh)), "DatasetCreateFromMat")
+        ok(lib.LGBMTPU_BoosterCreate(dsh, params.encode(), ctypes.byref(bh)),
+           "BoosterCreate")
+        bc = TC._handles[bh.value]
+        if bc._gbdt.device.type != "cuda":
+            fail("phase 16 (a): the C API booster is not on the card")
+        # (a) in this process: the ABI booster and a Python booster on the
+        # one Dataset, taking turns
+        bp = lgbt.Booster(dict(RECIPE), TC._handles[dsh.value])
+
+        def abi_round():
+            ok(lib.LGBMTPU_BoosterUpdateOneIter(bh, ctypes.byref(fin)),
+               "UpdateOneIter")
+        abi_rounds, py_rounds = [], []
+        sides = ((abi_round, abi_rounds), (bp.update, py_rounds))
+        for i in range(CAPI_ROUNDS):
+            for step, times in (sides if i % 2 == 0 else sides[::-1]):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step()
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+        del sides, step, times
+        text_lib = bc.model_to_string()
+        text_py = bp.model_to_string()
+        if text_lib != text_py:
+            fail("phase 16 (a): the C API booster's text (through the "
+                 "library in this process) differs from the Python "
+                 "booster's on the same Dataset")
+        # the shim alone: a call that does no device work, through ctypes
+        # and the C shim, against the function it reaches
+        it = ctypes.c_int()
+        t0 = time.perf_counter()
+        for _ in range(N_SHIM_CALLS):
+            ok(lib.LGBMTPU_BoosterGetCurrentIteration(bh, ctypes.byref(it)),
+               "GetCurrentIteration")
+        t_abi_call = (time.perf_counter() - t0) / N_SHIM_CALLS
+        t0 = time.perf_counter()
+        for _ in range(N_SHIM_CALLS):
+            TC.booster_current_iteration(bh.value)
+        t_py_call = (time.perf_counter() - t0) / N_SHIM_CALLS
+        if it.value != CAPI_ROUNDS:
+            fail(f"phase 16 (a): GetCurrentIteration gave {it.value}")
+        mark("(a) in this process")
+
+        # (b) the fast path
+        ok(lib.LGBMTPU_BoosterPredictForMatSingleRowFastInit(
+            bh, I64(F), 0, ctypes.byref(fh_)), "FastInit")
+        rows = Xp[:N_FAST_ROWS]
+        out, got = np.zeros(4), np.zeros(N_FAST_ROWS)
+        olen = I64()
+        FK.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(N_FAST_ROWS):
+            ok(lib.LGBMTPU_BoosterPredictForMatSingleRowFast(
+                fh_, P(rows[i].ctypes.data), P(out.ctypes.data), I64(4),
+                ctypes.byref(olen)), "SingleRowFast")
+            got[i] = out[0]
+        t_fast = time.perf_counter() - t0
+        fast_launches = FK.launches
+        if fast_launches != N_FAST_ROWS:
+            fail(f"phase 16 (b): {N_FAST_ROWS} fast rows launched the forest "
+                 f"kernel {fast_launches} times")
+        want = np.array([np.float64(bc.predict(rows[i:i + 1])[0])
+                         for i in range(N_FAST_ROWS)])
+        if olen.value != 1 or not np.array_equal(got, want):
+            fail("phase 16 (b): a fast row differs from Booster.predict of "
+                 "the row")
+        print(f"phase 16 (b) fast path: {N_FAST_ROWS:,} "
+              f"PredictForMatSingleRowFast calls through the library, each "
+              f"equal bitwise to Booster.predict of the row, "
+              f"{fast_launches} forest-kernel launches (leaves mode, bucket "
+              f"1), {t_fast / N_FAST_ROWS * 1e6:.1f} us a row", flush=True)
+        raw_py = bp.predict(Xp, raw_score=True)
+        pred_py = np.asarray(bp.predict(Xp), np.float64)
+        mark("(b)")
+
+        # (c) CompiledPredictor over the default ladder
+        g = bp._gbdt
+        preds = {"trained": CompiledPredictor.from_booster(bp),
+                 "model text": CompiledPredictor.from_model_text(text_py)}
+        fast = CompiledPredictor.from_booster(bp, exact=False)
+        ladder = BucketLadder()
+        for p in (*preds.values(), fast):
+            p.warmup()
+        rng = np.random.default_rng(16)
+        sizes = np.unique(np.concatenate([
+            ladder.sizes, [s + 1 for s in ladder.sizes[:-1]],
+            np.exp(rng.uniform(0, np.log(6000), N_REQUESTS)).astype(int)]))
+        sizes = rng.permutation(np.concatenate([sizes, sizes]))[:max(
+            N_REQUESTS, 100)]
+        m_first = None
+        mems, lat = [], collections.defaultdict(list)
+        chunks = serve_launches = 0
+        for n_req in sizes:
+            lo = int(rng.integers(0, len(Xv) - n_req))
+            Xr = Xv[lo:lo + n_req]
+            outs = {}
+            # the served calls' launches only (counts zeroed just before,
+            # read just after); the references below launch too
+            FK.launches = 0
+            for name, p in preds.items():
+                t0 = time.perf_counter()
+                outs[name], st = p.predict_ex(Xr)
+                lat[name].append((time.perf_counter() - t0) * 1e3)
+                chunks += len(st.chunks)
+            fo, st = fast.predict_ex(Xr)
+            chunks += len(st.chunks)
+            serve_launches += FK.launches
+            m = requested(collect=False)
+            m_first = m if m_first is None else m_first
+            mems.append(m)
+            want = bp.predict(Xr, raw_score=True)
+            for name, o in outs.items():
+                if not np.array_equal(o, want):
+                    fail(f"phase 16 (c): exact serving ({name}) differs "
+                         f"from Booster.predict at {n_req} rows")
+            dv = g._device_predict_raw(np.asarray(Xr, np.float64), 0,
+                                       CAPI_ROUNDS)
+            if not np.array_equal(fo, dv):
+                fail(f"phase 16 (c): fast serving differs from the device "
+                     f"predict at {n_req} rows")
+        if max(mems) != min(mems):
+            fail(f"phase 16 (c): live device memory moved across the "
+                 f"requests: {min(mems)} to {max(mems)} bytes")
+        if serve_launches != chunks:
+            fail(f"phase 16 (c): {serve_launches} forest-kernel launches "
+                 f"for {chunks} chunks")
+        print(f"phase 16 (c) CompiledPredictor (default ladder "
+              f"{ladder.sizes}): {len(sizes)} requests of 1..{max(sizes):,} "
+              f"rows, trained and model-text exact mode bitwise against "
+              f"Booster.predict(raw_score=True), fast mode bitwise against "
+              f"the device predict, {chunks} chunks, {serve_launches} "
+              f"forest-kernel launches (one a chunk), requested device memory "
+              f"{m_first} bytes at every request; median ms a request "
+              + json.dumps({k: round(float(np.median(v)), 3)
+                            for k, v in lat.items()}), flush=True)
+        del preds, fast, g, p
+        mark("(c)")
+
+        # (f) a model loaded through the ABI: Booster.predict's loaded
+        # path, the threshold lowered for the calls
+        ok(lib.LGBMTPU_BoosterLoadModelFromString(text_py.encode(),
+                                                  ctypes.byref(lh)),
+           "LoadModelFromString")
+        lb = TC._handles[lh.value]
+        loaded, t_dev = {}, {}
+        keep = G.GBDT.DEVICE_PREDICT_MIN_WORK
+        G.GBDT.DEVICE_PREDICT_MIN_WORK = 0
+        FK.launches = 0
+        try:
+            for raw in (1, 0):
+                buf = np.zeros(N_CAPI_PRED)
+                olen = I64(N_CAPI_PRED)     # in: capacity, out: length
+                t0 = time.perf_counter()
+                ok(lib.LGBMTPU_BoosterPredictForMat(
+                    lh, P(Xp.ctypes.data), I64(N_CAPI_PRED), I64(F), raw,
+                    P(buf.ctypes.data), ctypes.byref(olen)),
+                   "PredictForMat (loaded)")
+                t_dev[raw] = time.perf_counter() - t0
+                if olen.value != N_CAPI_PRED:
+                    fail(f"phase 16 (f): PredictForMat wrote {olen.value} "
+                         f"values for {N_CAPI_PRED} rows")
+                loaded[raw] = buf
+        finally:
+            G.GBDT.DEVICE_PREDICT_MIN_WORK = keep
+        loaded_launches = FK.launches
+        if loaded_launches != 2 or lb._loaded_forest[1].type != "cuda":
+            fail(f"phase 16 (f): the loaded model's two predicts launched "
+                 f"the forest kernel {loaded_launches} times")
+        t0 = time.perf_counter()
+        host = {raw: np.asarray(lb.predict(Xp, raw_score=bool(raw)),
+                                np.float64) for raw in (1, 0)}
+        t_host = time.perf_counter() - t0
+        if not all(np.array_equal(loaded[r], host[r]) for r in (0, 1)) or \
+                not np.array_equal(loaded[1], raw_py):
+            fail("phase 16 (f): the loaded model's device predict differs "
+                 "from its host walk or from the trained booster's raw "
+                 "scores")
+        print(f"phase 16 (f) loaded model (LoadModelFromString, no params): "
+              f"PredictForMat of {N_CAPI_PRED:,} rows x {CAPI_ROUNDS} trees, "
+              f"normal and raw, through the forest kernel's leaves "
+              f"({loaded_launches} launches, DEVICE_PREDICT_MIN_WORK lowered "
+              f"for the calls), bitwise the host walk and the trained "
+              f"booster's raw scores; s a call raw {t_dev[1]:.4f}, normal "
+              f"{t_dev[0]:.4f} (the first builds the tables) vs the host "
+              f"walk's two {t_host:.4f} in all", flush=True)
+
+        # (e) freeing
+        for h in (fh_, lh, bh, dsh):
+            ok(lib.LGBMTPU_FreeHandle(h), "FreeHandle")
+        del bc, bp, lb
+        mem_e = requested()
+        if abs(mem_e - mem0) > 2**20:
+            fail(f"phase 16 (e): live device memory {mem_e / 2**20:.3f} MiB "
+                 f"after FreeHandle, {mem0 / 2**20:.3f} MiB before (a)")
+        print(f"phase 16 (e) freeing: requested device memory "
+              f"{mem0 / 2**20:.3f} MiB before (a), {mem_e / 2**20:.3f} MiB "
+              f"after FreeHandle of the fast config, the loaded model, the "
+              f"booster and the dataset and the Python booster's release",
+              flush=True)
+        mark("(f)/(e)")
+
+        # (a) + (d): the C consumer in a subprocess
+        src = os.path.join(tmp, "consumer.c")
+        with open(src, "w") as fh:
+            fh.write(C_CONSUMER)
+        exe = os.path.join(tmp, "consumer")
+        import sysconfig
+        pylib = sysconfig.get_config_var("LIBDIR")
+        libdir = os.path.dirname(lib_path)
+        cc = subprocess.run(
+            ["gcc", "-O1", src,
+             f"-I{os.path.join(root, 'lightgbm_tpu_torch', 'native')}",
+             f"-L{libdir}", "-llgbtpu_capi", f"-Wl,-rpath,{libdir}",
+             f"-Wl,-rpath,{pylib}", "-lpthread", "-o", exe],
+            capture_output=True, text=True, timeout=120)
+        if cc.returncode:
+            fail(f"phase 16 (a): gcc failed: {cc.stderr[-2000:]}")
+        X64.tofile(os.path.join(tmp, "X.bin"))
+        y64.tofile(os.path.join(tmp, "y.bin"))
+        Xp.tofile(os.path.join(tmp, "Xp.bin"))
+        env = dict(os.environ, PYTHONPATH=root)
+        t0 = time.perf_counter()
+        r = subprocess.run([exe, tmp, str(N), str(F), str(N_CAPI_PRED),
+                            str(CAPI_ROUNDS), params], env=env,
+                           capture_output=True, text=True, timeout=600)
+        t_c = time.perf_counter() - t0
+        if r.returncode:
+            fail(f"phase 16 (a)/(d): the C consumer exited "
+                 f"{r.returncode}: {r.stderr[-3000:]} {r.stdout[-1000:]}")
+        c_rounds = [float(v) for ln in r.stdout.splitlines()
+                    if ln.startswith("c rounds:") for v in ln.split()[2:]]
+        with open(os.path.join(tmp, "model.txt")) as fh:
+            text_c = fh.read()
+        if text_c != text_py:
+            fail("phase 16 (a): the C consumer's model text differs from "
+                 "the Python booster's")
+        raw_c = np.fromfile(os.path.join(tmp, "raw.bin"))
+        pred_c = np.fromfile(os.path.join(tmp, "pred.bin"))
+        if not np.array_equal(raw_c, raw_py) or \
+                not np.array_equal(pred_c, pred_py):
+            fail("phase 16 (a): the C consumer's predictions differ from "
+                 "the Python booster's")
+
+        def med(v):
+            return round(float(np.median(v[1:])), 5)
+
+        def rounded(v):
+            return json.dumps([round(x, 5) for x in v])
+        # rounds 2..: each pair's ABI - Python difference
+        diffs = np.subtract(abi_rounds[1:], py_rounds[1:])
+        d_se = float(diffs.std(ddof=1) / np.sqrt(len(diffs)))
+        print(f"phase 16 (a) C consumer (gcc, embedded CPython, {N:,} x {F}, "
+              f"{CAPI_ROUNDS} UpdateOneIter on the card): text equal to the "
+              f"Python booster's, {N_CAPI_PRED:,} predictions (raw, normal) "
+              f"bitwise; median s a round (2..), synchronized, in this "
+              f"process on one Dataset, the sides taking turns: through the "
+              f"C ABI {med(abi_rounds)} {rounded(abi_rounds)} vs Python "
+              f"{med(py_rounds)} {rounded(py_rounds)}, a pair's ABI - "
+              f"Python {float(diffs.mean()):+.5f} +- {d_se:.5f} s (mean, "
+              f"standard error); the shim alone "
+              f"(ctypes and capi.cpp, {N_SHIM_CALLS} GetCurrentIteration) "
+              f"{t_abi_call * 1e6:.2f} us a call vs {t_py_call * 1e6:.2f} us "
+              f"for the capi_impl function called from Python; in the C "
+              f"program (its own process, the host clock around each call) "
+              f"{med(c_rounds)} {rounded(c_rounds)}; the subprocess "
+              f"{t_c:.1f} s in all; "
+              + " ".join(ln for ln in r.stdout.splitlines()
+                         if ln.startswith("c consumer")), flush=True)
+        print("phase 16 (d) threads: a pthread's 5 rounds and raw predict "
+              "on handles made by the main thread equal the main thread's "
+              "(text, bits); the program exited 0 with one booster alive",
+              flush=True)
+        mark("(a)/(d)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    t = time.perf_counter() - t_phase
+    print(f"phase 16: {t:.1f} s", flush=True)
+    return fast_launches + serve_launches + loaded_launches
+
+
 def load_other(root):
     """The port package of another checkout (``root``/lightgbm_tpu_torch),
     imported as ``lgbt_other`` beside this one; its kernels build into its
@@ -6989,6 +7524,13 @@ def main():
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
+    # phase 16's C ABI library (g++ against this interpreter), built beside
+    # the kernels and the phases before it
+    import concurrent.futures
+    from lightgbm_tpu_torch import native
+    capi_pool = concurrent.futures.ThreadPoolExecutor(1)
+    capi_build = capi_pool.submit(native.build_capi)
+    capi_pool.shutdown(wait=False)
     build_s = cuda_lib.build_all()
     print(f"kernel build: {build_s:.1f} s", flush=True)
     sass = sass_atomics(cuda_lib)
@@ -7339,6 +7881,15 @@ def main():
     # printed there, and the rows keep their earlier phases' counts
     check_user_surfaces(torch, lgbt, HK, RF, TB, prng, card)
     print(f"phases 1-15: {time.perf_counter() - t_script:.1f} s",
+          flush=True)
+    # ---- 16. the C API: the forest kernel's launches of the fast path,
+    # the serving predictor and the loaded model's predict (zeroed just
+    # before each, read just after) join its row
+    capi_fk = check_c_api(torch, lgbt, capi_build)
+    for r in rows:
+        if r["name"] == "forest_values":
+            r["launches"] += capi_fk
+    print(f"phases 1-16: {time.perf_counter() - t_script:.1f} s",
           flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_script:.1f} s in all, the "
           f"kernel build {build_s:.1f} s of it", flush=True)

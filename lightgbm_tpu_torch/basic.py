@@ -20,6 +20,10 @@ predict time), pyarrow Tables, datatable Frames (by duck type) and
 ``Booster.predict`` has the JAX package's surface: raw or converted
 scores, ``pred_leaf``, ``pred_contrib`` (TreeSHAP, models/shap.py) and
 prediction early stopping (``pred_early_stop`` / ``_freq`` / ``_margin``).
+Scores of at least ``GBDT.DEVICE_PREDICT_MIN_WORK`` row-trees run on the
+booster's device: a trained booster's on the forest kernel's sums, a
+loaded model's (device from its params) on the kernel's leaves with the
+sums in host float64, the host walk's bits.
 
 The training surface (the JAX package's): ``Booster.update(train_set,
 fobj)`` with custom gradients, continued training (a Dataset's predictor
@@ -35,9 +39,9 @@ Model inspection and edits: ``feature_importance``, ``dump_model``,
 ``reset_training_data`` (the score caches rebuilt on the booster's
 device).
 
-Not here yet: the C API, ``set_network`` / ``free_network``
-(multi-device, ROADMAP Queue 1 item 6) and ``prometheus_text`` (item 8);
-they raise ``LightGBMError``.
+Not here yet: ``set_network`` / ``free_network`` (multi-device, ROADMAP
+Queue 1 item 6) and ``prometheus_text`` (item 8); they raise
+``LightGBMError``.
 """
 
 from __future__ import annotations
@@ -640,6 +644,8 @@ class Booster:
         self.best_score: Dict[str, Dict[str, float]] = {}
         self._gbdt = None
         self._loaded: Optional[Dict[str, Any]] = None
+        # (trees, device, tables) of _standalone_forest
+        self._loaded_forest: Optional[tuple] = None
         self.train_set = train_set
         self.pandas_categorical: Optional[list] = None
         if model_file is not None:
@@ -915,8 +921,10 @@ class Booster:
 
     def _predict_loaded(self, X, start_iteration, num_iteration, raw_score,
                         pred_leaf=False, early=None) -> np.ndarray:
-        """A loaded model's scores or leaves: the host walk (a loaded
-        model carries no bin mappers to bin with)."""
+        """A loaded model's scores or leaves.  Scores of at least
+        ``GBDT.DEVICE_PREDICT_MIN_WORK`` row-trees with no early stop take
+        :meth:`_loaded_device_raw`; the rest, and leaves, the host walk."""
+        from .boosting.gbdt import GBDT
         trees = self._loaded["trees"]
         k = self._loaded["num_tree_per_iteration"]
         total_iters = len(trees) // k if k else 0
@@ -926,10 +934,77 @@ class Booster:
             X = X.reshape(1, -1)
         if pred_leaf:
             return _host_leaves(trees, X, k, start_iteration, end)
-        out = _host_raw(trees, X, k, start_iteration, end, early)
+        out = None
+        used = trees[start_iteration * k:end * k]
+        if early is None and used and \
+                X.shape[0] * len(used) >= GBDT.DEVICE_PREDICT_MIN_WORK:
+            out = self._loaded_device_raw(X, used, k)
+        if out is None:
+            out = _host_raw(trees, X, k, start_iteration, end, early)
         if not raw_score:
             out = _objective_string_transform(out, self._loaded["objective"])
         return out[:, 0] if k == 1 else out
+
+    def _standalone_forest(self, trees: List[Tree],
+                           k: int) -> Optional[tuple]:
+        """(bin, forest, cat_feats) of a loaded model's ``trees``: the bin
+        tables serving/standalone.py builds from them (``bin``: raw [n, F]
+        -> i32 logical bins) and their forest on the model's device
+        (``params["device_type"]``: the card unless ``cpu``); None where
+        those tables cannot be built.  Made at the first call and kept
+        while the model's trees are these objects on this device (a merge,
+        a shuffle or a rollback replaces trees; ``set_leaf_output`` drops
+        it)."""
+        c = self._loaded_forest
+        if c is None or len(c[0]) != len(trees) or \
+                any(a is not b for a, b in zip(c[0], trees)) or \
+                (c[2] is not None and
+                 c[1] != resolve_device(self.params.get("device_type"))):
+            from .models.predict import forest_from_numpy
+            from .serving.standalone import (StandaloneUnsupported,
+                                             build_standalone)
+            try:
+                binner, fd, cat_feats = build_standalone(
+                    trees, self.num_feature(), k)
+            except StandaloneUnsupported as e:
+                log.warning(f"no standalone bin tables for the loaded model "
+                            f"({e}); it is walked on the host")
+                c = self._loaded_forest = (tuple(trees), None, None)
+                return None
+            dev = resolve_device(self.params.get("device_type"))
+            c = self._loaded_forest = (tuple(trees), dev, (
+                binner.bin, forest_from_numpy(fd, dev), cat_feats))
+        return c[2]
+
+    def _loaded_device_raw(self, X: np.ndarray, trees: List[Tree],
+                           k: int) -> Optional[np.ndarray]:
+        """float64 [n, k] raw scores of a loaded model's ``trees`` with the
+        walk on the model's device, or None without standalone tables
+        (:meth:`_standalone_forest`).  X is binned once by those tables
+        and copied to the device once; the forest kernel's leaves mode
+        (its plain version on the CPU) runs once a block of
+        ``GBDT.PREDICT_BLOCK_ROWS`` rows into host leaves i32 [T, n], and
+        the leaf values of all rows are added in host float64 tree by tree
+        in the host walk's order, so the scores are the host walk's bit for
+        bit (a linear leaf's dot runs over the same rows as there)."""
+        import torch
+        from .boosting.gbdt import GBDT
+        from .ops import forest_kernels
+        tables = self._standalone_forest(trees, k)
+        if tables is None:
+            return None
+        bin_rows, forest, cat_feats = tables
+        bins_t = torch.as_tensor(np.ascontiguousarray(bin_rows(X).T),
+                                 device=forest.feat.device)
+        blk = int(GBDT.PREDICT_BLOCK_ROWS)
+        leaves = np.empty((len(trees), X.shape[0]), np.int32)
+        for r0 in range(0, X.shape[0], blk):
+            leaves[:, r0:r0 + blk] = forest_kernels.forest_leaves(
+                forest, bins_t[:, r0:r0 + blk], cat_feats).cpu().numpy()
+        out = np.zeros((X.shape[0], k))
+        for ti, t in enumerate(trees):
+            out[:, ti % k] += t.values_from_leaf_index(X, leaves[ti])
+        return out
 
     def _predict_contrib(self, X, start_iteration,
                          num_iteration) -> np.ndarray:
@@ -1179,6 +1254,7 @@ class Booster:
         score caches are rebuilt."""
         t = self._get_trees()[tree_id]
         t.leaf_value[leaf_id] = float(value)
+        self._loaded_forest = None   # its forest holds the leaf values
         if t.is_linear:
             t.leaf_const[leaf_id] = float(value)
             t.leaf_coeff[leaf_id] = []

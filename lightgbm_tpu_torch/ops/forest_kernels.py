@@ -28,6 +28,7 @@ order, so the bits stay the same.
 
 from __future__ import annotations
 
+import weakref
 from typing import NamedTuple, Optional
 
 import torch
@@ -114,6 +115,29 @@ def pack_linear(lin) -> PackedLinear:
         const=lin.const.to(torch.float32).contiguous())
 
 
+#: pack_forest's tables of the forests still alive, keyed by the id of the
+#: forest's ``feat`` tensor, so that a forest launched many times (the
+#: serving predictor's, a loaded model's) is packed once; an entry goes
+#: when that tensor does.  No code writes a forest's tensors in place.
+_packed: dict = {}
+
+
+def _packed_forest(f, cat_feats: tuple) -> PackedForest:
+    """``pack_forest(f, cat_feats)``, made once for each live forest."""
+    fields = tuple(t for t in f if isinstance(t, torch.Tensor))
+    cat_feats = tuple(cat_feats)
+    key = id(f.feat)
+    hit = _packed.get(key)
+    if hit is not None and hit[1] == cat_feats and len(hit[0]) == len(
+            fields) and all(r() is t for r, t in zip(hit[0], fields)):
+        return hit[2]
+    p = pack_forest(f, cat_feats)
+    if hit is None:
+        weakref.finalize(f.feat, _packed.pop, key, None)
+    _packed[key] = (tuple(weakref.ref(t) for t in fields), cat_feats, p)
+    return p
+
+
 def _launch(f, bins_t: torch.Tensor, k: int, cat_feats: tuple,
             leaves: bool, lin=None,
             raw_t: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -125,7 +149,7 @@ def _launch(f, bins_t: torch.Tensor, k: int, cat_feats: tuple,
     dev = bins_t.get_device()
     if f.feat.get_device() != dev:
         log.fatal("the forest and the bins must lie on the same CUDA device")
-    p = pack_forest(f, cat_feats)
+    p = _packed_forest(f, cat_feats)
     F, n = bins_t.shape
     T, ni = f.feat.shape
     L = p.value.shape[1]

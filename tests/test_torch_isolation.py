@@ -3,6 +3,7 @@
 unimportable, and its entry points refuse to run on the CPU unless asked."""
 
 import ast
+import re
 import os
 import subprocess
 import sys
@@ -259,6 +260,67 @@ def test_user_surfaces_run_with_jax_unimportable(tmp_path):
         main(["data=train.csv", "num_trees=2", "device_type=cpu",
               "output_model=m.txt", "verbosity=-1"])
         assert lgb.Booster(model_file="m.txt").num_trees() == 2
+        assert not any(m.split(".")[0] in ("jax", "jaxlib")
+                       for m, mod in sys.modules.items() if mod is not None)
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_scan_covers_the_c_api_and_serving_modules():
+    names = {str(p.relative_to(REPO)) for p in _port_sources()}
+    for mod in ("capi_impl.py", "native/__init__.py", "serving/__init__.py",
+                "serving/buckets.py", "serving/standalone.py",
+                "serving/predictor.py"):
+        assert f"lightgbm_tpu_torch/{mod}" in names
+
+
+def test_c_shim_dispatches_to_the_port_only():
+    """native/capi.cpp imports lightgbm_tpu_torch.capi_impl and no other
+    module, and includes nothing of lightgbm_tpu."""
+    src = (REPO / "lightgbm_tpu_torch" / "native" / "capi.cpp").read_text()
+    assert re.findall(r'PyImport_ImportModule\("([^"]+)"\)', src) == \
+        ["lightgbm_tpu_torch.capi_impl"]
+    includes = re.findall(r'#include\s+[<"]([^>"]+)[>"]', src)
+    assert includes and not any("lightgbm_tpu" in i for i in includes)
+    assert not re.search(r'"lightgbm_tpu\.', src)
+
+
+def test_c_api_and_serving_run_with_jax_unimportable(tmp_path):
+    """The C API's Python side and the serving predictor train and
+    predict with jax and lightgbm_tpu unimportable."""
+    code = textwrap.dedent("""
+        import sys
+        for name in ("jax", "jaxlib", "lightgbm_tpu"):
+            sys.modules[name] = None   # poison: importing it now fails
+        import json
+        import numpy as np
+        from lightgbm_tpu_torch import capi_impl as C
+        from lightgbm_tpu_torch.serving import CompiledPredictor
+        rng = np.random.default_rng(0)
+        X = rng.normal(size=(800, 4))
+        y = (X[:, 0] > 0).astype(float)
+        p = json.dumps(dict(objective="binary", num_leaves=7,
+                            device_type="cpu", verbose=-1))
+        ds = C.dataset_from_mat(X.ctypes.data, 800, 4, y.ctypes.data, p)
+        b = C.booster_create(ds, p)
+        for _ in range(3):
+            C.booster_update_one_iter(b)
+        out = np.zeros(1)
+        f = C.fastpredict_init(b, 4, 1)
+        row = np.ascontiguousarray(X[0])
+        C.fastpredict_row(f, row.ctypes.data, out.ctypes.data, 1)
+        bst = C._handles[b]
+        assert out[0] == bst.predict(X[:1], raw_score=True)[0]
+        pred = CompiledPredictor.from_model_text(
+            bst.model_to_string(), params={"device_type": "cpu"})
+        assert np.array_equal(pred.predict(X[:100]),
+                              bst.predict(X[:100], raw_score=True))
         assert not any(m.split(".")[0] in ("jax", "jaxlib")
                        for m, mod in sys.modules.items() if mod is not None)
         print("ok")
